@@ -1,0 +1,736 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # everything, as a check of the port
+    python3 chip_smoke.py --profile  # where a decode step's time goes
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. build both CUDA kernels from ``production_stack_tpu_torch/csrc`` (one
+   nvcc per source, started together) and print the compiler's
+   register/shared-memory report to standard error;
+2. hold each kernel against its plain PyTorch version on the same CUDA
+   tensors, at the Llama-3-8B main-path shapes in bf16 and at small f32
+   shapes, and time kernel, plain version and a library yardstick
+   (``scaled_dot_product_attention`` on pre-gathered contiguous K/V,
+   which excludes the page gather and is never called by the port);
+3. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
+   weights through the port's OpenAI server (in-process, on a thread) and
+   drive it over HTTP: concurrent greedy completions, a chunked long
+   prompt, a prefix-cache hit, a streamed sampled chat, a repeated greedy
+   request and a ``/metrics`` scrape; every request must finish with
+   ``stop`` or ``length`` and both kernels must have launched.
+
+The output ends with a ``{"kernels": [...]}`` line, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+It imports nothing of JAX and nothing of the JAX package, and exits
+non-zero without a CUDA device or outside a checkout of the repo.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# Tolerances of kernel vs plain version, elementwise.
+# f32: 2e-3 absolute, the TPU kernels' own parity bar; the f32 cases have
+# short contexts, where |o| is 0.1-1 and a lost key tile moves o by O(0.1).
+# bf16: per output row (one query token, one head), 2^-5 of the row's
+# largest |o|, i.e. four to eight bf16 ulps of that element. Both sides
+# round an f32 result to bf16 (at most 1/2 ulp each, so one ulp of the
+# row's largest element apart), and the plain version's bf16 P.V product
+# may reduce partial sums in bf16 (about one ulp more); two ulps are
+# 2^-6 of the row's largest |o| at most, and were measured in the
+# prefill cases. The rest is far below an ulp: the plain version rounds
+# its softmax probabilities to bf16 (2^-9 relative per term, random in
+# sign: ~1e-5 on o at 2k keys) and the kernel takes q pre-scaled and
+# rounded to bf16 (~1e-3 on a score, ~1e-5 on o). A bar on the output's
+# own scale matters because |o| is small here: with randn q/K/V over 2k
+# keys o has a std of ~0.04. scripts/torch_kernel_faults.py shows that
+# planted faults (a key tile skipped, a rescale left out) fail this bar
+# at the main-path shapes.
+BF16_ROW_BAR = 2.0 ** -5
+F32_BAR = 2e-3
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        "nvidia-smi: " + out.stderr.strip())
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- kernel phase -----------------------------------------------------------
+
+def _tables(rng, B, MAXB, NB):
+    """Distinct shuffled pages per sequence (scattered like real tables)."""
+    import numpy as np
+
+    return rng.permutation(NB)[: B * MAXB].reshape(B, MAXB).astype(np.int32)
+
+
+def decode_case(dtype, B, H, KVH, D, L, bs, MAXB, ctx, seed):
+    """Inputs of one decode-attention launch, made on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    NB = B * MAXB + 3
+    k = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
+                    dtype=dtype)
+    v = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
+                    dtype=dtype)
+    q = torch.randn((B, H, D), generator=g, device="cuda", dtype=dtype)
+    bt = torch.from_numpy(_tables(rng, B, MAXB, NB)).cuda()
+    # Table entries past each live range point at page 0: a real page the
+    # kernel must never read for this row.
+    for b in range(B):
+        bt[b, -(-ctx[b] // bs):] = 0
+    cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    return dict(q=q, k_pages=k, v_pages=v, block_tables=bt, context_lens=cl,
+                layer=L - 1, scale=D ** -0.5)
+
+
+def prefill_case(dtype, B, T, H, KVH, D, L, bs, MAXB, prefix, take, seed):
+    """Inputs of one cached-prefill launch in the engine's layout: the
+    chunk's fresh K/V are already scattered into the pages, where the
+    kernel and the plain version both read them."""
+    import numpy as np
+    import torch
+
+    from production_stack_tpu_torch.ops.attention import write_kv_pages
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    NB = B * MAXB + 3
+    k = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
+                    dtype=dtype)
+    v = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
+                    dtype=dtype)
+    q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=dtype)
+    k_new = torch.randn((B, T, KVH, D), generator=g, device="cuda",
+                        dtype=dtype)
+    v_new = torch.randn((B, T, KVH, D), generator=g, device="cuda",
+                        dtype=dtype)
+    tables = _tables(rng, B, MAXB, NB)
+    prefix = np.asarray(prefix, np.int64)
+    take = np.asarray(take, np.int64)
+    positions = prefix[:, None] + np.arange(T)[None, :]
+    slots = np.full((B, T), -1, np.int64)
+    for b in range(B):
+        pos = positions[b, : take[b]]
+        slots[b, : take[b]] = tables[b, pos // bs] * bs + pos % bs
+    write_kv_pages(k, v, k_new, v_new, torch.from_numpy(slots), L - 1)
+    bt = torch.from_numpy(tables).cuda()
+    for b in range(B):
+        bt[b, -(-int(prefix[b] + take[b]) // bs):] = 0
+    return dict(
+        q=q, k_pages=k, v_pages=v, block_tables=bt,
+        positions=torch.from_numpy(positions).cuda(),
+        total_lens=torch.tensor(prefix + take, dtype=torch.int32,
+                                device="cuda"),
+        layer=L - 1, scale=D ** -0.5)
+
+
+def run_decode(c):
+    from production_stack_tpu_torch.ops.paged_attention import paged_attention
+
+    return paged_attention(c["q"], c["k_pages"], c["v_pages"],
+                           c["block_tables"], c["context_lens"], c["layer"],
+                           scale=c["scale"])
+
+
+def plain_decode(c):
+    from production_stack_tpu_torch.ops.attention import (
+        paged_attention_reference,
+    )
+
+    return paged_attention_reference(
+        c["q"], c["k_pages"], c["v_pages"], c["block_tables"],
+        c["context_lens"], c["layer"], scale=c["scale"])
+
+
+def run_prefill(c):
+    from production_stack_tpu_torch.ops.prefill_attention import (
+        cached_prefill_attention,
+    )
+
+    return cached_prefill_attention(
+        c["q"], c["k_pages"], c["v_pages"], c["block_tables"],
+        c["positions"], c["total_lens"], c["layer"], scale=c["scale"])
+
+
+def plain_prefill(c):
+    from production_stack_tpu_torch.ops.attention import (
+        _context_prefill_reference,
+    )
+
+    return _context_prefill_reference(
+        c["q"], c["k_pages"], c["v_pages"], c["block_tables"],
+        c["positions"], c["total_lens"], c["layer"], scale=c["scale"])
+
+
+# kernel name -> (its wrapper, its plain version), each taking a case dict
+KERNELS = {"paged_attention": (run_decode, plain_decode),
+           "cached_prefill_attention": (run_prefill, plain_prefill)}
+
+
+def main_path_cases():
+    """The Llama-3-8B bf16 cases of both kernels (32/8 heads, D 128,
+    64-token pages): (label, kernel name, inputs, output rows compared)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    B, H, KVH, D, bs, ctx_len = 8, 32, 8, 128, 64, 2048
+    ragged = [2048, 1, 37, 2000, 1500, 64, 65, 1024]
+    return [
+        ("paged_attention bf16 ragged", "paged_attention",
+         decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs, ragged,
+                     seed=10), None),
+        ("paged_attention bf16 8x2048", "paged_attention",
+         decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs,
+                     [ctx_len] * B, seed=11), None),
+        # The third chunk of a 2,500-token prompt: 452 fresh tokens padded
+        # to the 1024 bucket over a 2048-token prefix, table capped at 64
+        # pages; the padded query rows are discarded by the engine.
+        ("cached_prefill bf16 ragged chunk", "cached_prefill_attention",
+         prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 64, [2048], [452],
+                      seed=30), (slice(None), slice(0, 452))),
+        # A full 1024-token chunk continuation over a 1024-token prefix.
+        ("cached_prefill bf16 1024/1024", "cached_prefill_attention",
+         prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 32, [1024], [1024],
+                      seed=31), None),
+    ]
+
+
+def _gathered(c, n_tokens):
+    """Contiguous [B, KVH, n, D] K/V of each row's first n tokens (for the
+    library yardstick, gathered outside its timing)."""
+    from production_stack_tpu_torch.ops.attention import _gather_ctx
+
+    k = _gather_ctx(c["k_pages"], c["block_tables"], c["layer"],
+                    out_dtype=c["k_pages"].dtype)[:, :n_tokens]
+    v = _gather_ctx(c["v_pages"], c["block_tables"], c["layer"],
+                    out_dtype=c["v_pages"].dtype)[:, :n_tokens]
+    return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+
+
+def _sdpa(q, k, v, mask=None):
+    import torch.nn.functional as F
+
+    # q arrives pre-scaled, as the kernels take it.
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          scale=1.0, enable_gqa=True)
+
+
+def compare(got, want, rows=None):
+    """(max_abs_err, largest error over its bar) of a kernel's output
+    against its plain version's, elementwise with the bar of the dtype
+    (see BF16_ROW_BAR); both are inf where the kernel's output is not
+    finite."""
+    import torch
+
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    if not torch.isfinite(got).all():
+        return float("inf"), float("inf")
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        bar = torch.full_like(err, F32_BAR)
+    else:
+        bar = BF16_ROW_BAR * want.float().abs().amax(dim=-1, keepdim=True)
+    ratio = torch.where(err > 0, err / bar, torch.zeros_like(err))
+    return err.max().item(), ratio.max().item()
+
+
+def check_close(name, got, want, rows=None):
+    """:func:`compare`, logged; raises AssertionError past the bar."""
+    max_err, over = compare(got, want, rows)
+    log(f"[kernel] {name}: max_abs_err={max_err:.3e} err/bar={over:.3f} "
+        f"({want.dtype})")
+    if not over <= 1.0:
+        raise AssertionError(f"{name}: error {over:.3f}x its bar "
+                             f"(max_abs_err {max_err:.3e})")
+    return max_err, over
+
+
+def kernel_phase():
+    """Kernel vs plain version at main-path and small shapes; returns the
+    per-kernel measurements of the main-path (bf16 Llama-3-8B) cases."""
+    import torch
+
+    f32 = torch.float32
+    # Decode: small f32 shapes (GQA 4, 1 and 2; odd table widths; ragged
+    # contexts incl. 1 token) and the main-path head layout in f32.
+    for i, (H, KVH, D, bs, MAXB, ctx) in enumerate([
+            (8, 2, 64, 16, 5, [1, 80, 33]),
+            (4, 4, 128, 4, 7, [28, 3, 17, 9]),
+            (4, 2, 32, 4, 16, [64, 1]),
+            (32, 8, 128, 64, 4, [1, 200, 64, 130])]):
+        c = decode_case(f32, len(ctx), H, KVH, D, 3, bs, MAXB, ctx, seed=i)
+        check_close(f"paged_attention f32 case {i}", run_decode(c),
+                    plain_decode(c))
+    # Cached prefill: small f32 shapes (GQA 3 and 1, empty prefix rows,
+    # multi-tile queries, padded rows) and the main-path head layout.
+    for i, (T, H, KVH, D, bs, MAXB, prefix, take) in enumerate([
+            (24, 6, 2, 64, 8, 12, [0, 17, 40], [24, 5, 13]),
+            (40, 4, 4, 128, 4, 32, [3, 64], [40, 1]),
+            (16, 4, 2, 32, 4, 16, [0, 0], [16, 7]),
+            (96, 32, 8, 128, 64, 4, [0, 100], [96, 50])]):
+        c = prefill_case(f32, len(prefix), T, H, KVH, D, 2, bs, MAXB,
+                         prefix, take, seed=20 + i)
+        got, want = run_prefill(c), plain_prefill(c)
+        for b, n in enumerate(take):
+            check_close(f"cached_prefill f32 case {i} row {b}",
+                        got[b, :n], want[b, :n])
+
+    errs = {name: 0.0 for name in KERNELS}
+    cases = {}
+    for label, name, c, rows in main_path_cases():
+        run, plain = KERNELS[name]
+        err, _ = check_close(label, run(c), plain(c), rows)
+        errs[name] = max(errs[name], err)
+        cases[label] = c
+
+    bf16 = torch.bfloat16
+    results = {}
+    c = cases["paged_attention bf16 8x2048"]
+    B, H, D = c["q"].shape
+    KVH = c["k_pages"].shape[3]
+    ctx_len = int(c["context_lens"].max())
+    kg, vg = _gathered(c, ctx_len)
+    qs = (c["q"] * c["scale"]).to(bf16)[:, :, None, :]
+    check_close("paged_attention vs sdpa yardstick", run_decode(c),
+                _sdpa(qs, kg, vg)[:, :, 0])
+    n_tok = B * ctx_len
+    dec_bytes = (2 * n_tok * KVH * D * 2 + 2 * B * H * D * 2
+                 + c["block_tables"].numel() * 4 + B * 4)
+    dec_ops = 4 * H * D * n_tok
+    results["paged_attention"] = dict(
+        ms=cuda_time_ms(lambda: run_decode(c)),
+        plain_ms=cuda_time_ms(lambda: plain_decode(c)),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg)),
+        bytes=dec_bytes, ops=dec_ops)
+
+    c = cases["cached_prefill bf16 1024/1024"]
+    _, T, H, D = c["q"].shape
+    KVH = c["k_pages"].shape[3]
+    P = int(c["positions"][0, 0])
+    kg, vg = _gathered(c, P + T)
+    qs = (c["q"] * c["scale"]).to(bf16).transpose(1, 2)
+    span = torch.arange(P + T, device="cuda")
+    mask = span[None, :] <= (P + torch.arange(T, device="cuda"))[:, None]
+    check_close("cached_prefill vs sdpa yardstick", run_prefill(c),
+                _sdpa(qs, kg, vg, mask).transpose(1, 2))
+    pairs = T * P + T * (T + 1) // 2  # (query, key) pairs this chunk needs
+    pf_ops = 4 * H * D * pairs
+    pf_bytes = (2 * T * H * D * 2 + 2 * (P + T) * KVH * D * 2
+                + c["block_tables"].numel() * 4 + T * 4 + 4)
+    results["cached_prefill_attention"] = dict(
+        ms=cuda_time_ms(lambda: run_prefill(c), iters=10),
+        plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=5),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=10),
+        bytes=pf_bytes, ops=pf_ops)
+    for name, r in results.items():
+        byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = r["ops"] / BF16_FLOPS * 1e3
+        r.update(max_abs_err=errs[name], bound_ms=max(byte_ms, op_ms),
+                 bound_by="bytes" if byte_ms >= op_ms else "operations")
+    prefix_ops = 4 * H * D * T * P
+    print(f"[bound] paged_attention: {dec_bytes / 1e6:.1f} MB per launch "
+          f"(K and V of 8 x 2048 tokens) -> {dec_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms at 3.35 TB/s; one launch per layer, 32 per decode step",
+          flush=True)
+    print(f"[bound] cached_prefill_attention: {prefix_ops / 1e9:.1f} GFLOP "
+          f"over the 1024-token prefix (-> {prefix_ops / BF16_FLOPS * 1e3:.4f}"
+          f" ms at 989 TFLOP/s bf16) + {(pf_ops - prefix_ops) / 1e9:.1f} "
+          f"GFLOP causal over the chunk itself -> "
+          f"{pf_ops / BF16_FLOPS * 1e3:.4f} ms per launch", flush=True)
+    for name, r in results.items():
+        log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    return results
+
+
+# -- served main path ---------------------------------------------------------
+
+SERVE_ARGS = ["meta-llama/Llama-3-8B", "--device", "cuda", "--host",
+              "127.0.0.1", "--port", "0", "--max-model-len", "4096",
+              "--max-num-seqs", "8", "--seed", "0"]
+REQUIRED_SERIES = (
+    "vllm:num_requests_running", "vllm:num_requests_waiting",
+    "vllm:gpu_cache_usage_perc", "vllm:gpu_prefix_cache_hits_total",
+    "vllm:gpu_prefix_cache_queries_total", "tpu:hbm_kv_usage_perc",
+    "tpu:prefix_cache_hits_total", "tpu:prefix_cache_queries_total",
+    "tpu:hbm_headroom_bytes")
+
+
+def _text(seed: int, n_chars: int) -> str:
+    import numpy as np
+
+    words = ["paged", "attention", "serves", "every", "decode", "step",
+             "while", "prefix", "pages", "stay", "resident", "on", "the",
+             "card", "and", "chunks", "stream", "through", "kernels"]
+    rng = np.random.default_rng(seed)
+    out = ""
+    while len(out) < n_chars:
+        out += words[int(rng.integers(len(words)))] + " "
+    return out[:n_chars]
+
+
+class Client:
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def post(self, path: str, body: dict, stream: bool = False):
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if not stream:
+                out = json.loads(resp.read().decode())
+                out["_latency_s"] = time.perf_counter() - t0
+                return out
+            text, finish, first_s = "", None, None
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                choice = json.loads(line[6:])["choices"][0]
+                piece = choice.get("delta", {}).get("content") or ""
+                if piece and first_s is None:
+                    first_s = time.perf_counter() - t0
+                text += piece
+                finish = choice.get("finish_reason") or finish
+            return {"text": text, "finish_reason": finish,
+                    "_latency_s": time.perf_counter() - t0,
+                    "_first_token_s": first_s}
+
+    def get(self, path: str) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=60) as resp:
+            return resp.read().decode()
+
+
+def _finish(name: str, out: dict) -> str:
+    if "choices" in out:
+        finish = out["choices"][0]["finish_reason"]
+    else:
+        finish = out["finish_reason"]
+    if finish not in ("stop", "length"):
+        raise AssertionError(f"{name}: finish_reason {finish!r}")
+    return finish
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_phase():
+    """Serve Llama-3-8B through the port's server and drive it over
+    HTTP; returns (launch counts of the served run, summary)."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+    from production_stack_tpu_torch.ops.paged_attention import paged_attention
+    from production_stack_tpu_torch.ops.prefill_attention import (
+        cached_prefill_attention,
+    )
+
+    import torch
+
+    t0 = time.time()
+    httpd, core = build_server(SERVE_ARGS)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(core.params))
+    print(f"[bound] weights: {weight_bytes / 1e9:.2f} GB read per decode "
+          f"step -> {weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+          f"3.35 TB/s", flush=True)
+    summary = {"init_s": init_s, "num_blocks": core.num_blocks,
+               "weight_read_bound_ms_per_step":
+                   weight_bytes / HBM_BYTES_PER_S * 1e3}
+    try:
+        # Warm-up (first-use library set-up of every GEMM shape, the
+        # kernels' first launches): a prefill, a chunk continuation and a
+        # decode burst, outside the measured run.
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": _text(99, 1100), "max_tokens": 9, "temperature": 0}))
+        base = core.stats()
+        paged_attention.launches = 0
+        cached_prefill_attention.launches = 0
+        t_run = time.time()
+        # Four concurrent greedy completions: a decode batch of 4. The
+        # first prompt is shorter than one 64-token page, so its repeat
+        # below cannot hit the prefix cache and recomputes exactly as the
+        # first run did (a cache hit takes the cached-prefill path, whose
+        # other bf16 rounding may flip a near-tied greedy token).
+        prompts = [_text(i, 50 + 80 * i) for i in range(4)]
+        results = [None] * 4
+
+        def run(i):
+            results[i] = client.post("/v1/completions", {
+                "prompt": prompts[i], "max_tokens": 32, "temperature": 0})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        for i, out in enumerate(results):
+            if out is None:
+                raise AssertionError(f"concurrent request {i} got no reply")
+            _finish(f"concurrent {i}", out)
+        # A ~2,500-token prompt: chunks of 1024 + 1024 + the rest, the
+        # later two through the cached-prefill kernel.
+        long_prompt = _text(10, 2500)
+        long_out = client.post("/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 16, "temperature": 0})
+        _finish("long prompt", long_out)
+        # Shares its first 2,000 characters: a prefix-cache hit.
+        hit_out = client.post("/v1/completions", {
+            "prompt": long_prompt[:2000] + _text(11, 500), "max_tokens": 16,
+            "temperature": 0})
+        _finish("prefix hit", hit_out)
+        chat_out = client.post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": _text(12, 200)}],
+            "max_tokens": 24, "temperature": 0.8, "seed": 7,
+            "stream": True}, stream=True)
+        _finish("streamed chat", chat_out)
+        again = client.post("/v1/completions", {
+            "prompt": prompts[0], "max_tokens": 32, "temperature": 0})
+        _finish("repeat", again)
+        if again["choices"][0]["text"] != results[0]["choices"][0]["text"]:
+            raise AssertionError("repeated greedy request gave another text")
+        for name, out in [("concurrent 0", results[0]), ("long", long_out),
+                          ("hit", hit_out)]:
+            usage = out["usage"]
+            want = 32 if name.startswith("concurrent") else 16
+            if out["choices"][0]["finish_reason"] == "length" and \
+                    usage["completion_tokens"] != want:
+                raise AssertionError(f"{name}: usage {usage}")
+        if not chat_out["text"]:
+            raise AssertionError("streamed chat returned no text")
+        metrics = client.get("/metrics")
+        missing = [m for m in REQUIRED_SERIES if m not in metrics]
+        if missing:
+            raise AssertionError(f"/metrics lacks {missing}")
+        now = core.stats()
+        stats = {k: now[k] - base[k] for k in (
+            "prefix_cache_hits", "prefill_time_total", "decode_time_total",
+            "decode_forward_steps_total", "prefill_chunks_total",
+            "cached_tokens_total", "prompt_tokens_total",
+            "generation_tokens_total")}
+        if stats["prefix_cache_hits"] <= 0:
+            raise AssertionError("no prefix-cache hit was served")
+        launches = {"paged_attention": paged_attention.launches,
+                    "cached_prefill_attention":
+                        cached_prefill_attention.launches}
+        summary.update(
+            run_s=time.time() - t_run,
+            concurrent_latency_s=[r["_latency_s"] for r in results],
+            long_latency_s=long_out["_latency_s"],
+            hit_latency_s=hit_out["_latency_s"],
+            chat_first_token_s=chat_out["_first_token_s"],
+            chat_latency_s=chat_out["_latency_s"],
+            prefill_time_s=stats["prefill_time_total"],
+            decode_time_s=stats["decode_time_total"],
+            decode_forward_steps=stats["decode_forward_steps_total"],
+            decode_ms_per_step=1e3 * stats["decode_time_total"]
+            / max(stats["decode_forward_steps_total"], 1),
+            prefill_chunks=stats["prefill_chunks_total"],
+            cached_tokens=stats["cached_tokens_total"],
+            prompt_tokens=stats["prompt_tokens_total"],
+            generation_tokens=stats["generation_tokens_total"],
+            launches=launches,
+            sample_text=results[0]["choices"][0]["text"][:40])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the served path")
+    return launches, summary
+
+
+def profile_phase() -> dict:
+    """Where a decode step's time goes: Llama-3-8B with 8 sequences
+    decoding at ~1k context, the engine's steps driven on this thread
+    (the engine thread is not started), one warm-up burst, two timed
+    bursts, then one burst under torch.profiler (its op table goes to
+    standard error)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.server import (
+        build_arg_parser,
+        config_from_args,
+    )
+
+    core = EngineCore(config_from_args(build_arg_parser().parse_args(
+        SERVE_ARGS)))
+    for i in range(core.config.max_num_seqs):
+        core.add_request(
+            f"p{i}", core.tokenizer.encode(_text(100 + i, 1000)),
+            SamplingParams(temperature=0, max_tokens=200, ignore_eos=True),
+            lambda t, f: None)
+    with torch.inference_mode():
+        while True:
+            action, req = core.scheduler.next_action()
+            if action != "prefill":
+                break
+            core._do_prefill(req)
+        core._do_decode()  # warm-up burst
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            core._do_decode()
+        torch.cuda.synchronize()
+        burst_s = (time.perf_counter() - t0) / 2
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            core._do_decode()
+            torch.cuda.synchronize()
+            prof_wall_s = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    K = core.config.decode_steps
+    # Device-side rows only (kernels, copies, memsets): the CPU op rows
+    # carry their kernels' time as well and would count it twice.
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    busy_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    table = [{"name": e.key[:70], "calls": e.count,
+              "device_ms_per_step": dev_us(e) / 1e3 / K} for e in top]
+    log(prof.key_averages().table(row_limit=40))
+    return {
+        "rows": core.config.max_num_seqs, "steps_per_burst": K,
+        "context_tokens": [len(s.req.all_token_ids)
+                           for s in core.scheduler.running()],
+        "ms_per_step": 1e3 * burst_s / K,
+        "profiled_ms_per_step": 1e3 * prof_wall_s / K,
+        "device_busy_ms_per_step": busy_us / 1e3 / K,
+        "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / prof_wall_s),
+        "top_device_ops": table,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="only profile the decode step (no result line)")
+    args = ap.parse_args(argv)
+
+    os.environ.setdefault("TPU_STACK_LOG_LEVEL", "WARNING")
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; nothing was run")
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "production_stack_tpu_torch")):
+        log("chip_smoke: run it from a checkout of the repo "
+            "(production_stack_tpu_torch/ not found beside it)")
+        return 2
+    sys.path.insert(0, here)
+    from production_stack_tpu_torch.ops import _build
+
+    smi = nvidia_smi_line()
+    print(f"device: {smi}", flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    if args.profile:
+        report = profile_phase()
+        print(json.dumps({"profile": report}), flush=True)
+        print(f"card: {smi}", flush=True)
+        return 0
+    t0 = time.time()
+    _build.build(["paged_attention", "prefill_attention"], verbose=True)
+    build_s = time.time() - t0
+    for name, text in _build.build.last_log.items():
+        log(f"[build] {name}:\n{text}")
+    log(f"[build] both kernels built in {build_s:.1f} s")
+
+    results = kernel_phase()
+    launches, summary = serve_phase()
+    log(f"[serve] {json.dumps(summary)}")
+    print(json.dumps({"serve": summary}), flush=True)
+    sources = {
+        "paged_attention": (
+            "production_stack_tpu_torch/csrc/paged_attention.cu",
+            "production_stack_tpu/ops/pallas_paged_attention.py:231"),
+        "cached_prefill_attention": (
+            "production_stack_tpu_torch/csrc/prefill_attention.cu",
+            "production_stack_tpu/ops/pallas_prefill_attention.py:221"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        r = results[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {smi}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,276 @@
+"""Engine configuration: a copy of the JAX engine's ``EngineConfig`` plus
+``device``. Fields of features this engine does not run yet are kept so a
+configuration reads the same in both packages; ``EngineCore`` refuses the
+values that would need them."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model: str = "tiny-llama"
+    # Torch device the engine runs on. "cuda" needs a card: construction
+    # raises without one (no silent CPU fallback); tests pass "cpu".
+    device: str = "cuda"
+    dtype: str = "bfloat16"
+    max_model_len: int = 2048
+    max_num_seqs: int = 8           # decode batch width (static shape)
+    block_size: int = 64            # tokens per KV page (TPU-sized: one
+    #   page is one DMA in the pallas decode kernel, and the grid walks one
+    #   page per step — bigger pages mean fewer serial steps and efficient
+    #   ~256 KB transfers; 64 keeps prefix-cache granularity useful)
+    num_blocks: Optional[int] = None  # None -> sized from hbm_utilization
+    hbm_utilization: float = 0.7    # fraction of free HBM for KV pages
+    enable_prefix_caching: bool = True
+    # Prefill shape bucketing (powers of two between min and max_model_len).
+    min_prefill_bucket: int = 32
+    # Parallelism (within this engine replica).
+    tensor_parallel_size: int = 1
+    data_parallel_size: int = 1
+    # Stage-shard the layer stack (and its KV pages) over a pp mesh axis;
+    # activations hand over via ppermute (GPipe schedule). Llama family.
+    pipeline_parallel_size: int = 1
+    # GPipe microbatches per forward (bounded by the batch size; 0 -> pp).
+    pp_microbatches: int = 0
+    # LoRA slots (always compiled in; slot 0 is the zero/no-op adapter).
+    max_loras: int = 8
+    max_lora_rank: int = 16
+    # KV offload (HBM -> host RAM -> remote cache server). 0 disables.
+    kv_offload_bytes: int = 0
+    kv_remote_url: Optional[str] = None
+    # Long prompts prefill in chunks of at most this many tokens (attention
+    # memory stays O(chunk * context) instead of O(len^2)); 0 disables.
+    prefill_chunk_size: int = 1024
+    # Chunked prefill (Sarathi-style): split each prompt's prefill into
+    # bucket-snapped chunks scheduled across engine steps, interleaved with
+    # decode, so a burst of long prompts cannot starve running sequences.
+    # ``max_num_batched_tokens`` is the per-step prefill token budget
+    # (0 = use prefill_chunk_size); ``enable_chunked_prefill`` turns the
+    # step-plan scheduler on. Both off -> scheduler behavior is byte-
+    # identical to the prefill-OR-decode scheduler.
+    enable_chunked_prefill: bool = False
+    max_num_batched_tokens: int = 0
+    # At most this many consecutive prefill steps while sequences are
+    # decoding; after that the next step is forced to decode (the
+    # decode-starvation cap). Only meaningful with chunked prefill.
+    max_consecutive_prefills: int = 2
+    # Up to this many long-prompt prefills share one [prefill_batch,
+    # chunk] dispatch (the arrival-storm TTFT tail is a QUEUE of
+    # first-round prefills). Round 4 measured always-on batching
+    # throughput-neutral with WORSE p50 at steady state (padded rows
+    # waste chunk-width compute when the queue is shallow), so batching
+    # is storm-scoped: it only engages when at least
+    # ``prefill_batch_min_waiting`` other qualifying long prompts are
+    # queued — exactly the arrival-storm condition that serializes
+    # first-round prefills into the p99 TTFT tail. 1 disables; requires
+    # chunking.
+    # Off in this engine (prefill batching is not ported; > 1 is refused).
+    prefill_batch: int = 1
+    # The storm gate: batch only when this many OTHER qualifying
+    # (long, uncached-span) prompts are waiting. 0 = batch whenever a
+    # group can form (round-4 always-on behavior).
+    prefill_batch_min_waiting: int = 2
+    # Fused step program: when the chunked-prefill scheduler has BOTH a
+    # prefill plan and running decodes, execute the prefill chunk(s) and
+    # the decode burst as ONE dispatch (the device runs the already-
+    # compiled programs back to back; no new compilation variants). Off
+    # by default; flag-off behavior is byte-identical to alternating
+    # dispatches. Requires enable_chunked_prefill.
+    fused_step: bool = False
+    # Fused multi-step decode: exactly this many decode iterations
+    # (forward + sampling + token feedback) run inside one compiled
+    # lax.scan per dispatch; sequences that cannot use the full burst are
+    # masked per step. 1 disables fusion.
+    decode_steps: int = 8
+    # Burst width while admissible prompts are WAITING: a new request's
+    # prefill can only start between bursts, so at big-model per-step
+    # costs a full decode_steps burst adds ~K x step_time to TTFT.
+    # When > 0 and the waiting queue is non-empty the next burst uses
+    # this width instead. Measured on the dev chip (llama3b, reference
+    # shape): ~7% throughput cost WITHOUT a reliable p99-TTFT gain — the
+    # tail there is the serial uncached-prefill queue, not burst width —
+    # so the default is OFF; the knob remains for decode-dominated
+    # workloads with sparse arrivals.
+    decode_steps_pressure: int = 0
+    # Speculative decoding: each decode burst may verify a proposed
+    # draft in ONE batched forward pass instead of K sequential scan
+    # steps. The value is the verify width K: one burst consumes the
+    # last emitted token plus up to K-1 draft tokens and emits between
+    # 1 and K tokens. 0 disables (default). Proposer selection: a draft
+    # MODEL when ``speculative_draft_model`` is set, host-side
+    # prompt-lookup (n-gram matched against the request's own prompt +
+    # generated tokens) otherwise. The verify program, acceptance rule,
+    # and rollback are proposer-agnostic — streams stay byte-identical
+    # to plain decode either way.
+    speculative_num_tokens: int = 0
+    # n-gram length matched against the request context to find a draft
+    # continuation (Saxena, "Prompt Lookup Decoding"). Used only when no
+    # draft model is configured.
+    speculative_ngram_size: int = 3
+    # Draft-model speculation: name of a zoo model (same vocab as the
+    # target; typically a much smaller family member, e.g. tpu-llama-1b
+    # drafting for Llama-3-8B) loaded alongside the target on the same
+    # mesh. It runs a compiled greedy K-step draft program against its
+    # own bf16 KV pages (a small pool sized for max_num_seqs worst-case
+    # sequences, carved out up front so it never competes with the
+    # target's auto-sized pool). Structured requests draft under the
+    # token-FSM mask — the drafter proposes only DFA-legal tokens,
+    # exactly the mask the verify pass applies.
+    speculative_draft_model: Optional[str] = None
+    # Ablation knob: thread each structured request's token FSM into
+    # the drafter (mask drafter logits exactly as verify masks the
+    # target's). Leave ON in production — off, the drafter proposes
+    # unconstrained tokens that verify rejects at the first
+    # out-of-grammar position, which is precisely the baseline the
+    # BENCH_SPEC_DRAFT composition leg measures.
+    speculative_draft_constrain: bool = True
+    # Per-request probation for a latched-off draft-model proposer:
+    # after the adaptive fallback disables drafting for a request, retry
+    # after this many plain bursts (draft quality varies by region of
+    # text, unlike prompt lookup whose miss is a property of the prompt
+    # — n-gram latches stay permanent). 0 = latch is permanent.
+    speculative_draft_probation: int = 64
+    # Adaptive fallback: once at least ``speculative_accept_window``
+    # draft tokens have been judged for a request, stop proposing for it
+    # when the rolling acceptance rate is below this threshold — so
+    # adversarial (match-free or mismatching) text pays at most the
+    # warmup window before reverting to plain fused decode bursts.
+    speculative_accept_threshold: float = 0.35
+    speculative_accept_window: int = 32
+    # Structured output: LRU capacity of the compiled token-FSM cache
+    # (entries keyed by (schema-hash, tokenizer); one entry serves every
+    # concurrent request with the same constraint).
+    structured_cache_size: int = 32
+    # Step flight recorder: bounded ring of per-step records (kind, batch
+    # composition, wall time, roofline HBM byte estimate) behind
+    # GET /debug/steps and the tpu:step_duration_seconds /
+    # tpu:model_bandwidth_utilization series. Overhead is one dict append
+    # per engine step (the A/B test bounds it at <1% tokens/s); disable
+    # only to prove that bound.
+    # Off in this engine (the recorder is not ported; True is refused).
+    step_recorder: bool = False
+    step_record_capacity: int = 1024
+    # Sampling safety cap
+    max_top_k: int = 64
+    seed: int = 0
+    enforce_eager: bool = False
+    # Custom jinja chat template file (HF-tokenizer checkpoints only;
+    # helm modelSpec.chatTemplate mounts it from a ConfigMap).
+    chat_template: Optional[str] = None
+    # Weight-only quantization: "int8" stores weights as int8 + per-
+    # output-channel scales (models/quantize.py) — an 8 B model fits one
+    # 16 GB chip and decode's HBM weight read halves. None = bf16.
+    quantization: Optional[str] = None
+    # int8 only: also quantize the embedding table and lm_head. Off by
+    # default — head/embedding quantization disproportionately hurts
+    # output quality for ~1 GB of savings on an 8 B model; turn on when
+    # HBM is the binding constraint.
+    quantize_embeddings: bool = False
+    # KV-cache storage dtype: "int8" stores K/V pages as int8 plus a
+    # per-slot, per-kv-head float32 scale (symmetric amax/127) — decode's
+    # KV HBM read halves and the same HBM budget holds ~2x the blocks.
+    # "bf16" (default) keeps the request path byte-identical to before
+    # the flag existed.
+    kv_cache_dtype: str = "bf16"
+    # HBM bytes to keep free PER DEVICE when auto-sizing the KV pool:
+    # residual allocations (checkpoint staging, compiler workspaces,
+    # fragmentation) that memory_stats misses repeatedly OOMed the 8B
+    # model at hbm_utilization budgets that looked safe on paper
+    # (ROADMAP item 3). Subtracted from free HBM before hbm_utilization
+    # applies. 0 keeps the historical sizing.
+    hbm_headroom_reserve: int = 0
+    # Pool-shrink retry ladder on ResourceExhausted during KV-pool
+    # allocation: shrink num_blocks by pool_shrink_step (fraction) and
+    # retry, up to pool_shrink_retries rungs, instead of dying and
+    # forcing a fresh-process relaunch (the bench.py re-exec this
+    # replaces). Single-host only — multihost replicas exchange
+    # num_blocks before allocation and must agree on shapes.
+    pool_shrink_retries: int = 4
+    pool_shrink_step: float = 0.15
+
+    def __post_init__(self):
+        if self.quantization not in (None, "int8"):
+            raise ValueError(
+                f"unsupported quantization {self.quantization!r} "
+                f"(supported: int8)")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"unsupported kv_cache_dtype {self.kv_cache_dtype!r} "
+                f"(supported: bf16, int8)")
+        if self.speculative_num_tokens < 0:
+            raise ValueError("speculative_num_tokens must be >= 0")
+        if self.speculative_num_tokens == 1:
+            # K=1 would verify zero draft tokens per burst: all cost, no win.
+            raise ValueError(
+                "speculative_num_tokens must be 0 (off) or >= 2")
+        if self.speculative_ngram_size < 1:
+            raise ValueError("speculative_ngram_size must be >= 1")
+        if self.speculative_draft_model and self.speculative_num_tokens == 0:
+            raise ValueError(
+                "speculative_draft_model requires speculative_num_tokens "
+                ">= 2 (the drafter only proposes; the verify width must "
+                "be on)")
+        if self.speculative_draft_probation < 0:
+            raise ValueError("speculative_draft_probation must be >= 0")
+        if self.structured_cache_size < 1:
+            raise ValueError("structured_cache_size must be >= 1")
+        if self.hbm_headroom_reserve < 0:
+            raise ValueError("hbm_headroom_reserve must be >= 0")
+        if self.pool_shrink_retries < 0:
+            raise ValueError("pool_shrink_retries must be >= 0")
+        if self.step_record_capacity < 1:
+            raise ValueError("step_record_capacity must be >= 1")
+        if not 0.0 < self.pool_shrink_step < 1.0:
+            raise ValueError("pool_shrink_step must be in (0, 1)")
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return (self.max_model_len + self.block_size - 1) // self.block_size
+
+    @property
+    def chunked_prefill_enabled(self) -> bool:
+        return self.enable_chunked_prefill or self.max_num_batched_tokens > 0
+
+    @property
+    def token_budget(self) -> int:
+        """Per-step prefill token budget when chunked prefill is on."""
+        if self.max_num_batched_tokens > 0:
+            return self.max_num_batched_tokens
+        if self.prefill_chunk_size > 0:
+            return self.prefill_chunk_size
+        return self.max_model_len
+
+    def chunk_tokens(self) -> int:
+        """Per-chunk token count: the largest *already-compiled* prefill
+        bucket that fits the budget. Warmup caps buckets at
+        bucket_for(min(prefill_chunk_size, max_model_len)), so respecting
+        both bounds guarantees chunk dispatches hit zero new shapes."""
+        cap = self.token_budget
+        if self.prefill_chunk_size > 0:
+            cap = min(cap, self.prefill_chunk_size)
+        cap = min(cap, self.max_model_len)
+        best = self.min_prefill_bucket
+        for b in self.prefill_buckets():
+            if b <= cap:
+                best = b
+        return best
+
+    def prefill_buckets(self) -> "list[int]":
+        buckets = []
+        b = self.min_prefill_bucket
+        while b < self.max_model_len:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.max_model_len)
+        return buckets
+
+    def bucket_for(self, length: int) -> int:
+        for b in self.prefill_buckets():
+            if length <= b:
+                return b
+        raise ValueError(
+            f"Sequence length {length} exceeds max_model_len {self.max_model_len}"
+        )

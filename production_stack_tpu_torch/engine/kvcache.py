@@ -1,0 +1,412 @@
+"""Host-side paged KV cache management: block allocator + prefix cache.
+
+The device arrays (K/V pages in device memory) live in the engine core; this
+module owns the *accounting*: which pages are free, which belong to which
+sequence, and — when prefix caching is on — which full pages hold which
+token-prefix (hash-chained, vLLM-style) so identical prompt prefixes reuse
+pages instead of recomputing. Reference-stack context: vLLM's
+``--enable-prefix-caching`` is a chart toggle
+(``helm/values.yaml``/``deployment-vllm-multi.yaml:164-167``); here it is
+implemented natively. Hit/query counters feed the ``vllm:gpu_prefix_cache_*``
+metrics the router scrapes (``engine_stats.py:63-76``).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import hashlib
+
+
+@dataclass
+class Block:
+    block_id: int
+    ref_count: int = 0
+    # Hash of the token-prefix this (full) block completes; None if partial.
+    prefix_hash: Optional[int] = None
+    token_count: int = 0
+
+
+class BlockAllocator:
+    """Ref-counted page allocator with hash-chained prefix reuse."""
+
+    def __init__(self, num_blocks: int, block_size: int, enable_prefix_caching: bool = True):
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.enable_prefix_caching = enable_prefix_caching
+        self.blocks: List[Block] = [Block(i) for i in range(num_blocks)]
+        self.free_ids: List[int] = list(range(num_blocks))
+        # prefix_hash -> block_id for full, cached blocks (insertion-ordered
+        # for LRU eviction of ref_count==0 entries).
+        self.prefix_map: "OrderedDict[int, int]" = OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_queries = 0
+        # Called as on_evict(prefix_hash, block_id) just before a cached
+        # block's pages are recycled — the KV-offload hook (HBM -> host RAM,
+        # the LMCache CPU-offload equivalent).
+        self.on_evict = None
+
+    # -- hashing ----------------------------------------------------------
+    @staticmethod
+    def chain_hash(parent, tokens: Tuple[int, ...]) -> int:
+        """parent: None (chain root), a previous chain hash (int), or an
+        adapter namespace string.
+
+        64-bit BLAKE2b (standard library) where the JAX engine uses
+        xxh64, so prefix hashes differ between the two engines."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(str(parent).encode())
+        h.update(bytes(b for t in tokens for b in int(t).to_bytes(4, "little", signed=True)))
+        return int.from_bytes(h.digest(), "little")
+
+    @property
+    def num_free(self) -> int:
+        return len(self.free_ids)
+
+    def usage(self) -> float:
+        return 1.0 - len(self.free_ids) / max(self.num_blocks, 1)
+
+    # -- allocation -------------------------------------------------------
+    def _pop_free(self) -> Optional[int]:
+        while self.free_ids:
+            bid = self.free_ids.pop()
+            blk = self.blocks[bid]
+            # Blocks still registered in the prefix map are reusable cache;
+            # drop the registration when we recycle them.
+            if blk.prefix_hash is not None:
+                if self.on_evict is not None:
+                    self.on_evict(blk.prefix_hash, bid)
+                self.prefix_map.pop(blk.prefix_hash, None)
+                blk.prefix_hash = None
+            blk.token_count = 0
+            return bid
+        return None
+
+    def _evict_cached(self) -> Optional[int]:
+        """Evict the oldest ref_count==0 cached block (LRU)."""
+        for prefix_hash, bid in self.prefix_map.items():
+            if self.blocks[bid].ref_count == 0:
+                if self.on_evict is not None:
+                    self.on_evict(prefix_hash, bid)
+                del self.prefix_map[prefix_hash]
+                blk = self.blocks[bid]
+                blk.prefix_hash = None
+                blk.token_count = 0
+                return bid
+        return None
+
+    def allocate(self) -> Optional[int]:
+        bid = self._pop_free()
+        if bid is None:
+            bid = self._evict_cached()
+        if bid is None:
+            return None
+        self.blocks[bid].ref_count = 1
+        return bid
+
+    def lookup_prefix(self, prefix_hash: int) -> Optional[int]:
+        """Find a cached full block for this prefix; bumps refcount on hit."""
+        self.prefix_queries += 1
+        if not self.enable_prefix_caching:
+            return None
+        bid = self.prefix_map.get(prefix_hash)
+        if bid is None:
+            return None
+        self.prefix_hits += 1
+        self.prefix_map.move_to_end(prefix_hash)
+        self.blocks[bid].ref_count += 1
+        return bid
+
+    def register_full_block(self, bid: int, prefix_hash: int) -> None:
+        if not self.enable_prefix_caching:
+            return
+        blk = self.blocks[bid]
+        blk.token_count = self.block_size
+        # If another block already caches this prefix, leave this one
+        # unregistered (prefix_hash=None): tagging it would orphan it on
+        # release (it is not reachable via prefix_map for eviction).
+        if prefix_hash not in self.prefix_map:
+            blk.prefix_hash = prefix_hash
+            self.prefix_map[prefix_hash] = bid
+
+    def release(self, bid: int) -> None:
+        blk = self.blocks[bid]
+        blk.ref_count -= 1
+        if blk.ref_count <= 0:
+            blk.ref_count = 0
+            if (blk.prefix_hash is None
+                    or self.prefix_map.get(blk.prefix_hash) != bid):
+                # Not cached (or the map points at a different block) ->
+                # immediately reusable.
+                blk.prefix_hash = None
+                self.free_ids.append(bid)
+            # else: stays as cold cache until evicted.
+
+
+@dataclass
+class SequenceBlocks:
+    """Block bookkeeping for one running sequence."""
+
+    block_ids: List[int] = field(default_factory=list)
+    # How many leading tokens were satisfied from the prefix cache.
+    num_cached_tokens: int = 0
+    # Hash of the last *full* block's prefix chain.
+    last_full_hash: Optional[int] = None
+    num_tokens: int = 0
+    # Prefix-chain registration frontier: leading tokens whose full blocks
+    # carry a registered chain hash, and the hash to chain the next block
+    # onto (vLLM-style: generated tokens hash like prompt tokens, so a
+    # follow-up request extending this output reuses the pages).
+    num_registered: int = 0
+    chain_parent: object = None
+
+
+class KVCacheManager:
+    """Per-sequence block table maintenance on top of the allocator."""
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 enable_prefix_caching: bool = True, namespace: str = ""):
+        self.allocator = BlockAllocator(num_blocks, block_size, enable_prefix_caching)
+        self.block_size = block_size
+        self.seqs: Dict[str, SequenceBlocks] = {}
+        # Hash-chain namespace root, usually the model name: keeps KV shared
+        # through the remote cache server / cross-engine transfer from
+        # matching across different models.
+        self.namespace = namespace
+        # Optional second-tier lookup (host-RAM / remote KV store): called as
+        # external_lookup(prefix_hash) -> bool. A hit means the block's pages
+        # can be restored into HBM by the engine (see allocate_prompt's
+        # ``restores`` return).
+        self.external_lookup = None
+        # Called as on_free(seq_id) after a sequence's blocks are released
+        # — every teardown path (finish, preempt, abort, drain) funnels
+        # through free(), so a companion allocator (the speculative
+        # drafter's KV pool) hooks here to drop its mirror state.
+        self.on_free = None
+
+    def chain_root(self, adapter: str = "") -> "str | None":
+        """Root value for the prefix hash chain. Adapter names (stable
+        across engines, unlike slot indices) and the model namespace both
+        partition the cache."""
+        if not self.namespace and not adapter:
+            return None
+        return f"{self.namespace}|{adapter}"
+
+    def can_allocate(self, num_tokens: int) -> bool:
+        needed = (num_tokens + self.block_size - 1) // self.block_size
+        return self.allocator.num_free + self._evictable() >= needed
+
+    def _evictable(self) -> int:
+        return sum(
+            1 for _, bid in self.allocator.prefix_map.items()
+            if self.allocator.blocks[bid].ref_count == 0
+        )
+
+    def allocate_prompt(
+        self, seq_id: str, tokens: List[int], adapter: str = "",
+        limit: Optional[int] = None,
+    ) -> Optional[Tuple[List[int], int, List[Tuple[int, int]]]]:
+        """Allocate blocks for a prompt.
+
+        Returns ``(block_ids, cached_tokens, restores)`` or None if out of
+        memory. Leading full blocks may come from the prefix cache
+        (``cached_tokens`` tells the engine how much prefill to skip);
+        ``restores`` lists ``(block_id, prefix_hash)`` pairs whose pages must
+        be copied back into HBM from the offload tier before use (they count
+        as cached). ``adapter`` (a LoRA adapter *name*, stable across
+        engines) namespaces the hash chain: adapters alter the V projection,
+        so KV pages are only shareable within one adapter.
+
+        ``limit`` (chunked prefill) bounds *fresh* allocation to the first
+        ``limit`` tokens — later chunks grow the table via
+        :meth:`extend_tokens`. The cached-prefix walk is not bounded, so a
+        cache hit can cover more than ``limit`` tokens (the engine skips
+        those chunks entirely)."""
+        bs = self.block_size
+        total = len(tokens) if limit is None else min(limit, len(tokens))
+        seq = SequenceBlocks(num_tokens=total)
+        parent = self.chain_root(adapter)
+        i = 0
+        restores: List[Tuple[int, int]] = []
+        # Reuse cached full blocks for the longest matching prefix. Never
+        # reuse past the last token: at least one suffix token must run
+        # through the model to produce next-token logits.
+        while i + bs <= len(tokens) - 1:
+            chunk = tuple(tokens[i : i + bs])
+            h = BlockAllocator.chain_hash(parent, chunk)
+            bid = self.allocator.lookup_prefix(h)
+            if bid is None and self.external_lookup is not None \
+                    and self.allocator.enable_prefix_caching \
+                    and self.external_lookup(h):
+                # Offload-tier hit: allocate a fresh block; the engine
+                # restores its pages from the store before prefill.
+                bid = self.allocator.allocate()
+                if bid is not None:
+                    self.allocator.register_full_block(bid, h)
+                    restores.append((bid, h))
+            if bid is None:
+                break
+            seq.block_ids.append(bid)
+            seq.num_cached_tokens += bs
+            seq.last_full_hash = h
+            parent = h
+            i += bs
+        # Allocate fresh blocks for the rest (up to ``total`` tokens; the
+        # cache walk may already have covered more than that).
+        total = max(total, i)
+        seq.num_tokens = total
+        remaining = total - i
+        n_new = (remaining + bs - 1) // bs
+        fresh: List[int] = []
+        for _ in range(n_new):
+            bid = self.allocator.allocate()
+            if bid is None:
+                # Restore blocks were registered before their pages were
+                # written; unregister them or release() would keep them as
+                # cold cache pointing at garbage pages.
+                for rbid, h in restores:
+                    if self.allocator.prefix_map.get(h) == rbid:
+                        del self.allocator.prefix_map[h]
+                    self.allocator.blocks[rbid].prefix_hash = None
+                for b in fresh:
+                    self.allocator.release(b)
+                for b in seq.block_ids:
+                    self.allocator.release(b)
+                return None
+            fresh.append(bid)
+        # Register chain hashes for the new *full* blocks (only blocks whose
+        # pages this chunk actually writes, i.e. within ``total``).
+        j = i
+        for bid in fresh:
+            seq.block_ids.append(bid)
+            if j + bs <= total:
+                chunk = tuple(tokens[j : j + bs])
+                h = BlockAllocator.chain_hash(parent, chunk)
+                self.allocator.register_full_block(bid, h)
+                seq.last_full_hash = h
+                parent = h
+                j += bs
+        seq.num_registered = j
+        seq.chain_parent = parent
+        self.seqs[seq_id] = seq
+        return seq.block_ids, seq.num_cached_tokens, restores
+
+    def extend_tokens(
+        self, seq_id: str, tokens: List[int], limit: int
+    ) -> Optional[List[int]]:
+        """Grow a partially prefilled sequence's block table to cover the
+        first ``limit`` of ``tokens`` (chunked prefill continuation).
+
+        Returns the full block-id list, or None on OOM (all newly allocated
+        blocks rolled back — the caller preempts/requeues) or if the
+        sequence is gone (aborted mid-prefill). Continuation blocks extend
+        the prefix-hash chain from the registration frontier; mid-sequence
+        cache *reuse* is not attempted (only the leading-prefix walk in
+        :meth:`allocate_prompt` reuses pages — a deliberate simplification:
+        a mid-prompt match would need its exact chain parent anyway)."""
+        seq = self.seqs.get(seq_id)
+        if seq is None:
+            return None
+        bs = self.block_size
+        limit = min(limit, len(tokens))
+        needed = (limit + bs - 1) // bs
+        fresh: List[int] = []
+        while len(seq.block_ids) + len(fresh) < needed:
+            bid = self.allocator.allocate()
+            if bid is None:
+                for b in fresh:
+                    self.allocator.release(b)
+                return None
+            fresh.append(bid)
+        seq.block_ids.extend(fresh)
+        seq.num_tokens = max(seq.num_tokens, limit)
+        # Register chain hashes over blocks this chunk completes.
+        parent = seq.chain_parent
+        while seq.num_registered + bs <= limit:
+            start = seq.num_registered
+            blk = start // bs
+            if blk >= len(seq.block_ids):
+                break
+            chunk = tuple(tokens[start : start + bs])
+            h = BlockAllocator.chain_hash(parent, chunk)
+            self.allocator.register_full_block(seq.block_ids[blk], h)
+            seq.last_full_hash = h
+            seq.chain_parent = parent = h
+            seq.num_registered = start + bs
+        return seq.block_ids
+
+    def register_decode_blocks(self, seq_id: str, all_tokens: List[int]) -> None:
+        """Extend the prefix-hash chain over blocks completed by generated
+        tokens (called after burst emission, when token values are known).
+        A multi-round conversation whose next prompt extends this output
+        then reuses the pages instead of re-prefilling them — the same
+        property vLLM gets by hashing generated blocks
+        (reference toggle: ``helm/values.yaml`` --enable-prefix-caching)."""
+        seq = self.seqs.get(seq_id)
+        if seq is None or not self.allocator.enable_prefix_caching:
+            return
+        bs = self.block_size
+        # Strictly behind the written-KV frontier: the newest sampled token's
+        # KV page is only written when that token is *fed* to the next burst,
+        # so a block ending exactly at len(all_tokens) could still have an
+        # unwritten final slot (flush without a successor burst in flight).
+        while seq.num_registered + bs < len(all_tokens):
+            start = seq.num_registered
+            blk = start // bs
+            if blk >= len(seq.block_ids):
+                break
+            chunk = tuple(all_tokens[start : start + bs])
+            h = BlockAllocator.chain_hash(seq.chain_parent, chunk)
+            self.allocator.register_full_block(seq.block_ids[blk], h)
+            seq.last_full_hash = h
+            seq.chain_parent = h
+            seq.num_registered = start + bs
+
+    def append_token(self, seq_id: str, token: int) -> bool:
+        """Account for one generated token; allocates a page on boundary.
+        Returns False if out of memory (caller should preempt)."""
+        seq = self.seqs[seq_id]
+        if seq.num_tokens % self.block_size == 0:
+            bid = self.allocator.allocate()
+            if bid is None:
+                return False
+            seq.block_ids.append(bid)
+        seq.num_tokens += 1
+        return True
+
+    def rollback_tokens(self, seq_id: str, n: int) -> None:
+        """Un-account the last ``n`` appended tokens (speculative decode:
+        the verify burst appends worst-case tokens up front; rejected
+        draft positions roll back here). Tail pages that become empty are
+        released — they were appended by this burst, so they are fresh,
+        unregistered (``register_decode_blocks`` runs strictly behind the
+        written frontier) and ref==1; their stale device contents are
+        overwritten by any later owner before its attention can read
+        them (the standard speculative-write invariant)."""
+        if n <= 0:
+            return
+        seq = self.seqs.get(seq_id)
+        if seq is None:
+            return  # finished/preempted between dispatch and flush
+        seq.num_tokens -= n
+        bs = self.block_size
+        keep = max(-(-seq.num_tokens // bs), seq.num_registered // bs)
+        while len(seq.block_ids) > keep:
+            self.allocator.release(seq.block_ids.pop())
+
+    def free(self, seq_id: str) -> None:
+        seq = self.seqs.pop(seq_id, None)
+        if seq is None:
+            return
+        for bid in seq.block_ids:
+            self.allocator.release(bid)
+        if self.on_free is not None:
+            self.on_free(seq_id)
+
+    def block_table(self, seq_id: str) -> List[int]:
+        return self.seqs[seq_id].block_ids
+
+    def usage(self) -> float:
+        return self.allocator.usage()

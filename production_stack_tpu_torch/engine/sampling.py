@@ -1,0 +1,240 @@
+"""Sampling: request parameters (host) and batched token selection (device).
+
+The host half is a copy of the JAX engine's: :class:`SamplingParams`,
+``_strict_int`` and the capacities baked into the serving programs.
+Structured-output specs (``guided_json``, ``guided_regex``,
+``response_format``) belong to a later slice and are refused as client
+errors here.
+
+The device half ports ``sample_tokens``, ``logprob_outputs`` and the logit
+shaping of the serving programs (logit_bias, min_tokens EOS masking,
+stop ids, presence/frequency penalties). Greedy rows take the argmax;
+sampled rows draw by Gumbel-max over the temperature-scaled top-k/top-p
+candidates with noise from a ``torch.Generator`` seeded per row, so a
+seeded request repeats exactly. These draws do not equal the JAX
+engine's threefry draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+
+def _strict_int(body: dict, key: str) -> Optional[int]:
+    """JSON-typed integer field: present -> must be an actual integer."""
+    value = body.get(key)
+    if value is None:
+        return None
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise ValueError(f"'{key}' must be an integer")
+    return value
+
+
+_STRUCTURED_KEYS = ("guided_json", "guided_regex", "guided_choice",
+                    "guided_grammar")
+
+
+def _reject_structured(body: dict) -> None:
+    fmt = body.get("response_format")
+    structured = any(body.get(k) is not None for k in _STRUCTURED_KEYS) or (
+        isinstance(fmt, dict) and fmt.get("type") not in (None, "text"))
+    if structured:
+        raise ValueError(
+            "structured output is not supported by this engine yet")
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0  # 0 = disabled
+    max_tokens: int = 16
+    stop: Optional[list] = None
+    seed: Optional[int] = None
+    ignore_eos: bool = False
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    n: int = 1
+    # None = no logprobs; an int = return the sampled token's logprob plus
+    # that many top alternatives (raw log-softmax, OpenAI semantics).
+    logprobs: Optional[int] = None
+    # EOS is suppressed until this many output tokens exist (vLLM's
+    # min_tokens).
+    min_tokens: int = 0
+    # Extra token ids that finish the request like EOS (vLLM ext).
+    stop_token_ids: Optional[list] = None
+    # token id -> additive logit bias (capped at MAX_LOGIT_BIAS entries).
+    logit_bias: Optional[dict] = None
+    # Completions-only: prepend the prompt text to the output.
+    echo: bool = False
+    # Structured output spec; always None in this engine (refused).
+    structured: Optional[object] = None
+
+    @staticmethod
+    def from_request(body: dict, default_max_tokens: int = 16) -> "SamplingParams":
+        stop = body.get("stop")
+        if isinstance(stop, str):
+            stop = [stop]
+        t = body.get("temperature")
+        p = body.get("top_p")
+        # completions: logprobs is an int (top-N); chat: logprobs is a
+        # bool gated by top_logprobs (OpenAI schema).
+        lp_raw = body.get("logprobs")
+        if isinstance(lp_raw, bool):
+            logprobs = (int(body.get("top_logprobs") or 0)
+                        if lp_raw else None)
+        elif lp_raw is None:
+            logprobs = None
+        else:
+            logprobs = int(lp_raw)
+        bias_raw = body.get("logit_bias") or {}
+        if not isinstance(bias_raw, dict):
+            raise ValueError("'logit_bias' must be an object")
+        logit_bias = {}
+        for k, v in bias_raw.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(
+                    "'logit_bias' values must be numbers")
+            try:
+                logit_bias[int(k)] = float(v)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    "'logit_bias' keys must be token ids")
+        _reject_structured(body)
+        min_tokens = _strict_int(body, "min_tokens") or 0
+        return SamplingParams(
+            temperature=1.0 if t is None else float(t),
+            top_p=1.0 if p is None else float(p),
+            top_k=int(body.get("top_k") or 0),
+            max_tokens=(
+                _strict_int(body, "max_tokens")
+                or _strict_int(body, "max_completion_tokens")
+                or default_max_tokens
+            ),
+            stop=stop,
+            seed=body.get("seed"),
+            ignore_eos=bool(body.get("ignore_eos", False)),
+            presence_penalty=float(body.get("presence_penalty") or 0.0),
+            frequency_penalty=float(body.get("frequency_penalty") or 0.0),
+            n=max(int(body.get("n") or 1), 1),
+            logprobs=logprobs,
+            min_tokens=min_tokens,
+            stop_token_ids=[int(t) for t in
+                            (body.get("stop_token_ids") or [])] or None,
+            logit_bias=logit_bias or None,
+            echo=bool(body.get("echo", False)),
+        )
+
+
+# Sparse logit_bias capacity of the serving programs (requests exceeding
+# it are rejected with a 400 at the API layer rather than truncated).
+MAX_LOGIT_BIAS = 32
+
+# stop_token_ids capacity (masked alongside EOS while min_tokens is unmet).
+MAX_STOP_IDS = 8
+
+# Static top-K for logprob outputs (requests clamp their top_logprobs).
+LOGPROB_K = 8
+
+
+def keep_candidates(logits: torch.Tensor,  # [B, V] float32
+                    temperature: torch.Tensor,  # [B]
+                    top_k: torch.Tensor,  # [B] int; 0 disables
+                    top_p: torch.Tensor,  # [B]
+                    max_top_k: int = 64):
+    """The top-``max_top_k`` candidates of every row and their
+    temperature-scaled logits with everything outside the row's top-k and
+    top-p (nucleus) set at -inf. Returns (top_idx [B, K], masked [B, K])."""
+    K = min(max_top_k, logits.shape[-1])
+    top_vals, top_idx = torch.topk(logits, K, dim=-1)  # sorted descending
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    scaled = top_vals / temp
+    ranks = torch.arange(K, device=logits.device)[None, :]
+    k_eff = torch.where(top_k[:, None] <= 0, K,
+                        torch.clamp(top_k[:, None], max=K))
+    keep_k = ranks < k_eff
+    neg_inf = torch.full_like(scaled, float("-inf"))
+    probs = torch.softmax(torch.where(keep_k, scaled, neg_inf), dim=-1)
+    cumprobs = torch.cumsum(probs, dim=-1)
+    keep_p = (cumprobs - probs) < top_p[:, None]  # always keeps rank 0
+    return top_idx, torch.where(keep_k & keep_p, scaled, neg_inf)
+
+
+def gumbel_noise(seeds: Sequence[Optional[int]], K: int,
+                 device) -> torch.Tensor:
+    """[B, K] Gumbel noise; row ``i`` from a generator seeded with
+    ``seeds[i]``, zeros where the seed is None (greedy rows draw nothing)."""
+    noise = torch.zeros((len(seeds), K), dtype=torch.float32, device=device)
+    for i, seed in enumerate(seeds):
+        if seed is None:
+            continue
+        g = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
+        u = torch.rand((K,), generator=g, device=device,
+                       dtype=torch.float32)
+        noise[i] = -torch.log(-torch.log(u.clamp(min=1e-20, max=1 - 1e-7)))
+    return noise
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # [B, V] float32
+    temperature: torch.Tensor,  # [B] float32; <= 0 means greedy
+    top_k: torch.Tensor,  # [B] int; 0 disables
+    top_p: torch.Tensor,  # [B] float32
+    noise: torch.Tensor,  # [B, max_top_k] Gumbel noise (gumbel_noise)
+    *,
+    max_top_k: int = 64,
+) -> torch.Tensor:
+    """Sampled token ids [B]: argmax for greedy rows, Gumbel-max over the
+    kept candidates for the others."""
+    greedy_ids = torch.argmax(logits, dim=-1)
+    top_idx, masked = keep_candidates(logits, temperature, top_k, top_p,
+                                      max_top_k)
+    choice = torch.argmax(masked + noise[:, :masked.shape[1]], dim=-1)
+    sampled_ids = torch.gather(top_idx, 1, choice[:, None])[:, 0]
+    return torch.where(temperature <= 0.0, greedy_ids, sampled_ids)
+
+
+def logprob_outputs(logits: torch.Tensor, sampled: torch.Tensor,
+                    k: int = LOGPROB_K):
+    """Raw log-softmax stats for the OpenAI logprobs surface:
+    (chosen_lp [B], top_lp [B, k], top_ids [B, k])."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(lp, 1, sampled[:, None].long())[:, 0]
+    top_lp, top_ids = torch.topk(lp, k, dim=-1)
+    return chosen, top_lp, top_ids
+
+
+def shape_logits(
+    logits: torch.Tensor,  # [B, V] float32
+    *,
+    bias_ids: torch.Tensor,  # [B, MAX_LOGIT_BIAS] (padding: id 0, value 0)
+    bias_vals: torch.Tensor,
+    suppress: torch.Tensor,  # [B] bool: min_tokens not yet met
+    stop_ids: torch.Tensor,  # [B, MAX_STOP_IDS]
+    stop_valid: torch.Tensor,  # [B, MAX_STOP_IDS] float 1/0
+    eos_id: int,  # -1 when the tokenizer has none
+    counts: Optional[torch.Tensor] = None,  # [B, V] output-token counts
+    presence_penalty: Optional[torch.Tensor] = None,  # [B]
+    frequency_penalty: Optional[torch.Tensor] = None,  # [B]
+) -> torch.Tensor:
+    """The serving programs' logit shaping, in their order: penalties
+    over the slot's output-token counts (decode only), sparse logit_bias,
+    EOS masked while min_tokens is unmet, and stop ids masked alongside
+    it (finite sentinel: -inf * 0 padding would make NaNs)."""
+    shaped = logits
+    if counts is not None:
+        shaped = (shaped - frequency_penalty[:, None] * counts
+                  - presence_penalty[:, None] * (counts > 0))
+    shaped = shaped.scatter_add(1, bias_ids.long(), bias_vals)
+    if eos_id >= 0:
+        vocab = torch.arange(shaped.shape[1], device=shaped.device)
+        shaped = torch.where(
+            suppress[:, None] & (vocab[None, :] == eos_id),
+            torch.full_like(shaped, float("-inf")), shaped)
+    return shaped.scatter_add(
+        1, stop_ids.long(),
+        -1e30 * stop_valid * suppress.float()[:, None])
+

@@ -1,0 +1,567 @@
+"""Continuous-batching scheduler.
+
+Decides, each engine step, whether to run a prefill (admit one waiting
+sequence) or a decode step over all running sequences — vLLM-style
+continuous batching, with static shapes: the decode batch has a fixed width
+(``max_num_seqs`` slots, inactive slots masked) and prefill lengths snap to
+power-of-two buckets, so steady-state serving touches exactly two compiled
+programs (SURVEY §7 "continuous batching without recompilation storms").
+
+Chunked prefill (Sarathi-style, OSDI'24): with a per-step token budget the
+scheduler plans steps — ``next_action()`` emits
+``("prefill_step", [PrefillChunk, ...])`` plans that advance each admitted
+prompt by at most one bucket-snapped chunk per step, interleaved with
+decode steps under a decode-starvation cap, so a burst of long prompts
+cannot monopolize the engine. Chunk continuations run through the
+already-compiled ``prefill_cached`` program against KV pages written by
+earlier chunks: zero new compiled shapes. With the flag off the scheduler
+is exactly the prefill-OR-decode machine described above.
+
+Preemption: when a decode step needs a KV page and none is free, the
+youngest running (or mid-prefill) sequence is evicted back to the waiting
+queue (its pages freed, generated tokens kept so re-prefill resumes
+exactly); the router surfaces these as ``num_swapped_requests``.
+"""
+
+from __future__ import annotations
+
+import enum
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Deque, Dict, List, Optional, Tuple
+
+from production_stack_tpu_torch.engine.kvcache import KVCacheManager
+from production_stack_tpu_torch.engine.sampling import SamplingParams
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
+
+# Priority classes (QoS): lower number = more important. 0 is both the
+# "interactive" class and the default for priority-less traffic, so a
+# deployment that never sends X-Priority schedules exactly FCFS.
+PRIORITY_INTERACTIVE = 0
+PRIORITY_BATCH = 1
+_PRIORITY_NAMES = {"interactive": PRIORITY_INTERACTIVE,
+                   "batch": PRIORITY_BATCH}
+
+
+def parse_priority(value: Optional[str]) -> int:
+    """Map an X-Priority header value to a class; unknown -> interactive."""
+    if value:
+        return _PRIORITY_NAMES.get(value.strip().lower(),
+                                   PRIORITY_INTERACTIVE)
+    return PRIORITY_INTERACTIVE
+
+
+def priority_label(priority: int) -> str:
+    return "batch" if priority >= PRIORITY_BATCH else "interactive"
+
+
+class SpecState:
+    """Per-request speculative-decode proposer state.
+
+    ``source`` names the proposer ("ngram" for host prompt lookup,
+    "draft_model" for the small-model drafter). For prompt lookup it
+    holds the host-side n-gram index over prompt + generated tokens
+    (n-gram tuple -> its latest start position, grown incrementally as
+    tokens arrive); either way it carries the acceptance stats behind
+    the adaptive fallback: once ``proposed`` reaches the configured
+    window with an acceptance rate below the threshold, the request
+    latches ``disabled`` and reverts to plain decode bursts. For prompt
+    lookup the latch is permanent (a miss is a property of the prompt);
+    a draft model gets ``probation`` — after that many plain bursts the
+    latch lifts and the acceptance window restarts, since draft quality
+    varies by region of text. The index survives preemption untouched —
+    positions are absolute in ``all_token_ids``, which re-prefill
+    reproduces exactly.
+    """
+
+    __slots__ = ("ngram", "index", "indexed_upto",
+                 "proposed", "accepted", "disabled",
+                 "source", "probation", "disabled_bursts")
+
+    def __init__(self, ngram: int, source: str = "ngram",
+                 probation: int = 0):
+        self.ngram = ngram
+        self.index: Dict[tuple, int] = {}
+        self.indexed_upto = 0
+        self.proposed = 0
+        self.accepted = 0
+        self.disabled = False
+        self.source = source
+        self.probation = probation
+        self.disabled_bursts = 0
+
+    def propose(self, tokens: List[int], max_draft: int) -> List[int]:
+        """Draft up to ``max_draft`` tokens: index any new n-grams, then
+        look up the context's tail n-gram and return the tokens that
+        followed its most recent earlier occurrence (Saxena's prompt
+        lookup). Empty list when the tail has no earlier match."""
+        n = self.ngram
+        if self.disabled or max_draft <= 0 or len(tokens) <= n:
+            return []
+        # Index every n-gram starting strictly before the tail n-gram.
+        for start in range(self.indexed_upto, len(tokens) - n):
+            self.index[tuple(tokens[start:start + n])] = start
+        self.indexed_upto = max(self.indexed_upto, len(tokens) - n)
+        pos = self.index.get(tuple(tokens[len(tokens) - n:]))
+        if pos is None:
+            return []
+        return tokens[pos + n:pos + n + max_draft]
+
+    def judge(self, proposed: int, accepted: int,
+              window: int, threshold: float) -> bool:
+        """Record one verify outcome; returns True when this call tripped
+        the adaptive-fallback latch."""
+        self.proposed += proposed
+        self.accepted += accepted
+        if (not self.disabled and self.proposed >= window
+                and self.accepted < threshold * self.proposed):
+            self.disabled = True
+            self.disabled_bursts = 0
+            return True
+        return False
+
+    def tick_probation(self) -> bool:
+        """Count one plain (non-speculative) burst against a latched
+        proposer's probation. Returns True when the latch lifts — the
+        acceptance stats reset so the proposer gets a fresh window
+        instead of being re-judged on the history that latched it."""
+        if not self.disabled or self.probation <= 0:
+            return False
+        self.disabled_bursts += 1
+        if self.disabled_bursts < self.probation:
+            return False
+        self.disabled = False
+        self.disabled_bursts = 0
+        self.proposed = 0
+        self.accepted = 0
+        return True
+
+
+class RequestStatus(enum.Enum):
+    WAITING = "waiting"
+    RUNNING = "running"
+    PREEMPTED = "preempted"
+    FINISHED = "finished"
+    REJECTED = "rejected"
+
+
+@dataclass
+class EngineRequest:
+    request_id: str
+    prompt_token_ids: List[int]
+    sampling: SamplingParams
+    # Called from the engine thread: (token_id | None, finish_reason | None).
+    on_token: Callable[[Optional[int], Optional[str]], None]
+    adapter_id: int = 0  # LoRA slot (engine-local, selects weights)
+    adapter_name: str = ""  # stable name (namespaces the KV hash chain)
+    # QoS class (X-Priority): 0 interactive (default), 1 batch. Orders
+    # waiting-queue admission and marks preemption victims.
+    priority: int = 0
+    arrival_time: float = field(default_factory=time.time)
+    output_token_ids: List[int] = field(default_factory=list)
+    status: RequestStatus = RequestStatus.WAITING
+    num_preemptions: int = 0
+    # Decode steps scheduled so far (may run ahead of emitted tokens while
+    # a speculative burst is in flight); engine-thread only.
+    scheduled_steps: int = 0
+    # Chunked prefill: prompt tokens whose KV pages have been written by
+    # completed chunks (resets to 0 on preemption / requeue).
+    num_computed_tokens: int = 0
+    # Optional StageClock (obs.trace): the engine thread stamps queue/
+    # prefill/decode boundaries on it; the server reads it afterwards.
+    trace: Optional[object] = None
+    # Prompt-lookup speculative decoding (engine-thread only; created
+    # lazily by the engine when --speculative-num-tokens > 0).
+    spec: Optional[SpecState] = None
+    # Structured output (engine-thread only): FSMState holding the shared
+    # TokenFSM plus this request's DFA position; set by the engine when
+    # sampling carries a grammar constraint.
+    structured: Optional[object] = None
+
+    @property
+    def all_token_ids(self) -> List[int]:
+        return self.prompt_token_ids + self.output_token_ids
+
+
+@dataclass
+class RunningSeq:
+    req: EngineRequest
+    slot: int  # decode batch slot index (-1: preempted mid-prefill)
+
+
+@dataclass
+class PrefillChunk:
+    """One bucket-snapped slice of a prompt's prefill, part of a step plan.
+
+    ``start == req.num_computed_tokens`` at plan time; ``end`` is exclusive.
+    The chunk is final when ``end == len(req.all_token_ids)``.
+    """
+
+    req: EngineRequest
+    start: int
+    end: int
+
+    @property
+    def is_final(self) -> bool:
+        return self.end >= len(self.req.all_token_ids)
+
+
+class Scheduler:
+    def __init__(
+        self,
+        kv_mgr: KVCacheManager,
+        max_num_seqs: int,
+        max_model_len: int,
+        chunked_prefill: bool = False,
+        chunk_tokens: int = 0,
+        token_budget: int = 0,
+        max_consecutive_prefills: int = 2,
+        max_prefill_rows: int = 1,
+        fused_step: bool = False,
+    ):
+        self.kv_mgr = kv_mgr
+        self.max_num_seqs = max_num_seqs
+        self.max_model_len = max_model_len
+        self.chunked_prefill = chunked_prefill and chunk_tokens > 0
+        self.chunk_tokens = chunk_tokens
+        self.token_budget = max(token_budget, chunk_tokens)
+        self.max_consecutive_prefills = max(max_consecutive_prefills, 1)
+        self.max_prefill_rows = max(max_prefill_rows, 1)
+        # Emit ("fused", plan) instead of ("prefill_step", plan) when
+        # sequences are also decoding — the engine runs both legs as one
+        # dispatch. Prefill-only and decode-only steps are unchanged.
+        self.fused_step = fused_step
+        self.waiting: Deque[EngineRequest] = deque()
+        self.slots: List[Optional[RunningSeq]] = [None] * max_num_seqs
+        # Requests mid-prefill under the chunked scheduler: admitted (KV
+        # pages allocated incrementally) but not yet holding a decode slot.
+        self.prefilling: List[EngineRequest] = []
+        self.num_preempted_total = 0
+        # Preemptions by victim class, exported as
+        # tpu:preempted_requests_total{priority=...}.
+        self.preempted_by_priority: Dict[str, int] = {
+            "interactive": 0, "batch": 0}
+        # Rejections by finish reason ("length" | "kv_capacity"), exported
+        # as tpu:rejected_requests_total{reason=...}.
+        self.rejected_total: Dict[str, int] = {"length": 0, "kv_capacity": 0}
+        # Request-id index: O(1) abort instead of O(n) queue scans. A
+        # request is indexed from add() until it reaches a terminal state.
+        self._requests: Dict[str, EngineRequest] = {}
+        self._running_by_id: Dict[str, RunningSeq] = {}
+        # Ids known to be in the waiting deque (entries added via add()/
+        # requeue()); lets abort() find queued requests in O(1).
+        self._queued: set = set()
+        # Aborting a queued request marks it FINISHED in place (tombstone);
+        # the deque entry is skipped lazily at the next pop, keeping abort
+        # O(1). This counter keeps num_waiting exact between pops.
+        self._waiting_tombstones = 0
+        # Live waiting requests with non-default priority. While zero the
+        # queue is scanned-free pure FIFO — the pre-QoS fast path.
+        self._nondefault_waiting = 0
+        self._prefill_streak = 0
+
+    @staticmethod
+    def _is_live(req: EngineRequest) -> bool:
+        return req.status not in (RequestStatus.FINISHED,
+                                  RequestStatus.REJECTED)
+
+    # -- queue ops ---------------------------------------------------------
+    def add(self, req: EngineRequest) -> None:
+        if len(req.prompt_token_ids) >= self.max_model_len:
+            req.status = RequestStatus.REJECTED
+            self.rejected_total["length"] += 1
+            req.on_token(None, "length")
+            return
+        self._requests[req.request_id] = req
+        self._queued.add(req.request_id)
+        self.waiting.append(req)
+        if req.priority:
+            self._nondefault_waiting += 1
+
+    def abort(self, request_id: str) -> bool:
+        seq = self._running_by_id.get(request_id)
+        if seq is not None:
+            self.finish(seq, "abort")
+            return True
+        req = self._requests.get(request_id)
+        if req is None:
+            return False
+        if request_id in self._queued:
+            # Tombstone: the deque entry is skipped at the next pop.
+            self._queued.discard(request_id)
+            del self._requests[request_id]
+            req.status = RequestStatus.FINISHED
+            self._waiting_tombstones += 1
+            if req.priority:
+                self._nondefault_waiting -= 1
+            req.on_token(None, "abort")
+            return True
+        if req in self.prefilling:
+            # Mid-chunk abort: free the KV pages earlier chunks wrote.
+            self.prefilling.remove(req)
+            del self._requests[request_id]
+            self.kv_mgr.free(request_id)
+            req.status = RequestStatus.FINISHED
+            req.on_token(None, "abort")
+            return True
+        # Popped by the engine loop and in flight between scheduler states:
+        # the core's slot check handles the token already being computed.
+        return False
+
+    def running(self) -> List[RunningSeq]:
+        return [s for s in self.slots if s is not None]
+
+    @property
+    def num_running(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.waiting) - self._waiting_tombstones
+
+    def has_work(self) -> bool:
+        return (self.num_running > 0 or self.num_waiting > 0
+                or bool(self.prefilling))
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def peek_waiting(self) -> Optional[EngineRequest]:
+        """Next waiting request by (priority, queue order); drops abort
+        tombstones at the head on the way.
+
+        With every queued request at default priority (the pre-QoS case)
+        this is exactly the old FIFO head — same object, same order.
+        Otherwise the deque is scanned for the first request of the most
+        important class; deque order within a class preserves both
+        arrival order and requeue-at-head resume semantics."""
+        while self.waiting:
+            req = self.waiting[0]
+            if self._is_live(req):
+                break
+            self.waiting.popleft()
+            self._waiting_tombstones = max(0, self._waiting_tombstones - 1)
+        if not self.waiting:
+            return None
+        if self._nondefault_waiting <= 0:
+            return self.waiting[0]
+        best: Optional[EngineRequest] = None
+        for req in self.waiting:
+            if not self._is_live(req):
+                continue
+            if best is None or req.priority < best.priority:
+                best = req
+                if best.priority <= PRIORITY_INTERACTIVE:
+                    break  # nothing outranks the top class
+        return best
+
+    def _pop_waiting(self, req: EngineRequest) -> None:
+        """Remove the request peek_waiting() returned from the queue."""
+        if self.waiting and self.waiting[0] is req:
+            self.waiting.popleft()
+        else:
+            self.waiting.remove(req)
+        self._queued.discard(req.request_id)
+        if req.priority:
+            self._nondefault_waiting -= 1
+
+    def live_waiting(self) -> List[EngineRequest]:
+        """Snapshot of live (non-tombstoned) waiting requests, FIFO order."""
+        return [r for r in self.waiting if self._is_live(r)]
+
+    def take_waiting(self, req: EngineRequest) -> None:
+        """Remove a specific live request from the waiting queue (the
+        storm-batch gatherer picks group members out of FIFO order)."""
+        self.waiting.remove(req)
+        self._queued.discard(req.request_id)
+        if req.priority:
+            self._nondefault_waiting -= 1
+
+    def requeue(self, req: EngineRequest) -> None:
+        """Put a request back at the head of the waiting queue (allocation
+        failure, engine sleep race, chunk preemption). The caller is
+        responsible for freeing any KV pages already written; partial
+        prefill progress is discarded."""
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        req.num_computed_tokens = 0
+        if req.status is RequestStatus.FINISHED or \
+                req.request_id not in self._requests:
+            return  # aborted while in flight
+        req.status = RequestStatus.WAITING
+        self.waiting.appendleft(req)
+        self._queued.add(req.request_id)
+        if req.priority:
+            self._nondefault_waiting += 1
+
+    def drain_waiting(self) -> List[EngineRequest]:
+        """Remove every queued and mid-prefill request (fatal-error path);
+        returns them so the engine can fail their callbacks. Frees KV pages
+        of partially prefilled requests."""
+        reqs = self.live_waiting()
+        for req in self.prefilling:
+            self.kv_mgr.free(req.request_id)
+            reqs.append(req)
+        self.waiting.clear()
+        self._queued.clear()
+        self._waiting_tombstones = 0
+        self._nondefault_waiting = 0
+        self.prefilling.clear()
+        for req in reqs:
+            self._requests.pop(req.request_id, None)
+        return reqs
+
+    def _reject(self, req: EngineRequest, reason: str) -> None:
+        self._requests.pop(req.request_id, None)
+        req.status = RequestStatus.REJECTED
+        self.rejected_total[reason] = self.rejected_total.get(reason, 0) + 1
+        req.on_token(None, reason)
+
+    # -- scheduling decisions ---------------------------------------------
+    def next_action(self) -> Tuple[str, object]:
+        """Returns ("prefill", req) | ("prefill_step", [PrefillChunk, ...])
+        | ("fused", [PrefillChunk, ...]) | ("decode", None)
+        | ("idle", None)."""
+        if self.chunked_prefill:
+            return self._next_action_chunked()
+        slot = self._free_slot()
+        req = self.peek_waiting()
+        if req is not None and slot is not None:
+            # +1 block headroom so the first decode step can't immediately
+            # trigger a preemption.
+            if self.kv_mgr.can_allocate(len(req.all_token_ids) + 1):
+                self._pop_waiting(req)
+                return "prefill", req
+            if self.num_running == 0:
+                # Nothing to preempt and it still doesn't fit: the prompt
+                # is within max_model_len but the KV pool can't hold it.
+                self._pop_waiting(req)
+                self._reject(req, "kv_capacity")
+                return self.next_action()
+        if self.num_running > 0:
+            return "decode", None
+        return "idle", None
+
+    def _next_action_chunked(self) -> Tuple[str, object]:
+        if (self.num_running > 0
+                and self._prefill_streak >= self.max_consecutive_prefills):
+            # Decode-starvation cap: running sequences get a step even
+            # while a prefill backlog drains.
+            self._prefill_streak = 0
+            return "decode", None
+        plan = self._build_prefill_step()
+        if plan:
+            if self.fused_step and self.num_running > 0:
+                # Both queues nonempty: one dispatch runs the chunk span
+                # AND a decode burst, so decodes advance every step and
+                # the starvation cap never has to trip.
+                self._prefill_streak = 0
+                return "fused", plan
+            self._prefill_streak += 1
+            return "prefill_step", plan
+        self._prefill_streak = 0
+        if self.num_running > 0:
+            return "decode", None
+        return "idle", None
+
+    def _build_prefill_step(self) -> List[PrefillChunk]:
+        """Budgeted step plan: continuations first (FIFO over mid-prefill
+        requests), then admissions from the waiting queue. At most one
+        chunk per request per step — consecutive chunks of one prompt
+        depend on each other's KV writes and must not share a dispatch."""
+        plan: List[PrefillChunk] = []
+        budget = self.token_budget
+        for req in self.prefilling:
+            if len(plan) >= self.max_prefill_rows or budget <= 0:
+                break
+            total = len(req.all_token_ids)
+            take = min(self.chunk_tokens, budget, total - req.num_computed_tokens)
+            if take <= 0:
+                continue
+            plan.append(PrefillChunk(
+                req, req.num_computed_tokens, req.num_computed_tokens + take))
+            budget -= take
+        while len(plan) < self.max_prefill_rows and budget > 0:
+            if self.num_running + len(self.prefilling) >= self.max_num_seqs:
+                break
+            req = self.peek_waiting()
+            if req is None:
+                break
+            # Same admission gate as the unchunked scheduler: the whole
+            # sequence (+1 block headroom) must fit, even though pages are
+            # allocated chunk by chunk.
+            if not self.kv_mgr.can_allocate(len(req.all_token_ids) + 1):
+                if self.num_running == 0 and not self.prefilling:
+                    self._pop_waiting(req)
+                    self._reject(req, "kv_capacity")
+                    continue
+                break
+            self._pop_waiting(req)
+            req.num_computed_tokens = 0
+            self.prefilling.append(req)
+            total = len(req.all_token_ids)
+            take = min(self.chunk_tokens, budget, total)
+            plan.append(PrefillChunk(req, 0, take))
+            budget -= take
+        return plan
+
+    # -- lifecycle ---------------------------------------------------------
+    def start_running(self, req: EngineRequest, slot: int) -> RunningSeq:
+        seq = RunningSeq(req=req, slot=slot)
+        req.status = RequestStatus.RUNNING
+        self.slots[slot] = seq
+        self._requests[req.request_id] = req
+        self._running_by_id[req.request_id] = seq
+        return seq
+
+    def finish(self, seq: RunningSeq, reason: str) -> None:
+        self.kv_mgr.free(seq.req.request_id)
+        if 0 <= seq.slot < len(self.slots) and self.slots[seq.slot] is seq:
+            self.slots[seq.slot] = None
+        self._running_by_id.pop(seq.req.request_id, None)
+        self._requests.pop(seq.req.request_id, None)
+        seq.req.status = RequestStatus.FINISHED
+        seq.req.on_token(None, reason)
+
+    def preempt_victim(self) -> Optional[RunningSeq]:
+        """Evict the lowest-priority-then-youngest running (or mid-prefill)
+        sequence back to waiting.  With every candidate at default
+        priority this degrades to the original youngest-first rule."""
+        candidates: List[Tuple[EngineRequest, Optional[RunningSeq]]] = [
+            (s.req, s) for s in self.running()]
+        candidates += [(r, None) for r in self.prefilling]
+        if not candidates:
+            return None
+        req, seq = max(candidates,
+                       key=lambda c: (c[0].priority, c[0].arrival_time))
+        self.kv_mgr.free(req.request_id)
+        if seq is not None:
+            self.slots[seq.slot] = None
+            self._running_by_id.pop(req.request_id, None)
+        else:
+            self.prefilling.remove(req)
+            seq = RunningSeq(req=req, slot=-1)
+        req.num_computed_tokens = 0
+        req.status = RequestStatus.PREEMPTED
+        req.num_preemptions += 1
+        self.waiting.appendleft(req)
+        self._queued.add(req.request_id)
+        if req.priority:
+            self._nondefault_waiting += 1
+        self.num_preempted_total += 1
+        self.preempted_by_priority[priority_label(req.priority)] += 1
+        logger.info(
+            "Preempted request %s (priority=%s, blocks exhausted)",
+            req.request_id, priority_label(req.priority)
+        )
+        return seq
+
+    # Pre-QoS name, kept as an alias: equal-priority victim selection is
+    # still youngest-first.
+    preempt_youngest = preempt_victim

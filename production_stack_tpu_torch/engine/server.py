@@ -1,0 +1,492 @@
+"""OpenAI-compatible HTTP server over the torch ``EngineCore``.
+
+Standard library only (``http.server.ThreadingHTTPServer``; one thread
+per connection, server-sent events written by hand for ``stream: true``,
+``/metrics`` as plain Prometheus text). Routes:
+
+- ``POST /v1/completions`` and ``POST /v1/chat/completions``, plain and
+  streamed (``data: {...}`` events ending with ``data: [DONE]``);
+- ``GET /v1/models`` and ``GET /health``;
+- ``GET /metrics`` with the series the router's scraper parses
+  (``vllm:num_requests_running``/``_waiting``,
+  ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
+  ``_queries_total``), their ``tpu:`` twins and ``tpu:hbm_headroom_bytes``.
+
+A request that fails inside the engine finishes with ``finish_reason:
+"error"``. Not served yet (400): ``n > 1``, tools, structured output.
+
+    python -m production_stack_tpu_torch.engine.server <model> --port N \\
+        [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional
+
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.core import EngineCore
+from production_stack_tpu_torch.engine.sampling import (
+    MAX_LOGIT_BIAS,
+    SamplingParams,
+)
+from production_stack_tpu_torch.engine.tokenizer import IncrementalDetokenizer
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
+
+MAX_BODY_BYTES = 32 << 20
+# How long a handler waits for the engine's next token before giving up.
+TOKEN_TIMEOUT_S = 600.0
+
+
+class BadRequest(Exception):
+    def __init__(self, message: str, status: int = 400,
+                 kind: str = "BadRequestError"):
+        super().__init__(message)
+        self.status = status
+        self.kind = kind
+
+
+class EngineServer:
+    """The OpenAI surface of one engine: request parsing, the token
+    stream from the engine thread, and the response bodies."""
+
+    def __init__(self, core: EngineCore, served_models: List[str]):
+        self.core = core
+        self.config = core.config
+        self.served_models = served_models
+        self.start_time = time.time()
+
+    # -- helpers -------------------------------------------------------------
+    def check_model(self, model: str) -> None:
+        if model not in self.served_models and model != self.config.model:
+            raise BadRequest(f"model {model!r} not found", 404,
+                             "NotFoundError")
+
+    def parse_sampling(self, body: dict, default_max_tokens: int):
+        try:
+            sampling = SamplingParams.from_request(
+                body, default_max_tokens=default_max_tokens)
+        except ValueError as exc:
+            raise BadRequest(str(exc))
+        if sampling.logit_bias and len(sampling.logit_bias) > MAX_LOGIT_BIAS:
+            raise BadRequest(
+                f"logit_bias supports at most {MAX_LOGIT_BIAS} entries on "
+                f"this engine (got {len(sampling.logit_bias)})")
+        if sampling.n > 1:
+            raise BadRequest("n > 1 is not supported by this engine yet")
+        return sampling
+
+    def check_prompt(self, prompt_ids: List[int]) -> None:
+        if len(prompt_ids) >= self.config.max_model_len:
+            raise BadRequest(
+                f"prompt ({len(prompt_ids)} tokens) exceeds max_model_len "
+                f"{self.config.max_model_len}")
+        if self.core.kv_never_fits(len(prompt_ids)):
+            raise BadRequest(
+                f"prompt ({len(prompt_ids)} tokens) exceeds this engine's "
+                f"KV cache capacity", 503, "ServiceUnavailable")
+
+    def lp_entry(self, token_id: int, lp: dict) -> dict:
+        """One OpenAI chat-logprobs content entry."""
+        def entry(tid, logprob):
+            text = self.core.tokenizer.decode([tid])
+            return {"token": text, "logprob": logprob,
+                    "bytes": list(text.encode())}
+
+        return dict(entry(token_id, lp["logprob"]), top_logprobs=[
+            entry(tid, tlp) for tid, tlp in lp["top"]])
+
+    @staticmethod
+    def completions_logprobs(entries: List[dict]) -> dict:
+        """Chat-style entries -> the legacy completions logprobs object."""
+        offsets, pos = [], 0
+        for e in entries:
+            offsets.append(pos)
+            pos += len(e["token"])
+        return {
+            "tokens": [e["token"] for e in entries],
+            "token_logprobs": [e["logprob"] for e in entries],
+            "top_logprobs": [{t["token"]: t["logprob"]
+                              for t in e["top_logprobs"]} for e in entries],
+            "text_offset": offsets,
+        }
+
+    @staticmethod
+    def apply_stop(text_so_far: str, delta: str, stop):
+        """(emit_delta, stopped): stop strings end the output, unemitted."""
+        if not stop:
+            return delta, False
+        combined = text_so_far + delta
+        for s in stop:
+            idx = combined.find(s)
+            if idx >= 0:
+                return combined[len(text_so_far):idx], True
+        return delta, False
+
+    def generate(self, body: dict, kind: str):
+        """Admit one request. Returns (request id, model, prompt ids,
+        sampling, token stream of :meth:`_stream`); parsing errors raise
+        BadRequest before the request reaches the engine."""
+        model = body.get("model", self.config.model)
+        self.check_model(model)
+        tok = self.core.tokenizer
+        if kind == "chat":
+            if body.get("tools") and body.get("tool_choice") != "none":
+                raise BadRequest("tools are not supported by this engine yet")
+            prompt_ids = tok.encode(
+                tok.apply_chat_template(body.get("messages", [])))
+            sampling = self.parse_sampling(body, default_max_tokens=128)
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list) and prompt and isinstance(prompt[0],
+                                                                  list):
+                prompt = prompt[0]
+            if isinstance(prompt, list) and prompt and all(
+                    isinstance(t, int) for t in prompt):
+                prompt_ids = [int(t) for t in prompt]
+            else:
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ""
+                prompt_ids = tok.encode(str(prompt))
+            sampling = self.parse_sampling(body, default_max_tokens=16)
+        self.check_prompt(prompt_ids)
+        rid = f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-{uuid.uuid4().hex[:16]}"
+        tokens: "queue.Queue" = queue.Queue()
+        self.core.add_request(rid, prompt_ids, sampling,
+                              lambda t, f: tokens.put((t, f)))
+        return rid, model, prompt_ids, sampling, self._stream(
+            rid, tokens, sampling)
+
+    def _stream(self, rid, tokens: "queue.Queue", sampling):
+        """Yields (text_delta, logprob_entry | None, finish | None,
+        is_token) until a finish reason arrives."""
+        detok = IncrementalDetokenizer(self.core.tokenizer)
+        text_so_far = ""
+        try:
+            while True:
+                try:
+                    payload, finish = tokens.get(timeout=TOKEN_TIMEOUT_S)
+                except queue.Empty:
+                    yield "", None, "error", False
+                    return
+                entry = None
+                if payload is None:
+                    delta, is_token = detok.flush(), False
+                    finish = finish or "stop"
+                else:
+                    token_id, lp = (payload if isinstance(payload, tuple)
+                                    else (payload, None))
+                    if lp is not None:
+                        entry = self.lp_entry(token_id, lp)
+                    delta, is_token = detok.push(token_id), True
+                emit, stopped = self.apply_stop(text_so_far, delta,
+                                                sampling.stop)
+                text_so_far += emit
+                if stopped:
+                    finish = "stop"
+                yield emit, entry, finish, is_token
+                if finish is not None:
+                    return
+        finally:
+            # Finished, stopped by a stop string, or the client went away:
+            # the engine drops the request (a no-op once it has finished).
+            self.core.abort_request(rid)
+
+    def metrics_text(self) -> str:
+        s = self.core.stats()
+        labels = f'model_name="{self.config.model}"'
+        headroom = s.get("hbm_headroom_bytes")
+        rows = [
+            ("vllm:num_requests_running", "gauge", s["num_requests_running"]),
+            ("vllm:num_requests_waiting", "gauge", s["num_requests_waiting"]),
+            ("vllm:gpu_cache_usage_perc", "gauge", f"{s['kv_usage']:.6f}"),
+            ("tpu:hbm_kv_usage_perc", "gauge", f"{s['kv_usage']:.6f}"),
+            ("vllm:gpu_prefix_cache_hits_total", "counter",
+             s["prefix_cache_hits"]),
+            ("vllm:gpu_prefix_cache_queries_total", "counter",
+             s["prefix_cache_queries"]),
+            ("tpu:prefix_cache_hits_total", "counter", s["prefix_cache_hits"]),
+            ("tpu:prefix_cache_queries_total", "counter",
+             s["prefix_cache_queries"]),
+            ("vllm:prompt_tokens_total", "counter", s["prompt_tokens_total"]),
+            ("vllm:generation_tokens_total", "counter",
+             s["generation_tokens_total"]),
+            ("vllm:request_success_total", "counter",
+             s["requests_finished_total"]),
+            ("vllm:num_preemptions_total", "counter",
+             s["num_preempted_total"]),
+            ("tpu:num_kv_blocks", "gauge", s["num_blocks"]),
+            ("tpu:hbm_headroom_bytes", "gauge",
+             0 if headroom is None else headroom),
+            ("tpu:kv_cache_bytes_per_token", "gauge",
+             s["kv_cache_bytes_per_token"]),
+            ("tpu:cached_prompt_tokens_total", "counter",
+             s["cached_tokens_total"]),
+            ("tpu:decode_forward_steps_total", "counter",
+             s["decode_forward_steps_total"]),
+        ]
+        lines = []
+        for name, kind, value in rows:
+            family = name[:-len("_total")] if kind == "counter" else name
+            lines.append(f"# TYPE {family} {kind}")
+            lines.append(f"{name}{{{labels}}} {value}")
+        return "\n".join(lines) + "\n"
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "production-stack-tpu-torch"
+    engine: EngineServer  # set on the subclass built by build_server
+
+    def log_message(self, fmt, *args):  # route access logs to our logger
+        logger.debug("%s - %s", self.address_string(), fmt % args)
+
+    def _send_json(self, obj, status: int = 200) -> None:
+        data = json.dumps(obj).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _send_error(self, exc: BadRequest) -> None:
+        self._send_json({"error": {"message": str(exc), "type": exc.kind}},
+                        exc.status)
+
+    def do_GET(self):  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0]
+        if path == "/health":
+            self._send_json({"status": "ok"})
+        elif path == "/v1/models":
+            now = int(self.engine.start_time)
+            self._send_json({"object": "list", "data": [
+                {"id": m, "object": "model", "created": now,
+                 "owned_by": "production-stack-tpu-torch"}
+                for m in self.engine.served_models]})
+        elif path == "/metrics":
+            data = self.engine.metrics_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+        else:
+            self._send_json({"error": {"message": f"no route {path}",
+                                       "type": "NotFoundError"}}, 404)
+
+    def do_POST(self):  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0]
+        kinds = {"/v1/completions": "completion",
+                 "/v1/chat/completions": "chat"}
+        if path not in kinds:
+            self._send_json({"error": {"message": f"no route {path}",
+                                       "type": "NotFoundError"}}, 404)
+            return
+        try:
+            body = self._read_json()
+            rid, model, prompt_ids, sampling, stream = self.engine.generate(
+                body, kinds[path])
+        except BadRequest as exc:
+            self._send_error(exc)
+            return
+        if body.get("stream"):
+            self._respond_stream(kinds[path], rid, model, prompt_ids,
+                                 sampling, stream)
+        else:
+            self._respond_full(kinds[path], rid, model, prompt_ids,
+                               sampling, stream)
+
+    def _read_json(self) -> dict:
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            raise BadRequest("request body too large", 413)
+        raw = self.rfile.read(length) if length else b"{}"
+        try:
+            body = json.loads(raw.decode("utf-8"))
+        except (ValueError, RecursionError):
+            raise BadRequest("request body is not valid JSON")
+        if not isinstance(body, dict):
+            raise BadRequest("request body must be a JSON object")
+        return body
+
+    def _respond_full(self, kind, rid, model, prompt_ids, sampling, stream):
+        pieces, entries, finish = [], [], "stop"
+        n_generated = 0
+        for delta, entry, reason, is_token in stream:
+            pieces.append(delta)
+            n_generated += is_token
+            if entry is not None:
+                entries.append(entry)
+            if reason is not None:
+                finish = reason
+        text = "".join(pieces)
+        usage = {"prompt_tokens": len(prompt_ids),
+                 "completion_tokens": n_generated,
+                 "total_tokens": len(prompt_ids) + n_generated}
+        created = int(time.time())
+        if kind == "chat":
+            choice = {"index": 0,
+                      "message": {"role": "assistant", "content": text},
+                      "finish_reason": finish}
+            if entries:
+                choice["logprobs"] = {"content": entries}
+            obj = "chat.completion"
+        else:
+            if sampling.echo:
+                text = self.engine.core.tokenizer.decode(prompt_ids) + text
+            choice = {"index": 0, "text": text, "finish_reason": finish}
+            if entries:
+                choice["logprobs"] = self.engine.completions_logprobs(entries)
+            obj = "text_completion"
+        self._send_json({"id": rid, "object": obj, "created": created,
+                         "model": model, "choices": [choice],
+                         "usage": usage})
+
+    def _respond_stream(self, kind, rid, model, prompt_ids, sampling, stream):
+        created = int(time.time())
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("X-Request-Id", rid)
+        self.end_headers()
+
+        def event(delta: str, finish, first: bool, entries=None) -> None:
+            if kind == "chat":
+                d = {"role": "assistant"} if first else {}
+                if delta:
+                    d["content"] = delta
+                choice = {"index": 0, "delta": d, "finish_reason": finish}
+                if entries:
+                    choice["logprobs"] = {"content": entries}
+                obj = "chat.completion.chunk"
+            else:
+                choice = {"index": 0, "text": delta, "finish_reason": finish}
+                if entries:
+                    choice["logprobs"] = self.engine.completions_logprobs(
+                        entries)
+                obj = "text_completion"
+            payload = {"id": rid, "object": obj, "created": created,
+                       "model": model, "choices": [choice]}
+            self.wfile.write(f"data: {json.dumps(payload)}\n\n".encode())
+            self.wfile.flush()
+
+        try:
+            first = True
+            if sampling.echo and kind == "completion":
+                event(self.engine.core.tokenizer.decode(prompt_ids), None,
+                      True)
+                first = False
+            pending: List[dict] = []
+            finish = "stop"
+            for delta, entry, reason, _ in stream:
+                if entry is not None:
+                    pending.append(entry)
+                if reason is not None:
+                    finish = reason
+                    if delta:
+                        event(delta, None, first, pending)
+                        first, pending = False, []
+                    break
+                if delta or first:
+                    event(delta, None, first, pending)
+                    first, pending = False, []
+            event("", finish, first, pending)
+            self.wfile.write(b"data: [DONE]\n\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            stream.close()  # aborts the request in the engine
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="OpenAI engine server on PyTorch (CUDA by default)")
+    p.add_argument("model", nargs="?", default=None)
+    p.add_argument("--model", dest="model_flag", default=None)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' needs a card and raises "
+                        "without one")
+    p.add_argument("--served-model-name", action="append", default=None)
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--max-model-len", type=int, default=2048)
+    p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--num-blocks", type=int, default=None)
+    p.add_argument("--hbm-utilization", type=float, default=0.7)
+    p.add_argument("--hbm-headroom-reserve", type=float, default=0.0,
+                   help="GiB of device memory kept free when auto-sizing "
+                        "the KV pool")
+    p.add_argument("--enable-prefix-caching", action="store_true",
+                   default=True)
+    p.add_argument("--no-enable-prefix-caching",
+                   dest="enable_prefix_caching", action="store_false")
+    p.add_argument("--max-loras", type=int, default=8)
+    p.add_argument("--max-lora-rank", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--prefill-chunk-size", type=int, default=1024)
+    p.add_argument("--chat-template", default=None,
+                   help="custom jinja chat-template file (HF checkpoints)")
+    return p
+
+
+def config_from_args(args) -> EngineConfig:
+    return EngineConfig(
+        model=args.model_flag or args.model or "tiny-llama",
+        device=args.device,
+        dtype=args.dtype,
+        max_model_len=args.max_model_len,
+        max_num_seqs=args.max_num_seqs,
+        block_size=args.block_size,
+        num_blocks=args.num_blocks,
+        hbm_utilization=args.hbm_utilization,
+        hbm_headroom_reserve=int(args.hbm_headroom_reserve * (1 << 30)),
+        enable_prefix_caching=args.enable_prefix_caching,
+        max_loras=args.max_loras,
+        max_lora_rank=args.max_lora_rank,
+        seed=args.seed,
+        prefill_chunk_size=args.prefill_chunk_size,
+        chat_template=args.chat_template,
+    )
+
+
+def build_server(argv: Optional[List[str]] = None,
+                 core: Optional[EngineCore] = None):
+    """Parse ``argv``, build (or take) the engine, start its thread and
+    bind the HTTP server. Returns (httpd, core); the caller runs
+    ``httpd.serve_forever()`` and, to stop, ``httpd.shutdown()``,
+    ``httpd.server_close()`` and ``core.stop()``."""
+    args = build_arg_parser().parse_args(argv)
+    if core is None:
+        core = EngineCore(config_from_args(args))
+    core.start()
+    served = args.served_model_name or [core.config.model]
+    handler = type("Handler", (_Handler,), {
+        "engine": EngineServer(core, served)})
+    httpd = ThreadingHTTPServer((args.host, args.port), handler)
+    httpd.daemon_threads = True
+    return httpd, core
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    httpd, core = build_server(argv)
+    host, port = httpd.server_address[:2]
+    logger.info("Serving %s on http://%s:%d (device %s)",
+                core.config.model, host, port, core.config.device)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        core.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,169 @@
+"""Model architecture configs and the named-model preset table.
+
+A copy of the JAX package's table (``production_stack_tpu/models/config.py``)
+so the port resolves the same names to the same shapes; the only change is
+:attr:`ModelConfig.torch_dtype` in place of ``jnp_dtype``. Named models
+resolve to architecture presets and are served with random weights drawn
+from a seed (``models/llama.py::init_params``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "tiny-llama"
+    arch: str = "llama"  # llama | opt | mixtral
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    num_layers: int = 16
+    num_heads: int = 16
+    num_kv_heads: int = 16
+    head_dim: int = 128
+    intermediate_size: int = 5632
+    max_position: int = 8192
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    # OPT-specific
+    do_layer_norm_before: bool = True
+    # MoE (mixtral)
+    num_experts: int = 0
+    experts_per_token: int = 2
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def replace(self, **kwargs) -> "ModelConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+# Architecture presets. Sizes follow the public model cards.
+_PRESETS = {
+    "tiny-llama": ModelConfig(
+        name="tiny-llama", arch="llama", vocab_size=512, hidden_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
+        intermediate_size=256, max_position=2048, rope_theta=10000.0,
+    ),
+    "tiny-mixtral": ModelConfig(
+        name="tiny-mixtral", arch="mixtral", vocab_size=512, hidden_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=32,
+        intermediate_size=256, max_position=2048, rope_theta=10000.0,
+        num_experts=4, experts_per_token=2,
+    ),
+    "tiny-opt": ModelConfig(
+        name="tiny-opt", arch="opt", vocab_size=512, hidden_size=128,
+        num_layers=2, num_heads=4, num_kv_heads=4, head_dim=32,
+        intermediate_size=512, max_position=2048,
+    ),
+    "facebook/opt-125m": ModelConfig(
+        name="facebook/opt-125m", arch="opt", vocab_size=50272,
+        hidden_size=768, num_layers=12, num_heads=12, num_kv_heads=12,
+        head_dim=64, intermediate_size=3072, max_position=2048,
+    ),
+    # ~0.9B Llama-family preset sized to fit one v5e chip with KV headroom:
+    # the flagship architecture class (GQA 16q/8kv, head_dim 128) at a scale
+    # a single-chip bench can serve.
+    "tpu-llama-1b": ModelConfig(
+        name="tpu-llama-1b", arch="llama", vocab_size=32000,
+        hidden_size=2048, num_layers=16, num_heads=16, num_kv_heads=8,
+        head_dim=128, intermediate_size=7168, max_position=8192,
+        rope_theta=500000.0,
+    ),
+    # ~3.2B Llama-family preset (Llama-3.2-3B card dimensions): the largest
+    # Llama-class architecture that fits a single 16 GB v5e chip in bf16
+    # with KV headroom (weights ~6.4 GB).
+    "tpu-llama-3b": ModelConfig(
+        name="tpu-llama-3b", arch="llama", vocab_size=128256,
+        hidden_size=3072, num_layers=28, num_heads=24, num_kv_heads=8,
+        head_dim=128, intermediate_size=8192, max_position=8192,
+        rope_theta=500000.0,
+    ),
+    "meta-llama/Llama-3-8B": ModelConfig(
+        name="meta-llama/Llama-3-8B", arch="llama", vocab_size=128256,
+        hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, intermediate_size=14336, max_position=8192,
+        rope_theta=500000.0,
+    ),
+    "meta-llama/Llama-3-70B": ModelConfig(
+        name="meta-llama/Llama-3-70B", arch="llama", vocab_size=128256,
+        hidden_size=8192, num_layers=80, num_heads=64, num_kv_heads=8,
+        head_dim=128, intermediate_size=28672, max_position=8192,
+        rope_theta=500000.0,
+    ),
+    "mistralai/Mistral-7B-v0.1": ModelConfig(
+        name="mistralai/Mistral-7B-v0.1", arch="llama", vocab_size=32000,
+        hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, intermediate_size=14336, max_position=8192,
+        rope_theta=10000.0,
+    ),
+    "mistralai/Mixtral-8x7B-v0.1": ModelConfig(
+        name="mistralai/Mixtral-8x7B-v0.1", arch="mixtral", vocab_size=32000,
+        hidden_size=4096, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, intermediate_size=14336, max_position=8192,
+        rope_theta=1000000.0, num_experts=8, experts_per_token=2,
+    ),
+}
+
+_ALIASES = {
+    "meta-llama/Meta-Llama-3-8B": "meta-llama/Llama-3-8B",
+    "meta-llama/Meta-Llama-3-8B-Instruct": "meta-llama/Llama-3-8B",
+    "meta-llama/Llama-3.1-8B-Instruct": "meta-llama/Llama-3-8B",
+    "meta-llama/Meta-Llama-3-70B": "meta-llama/Llama-3-70B",
+    "mistralai/Mixtral-8x7B-Instruct-v0.1": "mistralai/Mixtral-8x7B-v0.1",
+}
+
+
+def _from_hf_config_json(path: str, name: str) -> ModelConfig:
+    """Build a ModelConfig from a local HuggingFace config.json."""
+    with open(path) as f:
+        cfg = json.load(f)
+    model_type = cfg.get("model_type", "llama")
+    arch = {"llama": "llama", "mistral": "llama", "mixtral": "mixtral",
+            "opt": "opt"}.get(model_type, "llama")
+    heads = cfg.get("num_attention_heads", 32)
+    hidden = cfg.get("hidden_size", 4096)
+    return ModelConfig(
+        name=name,
+        arch=arch,
+        vocab_size=cfg.get("vocab_size", 32000),
+        hidden_size=hidden,
+        num_layers=cfg.get("num_hidden_layers", cfg.get("num_layers", 32)),
+        num_heads=heads,
+        num_kv_heads=cfg.get("num_key_value_heads", heads),
+        # some configs carry an explicit null head_dim
+        head_dim=cfg.get("head_dim") or hidden // heads,
+        intermediate_size=cfg.get("intermediate_size", cfg.get("ffn_dim", 4 * hidden)),
+        max_position=cfg.get("max_position_embeddings", 8192),
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+        do_layer_norm_before=cfg.get("do_layer_norm_before", True),
+        num_experts=cfg.get("num_local_experts", 0),
+        experts_per_token=cfg.get("num_experts_per_tok", 2),
+    )
+
+
+def get_model_config(model: str) -> ModelConfig:
+    """Resolve a model name or local path to an architecture config."""
+    if os.path.isdir(model) and os.path.exists(os.path.join(model, "config.json")):
+        return _from_hf_config_json(os.path.join(model, "config.json"), model)
+    key = _ALIASES.get(model, model)
+    if key in _PRESETS:
+        return _PRESETS[key]
+    raise ValueError(
+        f"Unknown model {model!r}; known presets: {sorted(_PRESETS)} "
+        f"(or pass a local checkpoint directory with config.json)"
+    )

@@ -1,0 +1,44 @@
+"""Carry a JAX parameter tree across to the torch engine.
+
+``params_from_numpy`` takes the JAX package's parameter pytree after
+``jax.tree.map(np.asarray, params)`` (nested dicts of numpy arrays) and
+returns the same dict structure of torch tensors on ``device``, with the
+same leaf names, shapes and dtypes. Both models keep the ``[in, out]``
+weight orientation, so no leaf is transposed. The parity tests use it to
+make both packages compute with the same weights; this module imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from production_stack_tpu_torch.models.config import ModelConfig
+
+
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A numpy array (bfloat16 arrays included: numpy has no bf16 of its
+    own, so they arrive as the ``ml_dtypes`` extension type) as a torch
+    tensor of the same dtype on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
+    """The JAX parameter tree (as numpy) as the torch parameter dict."""
+    if cfg.arch != "llama":
+        raise NotImplementedError(
+            f"arch {cfg.arch!r} is not ported to the torch engine yet")
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return tensor_from_numpy(node, device)
+
+    return convert(tree)

@@ -1,0 +1,280 @@
+"""Llama-family decoder (Llama 2/3, Mistral, TinyLlama via config) in
+PyTorch, serving from a paged KV pool.
+
+The port of ``production_stack_tpu/models/llama.py``:
+
+- parameters are a dict of tensors with the JAX package's leaf names and
+  per-layer leaves stacked on a leading axis; weights keep the ``[in,
+  out]`` orientation (``h @ W``), so a JAX parameter tree crosses over
+  without transposes (``models/convert.py``);
+- the layer loop is a Python loop that hands the integer layer index to
+  every page operation on the stacked pool ``[L, NB, bs, KVH, D]``; no
+  per-layer copy of the pool is ever sliced out;
+- every forward first writes its fresh K/V into the pages (in place),
+  then attends causally within the chunk (prefill), over the cached
+  prefix plus the chunk (prefill_cached) or over the pages (decode);
+- norms, RoPE and softmax accumulate in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.ops.attention import (
+    context_prefill_attention,
+    paged_decode_attention,
+    prefill_attention,
+    scatter_kv_pages,
+    valid_slots,
+)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+def rope_tables(positions: torch.Tensor,  # [B, T]
+                head_dim: int, theta: float):
+    """(cos, sin) [B, T, 1, D/2] float32 of the rotary embedding; the
+    same for every layer, so a forward computes them once."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=positions.device) / half
+    inv_freq = 1.0 / torch.pow(theta, exponent)
+    angles = positions[..., None].float() * inv_freq  # [B, T, D/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor,  # [B, T, H, D]
+         positions: torch.Tensor,  # [B, T]
+         theta: float) -> torch.Tensor:
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def init_params(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    device,
+    *,
+    lora_slots: int = 0,
+    lora_rank: int = 16,
+) -> Dict:
+    """Random-init parameter dict with layer-stacked leaves: the shapes
+    and scales of the JAX ``init_params`` (normal / sqrt(fan_in), 0.02 for
+    the embedding, unit norms, zero LoRA slots), drawn from ``generator``
+    (which must live on ``device``). The values differ from the JAX
+    init's. Every leaf is drawn straight in the working dtype and scaled
+    in place, so no float32 temporary of a stacked weight ever exists."""
+    dtype = cfg.torch_dtype
+    H, KVH, D, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    I, L, V = cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+
+    def normal(shape, std):
+        t = torch.randn(shape, generator=generator, device=device,
+                        dtype=dtype)
+        return t.mul_(std)
+
+    def stack(shape, fan_in):
+        return normal((L,) + shape, fan_in ** -0.5)
+
+    params = {
+        "embed": normal((V, Hd), 0.02),
+        "layers": {
+            "attn_norm": torch.ones((L, Hd), dtype=dtype, device=device),
+            "wq": stack((Hd, H * D), Hd),
+            "wk": stack((Hd, KVH * D), Hd),
+            "wv": stack((Hd, KVH * D), Hd),
+            "wo": stack((H * D, Hd), H * D),
+            "mlp_norm": torch.ones((L, Hd), dtype=dtype, device=device),
+            "w_gate": stack((Hd, I), Hd),
+            "w_up": stack((Hd, I), Hd),
+            "w_down": stack((I, Hd), I),
+        },
+        "final_norm": torch.ones((Hd,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = normal((Hd, V), Hd ** -0.5)
+    if lora_slots > 0:
+        S, R = lora_slots, lora_rank
+
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        params["lora"] = {
+            "wq_a": zeros((L, S, Hd, R)),
+            "wq_b": zeros((L, S, R, H * D)),
+            "wv_a": zeros((L, S, Hd, R)),
+            "wv_b": zeros((L, S, R, KVH * D)),
+            "scaling": zeros((S,), torch.float32),
+        }
+    return params
+
+
+def _proj(h: torch.Tensor, p: Dict, name: str) -> torch.Tensor:
+    """``h @ W`` for a bf16/f32 weight leaf (int8 weights are a later
+    slice and raise)."""
+    w = p[name]
+    if w.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 weights are not supported by the torch engine yet")
+    return h @ w
+
+
+def _lora_delta(h, a, b, scaling, adapter_ids):
+    """Per-sequence LoRA delta: h [B,T,Hd] @ A[sel] @ B[sel] * scale."""
+    a_sel = a[adapter_ids]  # [B, Hd, R]
+    b_sel = b[adapter_ids]  # [B, R, out]
+    s_sel = scaling[adapter_ids]  # [B]
+    mid = torch.einsum("bth,bhr->btr", h, a_sel)
+    out = torch.einsum("btr,bro->bto", mid, b_sel)
+    return out * s_sel[:, None, None].to(out.dtype)
+
+
+def _layer(
+    cfg: ModelConfig,
+    mode: str,
+    x: torch.Tensor,  # [B, T, Hd]
+    p: Dict,  # one layer's leaves (views of the stacked tensors)
+    lora: Optional[Dict],  # one layer's LoRA leaves, or None
+    kv: Tuple[torch.Tensor, torch.Tensor],  # STACKED pages
+    layer: int,
+    positions: torch.Tensor,
+    rotary: tuple,  # (cos, sin) of rope_tables(positions)
+    valid: tuple,  # (rows, slots) of the live page writes
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    seq_lens: torch.Tensor,
+    lora_scaling: Optional[torch.Tensor],
+    adapter_ids: Optional[torch.Tensor],
+) -> torch.Tensor:
+    B, T, Hd = x.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / (D ** 0.5)
+    k_pages, v_pages = kv
+
+    h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    q_flat = _proj(h, p, "wq")
+    v_flat = _proj(h, p, "wv")
+    if lora is not None:
+        q_flat = q_flat + _lora_delta(
+            h, lora["wq_a"], lora["wq_b"], lora_scaling, adapter_ids)
+        v_flat = v_flat + _lora_delta(
+            h, lora["wv_a"], lora["wv_b"], lora_scaling, adapter_ids)
+    q = q_flat.reshape(B, T, H, D)
+    k = _proj(h, p, "wk").reshape(B, T, KVH, D)
+    v = v_flat.reshape(B, T, KVH, D)
+    q = apply_rope(q, *rotary)
+    k = apply_rope(k, *rotary)
+
+    scatter_kv_pages(k_pages, v_pages, k, v, valid, layer)
+
+    if mode == "prefill":
+        attn = prefill_attention(q, k, v, scale=scale, seq_lens=seq_lens)
+    elif mode == "prefill_cached":
+        # Chunk after a prefix-cache hit or an earlier chunk: the cached
+        # prefix and the chunk's own K/V (just scattered) come from the
+        # pages.
+        attn = context_prefill_attention(
+            q, k_pages, v_pages, block_tables, positions, context_lens,
+            layer, scale=scale)
+    elif mode == "decode":
+        attn = paged_decode_attention(
+            q[:, 0], k_pages, v_pages, block_tables, context_lens, layer,
+            scale=scale)[:, None]
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    x = x + _proj(attn.reshape(B, T, H * D), p, "wo")
+
+    h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
+    gate = F.silu(_proj(h, p, "w_gate").float()).to(h.dtype)
+    return x + _proj(gate * _proj(h, p, "w_up"), p, "w_down")
+
+
+def embed_tokens(params: Dict, cfg: ModelConfig, token_ids: torch.Tensor,
+                 adapter_ids: Optional[torch.Tensor]):
+    """Shared forward preamble: input embeddings + LoRA leaf plumbing.
+    Returns (x, lora_layers, lora_scaling, adapter_ids)."""
+    emb = params["embed"]
+    if emb.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 embeddings are not supported by the torch engine yet")
+    x = emb[token_ids].to(cfg.torch_dtype)
+    lora = params.get("lora")
+    lora_scaling = lora["scaling"] if lora is not None else None
+    if lora is not None and adapter_ids is None:
+        adapter_ids = torch.zeros((token_ids.shape[0],), dtype=torch.long,
+                                  device=token_ids.device)
+    lora_layers = (
+        {k: v for k, v in lora.items() if k != "scaling"}
+        if lora is not None else None)
+    return x, lora_layers, lora_scaling, adapter_ids
+
+
+def project_out(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                output_hidden: bool) -> torch.Tensor:
+    """Shared forward tail: final norm, then hidden states or logits."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if output_hidden:
+        return x.float()
+    head = params.get("lm_head")
+    if head is not None:
+        if head.dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 lm_head is not supported by the torch engine yet")
+        return (x @ head).float()
+    return (x @ params["embed"].T).float()
+
+
+def apply(
+    params: Dict,
+    cfg: ModelConfig,
+    token_ids: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T]
+    kv_pages: Tuple[torch.Tensor, torch.Tensor],  # stacked [L,NB,bs,KVH,D]
+    slot_mapping: torch.Tensor,  # [B, T] flat slots; <0 = no write
+    block_tables: torch.Tensor,  # [B, MAXB]
+    context_lens: torch.Tensor,  # [B]
+    seq_lens: torch.Tensor,  # [B] valid prompt lengths (prefill mask)
+    *,
+    mode: str,  # "prefill" | "prefill_cached" | "decode"
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA slot per row
+    output_hidden: bool = False,
+    last_token: Optional[torch.Tensor] = None,  # [B] position to keep
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full forward. Returns (logits [B, T, V] float32, kv_pages), the
+    pages updated in place. With ``last_token`` the hidden states are
+    sliced to that position before the norm and the vocab projection
+    (prefill samples one position only). ``slot_mapping`` may live on the
+    host: its live entries are found there once per forward."""
+    x, lora_layers, lora_scaling, adapter_ids = embed_tokens(
+        params, cfg, token_ids, adapter_ids)
+    k_all, v_all = kv_pages
+    valid = valid_slots(slot_mapping, k_all.device)
+    rotary = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    layers = params["layers"]
+    L = k_all.shape[0]
+    for layer in range(L):
+        p = {k: v[layer] for k, v in layers.items()}
+        lora_p = (None if lora_layers is None
+                  else {k: v[layer] for k, v in lora_layers.items()})
+        x = _layer(cfg, mode, x, p, lora_p, (k_all, v_all), layer,
+                   positions, rotary, valid, block_tables, context_lens,
+                   seq_lens, lora_scaling, adapter_ids)
+    if last_token is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last_token][:, None]
+    return project_out(params, cfg, x, output_hidden), (k_all, v_all)
