@@ -3,26 +3,34 @@
 
     python3 chip_smoke.py            # everything, as a check of the port
     python3 chip_smoke.py --profile  # where a decode step's time goes
+                                     # (bf16, then int8 KV + weights)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build both CUDA kernels from ``production_stack_tpu_torch/csrc`` (one
    nvcc per source, started together) and print the compiler's
    register/shared-memory report to standard error;
-2. hold each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the Llama-3-8B main-path shapes in bf16 and at small f32
-   shapes, and time kernel, plain version and a library yardstick
-   (``scaled_dot_product_attention`` on pre-gathered contiguous K/V,
-   which excludes the page gather and is never called by the port);
+2. hold each kernel, in both page encodings (pages in q's dtype, and
+   int8 pages with float32 scales), against its plain PyTorch version on
+   the same CUDA tensors, at the Llama-3-8B main-path shapes in bf16 and
+   at small f32 shapes, and time kernel, plain version and a library
+   yardstick (``scaled_dot_product_attention`` on pre-gathered contiguous
+   K/V, dequantized beforehand for int8, which excludes the page gather
+   and the dequant and is never called by the port);
 3. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
    weights through the port's OpenAI server (in-process, on a thread) and
    drive it over HTTP: concurrent greedy completions, a chunked long
    prompt, a prefix-cache hit, a streamed sampled chat, a repeated greedy
    request and a ``/metrics`` scrape; every request must finish with
-   ``stop`` or ``length`` and both kernels must have launched.
+   ``stop`` or ``length`` and both kernels must have launched;
+4. free that engine and serve the same model again with
+   ``--kv-cache-dtype int8 --quantization int8`` (int8 KV pages, int8
+   weights), driven the same way; both kernels must have launched in
+   their int8 mode, and never in the other.
 
-The output ends with a ``{"kernels": [...]}`` line, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+The output ends with a ``{"kernels": [...]}`` line (each kernel in each
+page encoding), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a CUDA device or outside a checkout of the repo.
 """
@@ -52,9 +60,15 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # sign: ~1e-5 on o at 2k keys) and the kernel takes q pre-scaled and
 # rounded to bf16 (~1e-3 on a score, ~1e-5 on o). A bar on the output's
 # own scale matters because |o| is small here: with randn q/K/V over 2k
-# keys o has a std of ~0.04. scripts/torch_kernel_faults.py shows that
-# planted faults (a key tile skipped, a rescale left out) fail this bar
-# at the main-path shapes.
+# keys o has a std of ~0.04. With int8 pages the kernel dequantizes into
+# f32 while the plain version rounds each dequantized K/V element to bf16
+# (2^-9 relative, random in sign) before its products: on o that is
+# ~2^-9 x |v| x sqrt(sum p^2) ~ 2e-3 x 0.04 ~ 1e-4 from V and as much
+# through the scores from K, about 2% of a bar of ~5e-3 (2^-5 of a row
+# maximum near 0.15), so the same bar holds for both encodings.
+# scripts/torch_kernel_faults.py shows that planted faults (a key tile
+# skipped, a rescale left out; for int8 a scale read from kv head 0 or
+# left out) fail this bar at the main-path shapes.
 BF16_ROW_BAR = 2.0 ** -5
 F32_BAR = 2e-3
 
@@ -97,7 +111,21 @@ def _tables(rng, B, MAXB, NB):
     return rng.permutation(NB)[: B * MAXB].reshape(B, MAXB).astype(np.int32)
 
 
-def decode_case(dtype, B, H, KVH, D, L, bs, MAXB, ctx, seed):
+def _pages(g, dtype, shape, int8):
+    """Random pages [L, NB, bs, KVH, D] in ``dtype``, or those values
+    quantized into the int8 ``(data, scales)`` encoding."""
+    import torch
+
+    from production_stack_tpu_torch.ops.attention import quantize_kv
+
+    x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    if not int8:
+        return x
+    data, scales = quantize_kv(x)
+    return data, scales.reshape(shape[0], shape[1], shape[2] * shape[3])
+
+
+def decode_case(dtype, B, H, KVH, D, L, bs, MAXB, ctx, seed, int8=False):
     """Inputs of one decode-attention launch, made on the card."""
     import numpy as np
     import torch
@@ -105,10 +133,8 @@ def decode_case(dtype, B, H, KVH, D, L, bs, MAXB, ctx, seed):
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     NB = B * MAXB + 3
-    k = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
-                    dtype=dtype)
-    v = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
-                    dtype=dtype)
+    k = _pages(g, dtype, (L, NB, bs, KVH, D), int8)
+    v = _pages(g, dtype, (L, NB, bs, KVH, D), int8)
     q = torch.randn((B, H, D), generator=g, device="cuda", dtype=dtype)
     bt = torch.from_numpy(_tables(rng, B, MAXB, NB)).cuda()
     # Table entries past each live range point at page 0: a real page the
@@ -120,10 +146,12 @@ def decode_case(dtype, B, H, KVH, D, L, bs, MAXB, ctx, seed):
                 layer=L - 1, scale=D ** -0.5)
 
 
-def prefill_case(dtype, B, T, H, KVH, D, L, bs, MAXB, prefix, take, seed):
+def prefill_case(dtype, B, T, H, KVH, D, L, bs, MAXB, prefix, take, seed,
+                 int8=False):
     """Inputs of one cached-prefill launch in the engine's layout: the
-    chunk's fresh K/V are already scattered into the pages, where the
-    kernel and the plain version both read them."""
+    chunk's fresh K/V are already scattered (for int8 pages: quantized)
+    into the pages, where the kernel and the plain version both read
+    them."""
     import numpy as np
     import torch
 
@@ -132,10 +160,8 @@ def prefill_case(dtype, B, T, H, KVH, D, L, bs, MAXB, prefix, take, seed):
     rng = np.random.default_rng(seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     NB = B * MAXB + 3
-    k = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
-                    dtype=dtype)
-    v = torch.randn((L, NB, bs, KVH, D), generator=g, device="cuda",
-                    dtype=dtype)
+    k = _pages(g, dtype, (L, NB, bs, KVH, D), int8)
+    v = _pages(g, dtype, (L, NB, bs, KVH, D), int8)
     q = torch.randn((B, T, H, D), generator=g, device="cuda", dtype=dtype)
     k_new = torch.randn((B, T, KVH, D), generator=g, device="cuda",
                         dtype=dtype)
@@ -199,49 +225,77 @@ def plain_prefill(c):
         c["positions"], c["total_lens"], c["layer"], scale=c["scale"])
 
 
-# kernel name -> (its wrapper, its plain version), each taking a case dict
+# kernel entry (a kernel in one page encoding) -> (its wrapper, its plain
+# version), each taking a case dict; the wrappers read the encoding off
+# the pages.
 KERNELS = {"paged_attention": (run_decode, plain_decode),
-           "cached_prefill_attention": (run_prefill, plain_prefill)}
+           "cached_prefill_attention": (run_prefill, plain_prefill),
+           "paged_attention_int8": (run_decode, plain_decode),
+           "cached_prefill_attention_int8": (run_prefill, plain_prefill)}
 
 
 def main_path_cases():
-    """The Llama-3-8B bf16 cases of both kernels (32/8 heads, D 128,
-    64-token pages): (label, kernel name, inputs, output rows compared)."""
+    """The Llama-3-8B cases of both kernels (32/8 heads, D 128, 64-token
+    pages, bf16 q), over bf16 pages and over int8 pages: (label, kernel
+    entry, inputs, output rows compared)."""
     import torch
 
     bf16 = torch.bfloat16
     B, H, KVH, D, bs, ctx_len = 8, 32, 8, 128, 64, 2048
     ragged = [2048, 1, 37, 2000, 1500, 64, 65, 1024]
-    return [
-        ("paged_attention bf16 ragged", "paged_attention",
-         decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs, ragged,
-                     seed=10), None),
-        ("paged_attention bf16 8x2048", "paged_attention",
-         decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs,
-                     [ctx_len] * B, seed=11), None),
-        # The third chunk of a 2,500-token prompt: 452 fresh tokens padded
-        # to the 1024 bucket over a 2048-token prefix, table capped at 64
-        # pages; the padded query rows are discarded by the engine.
-        ("cached_prefill bf16 ragged chunk", "cached_prefill_attention",
-         prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 64, [2048], [452],
-                      seed=30), (slice(None), slice(0, 452))),
-        # A full 1024-token chunk continuation over a 1024-token prefix.
-        ("cached_prefill bf16 1024/1024", "cached_prefill_attention",
-         prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 32, [1024], [1024],
-                      seed=31), None),
-    ]
+    cases = []
+    for enc, seed in (("bf16", 0), ("int8", 100)):
+        int8 = enc == "int8"
+        suffix = "_int8" if int8 else ""
+        cases += [
+            (f"paged_attention {enc} ragged", "paged_attention" + suffix,
+             decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs, ragged,
+                         seed=seed + 10, int8=int8), None),
+            (f"paged_attention {enc} 8x2048", "paged_attention" + suffix,
+             decode_case(bf16, B, H, KVH, D, 2, bs, ctx_len // bs,
+                         [ctx_len] * B, seed=seed + 11, int8=int8), None),
+            # The third chunk of a 2,500-token prompt: 452 fresh tokens
+            # padded to the 1024 bucket over a 2048-token prefix, table
+            # capped at 64 pages; the padded query rows are discarded by
+            # the engine.
+            (f"cached_prefill {enc} ragged chunk",
+             "cached_prefill_attention" + suffix,
+             prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 64, [2048], [452],
+                          seed=seed + 30, int8=int8),
+             (slice(None), slice(0, 452))),
+            # A full 1024-token chunk continuation over a 1024-token prefix.
+            (f"cached_prefill {enc} 1024/1024",
+             "cached_prefill_attention" + suffix,
+             prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 32, [1024],
+                          [1024], seed=seed + 31, int8=int8), None),
+        ]
+    return cases
 
 
 def _gathered(c, n_tokens):
-    """Contiguous [B, KVH, n, D] K/V of each row's first n tokens (for the
-    library yardstick, gathered outside its timing)."""
+    """Contiguous [B, KVH, n, D] K/V of each row's first n tokens in q's
+    dtype (for the library yardstick: gathered, and for int8 pages
+    dequantized, outside its timing)."""
     from production_stack_tpu_torch.ops.attention import _gather_ctx
 
     k = _gather_ctx(c["k_pages"], c["block_tables"], c["layer"],
-                    out_dtype=c["k_pages"].dtype)[:, :n_tokens]
+                    out_dtype=c["q"].dtype)[:, :n_tokens]
     v = _gather_ctx(c["v_pages"], c["block_tables"], c["layer"],
-                    out_dtype=c["v_pages"].dtype)[:, :n_tokens]
+                    out_dtype=c["q"].dtype)[:, :n_tokens]
     return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+
+
+def _page_bytes_per_token(c) -> int:
+    """Bytes of one token's K and V over all kv heads in the case's page
+    encoding (int8: one byte an element plus a float32 scale per head)."""
+    from production_stack_tpu_torch.ops.attention import kv_page_data
+
+    data = kv_page_data(c["k_pages"])
+    KVH, D = data.shape[3], data.shape[4]
+    per_head = D * data.element_size()
+    if isinstance(c["k_pages"], tuple):
+        per_head += 4
+    return 2 * KVH * per_head
 
 
 def _sdpa(q, k, v, mask=None):
@@ -283,35 +337,87 @@ def check_close(name, got, want, rows=None):
     return max_err, over
 
 
+def _time_decode(label, c):
+    """Times of kernel, plain version and library yardstick on a decode
+    case, with the bytes and operations its inputs need."""
+    import torch
+
+    B, H, D = c["q"].shape
+    ctx_len = int(c["context_lens"].max())
+    kg, vg = _gathered(c, ctx_len)
+    qs = (c["q"] * c["scale"]).to(c["q"].dtype)[:, :, None, :]
+    check_close(f"{label} vs sdpa yardstick", run_decode(c),
+                _sdpa(qs, kg, vg)[:, :, 0])
+    n_tok = int(c["context_lens"].sum())
+    q_bytes = c["q"].element_size()
+    return dict(
+        ms=cuda_time_ms(lambda: run_decode(c)),
+        plain_ms=cuda_time_ms(lambda: plain_decode(c)),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg)),
+        bytes=(n_tok * _page_bytes_per_token(c) + 2 * B * H * D * q_bytes
+               + c["block_tables"].numel() * 4 + B * 4),
+        ops=4 * H * D * n_tok)
+
+
+def _time_prefill(label, c):
+    """Times of kernel, plain version and library yardstick on a
+    single-row cached-prefill case, with the bytes and operations its
+    inputs need (the (query, key) pairs of its causal mask)."""
+    import torch
+
+    _, T, H, D = c["q"].shape
+    P = int(c["positions"][0, 0])
+    kg, vg = _gathered(c, P + T)
+    qs = (c["q"] * c["scale"]).to(c["q"].dtype).transpose(1, 2)
+    span = torch.arange(P + T, device="cuda")
+    mask = span[None, :] <= (P + torch.arange(T, device="cuda"))[:, None]
+    check_close(f"{label} vs sdpa yardstick", run_prefill(c),
+                _sdpa(qs, kg, vg, mask).transpose(1, 2))
+    pairs = T * P + T * (T + 1) // 2
+    return dict(
+        ms=cuda_time_ms(lambda: run_prefill(c), iters=10),
+        plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=5),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=10),
+        bytes=(2 * T * H * D * c["q"].element_size()
+               + (P + T) * _page_bytes_per_token(c)
+               + c["block_tables"].numel() * 4 + T * 4 + 4),
+        ops=4 * H * D * pairs)
+
+
 def kernel_phase():
-    """Kernel vs plain version at main-path and small shapes; returns the
-    per-kernel measurements of the main-path (bf16 Llama-3-8B) cases."""
+    """Kernel vs plain version at main-path and small shapes, in both page
+    encodings; returns the per-entry measurements of the main-path
+    (Llama-3-8B) cases."""
     import torch
 
     f32 = torch.float32
-    # Decode: small f32 shapes (GQA 4, 1 and 2; odd table widths; ragged
-    # contexts incl. 1 token) and the main-path head layout in f32.
-    for i, (H, KVH, D, bs, MAXB, ctx) in enumerate([
-            (8, 2, 64, 16, 5, [1, 80, 33]),
-            (4, 4, 128, 4, 7, [28, 3, 17, 9]),
-            (4, 2, 32, 4, 16, [64, 1]),
-            (32, 8, 128, 64, 4, [1, 200, 64, 130])]):
-        c = decode_case(f32, len(ctx), H, KVH, D, 3, bs, MAXB, ctx, seed=i)
-        check_close(f"paged_attention f32 case {i}", run_decode(c),
-                    plain_decode(c))
-    # Cached prefill: small f32 shapes (GQA 3 and 1, empty prefix rows,
-    # multi-tile queries, padded rows) and the main-path head layout.
-    for i, (T, H, KVH, D, bs, MAXB, prefix, take) in enumerate([
-            (24, 6, 2, 64, 8, 12, [0, 17, 40], [24, 5, 13]),
-            (40, 4, 4, 128, 4, 32, [3, 64], [40, 1]),
-            (16, 4, 2, 32, 4, 16, [0, 0], [16, 7]),
-            (96, 32, 8, 128, 64, 4, [0, 100], [96, 50])]):
-        c = prefill_case(f32, len(prefix), T, H, KVH, D, 2, bs, MAXB,
-                         prefix, take, seed=20 + i)
-        got, want = run_prefill(c), plain_prefill(c)
-        for b, n in enumerate(take):
-            check_close(f"cached_prefill f32 case {i} row {b}",
-                        got[b, :n], want[b, :n])
+    for int8 in (False, True):
+        enc = "int8 pages" if int8 else "f32 pages"
+        # Decode: small f32 shapes (GQA 4, 1 and 2; odd table widths;
+        # ragged contexts incl. 1 token) and the main-path head layout.
+        for i, (H, KVH, D, bs, MAXB, ctx) in enumerate([
+                (8, 2, 64, 16, 5, [1, 80, 33]),
+                (4, 4, 128, 4, 7, [28, 3, 17, 9]),
+                (4, 2, 32, 4, 16, [64, 1]),
+                (32, 8, 128, 64, 4, [1, 200, 64, 130])]):
+            c = decode_case(f32, len(ctx), H, KVH, D, 3, bs, MAXB, ctx,
+                            seed=i, int8=int8)
+            check_close(f"paged_attention f32 case {i}, {enc}",
+                        run_decode(c), plain_decode(c))
+        # Cached prefill: small f32 shapes (GQA 3 and 1, empty prefix
+        # rows, multi-tile queries, padded rows) and the main-path head
+        # layout.
+        for i, (T, H, KVH, D, bs, MAXB, prefix, take) in enumerate([
+                (24, 6, 2, 64, 8, 12, [0, 17, 40], [24, 5, 13]),
+                (40, 4, 4, 128, 4, 32, [3, 64], [40, 1]),
+                (16, 4, 2, 32, 4, 16, [0, 0], [16, 7]),
+                (96, 32, 8, 128, 64, 4, [0, 100], [96, 50])]):
+            c = prefill_case(f32, len(prefix), T, H, KVH, D, 2, bs, MAXB,
+                             prefix, take, seed=20 + i, int8=int8)
+            got, want = run_prefill(c), plain_prefill(c)
+            for b, n in enumerate(take):
+                check_close(f"cached_prefill f32 case {i} row {b}, {enc}",
+                            got[b, :n], want[b, :n])
 
     errs = {name: 0.0 for name in KERNELS}
     cases = {}
@@ -321,60 +427,22 @@ def kernel_phase():
         errs[name] = max(errs[name], err)
         cases[label] = c
 
-    bf16 = torch.bfloat16
     results = {}
-    c = cases["paged_attention bf16 8x2048"]
-    B, H, D = c["q"].shape
-    KVH = c["k_pages"].shape[3]
-    ctx_len = int(c["context_lens"].max())
-    kg, vg = _gathered(c, ctx_len)
-    qs = (c["q"] * c["scale"]).to(bf16)[:, :, None, :]
-    check_close("paged_attention vs sdpa yardstick", run_decode(c),
-                _sdpa(qs, kg, vg)[:, :, 0])
-    n_tok = B * ctx_len
-    dec_bytes = (2 * n_tok * KVH * D * 2 + 2 * B * H * D * 2
-                 + c["block_tables"].numel() * 4 + B * 4)
-    dec_ops = 4 * H * D * n_tok
-    results["paged_attention"] = dict(
-        ms=cuda_time_ms(lambda: run_decode(c)),
-        plain_ms=cuda_time_ms(lambda: plain_decode(c)),
-        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg)),
-        bytes=dec_bytes, ops=dec_ops)
-
-    c = cases["cached_prefill bf16 1024/1024"]
-    _, T, H, D = c["q"].shape
-    KVH = c["k_pages"].shape[3]
-    P = int(c["positions"][0, 0])
-    kg, vg = _gathered(c, P + T)
-    qs = (c["q"] * c["scale"]).to(bf16).transpose(1, 2)
-    span = torch.arange(P + T, device="cuda")
-    mask = span[None, :] <= (P + torch.arange(T, device="cuda"))[:, None]
-    check_close("cached_prefill vs sdpa yardstick", run_prefill(c),
-                _sdpa(qs, kg, vg, mask).transpose(1, 2))
-    pairs = T * P + T * (T + 1) // 2  # (query, key) pairs this chunk needs
-    pf_ops = 4 * H * D * pairs
-    pf_bytes = (2 * T * H * D * 2 + 2 * (P + T) * KVH * D * 2
-                + c["block_tables"].numel() * 4 + T * 4 + 4)
-    results["cached_prefill_attention"] = dict(
-        ms=cuda_time_ms(lambda: run_prefill(c), iters=10),
-        plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=5),
-        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=10),
-        bytes=pf_bytes, ops=pf_ops)
+    for enc in ("bf16", "int8"):
+        suffix = "_int8" if enc == "int8" else ""
+        results["paged_attention" + suffix] = _time_decode(
+            f"paged_attention {enc}", cases[f"paged_attention {enc} 8x2048"])
+        results["cached_prefill_attention" + suffix] = _time_prefill(
+            f"cached_prefill {enc}", cases[f"cached_prefill {enc} 1024/1024"])
     for name, r in results.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         op_ms = r["ops"] / BF16_FLOPS * 1e3
         r.update(max_abs_err=errs[name], bound_ms=max(byte_ms, op_ms),
                  bound_by="bytes" if byte_ms >= op_ms else "operations")
-    prefix_ops = 4 * H * D * T * P
-    print(f"[bound] paged_attention: {dec_bytes / 1e6:.1f} MB per launch "
-          f"(K and V of 8 x 2048 tokens) -> {dec_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
-          f" ms at 3.35 TB/s; one launch per layer, 32 per decode step",
-          flush=True)
-    print(f"[bound] cached_prefill_attention: {prefix_ops / 1e9:.1f} GFLOP "
-          f"over the 1024-token prefix (-> {prefix_ops / BF16_FLOPS * 1e3:.4f}"
-          f" ms at 989 TFLOP/s bf16) + {(pf_ops - prefix_ops) / 1e9:.1f} "
-          f"GFLOP causal over the chunk itself -> "
-          f"{pf_ops / BF16_FLOPS * 1e3:.4f} ms per launch", flush=True)
+        print(f"[bound] {name}: {r['bytes'] / 1e6:.2f} MB -> {byte_ms:.4f} ms "
+              f"at 3.35 TB/s; {r['ops'] / 1e9:.1f} GFLOP -> {op_ms:.4f} ms at "
+              f"989 TFLOP/s bf16; one launch per layer, 32 per decode step "
+              f"or cached chunk", flush=True)
     for name, r in results.items():
         log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -387,6 +455,7 @@ def kernel_phase():
 SERVE_ARGS = ["meta-llama/Llama-3-8B", "--device", "cuda", "--host",
               "127.0.0.1", "--port", "0", "--max-model-len", "4096",
               "--max-num-seqs", "8", "--seed", "0"]
+INT8_ARGS = ["--kv-cache-dtype", "int8", "--quantization", "int8"]
 REQUIRED_SERIES = (
     "vllm:num_requests_running", "vllm:num_requests_waiting",
     "vllm:gpu_cache_usage_perc", "vllm:gpu_prefix_cache_hits_total",
@@ -464,34 +533,70 @@ def _leaves(tree):
         yield tree
 
 
-def serve_phase():
-    """Serve Llama-3-8B through the port's server and drive it over
-    HTTP; returns (launch counts of the served run, summary)."""
-    import threading
-
-    from production_stack_tpu_torch.engine.server import build_server
+def _counters():
+    """The launch counter of each kernel entry: (wrapper, attribute)."""
     from production_stack_tpu_torch.ops.paged_attention import paged_attention
     from production_stack_tpu_torch.ops.prefill_attention import (
         cached_prefill_attention,
     )
 
+    return {"paged_attention": (paged_attention, "launches"),
+            "cached_prefill_attention": (cached_prefill_attention,
+                                         "launches"),
+            "paged_attention_int8": (paged_attention, "launches_int8"),
+            "cached_prefill_attention_int8": (cached_prefill_attention,
+                                              "launches_int8")}
+
+
+def _weight_bytes(params):
+    """(bytes stored, bytes a decode step's products move): an int8 leaf
+    with its scale is read as int8, then copied to bf16 and that copy read
+    by the product (1 + 2 + 2 bytes a weight); other leaves are read
+    once."""
+    import torch
+
+    stored = moved = 0
+    for t in _leaves(params):
+        n = t.numel() * t.element_size()
+        stored += n
+        moved += 5 * t.numel() if t.dtype == torch.int8 else n
+    return stored, moved
+
+
+def serve_phase(label: str, extra_args, entries):
+    """Serve Llama-3-8B through the port's server (``SERVE_ARGS`` plus
+    ``extra_args``) and drive it over HTTP; every launch counter is set
+    to 0 just before the drive and read just after. Returns (launch counts
+    of the served run by kernel entry, summary); raises unless each of
+    ``entries`` launched and no other entry did."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
     import torch
 
     t0 = time.time()
-    httpd, core = build_server(SERVE_ARGS)
+    httpd, core = build_server(SERVE_ARGS + list(extra_args))
     torch.cuda.synchronize()
     init_s = time.time() - t0
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     client = Client(httpd.server_address[1])
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(core.params))
-    print(f"[bound] weights: {weight_bytes / 1e9:.2f} GB read per decode "
-          f"step -> {weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at "
-          f"3.35 TB/s", flush=True)
-    summary = {"init_s": init_s, "num_blocks": core.num_blocks,
+    stored, moved = _weight_bytes(core.params)
+    print(f"[bound] {label} weights: {stored / 1e9:.2f} GB stored -> "
+          f"{stored / HBM_BYTES_PER_S * 1e3:.2f} ms per decode step at "
+          f"3.35 TB/s; the products move {moved / 1e9:.2f} GB -> "
+          f"{moved / HBM_BYTES_PER_S * 1e3:.2f} ms", flush=True)
+    summary = {"config": label, "init_s": init_s,
+               "num_blocks": core.num_blocks,
+               "kv_cache_dtype": core.stats()["kv_cache_dtype"],
+               "weight_bytes": stored,
                "weight_read_bound_ms_per_step":
-                   weight_bytes / HBM_BYTES_PER_S * 1e3}
+                   stored / HBM_BYTES_PER_S * 1e3,
+               "weight_moved_bound_ms_per_step":
+                   moved / HBM_BYTES_PER_S * 1e3,
+               "device_memory_allocated_gb":
+                   torch.cuda.memory_allocated() / 1e9}
     try:
         # Warm-up (first-use library set-up of every GEMM shape, the
         # kernels' first launches): a prefill, a chunk continuation and a
@@ -499,8 +604,9 @@ def serve_phase():
         _finish("warm-up", client.post("/v1/completions", {
             "prompt": _text(99, 1100), "max_tokens": 9, "temperature": 0}))
         base = core.stats()
-        paged_attention.launches = 0
-        cached_prefill_attention.launches = 0
+        counters = _counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         t_run = time.time()
         # Four concurrent greedy completions: a decode batch of 4. The
         # first prompt is shorter than one 64-token page, so its repeat
@@ -554,9 +660,16 @@ def serve_phase():
         if not chat_out["text"]:
             raise AssertionError("streamed chat returned no text")
         metrics = client.get("/metrics")
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
         missing = [m for m in REQUIRED_SERIES if m not in metrics]
         if missing:
             raise AssertionError(f"/metrics lacks {missing}")
+        kv_label = f'kv_cache_dtype="{summary["kv_cache_dtype"]}"'
+        if not any(line.startswith("tpu:kv_cache_bytes_per_token{")
+                   and kv_label in line for line in metrics.splitlines()):
+            raise AssertionError(
+                f"/metrics: tpu:kv_cache_bytes_per_token lacks {kv_label}")
         now = core.stats()
         stats = {k: now[k] - base[k] for k in (
             "prefix_cache_hits", "prefill_time_total", "decode_time_total",
@@ -565,9 +678,6 @@ def serve_phase():
             "generation_tokens_total")}
         if stats["prefix_cache_hits"] <= 0:
             raise AssertionError("no prefix-cache hit was served")
-        launches = {"paged_attention": paged_attention.launches,
-                    "cached_prefill_attention":
-                        cached_prefill_attention.launches}
         summary.update(
             run_s=time.time() - t_run,
             concurrent_latency_s=[r["_latency_s"] for r in results],
@@ -591,17 +701,32 @@ def serve_phase():
         httpd.server_close()
         core.stop()
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the served path")
-    return launches, summary
+        if name in entries and n <= 0:
+            raise AssertionError(f"{name} never launched on the {label} "
+                                 f"served path")
+        if name not in entries and n != 0:
+            raise AssertionError(f"{name} launched {n} times on the {label} "
+                                 f"served path, which does not use it")
+    return {name: launches[name] for name in entries}, summary
 
 
-def profile_phase() -> dict:
-    """Where a decode step's time goes: Llama-3-8B with 8 sequences
-    decoding at ~1k context, the engine's steps driven on this thread
-    (the engine thread is not started), one warm-up burst, two timed
-    bursts, then one burst under torch.profiler (its op table goes to
-    standard error)."""
+def _free_device_memory() -> None:
+    """Drop what a finished engine left (its server's handler class holds
+    it in a reference cycle) and return the cached blocks to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_phase(extra_args=()) -> dict:
+    """Where a decode step's time goes: Llama-3-8B (``SERVE_ARGS`` plus
+    ``extra_args``) with 8 sequences decoding at ~1k context, the engine's
+    steps driven on this thread (the engine thread is not started), one
+    warm-up burst, two timed bursts, then one burst under torch.profiler
+    (its op table goes to standard error)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -613,7 +738,7 @@ def profile_phase() -> dict:
     )
 
     core = EngineCore(config_from_args(build_arg_parser().parse_args(
-        SERVE_ARGS)))
+        SERVE_ARGS + list(extra_args))))
     for i in range(core.config.max_num_seqs):
         core.add_request(
             f"p{i}", core.tokenizer.encode(_text(100 + i, 1000)),
@@ -655,7 +780,9 @@ def profile_phase() -> dict:
     table = [{"name": e.key[:70], "calls": e.count,
               "device_ms_per_step": dev_us(e) / 1e3 / K} for e in top]
     log(prof.key_averages().table(row_limit=40))
+    core.stop()
     return {
+        "config": " ".join(extra_args) or "bf16",
         "rows": core.config.max_num_seqs, "steps_per_burst": K,
         "context_tokens": [len(s.req.all_token_ids)
                            for s in core.scheduler.running()],
@@ -693,8 +820,10 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}")
 
     if args.profile:
-        report = profile_phase()
-        print(json.dumps({"profile": report}), flush=True)
+        for extra in ((), INT8_ARGS):
+            report = profile_phase(extra)
+            print(json.dumps({"profile": report}), flush=True)
+            _free_device_memory()
         print(f"card: {smi}", flush=True)
         return 0
     t0 = time.time()
@@ -705,25 +834,37 @@ def main(argv=None) -> int:
     log(f"[build] both kernels built in {build_s:.1f} s")
 
     results = kernel_phase()
-    launches, summary = serve_phase()
-    log(f"[serve] {json.dumps(summary)}")
-    print(json.dumps({"serve": summary}), flush=True)
+    launches = {}
+    for label, extra, entries in (
+            ("bf16", (), ("paged_attention", "cached_prefill_attention")),
+            ("int8 KV + int8 weights", INT8_ARGS,
+             ("paged_attention_int8", "cached_prefill_attention_int8"))):
+        # The previous engine's pool and weights go before the next one
+        # sizes its pool from free memory.
+        _free_device_memory()
+        counts, summary = serve_phase(label, extra, entries)
+        launches.update(counts)
+        log(f"[serve] {json.dumps(summary)}")
+        print(json.dumps({"serve": summary}), flush=True)
+    replaces = {
+        "paged_attention":
+            "production_stack_tpu/ops/pallas_paged_attention.py:231",
+        "cached_prefill_attention":
+            "production_stack_tpu/ops/pallas_prefill_attention.py:221"}
     sources = {
-        "paged_attention": (
+        "paged_attention":
             "production_stack_tpu_torch/csrc/paged_attention.cu",
-            "production_stack_tpu/ops/pallas_paged_attention.py:231"),
-        "cached_prefill_attention": (
-            "production_stack_tpu_torch/csrc/prefill_attention.cu",
-            "production_stack_tpu/ops/pallas_prefill_attention.py:221"),
-    }
+        "cached_prefill_attention":
+            "production_stack_tpu_torch/csrc/prefill_attention.cu"}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        r = results[name]
+    for name, r in results.items():
+        base = name.removesuffix("_int8")
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            name=name, route="cuda", source=sources[base],
+            replaces=replaces[base], launches=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 // Shared helpers of the attention kernels: 8-element vector loads and
-// stores that convert between the storage type (float or bf16) and the
-// float32 the kernels compute in, warp reductions, and the C-interface
-// error helper every kernel library exports.
+// stores that convert between the storage type (float, bf16, or int8
+// codes of a quantized page) and the float32 the kernels compute in,
+// warp reductions, and the C-interface error helper every kernel library
+// exports.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define KERNEL_NEG_INF (-1e30f)
 
@@ -27,6 +30,20 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// 8 consecutive int8 codes (one 8-byte load) as floats; the caller
+// multiplies them by their row's scale with scale8.
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(b[i]);
+}
+
+__device__ __forceinline__ void scale8(float* v, float s) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] *= s;
 }
 
 // Store 8 consecutive floats (16-byte aligned destination).

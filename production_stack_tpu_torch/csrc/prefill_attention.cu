@@ -18,6 +18,15 @@
 // Padded query rows (past the chunk's valid tokens) are computed and
 // left to the caller to discard.
 //
+// Both modes of the Pallas kernel: pages in q's dtype, or int8 codes with
+// float32 scales [L, NB, bs * KVH] (one per (slot, kv head), flat and
+// token-major), each loaded row multiplied by its scale as it lands in
+// the f32 shared tiles. With int8 pages the chunk's own keys come back
+// from the pages they were just quantized into, as in the plain version;
+// the Pallas kernel attended them at full precision from k_new / v_new,
+// so under int8 its results differ from both by one quantization step on
+// the chunk's own keys and values.
+//
 // Bound on an H100: operations. A 1024-token chunk over a 1024-token
 // prefix does ~4 * H * D flops per (query, key) pair, about 140 flops
 // per byte of K/V read, and the attention is compute-bound once the
@@ -25,7 +34,9 @@
 // per (query tile, kv head, sequence) holds 64 query rows (TQ tokens x G
 // heads of the group, so every K/V byte loaded to shared memory serves
 // all G heads), streams 32-key tiles from the row's live pages up to
-// the tile's last query position, and keeps an f32 online softmax.
+// the tile's last query position, and keeps an f32 online softmax. int8
+// pages halve the bytes read but leave the operations, so the bound does
+// not move.
 // Products run on the CUDA cores in f32 with 4x4 register tiles for
 // Q.K^T and 8-wide rows for P.V; moving them to wgmma is the next step.
 
@@ -37,17 +48,22 @@ constexpr int kThreads = 128;
 constexpr int kRows = 64;  // query rows per block (TQ tokens x G heads)
 constexpr int kTK = 32;    // keys per tile == warp size
 
-template <typename T, int D>
+// T: the type of q and out (float or bf16); P: the page type (T, or
+// int8_t for quantized pages, which then come with their scales).
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads) prefill_kernel(
     const T* __restrict__ q,               // [B, T, H, D] pre-scaled
-    const T* __restrict__ k_pages,         // [L, NB, bs, KVH, D]
-    const T* __restrict__ v_pages,
+    const P* __restrict__ k_pages,         // [L, NB, bs, KVH, D]
+    const P* __restrict__ v_pages,
+    const float* __restrict__ k_scales,    // [L, NB, bs * KVH] (int8 only)
+    const float* __restrict__ v_scales,
     const int* __restrict__ block_tables,  // [B, MAXB]
     const int* __restrict__ positions,     // [B, T] ascending
     const int* __restrict__ total_lens,    // [B]
     T* __restrict__ out,                   // [B, T, H, D]
     int T_len, int H, int KVH, int NB, int bs, int MAXB, int layer, int TQ) {
   constexpr int D8 = D / 8;
+  constexpr bool kQuantized = std::is_same<P, int8_t>::value;
   constexpr int QS = D + 4;               // padded row stride of q_sh / k_sh
   constexpr int SS = kTK + 1;             // row stride of s_sh
   constexpr int DG = D / 8;               // P.V: d-groups of 8
@@ -130,10 +146,15 @@ __global__ void __launch_bounds__(kThreads) prefill_kernel(
       if (c < n) {
         const int key = k0 + c;
         const size_t page = (size_t)bt[key / bs];
-        const size_t off =
-            (((layer_pages + page) * bs + key % bs) * KVH + kvh) * D + d8 * 8;
-        load8(k_pages + off, kt);
-        load8(v_pages + off, vt);
+        // The (key, kv head) row: of D elements in the pages, of one
+        // scale in the scales.
+        const size_t row = ((layer_pages + page) * bs + key % bs) * KVH + kvh;
+        load8(k_pages + row * D + d8 * 8, kt);
+        load8(v_pages + row * D + d8 * 8, vt);
+        if constexpr (kQuantized) {
+          scale8(kt, k_scales[row]);
+          scale8(vt, v_scales[row]);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) kt[j] = vt[j] = 0.f;
@@ -241,60 +262,70 @@ size_t smem_bytes(int D) {
                                   kRows * (kTK + 1) + 3 * kRows);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* bt,
-           const void* positions, const void* total_lens, void* out, int B,
-           int T_len, int H, int KVH, int NB, int bs, int MAXB, int layer,
-           cudaStream_t stream) {
-  const int G = H / KVH;
+struct Args {
+  const void *q, *k, *v, *k_scales, *v_scales, *bt, *positions, *total_lens;
+  void* out;
+  int B, T_len, H, KVH, NB, bs, MAXB, layer;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, int D>
+int launch(const Args& a) {
+  const int G = a.H / a.KVH;
   const int TQ = kRows / G;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_kernel<T, P, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_len + TQ - 1) / TQ, KVH, B);
-  prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(bt),
-      static_cast<const int*>(positions), static_cast<const int*>(total_lens),
-      static_cast<T*>(out), T_len, H, KVH, NB, bs, MAXB, layer, TQ);
+  dim3 grid((a.T_len + TQ - 1) / TQ, a.KVH, a.B);
+  prefill_kernel<T, P, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k),
+      static_cast<const P*>(a.v), static_cast<const float*>(a.k_scales),
+      static_cast<const float*>(a.v_scales), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.positions),
+      static_cast<const int*>(a.total_lens), static_cast<T*>(a.out), a.T_len,
+      a.H, a.KVH, a.NB, a.bs, a.MAXB, a.layer, TQ);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v,
-             const void* bt, const void* positions, const void* total_lens,
-             void* out, int B, int T_len, int H, int KVH, int NB, int bs,
-             int MAXB, int layer, cudaStream_t stream) {
+template <typename T, typename P>
+int launch_d(int D, const Args& a) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, bt, positions, total_lens, out, B, T_len, H, KVH, NB, bs, MAXB, layer, stream);
-    case 64: return launch<T, 64>(q, k, v, bt, positions, total_lens, out, B, T_len, H, KVH, NB, bs, MAXB, layer, stream);
-    case 128: return launch<T, 128>(q, k, v, bt, positions, total_lens, out, B, T_len, H, KVH, NB, bs, MAXB, layer, stream);
+    case 32: return launch<T, P, 32>(a);
+    case 64: return launch<T, P, 64>(a);
+    case 128: return launch<T, P, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+int launch_p(int int8_pages, int D, const Args& a) {
+  if (!int8_pages) return launch_d<T, T>(D, a);
+  if (a.k_scales == nullptr || a.v_scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_d<T, int8_t>(D, a);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Requires H / KVH <= 64. Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. int8_pages: 0 = pages
+// in q's dtype (the scales are ignored), 1 = int8 pages with float32
+// scales. Requires H / KVH <= 64. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int prefill_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* positions, const void* total_lens,
-    void* out, int B, int T_len, int H, int KVH, int D, int NB, int bs,
-    int MAXB, int layer, int dtype, void* stream) {
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* positions, const void* total_lens, void* out, int B,
+    int T_len, int H, int KVH, int D, int NB, int bs, int MAXB, int layer,
+    int dtype, int int8_pages, void* stream) {
   if (B == 0 || T_len == 0) return 0;
   if (H % KVH != 0 || H / KVH > kRows) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k_pages, v_pages, block_tables, positions,
-                           total_lens, out, B, T_len, H, KVH, NB, bs, MAXB,
-                           layer, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k_pages, v_pages, block_tables,
-                                   positions, total_lens, out, B, T_len, H,
-                                   KVH, NB, bs, MAXB, layer, s);
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, block_tables,
+               positions, total_lens, out, B, T_len, H, KVH, NB, bs, MAXB,
+               layer, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_p<float>(int8_pages, D, a);
+  if (dtype == 1) return launch_p<__nv_bfloat16>(int8_pages, D, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,11 +14,16 @@ cached-prefill kernel) or a decode burst: ``decode_steps`` forwards of
 the whole batch, each attending through the paged decode kernel, with
 the sampled tokens fed back on the device and read back once per burst.
 
+The KV pool is bf16 (the model dtype) or, with ``kv_cache_dtype="int8"``,
+int8 ``(data, scales)`` pairs that the page ops quantize on the scatter
+and both kernels dequantize on the card; ``quantization="int8"`` stores
+the weights as int8 with per-output-channel scales.
+
 Not here yet, and refused at construction when configured: chunked-
 prefill step plans, prefill batching, the fused step, speculation,
-structured output, int8 KV and weights, tensor/pipeline/data parallelism,
-multihost, KV offload and extract/inject, sleep, LoRA load/unload,
-embeddings and the step recorder.
+structured output, tensor/pipeline/data parallelism, multihost, KV
+offload and extract/inject, sleep, LoRA load/unload, embeddings and the
+step recorder.
 """
 
 from __future__ import annotations
@@ -68,18 +73,24 @@ def _unsupported(config: EngineConfig) -> List[str]:
         (c.speculative_num_tokens > 0 or bool(c.speculative_draft_model),
          "speculative decoding"),
         (c.step_recorder, "the step recorder"),
-        (c.quantization is not None, "weight quantization"),
-        (c.kv_cache_dtype != "bf16", "int8 KV cache"),
     ]
     return [name for bad, name in checks if bad]
 
 
-def kv_bytes_per_block(model_config, block_size: int) -> int:
-    """Device bytes of one block of the K and V pools over all layers."""
+def kv_bytes_per_block(model_config, block_size: int,
+                       kv_cache_dtype: str = "bf16") -> int:
+    """Device bytes of one block of the K and V pools over all layers, as
+    allocated: "bf16" pages hold the model dtype; "int8" pages one byte a
+    K/V element plus one float32 scale per (slot, kv head). (The JAX
+    formula adds TPU tile padding; at Llama-family dims, head_dim 128, it
+    has none and the two agree.)"""
     mc = model_config
+    slot_heads = block_size * mc.num_kv_heads
+    if kv_cache_dtype == "int8":
+        return mc.num_layers * (2 * slot_heads * mc.head_dim
+                                + 2 * slot_heads * 4)
     itemsize = torch.empty((), dtype=mc.torch_dtype).element_size()
-    return (mc.num_layers * 2 * block_size * mc.num_kv_heads * mc.head_dim
-            * itemsize)
+    return mc.num_layers * 2 * slot_heads * mc.head_dim * itemsize
 
 
 class EngineCore:
@@ -112,18 +123,20 @@ class EngineCore:
                                "lora_rank": config.max_lora_rank}
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             with torch.no_grad():
-                params = init_fn(self.model_config, gen, self.device,
-                                 **lora_kwargs)
+                # int8 weights quantize leaf by leaf inside the init, so
+                # an 8B model never exists whole in bf16 on the card.
+                params = init_fn(
+                    self.model_config, gen, self.device,
+                    quantization=config.quantization,
+                    quantize_embeddings=config.quantize_embeddings,
+                    **lora_kwargs)
         self.params = params
 
         # -- KV pages ------------------------------------------------------
         free_before = self._free_device_bytes()
         self.num_blocks = config.num_blocks or self._auto_num_blocks()
         mc = self.model_config
-        shape = (mc.num_layers, self.num_blocks, config.block_size,
-                 mc.num_kv_heads, mc.head_dim)
-        self.kv = (torch.zeros(shape, dtype=mc.torch_dtype, device=self.device),
-                   torch.zeros(shape, dtype=mc.torch_dtype, device=self.device))
+        self.kv = (self._alloc_pages(), self._alloc_pages())
         # Device memory left after the pool (tpu:hbm_headroom_bytes).
         self.hbm_headroom_bytes: Optional[int] = None
         if free_before is not None:
@@ -168,7 +181,23 @@ class EngineCore:
     # setup helpers
     # ------------------------------------------------------------------ #
     def _kv_bytes_per_block(self) -> int:
-        return kv_bytes_per_block(self.model_config, self.config.block_size)
+        return kv_bytes_per_block(self.model_config, self.config.block_size,
+                                  self.config.kv_cache_dtype)
+
+    def _alloc_pages(self):
+        """One side (K or V) of the pool: zeros ``[L, NB, bs, KVH, D]`` in
+        the model dtype, or for an int8 cache zero int8 data with float32
+        scales ``[L, NB, bs*KVH]`` set to ONE, as the JAX engine sets them
+        (a never-written slot dequantizes to exact zeros)."""
+        mc, bs = self.model_config, self.config.block_size
+        shape = (mc.num_layers, self.num_blocks, bs, mc.num_kv_heads,
+                 mc.head_dim)
+        if self.config.kv_cache_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    torch.ones((mc.num_layers, self.num_blocks,
+                                bs * mc.num_kv_heads), dtype=torch.float32,
+                               device=self.device))
+        return torch.zeros(shape, dtype=mc.torch_dtype, device=self.device)
 
     def _free_device_bytes(self) -> Optional[int]:
         if self.device.type != "cuda":
@@ -253,6 +282,7 @@ class EngineCore:
             "num_preempted_total": self.scheduler.num_preempted_total,
             "num_blocks": self.num_blocks,
             "hbm_headroom_bytes": self.hbm_headroom_bytes,
+            "kv_cache_dtype": self.config.kv_cache_dtype,
             "kv_cache_bytes_per_token": (
                 self._kv_bytes_per_block() // self.config.block_size),
             "prefill_time_total": round(self.prefill_time_total, 3),

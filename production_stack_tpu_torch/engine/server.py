@@ -10,13 +10,14 @@ per connection, server-sent events written by hand for ``stream: true``,
 - ``GET /metrics`` with the series the router's scraper parses
   (``vllm:num_requests_running``/``_waiting``,
   ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
-  ``_queries_total``), their ``tpu:`` twins and ``tpu:hbm_headroom_bytes``.
+  ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``
+  and ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype``.
 
 A request that fails inside the engine finishes with ``finish_reason:
 "error"``. Not served yet (400): ``n > 1``, tools, structured output.
 
     python -m production_stack_tpu_torch.engine.server <model> --port N \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8]
 """
 
 from __future__ import annotations
@@ -226,17 +227,18 @@ class EngineServer:
             ("tpu:hbm_headroom_bytes", "gauge",
              0 if headroom is None else headroom),
             ("tpu:kv_cache_bytes_per_token", "gauge",
-             s["kv_cache_bytes_per_token"]),
+             s["kv_cache_bytes_per_token"],
+             f',kv_cache_dtype="{s["kv_cache_dtype"]}"'),
             ("tpu:cached_prompt_tokens_total", "counter",
              s["cached_tokens_total"]),
             ("tpu:decode_forward_steps_total", "counter",
              s["decode_forward_steps_total"]),
         ]
         lines = []
-        for name, kind, value in rows:
+        for name, kind, value, *extra in rows:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
-            lines.append(f"{name}{{{labels}}} {value}")
+            lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
         return "\n".join(lines) + "\n"
 
 
@@ -415,6 +417,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "without one")
     p.add_argument("--served-model-name", action="append", default=None)
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--quantization", default=None, choices=["int8"],
+                   help="weight-only quantization: int8 weights + "
+                        "per-channel scales (llama family)")
+    p.add_argument("--kv-cache-dtype", default="bf16",
+                   choices=["bf16", "int8"],
+                   help="KV cache storage dtype: int8 stores quantized "
+                        "K/V pages with per-token per-kv-head f32 scales, "
+                        "halving KV traffic and roughly doubling KV "
+                        "capacity at equal memory")
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--block-size", type=int, default=64)
@@ -441,6 +452,8 @@ def config_from_args(args) -> EngineConfig:
         model=args.model_flag or args.model or "tiny-llama",
         device=args.device,
         dtype=args.dtype,
+        quantization=args.quantization,
+        kv_cache_dtype=args.kv_cache_dtype,
         max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
         block_size=args.block_size,

@@ -13,7 +13,12 @@ The port of ``production_stack_tpu/models/llama.py``:
 - every forward first writes its fresh K/V into the pages (in place),
   then attends causally within the chunk (prefill), over the cached
   prefix plus the chunk (prefill_cached) or over the pages (decode);
-- norms, RoPE and softmax accumulate in float32.
+- norms, RoPE and softmax accumulate in float32;
+- weights may be int8 with per-output-channel scales
+  (``models/quantize.py``): the product runs over a copy of the weight
+  in the activation dtype and the scale applies to its result, as the
+  JAX model leaves it to XLA; the KV pool may be int8 ``(data, scales)``
+  pairs, which the page ops quantize and dequantize.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.quantize import quantize_tensor
 from production_stack_tpu_torch.ops.attention import (
     context_prefill_attention,
+    kv_page_data,
     paged_decode_attention,
     prefill_attention,
     scatter_kv_pages,
@@ -73,42 +80,53 @@ def init_params(
     *,
     lora_slots: int = 0,
     lora_rank: int = 16,
+    quantization: Optional[str] = None,
+    quantize_embeddings: bool = False,
 ) -> Dict:
     """Random-init parameter dict with layer-stacked leaves: the shapes
     and scales of the JAX ``init_params`` (normal / sqrt(fan_in), 0.02 for
     the embedding, unit norms, zero LoRA slots), drawn from ``generator``
     (which must live on ``device``). The values differ from the JAX
     init's. Every leaf is drawn straight in the working dtype and scaled
-    in place, so no float32 temporary of a stacked weight ever exists."""
+    in place, so no float32 temporary of a stacked weight ever exists.
+
+    With ``quantization="int8"`` each weight leaf (the embedding table
+    and ``lm_head`` too with ``quantize_embeddings``) is quantized as soon
+    as it is drawn and its working-dtype copy dropped, giving the leaves
+    of the JAX ``quantize_tree`` (``<name>`` int8 plus ``<name>_scale``)
+    from the same draws as the unquantized init."""
+    if quantization not in (None, "int8"):
+        raise ValueError(f"unsupported quantization {quantization!r}")
     dtype = cfg.torch_dtype
     H, KVH, D, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
     I, L, V = cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    quantize = quantization == "int8"
+    quantize_emb = quantize and quantize_embeddings
 
     def normal(shape, std):
         t = torch.randn(shape, generator=generator, device=device,
                         dtype=dtype)
         return t.mul_(std)
 
-    def stack(shape, fan_in):
-        return normal((L,) + shape, fan_in ** -0.5)
+    def put(tree, name, w, reduce_axis, on):
+        if on:
+            w, tree[name + "_scale"] = quantize_tensor(w, reduce_axis)
+        tree[name] = w
 
-    params = {
-        "embed": normal((V, Hd), 0.02),
-        "layers": {
-            "attn_norm": torch.ones((L, Hd), dtype=dtype, device=device),
-            "wq": stack((Hd, H * D), Hd),
-            "wk": stack((Hd, KVH * D), Hd),
-            "wv": stack((Hd, KVH * D), Hd),
-            "wo": stack((H * D, Hd), H * D),
-            "mlp_norm": torch.ones((L, Hd), dtype=dtype, device=device),
-            "w_gate": stack((Hd, I), Hd),
-            "w_up": stack((Hd, I), Hd),
-            "w_down": stack((I, Hd), I),
-        },
-        "final_norm": torch.ones((Hd,), dtype=dtype, device=device),
-    }
+    params = {}
+    put(params, "embed", normal((V, Hd), 0.02), -1, quantize_emb)
+    layers = {"attn_norm": torch.ones((L, Hd), dtype=dtype, device=device),
+              "mlp_norm": torch.ones((L, Hd), dtype=dtype, device=device)}
+    for name, shape, fan_in in (
+            ("wq", (Hd, H * D), Hd), ("wk", (Hd, KVH * D), Hd),
+            ("wv", (Hd, KVH * D), Hd), ("wo", (H * D, Hd), H * D),
+            ("w_gate", (Hd, I), Hd), ("w_up", (Hd, I), Hd),
+            ("w_down", (I, Hd), I)):
+        put(layers, name, normal((L,) + shape, fan_in ** -0.5), -2, quantize)
+    params["layers"] = layers
+    params["final_norm"] = torch.ones((Hd,), dtype=dtype, device=device)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((Hd, V), Hd ** -0.5)
+        put(params, "lm_head", normal((Hd, V), Hd ** -0.5), -2, quantize_emb)
     if lora_slots > 0:
         S, R = lora_slots, lora_rank
 
@@ -126,12 +144,14 @@ def init_params(
 
 
 def _proj(h: torch.Tensor, p: Dict, name: str) -> torch.Tensor:
-    """``h @ W`` for a bf16/f32 weight leaf (int8 weights are a later
-    slice and raise)."""
+    """``h @ W`` for a weight leaf that may be int8-quantized
+    (models/quantize.py): the int8 product runs over a copy of the weight
+    in h's dtype, and the per-output-channel scale applies to the
+    [B, T, out] result, in h's dtype, as the JAX model computes it."""
     w = p[name]
     if w.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 weights are not supported by the torch engine yet")
+        out = h @ w.to(h.dtype)
+        return out * p[name + "_scale"][0].to(h.dtype)
     return h @ w
 
 
@@ -151,7 +171,7 @@ def _layer(
     x: torch.Tensor,  # [B, T, Hd]
     p: Dict,  # one layer's leaves (views of the stacked tensors)
     lora: Optional[Dict],  # one layer's LoRA leaves, or None
-    kv: Tuple[torch.Tensor, torch.Tensor],  # STACKED pages
+    kv: tuple,  # STACKED pages (bare tensors or int8 (data, scales))
     layer: int,
     positions: torch.Tensor,
     rotary: tuple,  # (cos, sin) of rope_tables(positions)
@@ -211,9 +231,11 @@ def embed_tokens(params: Dict, cfg: ModelConfig, token_ids: torch.Tensor,
     Returns (x, lora_layers, lora_scaling, adapter_ids)."""
     emb = params["embed"]
     if emb.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 embeddings are not supported by the torch engine yet")
-    x = emb[token_ids].to(cfg.torch_dtype)
+        # Row-quantized table: dequantize only the gathered rows.
+        x = (emb[token_ids].to(cfg.torch_dtype)
+             * params["embed_scale"][token_ids].to(cfg.torch_dtype))
+    else:
+        x = emb[token_ids].to(cfg.torch_dtype)
     lora = params.get("lora")
     lora_scaling = lora["scaling"] if lora is not None else None
     if lora is not None and adapter_ids is None:
@@ -234,10 +256,17 @@ def project_out(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     head = params.get("lm_head")
     if head is not None:
         if head.dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 lm_head is not supported by the torch engine yet")
+            # [Hd, V] int8 with scale [1, V]: scale per vocab channel.
+            logits = (x @ head.to(x.dtype)).float()
+            return logits * params["lm_head_scale"][0]
         return (x @ head).float()
-    return (x @ params["embed"].T).float()
+    emb = params["embed"]
+    if emb.dtype == torch.int8:
+        # Tied head: the embedding's row scales [V, 1] are per-vocab
+        # output scales of embed.T.
+        logits = (x @ emb.T.to(x.dtype)).float()
+        return logits * params["embed_scale"][:, 0]
+    return (x @ emb.T).float()
 
 
 def apply(
@@ -245,7 +274,7 @@ def apply(
     cfg: ModelConfig,
     token_ids: torch.Tensor,  # [B, T]
     positions: torch.Tensor,  # [B, T]
-    kv_pages: Tuple[torch.Tensor, torch.Tensor],  # stacked [L,NB,bs,KVH,D]
+    kv_pages: tuple,  # stacked [L,NB,bs,KVH,D] each, or (data, scales)
     slot_mapping: torch.Tensor,  # [B, T] flat slots; <0 = no write
     block_tables: torch.Tensor,  # [B, MAXB]
     context_lens: torch.Tensor,  # [B]
@@ -255,7 +284,7 @@ def apply(
     adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA slot per row
     output_hidden: bool = False,
     last_token: Optional[torch.Tensor] = None,  # [B] position to keep
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+) -> Tuple[torch.Tensor, tuple]:
     """Full forward. Returns (logits [B, T, V] float32, kv_pages), the
     pages updated in place. With ``last_token`` the hidden states are
     sliced to that position before the norm and the vocab projection
@@ -264,10 +293,11 @@ def apply(
     x, lora_layers, lora_scaling, adapter_ids = embed_tokens(
         params, cfg, token_ids, adapter_ids)
     k_all, v_all = kv_pages
-    valid = valid_slots(slot_mapping, k_all.device)
+    k_data = kv_page_data(k_all)
+    valid = valid_slots(slot_mapping, k_data.device)
     rotary = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
-    L = k_all.shape[0]
+    L = k_data.shape[0]
     for layer in range(L):
         p = {k: v[layer] for k, v in layers.items()}
         lora_p = (None if lora_layers is None

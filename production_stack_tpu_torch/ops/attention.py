@@ -15,9 +15,10 @@ keep the JAX package's layouts so the two can be compared directly:
 
 On CPU tensors the dispatchers run the plain versions below, which are
 also what the kernels are held against on the card. All softmax
-accumulation is float32 regardless of compute dtype. KV pages are a bare
-``[L, NB, bs, KVH, D]`` tensor per side; the int8 ``(data, scales)``
-encoding of the JAX package is not supported yet and raises.
+accumulation is float32 regardless of compute dtype. KV pages are either
+a bare ``[L, NB, bs, KVH, D]`` tensor per side (bf16/f32 cache) or the
+JAX package's int8 ``(data, scales)`` pair (see :func:`kv_page_data`),
+byte for byte in its layout.
 """
 
 from __future__ import annotations
@@ -34,17 +35,29 @@ _CHUNKED_SCORE_SPAN = 1024
 
 
 def kv_page_data(pages):
-    """The tensor leaf of a KV page operand: a bare ``[L, NB, bs, KVH, D]``
-    tensor, or the data half of an int8 ``(data, scales)`` pair."""
+    """The tensor leaf of a KV page operand.
+
+    Pages are either a bare ``[L, NB, bs, KVH, D]`` tensor (bf16/f32
+    cache) or an ``(data, scales)`` pair (int8 cache): ``data`` is the
+    int8 pages tensor and ``scales`` a float32 ``[L, NB, bs * KVH]``
+    per-slot, per-kv-head symmetric scale, flat and token-major, so it
+    views as ``(L * NB * bs, KVH)`` with the same flat slot index as the
+    data: the scale of token ``t`` of page ``p``, kv head ``h``, layer
+    ``l`` sits at ``((l * NB + p) * bs + t % bs) * KVH + h``."""
     return pages[0] if isinstance(pages, tuple) else pages
 
 
-def _require_plain_pages(pages) -> torch.Tensor:
-    if isinstance(pages, tuple):
-        raise NotImplementedError(
-            "int8 (data, scales) KV pages are not supported by the torch "
-            "engine yet (the int8 KV slice)")
-    return pages
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-(token, kv-head) int8 quantization of [..., KVH, D]
+    values: scale = amax / 127 over D, with amax taken as 1.0 where the
+    row is all-zero (so such a row gets scale 1/127 and codes 0), codes
+    rounded half to even and clipped to [-127, 127]. The JAX function's
+    arithmetic, in the same order."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)  # [..., KVH]
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def prefill_attention(
@@ -78,15 +91,21 @@ def _gather_ctx(pages, block_tables: torch.Tensor, layer: int,
                 out_dtype=None) -> torch.Tensor:
     """Gather a batch's context from stacked pages [L, NB, bs, KVH, D]
     through page indices into the (L*NB)-page flat view, without
-    materialising a whole layer. Returns [B, MAXB*bs, KVH, D] in
-    ``out_dtype`` (float32 when not given)."""
-    data = _require_plain_pages(pages)
+    materialising a whole layer. int8 ``(data, scales)`` pages are
+    gathered page-wise too, then dequantized (an f32 multiply) before
+    the cast. Returns [B, MAXB*bs, KVH, D] in ``out_dtype`` (float32
+    when not given) for both encodings."""
+    data = kv_page_data(pages)
     L, NB, bs, KVH, D = data.shape
     B, MAXB = block_tables.shape
     flat = data.reshape(L * NB, bs, KVH, D)
     idx = (layer * NB + block_tables.to(device=data.device,
                                         dtype=torch.long))
     ctx = flat[idx].reshape(B, MAXB * bs, KVH, D)
+    if isinstance(pages, tuple):
+        ctx_s = pages[1].reshape(L * NB, bs, KVH)[idx].reshape(
+            B, MAXB * bs, KVH)
+        ctx = ctx.float() * ctx_s[..., None]
     return ctx.to(out_dtype if out_dtype is not None else torch.float32)
 
 
@@ -135,7 +154,7 @@ def _context_prefill_reference(
     context streams in chunks with an online softmax instead (same math,
     bounded temporaries)."""
     B, T, H, D = q.shape
-    k_data = _require_plain_pages(k_pages)
+    k_data = kv_page_data(k_pages)
     bs, KVH = k_data.shape[2], k_data.shape[3]
     MAXB = block_tables.shape[1]
     group = H // KVH
@@ -209,14 +228,22 @@ def valid_slots(slot_mapping: torch.Tensor, device) -> tuple:
 
 def scatter_kv_pages(k_pages, v_pages, k_new, v_new, valid, layer: int):
     """The in-place scatter behind :func:`write_kv_pages`, for a
-    ``valid`` pair already computed by :func:`valid_slots`."""
+    ``valid`` pair already computed by :func:`valid_slots`. int8 pages
+    quantize here, on the scatter, with the live rows selected first
+    (equivalent to the JAX order, quantize all then drop: quantization
+    is per (token, head)); the data and the ``(L*NB*bs, KVH)`` view of
+    the scales take the same slots."""
     rows, slots = valid
     for pages, new in ((k_pages, k_new), (v_pages, v_new)):
-        data = _require_plain_pages(pages)
+        data = kv_page_data(pages)
         L, NB, bs, KVH, D = data.shape
         flat = data.view(L * NB * bs, KVH, D)
-        src = new.reshape(-1, KVH, D)[rows].to(data.dtype)
-        flat.index_copy_(0, slots + layer * NB * bs, src)
+        src = new.reshape(-1, KVH, D)[rows]
+        dst = slots + layer * NB * bs
+        if isinstance(pages, tuple):
+            src, src_scales = quantize_kv(src)
+            pages[1].view(L * NB * bs, KVH).index_copy_(0, dst, src_scales)
+        flat.index_copy_(0, dst, src.to(data.dtype))
     return k_pages, v_pages
 
 
@@ -230,9 +257,10 @@ def write_kv_pages(
 ):
     """Scatter fresh K/V into their page slots, addressing the stacked
     pool through its flat ``[L*NB*bs, KVH, D]`` view; negative slots are
-    dropped. Unlike the JAX version, which is functional and returns new
-    arrays, this updates ``k_pages``/``v_pages`` IN PLACE (and returns the
-    same tensors) — the pool is never copied."""
+    dropped; int8 ``(data, scales)`` pages quantize on the scatter.
+    Unlike the JAX version, which is functional and returns new arrays,
+    this updates ``k_pages``/``v_pages`` IN PLACE (and returns the same
+    operands) — the pool is never copied."""
     valid = valid_slots(slot_mapping, kv_page_data(k_pages).device)
     return scatter_kv_pages(k_pages, v_pages, k_new, v_new, valid, layer)
 
@@ -249,7 +277,7 @@ def paged_attention_reference(
 ) -> torch.Tensor:
     """Plain version: gather the padded context, mask, softmax. [B, H, D]."""
     B, H, D = q.shape
-    k_data = _require_plain_pages(k_pages)
+    k_data = kv_page_data(k_pages)
     bs, KVH = k_data.shape[2], k_data.shape[3]
     MAXB = block_tables.shape[1]
     group = H // KVH

@@ -7,10 +7,12 @@ Shows that the kernel-vs-plain check of ``chip_smoke.py`` catches the
 faults a tiled online softmax is prone to, at the Llama-3-8B main-path
 shapes: for each kernel it builds copies of the source with one fault
 planted (a key tile skipped, or the running rescale ``alpha`` left out in
-one tile), each in a temporary directory under the git-ignored build
-directory, swaps the faulty library in behind the kernel's wrapper, and
-holds the output against the plain version with ``chip_smoke.compare``
-on every main-path case of that kernel. The unchanged kernels go through
+one tile; in the int8 page path, each row's scale read from kv head 0's
+row, or the scale left out), each in a temporary directory under the
+git-ignored build directory, swaps the faulty library in behind the
+kernel's wrapper, and holds the output against the plain version with
+``chip_smoke.compare`` on every main-path case of that kernel entry (the
+int8 faults on the int8-page cases). The unchanged kernels go through
 the same cases first and must pass.
 
 Prints one JSON line per kernel build (``{"clean": ...}`` or
@@ -31,12 +33,20 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# kernel name (chip_smoke.KERNELS) -> (library name, source anchor, faults)
+# kernel entry (chip_smoke.KERNELS) -> (library name, faults)
 # A fault is (label, text of the source it replaces, replacement).
 _DECODE_LOOP = "for (int start = 0; start < ctx; start += kTile) {"
 _DECODE_ALPHA = "float a = acc_sh[i] * alpha_sh[g];"
 _PREFILL_LOOP = "for (int k0 = 0; k0 < n_keys; k0 += kTK) {"
 _PREFILL_ALPHA = "const float a = alpha_sh[pr * RPT + i];"
+# The int8 path of both kernels scales each loaded row by its own scale.
+_SCALES = ("scale8(kt, k_scales[row]);\n"
+           "          scale8(vt, v_scales[row]);")
+_SCALE_FAULTS = [
+    ("scale of kv head h read from head 0", _SCALES,
+     "scale8(kt, k_scales[row - kvh]);\n"
+     "          scale8(vt, v_scales[row - kvh]);"),
+    ("scale left out", _SCALES, "")]
 FAULTS = {
     "paged_attention": ("paged_attention", [
         ("skip the last key tile", _DECODE_LOOP,
@@ -62,6 +72,8 @@ FAULTS = {
          "const float a = k0 == n_keys / (2 * kTK) * kTK ? 1.f : "
          "alpha_sh[pr * RPT + i];"),
     ]),
+    "paged_attention_int8": ("paged_attention", _SCALE_FAULTS),
+    "cached_prefill_attention_int8": ("prefill_attention", _SCALE_FAULTS),
 }
 
 
@@ -79,7 +91,7 @@ def _build_faulty(_build, workdir: str):
         with open(os.path.join(_build.CSRC, f"{lib_name}.cu")) as f:
             src = f.read()
         for i, (label, old, new) in enumerate(faults):
-            d = os.path.join(workdir, f"{lib_name}-{i}")
+            d = os.path.join(workdir, f"{kernel}-{i}")
             os.makedirs(d)
             for h in os.listdir(_build.CSRC):
                 if h.endswith(".cuh"):

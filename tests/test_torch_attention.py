@@ -256,11 +256,23 @@ def test_write_kv_pages_drops_negative_slots_in_place():
         assert sorted(np.nonzero(changed)[0]) == sorted(live)
 
 
-def test_int8_pages_refused():
+def test_int8_pages_match_xla():
+    """int8 (data, scales) pages reach the plain version, which
+    dequantizes them as the JAX reference does (more int8 cases in
+    tests/test_torch_kv_quant.py)."""
     q, k, v, tables, cl = _decode_inputs(1, 2, 2, 8, 1, 4, 2, [3], seed=1)
-    pages = (torch.from_numpy(k).to(torch.int8),
-             torch.ones((1, k.shape[1], 8)))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tatt.paged_attention_reference(
-            torch.from_numpy(q), pages, pages, torch.from_numpy(tables),
-            torch.from_numpy(cl), 0, scale=1.0)
+    kq, ks = jatt.quantize_kv(jnp.asarray(k))
+    vq, vs = jatt.quantize_kv(jnp.asarray(v))
+    k_pages = (kq, ks.reshape(1, k.shape[1], 8))
+    v_pages = (vq, vs.reshape(1, v.shape[1], 8))
+    want = jatt.paged_attention_reference(
+        jnp.asarray(q), k_pages, v_pages, jnp.asarray(tables),
+        jnp.asarray(cl), jnp.int32(0), scale=1.0)
+
+    def torch_pages(p):
+        return tuple(torch.from_numpy(np.array(a)) for a in p)
+
+    got = tatt.paged_attention_reference(
+        torch.from_numpy(q), torch_pages(k_pages), torch_pages(v_pages),
+        torch.from_numpy(tables), torch.from_numpy(cl), 0, scale=1.0)
+    _close(got, want, XLA_TOL)

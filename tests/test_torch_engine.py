@@ -220,8 +220,8 @@ def test_cuda_device_without_a_card_raises():
 
 @pytest.mark.parametrize("over", [
     dict(enable_chunked_prefill=True), dict(prefill_batch=4),
-    dict(speculative_num_tokens=4), dict(kv_cache_dtype="int8"),
-    dict(quantization="int8"), dict(tensor_parallel_size=2),
+    dict(speculative_num_tokens=4), dict(data_parallel_size=2),
+    dict(pipeline_parallel_size=2), dict(tensor_parallel_size=2),
     dict(step_recorder=True), dict(fused_step=True)])
 def test_unported_features_are_refused(over):
     cfg = EngineConfig(device="cpu", **dict(MAKE_ENGINE, **over))

@@ -36,40 +36,56 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pool(cuda, dtype, L, NB, bs, KVH, D, seed):
+def _pool(cuda, dtype, L, NB, bs, KVH, D, seed, int8=False):
+    """K and V pages of random values: in ``dtype``, or quantized into
+    int8 ``(data, scales)`` pairs."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    return tuple(torch.randn((L, NB, bs, KVH, D), generator=g, device=cuda,
-                             dtype=dtype) for _ in range(2))
+    sides = [torch.randn((L, NB, bs, KVH, D), generator=g, device=cuda,
+                         dtype=dtype) for _ in range(2)]
+    if not int8:
+        return tuple(sides)
+    out = []
+    for x in sides:
+        data, scales = att.quantize_kv(x)
+        out.append((data, scales.reshape(L, NB, bs * KVH)))
+    return tuple(out)
 
 
+def _launches(fn, int8):
+    return fn.launches_int8 if int8 else fn.launches
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,D,bs,MAXB", [(8, 2, 64, 16, 5),
                                              (4, 4, 128, 4, 7),
                                              (6, 2, 32, 64, 3)])
-def test_paged_attention_matches_plain(cuda, dtype, H, KVH, D, bs, MAXB):
+def test_paged_attention_matches_plain(cuda, dtype, H, KVH, D, bs, MAXB,
+                                       int8):
     rng = np.random.default_rng(H + D)
     B = 3
-    k, v = _pool(cuda, dtype, 2, B * MAXB + 1, bs, KVH, D, seed=D)
+    k, v = _pool(cuda, dtype, 2, B * MAXB + 1, bs, KVH, D, seed=D, int8=int8)
     q = torch.randn((B, H, D), device=cuda, dtype=dtype)
     tables = torch.from_numpy(rng.permutation(B * MAXB + 1)[:B * MAXB]
                               .reshape(B, MAXB).astype(np.int32)).to(cuda)
     ctx = torch.tensor([1, MAXB * bs, MAXB * bs // 2 + 1], dtype=torch.int32,
                        device=cuda)
-    before = paged_attention.launches
+    before = _launches(paged_attention, int8)
     got = paged_attention(q, k, v, tables, ctx, 1, scale=D ** -0.5)
     want = att.paged_attention_reference(q, k, v, tables, ctx, 1,
                                          scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
+    assert _launches(paged_attention, int8) == before + 1
     assert_close(got, want)
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,KVH,D", [(6, 2, 64), (8, 8, 128), (4, 2, 32)])
-def test_cached_prefill_matches_plain(cuda, dtype, H, KVH, D):
+def test_cached_prefill_matches_plain(cuda, dtype, H, KVH, D, int8):
     rng = np.random.default_rng(H * D)
     B, T, bs, MAXB = 2, 40, 8, 12
-    k, v = _pool(cuda, dtype, 2, B * MAXB + 1, bs, KVH, D, seed=H)
+    k, v = _pool(cuda, dtype, 2, B * MAXB + 1, bs, KVH, D, seed=H, int8=int8)
     q = torch.randn((B, T, H, D), device=cuda, dtype=dtype)
     k_new = torch.randn((B, T, KVH, D), device=cuda, dtype=dtype)
     v_new = torch.randn((B, T, KVH, D), device=cuda, dtype=dtype)
@@ -86,11 +102,11 @@ def test_cached_prefill_matches_plain(cuda, dtype, H, KVH, D):
     args = (q, k, v, torch.from_numpy(tables.astype(np.int32)).to(cuda),
             torch.from_numpy(positions).to(cuda),
             torch.from_numpy((prefix + take).astype(np.int32)).to(cuda), 1)
-    before = cached_prefill_attention.launches
+    before = _launches(cached_prefill_attention, int8)
     got = cached_prefill_attention(*args, scale=D ** -0.5)
     want = att._context_prefill_reference(*args, scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert cached_prefill_attention.launches == before + 1
+    assert _launches(cached_prefill_attention, int8) == before + 1
     for b in range(B):
         assert_close(got[b, :take[b]], want[b, :take[b]])
 
@@ -104,3 +120,18 @@ def test_unsupported_shapes_raise_not_fall_back(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         paged_attention(q, k, v, tables, ctx, 0, scale=1.0)
     assert paged_attention.launches == before
+
+
+def test_malformed_int8_pages_raise_not_fall_back(cuda):
+    (kd, ks), (vd, vs) = _pool(cuda, torch.float32, 1, 4, 4, 2, 64, seed=1,
+                               int8=True)
+    q = torch.randn((1, 4, 64), device=cuda)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    ctx = torch.ones((1,), dtype=torch.int32, device=cuda)
+    before = paged_attention.launches_int8
+    for k, v, match in [((kd, ks.reshape(1, 4, 4, 2)), (vd, vs), "scales"),
+                        ((kd, ks), vd.float(), "encoding"),
+                        ((kd.float(), ks), (vd, vs), "int8")]:
+        with pytest.raises((ValueError, TypeError), match=match):
+            paged_attention(q, k, v, tables, ctx, 0, scale=1.0)
+    assert paged_attention.launches_int8 == before

@@ -163,13 +163,24 @@ def test_init_params_shapes_match_jax():
     assert torch.equal(again["embed"], tparams["embed"])
 
 
-def test_int8_weights_refused(models):
-    _, tcfg, _, tparams = models
-    p = dict(tparams["layers"])
-    p["wq"] = p["wq"].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tllama._proj(torch.zeros((1, 1, tcfg.hidden_size)),
-                     {k: v[0] for k, v in p.items()}, "wq")
+def test_int8_weights_match_jax(models):
+    """An int8 weight leaf (JAX-quantized) in the projection: h @ W in h's
+    dtype, the per-output-channel scale on the result, as JAX computes it
+    (whole quantized models in tests/test_torch_quantize.py)."""
+    from production_stack_tpu.models.quantize import quantize_loaded
+
+    jcfg, tcfg, jparams, _ = models
+    tree = quantize_loaded(
+        {"layers": {"wq": np.asarray(jparams["layers"]["wq"])}}, "llama")
+    h = np.random.default_rng(3).normal(
+        size=(2, 3, tcfg.hidden_size)).astype(np.float32)
+    want = jllama._proj(jnp.asarray(h), {k: jnp.asarray(v[0]) for k, v in
+                                         tree["layers"].items()}, "wq")
+    p = {k: torch.from_numpy(v[0]) for k, v in tree["layers"].items()}
+    assert p["wq"].dtype == torch.int8
+    got = tllama._proj(torch.from_numpy(h), p, "wq")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
 
 
 @pytest.mark.parametrize("theta", [10000.0, 500000.0])
