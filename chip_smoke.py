@@ -7,30 +7,41 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build both CUDA kernels from ``production_stack_tpu_torch/csrc`` (one
-   nvcc per source, started together) and print the compiler's
-   register/shared-memory report to standard error;
-2. hold each kernel, in both page encodings (pages in q's dtype, and
-   int8 pages with float32 scales), against its plain PyTorch version on
-   the same CUDA tensors, at the Llama-3-8B main-path shapes in bf16 and
-   at small f32 shapes, and time kernel, plain version and a library
-   yardstick (``scaled_dot_product_attention`` on pre-gathered contiguous
-   K/V, dequantized beforehand for int8, which excludes the page gather
-   and the dequant and is never called by the port);
-3. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
+1. build the three kernel libraries from ``production_stack_tpu_torch/csrc``
+   (both attention kernels and the page probes; one nvcc per source,
+   started together) and print the compiler's register/shared-memory
+   report to standard error;
+2. hold each attention kernel, in both page encodings (pages in q's
+   dtype, and int8 pages with float32 scales), against its plain PyTorch
+   version on the same CUDA tensors, at the Llama-3-8B main-path shapes
+   in bf16 and at small f32 shapes, and time kernel, plain version and a
+   library yardstick (``scaled_dot_product_attention`` on pre-gathered
+   contiguous K/V, dequantized beforehand for int8, which excludes the
+   page gather and the dequant and is never called by the port);
+3. the page probes of the decode kernel (``csrc/page_probes.cu``: the
+   page gather alone, and with per-head reads or with both products and
+   no softmax), each mode and page dtype against its plain version at
+   small shapes, at the 8B decode case and at the JAX scripts' shapes;
+   then the probe path driven through its entry points (the
+   ``torch.sum`` yardstick, the gather at 4-64 pages a block, reads and
+   products at 4, 8 and 64, the decode kernel on the same pools), every
+   rate held under 1.05 x 3.35 TB/s, printed as a ``{"probes": ...}``
+   line;
+4. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
    weights through the port's OpenAI server (in-process, on a thread) and
    drive it over HTTP: concurrent greedy completions, a chunked long
    prompt, a prefix-cache hit, a streamed sampled chat, a repeated greedy
    request and a ``/metrics`` scrape; every request must finish with
    ``stop`` or ``length`` and both kernels must have launched;
-4. free that engine and serve the same model again with
+5. free that engine and serve the same model again with
    ``--kv-cache-dtype int8 --quantization int8`` (int8 KV pages, int8
    weights), driven the same way; both kernels must have launched in
-   their int8 mode, and never in the other.
+   their int8 mode, and never in the other. No probe launches on either
+   served path.
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
-page encoding), the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": ...}``.
+page encoding, each probe in each mode and page dtype), the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a CUDA device or outside a checkout of the repo.
 """
@@ -44,8 +55,6 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # Tolerances of kernel vs plain version, elementwise.
 # f32: 2e-3 absolute, the TPU kernels' own parity bar; the f32 cases have
 # short contexts, where |o| is 0.1-1 and a lost key tile moves o by O(0.1).
@@ -427,6 +436,11 @@ def kernel_phase():
         errs[name] = max(errs[name], err)
         cases[label] = c
 
+    from production_stack_tpu_torch.probes.common import (
+        BF16_FLOPS,
+        HBM_BYTES_PER_S,
+    )
+
     results = {}
     for enc in ("bf16", "int8"):
         suffix = "_int8" if enc == "int8" else ""
@@ -448,6 +462,328 @@ def kernel_phase():
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']})")
     return results
+
+
+# -- probe phase --------------------------------------------------------------
+
+# A probe that reads faster than this many times the card's memory rate
+# (``probes.common.HBM_BYTES_PER_S``) copied less than it claims: the
+# planted dma_only fault of scripts/torch_kernel_faults.py (only the
+# consumed rows copied) reads above it.
+PROBE_RATE_FACTOR = 1.05
+# Probe kernel vs plain version, of the largest |plain| value: the same
+# float32 sums of page values in another order (atomics on the card);
+# dots adds float32 products of D terms, then of up to P * bs tokens.
+PROBE_GATHER_TOL = 1e-6
+PROBE_DOTS_TOL = 1e-5
+# The JAX scripts' shapes (benchmarks/kernel_dma_only.py:26-27, G from
+# kernel_probe_strided.py:27), and the Llama-3-8B decode case of the
+# kernel phase (8 x 2,048, 64-token pages, 32/8 heads) at the model's 32
+# layers, so that one call's pool (2.15 GB) is far beyond the 50 MB L2.
+JAX_PROBE_SHAPE = dict(B=16, MAXB=64, NB=843, ctx=3000, L=16, bs=64, KVH=8,
+                       D=128, G=8)
+DECODE_PROBE_SHAPE = dict(B=8, MAXB=32, NB=8 * 32 + 3, ctx=2048, L=32,
+                          bs=64, KVH=8, D=128, G=4)
+# P of each sweep: the gather, then reads and dots. Each holds P = MAXB
+# (one block walks a sequence, the decode kernel's grid), where the
+# decomposition is read.
+PROBE_SWEEPS = {"jax_shapes": ((4, 8, 16, 64), (8, 64)),
+                "decode_case": ((4, 8, 16, 32), (4, 32))}
+PROBE_DTYPES = ("bf16", "int8")  # page dtypes of the kernels line
+
+
+def probe_inputs(shape, dtype, seed=0):
+    """(q, k, v, tables, lens) of a probe run on the card: pages of
+    ``dtype``, bf16 q of KVH * G rows."""
+    import torch
+
+    from production_stack_tpu_torch.probes import common
+
+    s = dict(shape)
+    G = s.pop("G")
+    k, v, bt, cl = common.make_inputs(dtype=dtype, device="cuda", seed=seed,
+                                      **s)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.randn((s["B"], s["KVH"] * G, s["D"]), generator=g,
+                    device="cuda", dtype=torch.bfloat16)
+    return q, k, v, bt, cl
+
+
+def probe_compare(kind, inputs, P, layer):
+    """(max_abs_err, error over its bar) of one probe launch against its
+    plain version on the same inputs (``kind``: dma_only, reads, dots)."""
+    from production_stack_tpu_torch.probes import kernel_dma_only as kdma
+    from production_stack_tpu_torch.probes import kernel_probe_strided as kst
+
+    q, k, v, bt, cl = inputs
+    if kind == "dma_only":
+        got = kdma.dma_only(k, v, bt, cl, layer, pages_per_block=P)
+        want = kdma.dma_only_reference(k, v, bt, cl, layer,
+                                       pages_per_block=P)
+    else:
+        got = kst.probe_strided(q, k, v, bt, cl, layer, mode=kind,
+                                pages_per_block=P)
+        want = kst.probe_strided_reference(q, k, v, bt, cl, layer, mode=kind,
+                                           pages_per_block=P)
+    tol = PROBE_DOTS_TOL if kind == "dots" else PROBE_GATHER_TOL
+    if not bool(got.isfinite().all()):
+        return float("inf"), float("inf")
+    err = (got - want).abs().max().item()
+    bar = tol * max(want.abs().max().item(), 1e-30)
+    return err, err / bar
+
+
+def check_probe(label, kind, inputs, P, layer):
+    """:func:`probe_compare`, logged; raises past the bar."""
+    err, over = probe_compare(kind, inputs, P, layer)
+    log(f"[probe] {label}: max_abs_err={err:.3e} err/bar={over:.3f}")
+    if not over <= 1.0:
+        raise AssertionError(f"{label}: error {over:.3f}x its bar")
+    return err
+
+
+def check_probe_rate(label, nbytes, seconds):
+    """Raise if a probe read faster than the card's memory can deliver."""
+    from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
+
+    rate = nbytes / seconds
+    if rate > PROBE_RATE_FACTOR * HBM_BYTES_PER_S:
+        raise AssertionError(
+            f"{label}: {rate / 1e12:.2f} TB/s is above 1.05 x 3.35 TB/s: "
+            f"the probe copied less than it counts")
+    return rate
+
+
+def _probe_counters():
+    """The launch counter of each probe entry: (wrapper, attribute)."""
+    from production_stack_tpu_torch.probes.kernel_dma_only import dma_only
+    from production_stack_tpu_torch.probes.kernel_probe_strided import (
+        MODES,
+        probe_strided,
+    )
+
+    out = {f"kernel_dma_only_{d}": (dma_only, f"launches_{d}")
+           for d in PROBE_DTYPES}
+    out.update({f"kernel_probe_strided_{m}_{d}": (probe_strided,
+                                                   f"launches_{m}_{d}")
+                for m in MODES for d in PROBE_DTYPES})
+    return out
+
+
+def _decode_all_layers_ms(q, k, v, bt, cl, dtype):
+    """Device ms of the port's decode kernel over every layer of a probe
+    pool at contexts ``cl`` (int8 pages get scales of one, so the kernel
+    does its dequant)."""
+    import torch
+
+    from production_stack_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+
+    L, NB, bs, KVH, D = k.shape
+    if dtype == torch.int8:
+        ones = torch.ones((L, NB, bs * KVH), device="cuda")
+        k, v = (k, ones), (v, ones)
+
+    def call():
+        for layer in range(L):
+            paged_attention(q, k, v, bt, cl, layer, scale=D ** -0.5)
+
+    return cuda_time_ms(call)
+
+
+def _plain_run(mode, P, q, k, v, bt, cl):
+    """The plain version of ``build(mode, P)``'s run."""
+    import torch
+
+    from production_stack_tpu_torch.probes import kernel_probe_strided as kst
+
+    acc = torch.zeros(8, device=q.device)
+    for layer in range(k.shape[0]):
+        acc += kst.probe_strided_reference(
+            q, k, v, bt, cl, layer, mode=mode, pages_per_block=P)[0, 0, :8]
+    return acc.reshape(1, 8)
+
+
+def _decomposition(rows, q, k, v, bt, cl, dtype):
+    """The decode kernel's time split by the probes at P = MAXB, where the
+    strided probe has the decode kernel's grid, tiles and loads and reads
+    the same tokens (every live sequence's table in full, as the probes
+    read whole chunks): the ring gather of whole pages (``dma_only``), the
+    kernel's per-head loads over it (reads - dma_only), its products
+    (dots - reads) and its softmax with the rest (the decode kernel over
+    the same tokens - dots). With int8 pages the decode kernel also reads
+    and applies the scales (1/32 of the code bytes at D = 128), which
+    lands in the last term."""
+    import torch
+
+    MAXB, bs = bt.shape[1], k.shape[2]
+    read_lens = torch.where(cl > 0, MAXB * bs, 0).to(cl.dtype)
+    decode_s = rows["decode_kernel_all_L_s"] if torch.equal(read_lens, cl) \
+        else _decode_all_layers_ms(q, k, v, bt, read_lens, dtype) / 1e3
+    dma_s = rows[f"dma_only_P{MAXB}"]["dma_only_all_L_s"]
+    reads_s = rows[f"reads_P{MAXB}"]["all_L_s"]
+    dots_s = rows[f"dots_P{MAXB}"]["all_L_s"]
+    return {"P": MAXB, "tokens_per_sequence": MAXB * bs,
+            "decode_kernel_s": decode_s, "ring_gather_s": dma_s,
+            "strided_loads_s": reads_s - dma_s,
+            "products_s": dots_s - reads_s,
+            "products_tflops": rows[f"dots_P{MAXB}"]["gflop"] / 1e3
+            / (dots_s - reads_s),
+            "softmax_rest_s": decode_s - dots_s}
+
+
+def probe_phase():
+    """Both probe kernels against their plain versions (small shapes, the
+    8B decode case, the JAX shapes; every mode and page dtype), then the
+    probe path driven through its entry points with every probe counter
+    set to 0 just before and read just after: at both shapes the
+    ``dma_only``, ``reads`` and ``dots`` sweeps of ``PROBE_SWEEPS`` (and
+    the contiguous yardstick at the JAX shapes), each held to the rate
+    limit, the decode kernel on the same pools and its decomposition.
+    Returns (per-entry measurements, the ``probes`` summary)."""
+    import torch
+
+    from production_stack_tpu_torch.probes import kernel_dma_only as kdma
+    from production_stack_tpu_torch.probes import kernel_probe_strided as kst
+    from production_stack_tpu_torch.probes.common import (
+        BF16_FLOPS,
+        HBM_BYTES_PER_S,
+    )
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}
+    kinds = ("dma_only", "reads", "dots")
+    # Small shapes: ragged contexts incl. 0 and 1 token, GQA 3 and 6,
+    # pages of 4-16 tokens, every head dim the kernel is built for.
+    for i, (bs, KVH, D, G, MAXB, ctx) in enumerate([
+            (16, 2, 64, 3, 8, [1, 40, 0, 128]),
+            (8, 4, 128, 6, 12, [96, 0, 17, 1]),
+            (4, 1, 32, 8, 16, [64, 33, 1, 0])]):
+        shape = dict(B=4, MAXB=MAXB, NB=4 * MAXB + 3, ctx=ctx, L=2, bs=bs,
+                     KVH=KVH, D=D, G=G)
+        for name, dtype in dtypes.items():
+            inputs = probe_inputs(shape, dtype, seed=i)
+            for kind in kinds:
+                if kind == "dma_only" and bs < 8:
+                    continue
+                for P in (1, 2, 4):
+                    if kind != "dma_only" and G > P * bs:
+                        continue
+                    check_probe(f"{kind} small case {i} {name} P={P}", kind,
+                                inputs, P, 1)
+    errs = {name: 0.0 for name in _probe_counters()}
+
+    def entry(kind, dname):
+        if kind == "dma_only":
+            return f"kernel_dma_only_{dname}"
+        return f"kernel_probe_strided_{kind}_{dname}"
+
+    for label, shape in (("decode_case", DECODE_PROBE_SHAPE),
+                         ("jax_shapes", JAX_PROBE_SHAPE)):
+        for dname in PROBE_DTYPES:
+            inputs = probe_inputs(shape, dtypes[dname])
+            for kind in kinds:
+                for P in PROBE_SWEEPS[label][1]:
+                    err = check_probe(f"{kind} {label} {dname} P={P}", kind,
+                                      inputs, P, shape["L"] - 1)
+                    errs[entry(kind, dname)] = max(errs[entry(kind, dname)],
+                                                   err)
+            if label == "jax_shapes":
+                # The JAX scripts' checksum, over every layer.
+                for mode in kst.MODES:
+                    got = kst.build(mode, 8)(*inputs)
+                    want = _plain_run(mode, 8, *inputs)
+                    err = (got - want).abs().max().item()
+                    tol = PROBE_DOTS_TOL if mode == "dots" else \
+                        PROBE_GATHER_TOL
+                    log(f"[probe] {mode} {label} {dname} run checksum: "
+                        f"max_abs_err={err:.3e}")
+                    if not err <= tol * max(want.abs().max().item(), 1e-30):
+                        raise AssertionError(f"{mode} {dname}: run checksum "
+                                             f"off by {err:.3e}")
+                    errs[entry(mode, dname)] = max(errs[entry(mode, dname)],
+                                                   err)
+            del inputs
+            _free_device_memory()
+
+    counters = _probe_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    summary = {"jax_shapes": {}, "decode_case": {}}
+    results = {}
+    for dname in PROBE_DTYPES:
+        dtype = dtypes[dname]
+        for label, shape in (("jax_shapes", JAX_PROBE_SHAPE),
+                             ("decode_case", DECODE_PROBE_SHAPE)):
+            q, k, v, bt, cl = probe_inputs(shape, dtype)
+            rows = {}
+            if label == "jax_shapes":
+                contig = kdma.contiguous_row(k)
+                check_probe_rate(f"torch.sum {dname}",
+                                 contig["pool_gb"] * 1e9,
+                                 contig["contiguous_sum_s"])
+                rows["contiguous"] = contig
+            gather_ps, strided_ps = PROBE_SWEEPS[label]
+            for P in gather_ps:
+                row = kdma.sweep_row(k, v, bt, cl, P)
+                check_probe_rate(f"dma_only {label} {dname} P={P}",
+                                 row["bytes_gb"] * 1e9,
+                                 row["dma_only_all_L_s"])
+                rows[f"dma_only_P{P}"] = row
+            for mode in kst.MODES:
+                for P in strided_ps:
+                    row = kst.sweep_row(q, k, v, bt, cl, mode, P)
+                    check_probe_rate(f"{mode} {label} {dname} P={P}",
+                                     row["bytes_gb"] * 1e9, row["all_L_s"])
+                    rows[f"{mode}_P{P}"] = row
+            rows["decode_kernel_all_L_s"] = _decode_all_layers_ms(
+                q, k, v, bt, cl, dtype) / 1e3
+            rows["decomposition"] = _decomposition(rows, q, k, v, bt, cl,
+                                                   dtype)
+            rows["split_gather_headroom"] = (
+                rows[f"dma_only_P{gather_ps[-1]}"]["dma_only_all_L_s"]
+                / rows[f"dma_only_P{gather_ps[0]}"]["dma_only_all_L_s"])
+            summary[label][dname] = rows
+            log(f"[probe] {label} {dname}: {json.dumps(rows)}")
+            if label == "jax_shapes":
+                # The kernels line: each entry at P=8, the JAX scripts'
+                # default.
+                L = k.shape[0]
+                dma8 = rows["dma_only_P8"]
+                plain_dma = cuda_time_ms(lambda: kdma.dma_only_reference(
+                    k, v, bt, cl, L - 1, pages_per_block=8), iters=5)
+                results[f"kernel_dma_only_{dname}"] = dict(
+                    ms=dma8["dma_only_all_L_s"] * 1e3 / L,
+                    plain_ms=plain_dma, bytes=dma8["bytes_gb"] * 1e9 / L,
+                    ops=0)
+                for mode in kst.MODES:
+                    row = rows[f"{mode}_P8"]
+                    results[f"kernel_probe_strided_{mode}_{dname}"] = dict(
+                        ms=row["all_L_s"] * 1e3,
+                        plain_ms=cuda_time_ms(lambda mode=mode: _plain_run(
+                            mode, 8, q, k, v, bt, cl), iters=3, warmup=1),
+                        bytes=row["bytes_gb"] * 1e9, ops=row["gflop"] * 1e9)
+            del q, k, v, bt, cl
+            _free_device_memory()
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the probe path")
+    for name, r in results.items():
+        byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = r["ops"] / BF16_FLOPS * 1e3
+        r.update(max_abs_err=errs[name], launches=launches[name],
+                 bound_ms=max(byte_ms, op_ms),
+                 bound_by="bytes" if byte_ms >= op_ms else "operations",
+                 library_ms=None)
+        log(f"[probe] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"launches={r['launches']}")
+    return results, summary
 
 
 # -- served main path ---------------------------------------------------------
@@ -534,7 +870,8 @@ def _leaves(tree):
 
 
 def _counters():
-    """The launch counter of each kernel entry: (wrapper, attribute)."""
+    """The launch counter of each kernel entry: (wrapper, attribute); the
+    probes' too, so that a served run shows it never launched them."""
     from production_stack_tpu_torch.ops.paged_attention import paged_attention
     from production_stack_tpu_torch.ops.prefill_attention import (
         cached_prefill_attention,
@@ -545,7 +882,8 @@ def _counters():
                                          "launches"),
             "paged_attention_int8": (paged_attention, "launches_int8"),
             "cached_prefill_attention_int8": (cached_prefill_attention,
-                                              "launches_int8")}
+                                              "launches_int8"),
+            **_probe_counters()}
 
 
 def _weight_bytes(params):
@@ -572,6 +910,7 @@ def serve_phase(label: str, extra_args, entries):
     import threading
 
     from production_stack_tpu_torch.engine.server import build_server
+    from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
 
     import torch
 
@@ -827,13 +1166,16 @@ def main(argv=None) -> int:
         print(f"card: {smi}", flush=True)
         return 0
     t0 = time.time()
-    _build.build(["paged_attention", "prefill_attention"], verbose=True)
+    _build.build(["paged_attention", "prefill_attention", "page_probes"],
+                 verbose=True)
     build_s = time.time() - t0
     for name, text in _build.build.last_log.items():
         log(f"[build] {name}:\n{text}")
-    log(f"[build] both kernels built in {build_s:.1f} s")
+    log(f"[build] all three kernel libraries built in {build_s:.1f} s")
 
     results = kernel_phase()
+    probe_results, probes = probe_phase()
+    print(json.dumps({"probes": probes}), flush=True)
     launches = {}
     for label, extra, entries in (
             ("bf16", (), ("paged_attention", "cached_prefill_attention")),
@@ -846,19 +1188,27 @@ def main(argv=None) -> int:
         launches.update(counts)
         log(f"[serve] {json.dumps(summary)}")
         print(json.dumps({"serve": summary}), flush=True)
+    results.update(probe_results)
     replaces = {
         "paged_attention":
             "production_stack_tpu/ops/pallas_paged_attention.py:231",
         "cached_prefill_attention":
-            "production_stack_tpu/ops/pallas_prefill_attention.py:221"}
+            "production_stack_tpu/ops/pallas_prefill_attention.py:221",
+        "kernel_dma_only": "benchmarks/kernel_dma_only.py:81",
+        "kernel_probe_strided": "benchmarks/kernel_probe_strided.py:117"}
     sources = {
         "paged_attention":
             "production_stack_tpu_torch/csrc/paged_attention.cu",
         "cached_prefill_attention":
-            "production_stack_tpu_torch/csrc/prefill_attention.cu"}
+            "production_stack_tpu_torch/csrc/prefill_attention.cu",
+        "kernel_dma_only": "production_stack_tpu_torch/csrc/page_probes.cu",
+        "kernel_probe_strided":
+            "production_stack_tpu_torch/csrc/page_probes.cu"}
+    launches.update({name: r["launches"]
+                     for name, r in probe_results.items()})
     kernels = []
     for name, r in results.items():
-        base = name.removesuffix("_int8")
+        base = next(b for b in replaces if name.startswith(b))
         kernels.append(dict(
             name=name, route="cuda", source=sources[base],
             replaces=replaces[base], launches=launches[name],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted-fault check of the port's CUDA attention kernels (needs a card).
+"""Planted-fault check of the port's CUDA kernels (needs a card).
 
     python3 scripts/torch_kernel_faults.py
 
@@ -14,6 +14,18 @@ kernel's wrapper, and holds the output against the plain version with
 ``chip_smoke.compare`` on every main-path case of that kernel entry (the
 int8 faults on the int8-page cases). The unchanged kernels go through
 the same cases first and must pass.
+
+The page probes (``csrc/page_probes.cu``) get three faults: ``dma_only``
+copying only the 8 token rows its checksum consumes (every consumed value
+stays right, so only chip_smoke.py's rate check can catch it: the sweep
+at the JAX shapes must read above 1.05 x 3.35 TB/s), ``reads`` loading
+only the first G token rows of each chunk, and ``dots`` skipping the last
+live chunk (caught by the value check). The ``reads`` fault also leaves
+every value ``reads`` consumes right, and ``reads`` in the decode
+kernel's layout runs far below the memory rate even with its loads cut,
+so the rate check misses it; its load loop is the one ``dots`` runs,
+whose value check catches it. So a probe fault is held to the checks of
+every mode that runs the faulted code.
 
 Prints one JSON line per kernel build (``{"clean": ...}`` or
 ``{"fault": ...}``, with each case's max_abs_err and error over its bar),
@@ -83,29 +95,28 @@ def _plant(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def _build_faulty(_build, workdir: str):
+def _build_faulty(_build, workdir: str, plants):
     """Compile every faulty copy, one nvcc each, all started together.
-    Returns [(kernel, label, library path)]."""
+    ``plants``: [(kernel entry, label, library name, anchor, replacement)].
+    Returns [(kernel entry, label, library path)]."""
     jobs = []
-    for kernel, (lib_name, faults) in FAULTS.items():
+    for i, (kernel, label, lib_name, old, new) in enumerate(plants):
         with open(os.path.join(_build.CSRC, f"{lib_name}.cu")) as f:
             src = f.read()
-        for i, (label, old, new) in enumerate(faults):
-            d = os.path.join(workdir, f"{kernel}-{i}")
-            os.makedirs(d)
-            for h in os.listdir(_build.CSRC):
-                if h.endswith(".cuh"):
-                    shutil.copy(os.path.join(_build.CSRC, h), d)
-            cu = os.path.join(d, f"{lib_name}.cu")
-            with open(cu, "w") as f:
-                f.write(_plant(src, old, new))
-            out = os.path.join(d, f"{lib_name}.so")
-            cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", d, "-o",
-                   out, cu]
-            jobs.append((kernel, label, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+        d = os.path.join(workdir, f"{kernel}-{i}")
+        os.makedirs(d)
+        for h in os.listdir(_build.CSRC):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(_build.CSRC, h), d)
+        cu = os.path.join(d, f"{lib_name}.cu")
+        with open(cu, "w") as f:
+            f.write(_plant(src, old, new))
+        out = os.path.join(d, f"{lib_name}.so")
+        cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-I", d, "-o", out, cu]
+        jobs.append((kernel, label, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
     built = []
     for kernel, label, out, proc in jobs:
         log, _ = proc.communicate()
@@ -130,6 +141,67 @@ def _run_cases(chip_smoke, kernel, cases):
     return out
 
 
+def _run_probe_cases(chip_smoke, kind, inputs):
+    """The checks of chip_smoke.py's probe phase that a fault of ``kind``
+    must fail: the value against the plain version (every kind), and for
+    the copying probes also the rate of a sweep over all layers at the
+    JAX shapes (bf16 pages, P=8), as a multiple of the card's 3.35 TB/s."""
+    from production_stack_tpu_torch.probes import kernel_dma_only as kdma
+    from production_stack_tpu_torch.probes import kernel_probe_strided as kst
+    from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
+
+    out = []
+    for label, case, P in (("jax shapes", "jax", 8), ("jax shapes", "jax", 64),
+                           ("8x2048", "decode", 4)):
+        err, over = chip_smoke.probe_compare(kind, inputs[case], P,
+                                             inputs[case][1].shape[0] - 1)
+        out.append({"case": f"{kind} {label} P={P}", "max_abs_err": err,
+                    "err_over_bar": over, "caught": not over <= 1.0})
+    if kind != "dots":
+        q, k, v, bt, cl = inputs["jax"]
+        if kind == "dma_only":
+            row = kdma.sweep_row(k, v, bt, cl, 8)
+            seconds = row["dma_only_all_L_s"]
+        else:
+            row = kst.sweep_row(q, k, v, bt, cl, kind, 8)
+            seconds = row["all_L_s"]
+        rate = row["bytes_gb"] * 1e9 / seconds
+        out.append({"case": f"{kind} sweep rate, jax shapes P=8",
+                    "rate_over_hbm": rate / HBM_BYTES_PER_S,
+                    "caught": rate / HBM_BYTES_PER_S
+                    > chip_smoke.PROBE_RATE_FACTOR})
+    return out
+
+
+# Planted faults of the page probes (csrc/page_probes.cu): (probe, label,
+# anchor, replacement). The dma_only copy fault leaves every value the
+# probe consumes in place, so only the rate check can catch it.
+_DMA_COPY = "const int n16 = T * row16;"
+_TILE_LOAD = "if (t < n) {"
+_TILE_LIVE = ("if ((long long)c * span >= context_lens[b]) return;  "
+              "// not a live chunk")
+PROBE_FAULTS = [
+    ("dma_only", "copy only the 8 token rows the checksum consumes",
+     _DMA_COPY, "const int n16 = (p == 0 && t0 < 8) ? "
+     "min(T, 8 - t0) * row16 : 0;"),
+    ("reads", "load only the first G token rows of each chunk",
+     _TILE_LOAD, "if (t < n && start + t < G) {"),
+    ("dots", "skip the last live chunk", _TILE_LIVE,
+     "if ((long long)(c + 1) * span >= context_lens[b]) return;"),
+]
+# The probe kinds whose checks run on each fault: those that run the
+# faulted code (reads and dots share one load loop).
+PROBE_CHECKS = {"dma_only": ("dma_only",), "reads": ("reads", "dots"),
+                "dots": ("dots",)}
+
+
+def _swap_in(_build, lib_name, path):
+    lib = ctypes.CDLL(path)
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    _build._libs[lib_name] = lib  # the wrapper now launches it
+
+
 def main() -> int:
     import torch
 
@@ -143,6 +215,11 @@ def main() -> int:
 
     smi = chip_smoke.nvidia_smi_line()
     cases = chip_smoke.main_path_cases()
+    probe_inputs = {
+        "jax": chip_smoke.probe_inputs(chip_smoke.JAX_PROBE_SHAPE,
+                                       torch.bfloat16),
+        "decode": chip_smoke.probe_inputs(chip_smoke.DECODE_PROBE_SHAPE,
+                                          torch.bfloat16)}
     ok = True
     for kernel, (lib_name, _) in FAULTS.items():
         _build.load(lib_name)
@@ -150,17 +227,31 @@ def main() -> int:
         ok &= not any(r["caught"] for r in rows)
         print(json.dumps({"clean": {"kernel": kernel, "cases": rows}}),
               flush=True)
+    _build.load("page_probes")
+    for kind, *_ in PROBE_FAULTS:
+        rows = _run_probe_cases(chip_smoke, kind, probe_inputs)
+        ok &= not any(r["caught"] for r in rows)
+        print(json.dumps({"clean": {"kernel": "page_probes " + kind,
+                                    "cases": rows}}), flush=True)
     clean = dict(_build._libs)
+    plants = [(kernel, label, lib_name, old, new)
+              for kernel, (lib_name, faults) in FAULTS.items()
+              for label, old, new in faults]
+    plants += [(kind, label, "page_probes", old, new)
+               for kind, label, old, new in PROBE_FAULTS]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        for kernel, label, path in _build_faulty(_build, workdir):
-            lib_name = FAULTS[kernel][0]
-            lib = ctypes.CDLL(path)
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            _build._libs[lib_name] = lib  # the wrapper now launches it
+        for kernel, label, path in _build_faulty(_build, workdir, plants):
+            probe = kernel in ("dma_only", "reads", "dots")
+            lib_name = "page_probes" if probe else FAULTS[kernel][0]
+            _swap_in(_build, lib_name, path)
             try:
-                rows = _run_cases(chip_smoke, kernel, cases)
+                if probe:
+                    rows = [r for kind in PROBE_CHECKS[kernel]
+                            for r in _run_probe_cases(chip_smoke, kind,
+                                                      probe_inputs)]
+                else:
+                    rows = _run_cases(chip_smoke, kernel, cases)
             finally:
                 _build._libs[lib_name] = clean[lib_name]
             caught = any(r["caught"] for r in rows)

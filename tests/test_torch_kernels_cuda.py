@@ -135,3 +135,92 @@ def test_malformed_int8_pages_raise_not_fall_back(cuda):
         with pytest.raises((ValueError, TypeError), match=match):
             paged_attention(q, k, v, tables, ctx, 0, scale=1.0)
     assert paged_attention.launches_int8 == before
+
+
+# -- page probes (csrc/page_probes.cu) ----------------------------------------
+
+def _probe_inputs(cuda, dtype, B, MAXB, bs, KVH, D, G, ctx, seed):
+    from production_stack_tpu_torch.probes import common
+
+    k, v, bt, cl = common.make_inputs(
+        B=B, MAXB=MAXB, NB=B * MAXB + 3, ctx=ctx, L=2, bs=bs, KVH=KVH, D=D,
+        dtype=dtype, device=cuda, seed=seed)
+    q = torch.randn((B, KVH * G, D), device=cuda, dtype=torch.bfloat16)
+    return q, k, v, bt, cl
+
+
+def _probe_close(got, want, tol):
+    """Probe outputs are float32 sums of page values taken in another
+    order (atomics): within ``tol`` of the largest |want|."""
+    bar = tol * want.abs().max().clamp_min(1e-30)
+    assert (got - want).abs().max().item() <= bar.item()
+
+
+_PAGE_DTYPES = [torch.float32, torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("dtype", _PAGE_DTYPES)
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_dma_only_matches_plain(cuda, dtype, P):
+    from production_stack_tpu_torch.probes.kernel_dma_only import (
+        dma_only,
+        dma_only_reference,
+    )
+
+    name = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.int8: "int8"}[dtype]
+    for ctx in ([1, 64, 100, 23], [23, 100, 64, 0], [64, 0, 1, 33]):
+        _, k, v, bt, cl = _probe_inputs(cuda, dtype, 4, 8, 16, 2, 64, 1,
+                                        ctx, seed=P)
+        before = getattr(dma_only, "launches_" + name)
+        got = dma_only(k, v, bt, cl, 1, pages_per_block=P)
+        want = dma_only_reference(k, v, bt, cl, 1, pages_per_block=P)
+        torch.cuda.synchronize()
+        assert getattr(dma_only, "launches_" + name) == before + 1
+        _probe_close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", _PAGE_DTYPES)
+@pytest.mark.parametrize("mode", ["reads", "dots"])
+@pytest.mark.parametrize("bs,KVH,D,G,P", [(16, 2, 64, 3, 2), (4, 4, 128, 6, 2),
+                                         (8, 1, 32, 8, 4), (64, 8, 128, 8, 8),
+                                         (8, 1, 64, 40, 8)])
+def test_probe_strided_matches_plain(cuda, dtype, mode, bs, KVH, D, G, P):
+    from production_stack_tpu_torch.probes.kernel_probe_strided import (
+        probe_strided,
+        probe_strided_reference,
+    )
+
+    MAXB = 8
+    ctx = [1, P * bs, P * bs + 3, MAXB * bs]
+    q, k, v, bt, cl = _probe_inputs(cuda, dtype, 4, MAXB, bs, KVH, D, G, ctx,
+                                    seed=G)
+    name = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.int8: "int8"}[dtype]
+    attr = f"launches_{mode}_{name}"
+    before = getattr(probe_strided, attr)
+    got = probe_strided(q, k, v, bt, cl, 1, mode=mode, pages_per_block=P)
+    want = probe_strided_reference(q, k, v, bt, cl, 1, mode=mode,
+                                   pages_per_block=P)
+    torch.cuda.synchronize()
+    assert getattr(probe_strided, attr) == before + 1
+    _probe_close(got, want, 1e-6 if mode == "reads" else 1e-5)
+
+
+def test_probes_raise_not_fall_back(cuda):
+    from production_stack_tpu_torch.probes.kernel_dma_only import dma_only
+    from production_stack_tpu_torch.probes.kernel_probe_strided import (
+        probe_strided,
+    )
+
+    q, k, v, bt, cl = _probe_inputs(cuda, torch.float32, 2, 8, 8, 2, 48, 2,
+                                    [9, 16], seed=0)
+    before = (dma_only.launches_f32, probe_strided.launches_dots_f32)
+    with pytest.raises(ValueError, match="head_dim"):
+        dma_only(k, v, bt, cl, 0, pages_per_block=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        probe_strided(q, k, v, bt, cl, 0, mode="dots", pages_per_block=2)
+    with pytest.raises(ValueError, match="does not divide"):
+        dma_only(k, v, bt, cl, 0, pages_per_block=3)
+    assert (dma_only.launches_f32,
+            probe_strided.launches_dots_f32) == before
