@@ -9,12 +9,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build the three kernel libraries from ``production_stack_tpu_torch/csrc``
    (both attention kernels and the page probes; one nvcc per source,
-   started together) and print the compiler's register/shared-memory
-   report to standard error;
+   started together), print the compiler's register/shared-memory
+   report to standard error and a ``{"sass": ...}`` line of each kernel
+   instantiation's tensor-core and asynchronous-copy instructions
+   (``cuobjdump -sass``): a bf16 instantiation of either attention
+   kernel without both fails the run;
 2. hold each attention kernel, in both page encodings (pages in q's
    dtype, and int8 pages with float32 scales), against its plain PyTorch
    version on the same CUDA tensors, at the Llama-3-8B main-path shapes
-   in bf16 and at small f32 shapes, and time kernel, plain version and a
+   in bf16 and at small shapes in f32 (the kernels' check mode) and in
+   bf16, and time kernel, plain version and a
    library yardstick (``scaled_dot_product_attention`` on pre-gathered
    contiguous K/V, dequantized beforehand for int8, which excludes the
    page gather and the dequant and is never called by the port);
@@ -24,9 +28,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    small shapes, at the 8B decode case and at the JAX scripts' shapes;
    then the probe path driven through its entry points (the
    ``torch.sum`` yardstick, the gather at 4-64 pages a block, reads and
-   products at 4, 8 and 64, the decode kernel on the same pools), every
-   rate held under 1.05 x 3.35 TB/s, printed as a ``{"probes": ...}``
-   line;
+   products at 4, 8 and 64, the decode kernel on the same pools beside
+   the gather at its own split, the first decode layout's split by the
+   probes), every rate held under 1.05 x 3.35 TB/s, printed as a
+   ``{"probes": ...}`` line;
 4. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
    weights through the port's OpenAI server (in-process, on a thread) and
    drive it over HTTP: concurrent greedy completions, a chunked long
@@ -51,6 +56,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -95,20 +102,73 @@ def nvidia_smi_line() -> str:
         "nvidia-smi: " + out.stderr.strip())
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
+# -- compiled code ------------------------------------------------------------
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# Tensor-core and asynchronous-copy instructions in the SASS of a kernel
+# (mma.sync / wgmma; cp.async / TMA loads).
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")
+# The bf16 (q) instantiations of both attention kernels, by name stem.
+MMA_KERNELS = ("paged_decode_mma_kernel", "prefill_mma_kernel")
+
+
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found on PATH or in $CUDA_HOME/bin")
+    return path
+
+
+# Template arguments of the kernels' mangled names: page type, head dim.
+_MANGLED = re.compile(r"((?:paged_decode|prefill)_(?:mma|f32)_kernel)"
+                      r"I(13__nv_bfloat16|a|f)Li(\d+)EE")
+_PAGE_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "f32"}
+
+
+def _short_name(mangled: str) -> str:
+    """``kernel<pages, D>`` of a kernel's mangled name (the name itself
+    if it is not one of the attention kernels' instantiations)."""
+    m = _MANGLED.search(mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{_PAGE_TYPES[m.group(2)]} pages, D={m.group(3)}>"
+
+
+def sass_counts(paths):
+    """Per kernel library and kernel instantiation, the count of each of
+    ``SASS_OPS`` in ``cuobjdump -sass`` of the built library. Raises if a
+    bf16 instantiation of either attention kernel has no tensor-core
+    (HMMA, HGMMA) or no asynchronous-copy (LDGSTS, UTMALDG) instruction."""
+    op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9]+)")
+    out = {}
+    for lib, path in paths.items():
+        text = subprocess.run([_cuda_tool("cuobjdump"), "-sass", path],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = {}
+        name = None
+        for line in text.splitlines():
+            head = re.match(r"\s*Function : (\S+)", line)
+            if head:
+                name = head.group(1)
+                funcs[name] = dict.fromkeys(SASS_OPS, 0)
+                continue
+            m = op.search(line) if name else None
+            if m and m.group(1) in SASS_OPS:
+                funcs[name][m.group(1)] += 1
+        out[lib] = {_short_name(k): n for k, n in funcs.items()}
+    for lib, funcs in out.items():
+        for name, n in funcs.items():
+            if any(k in name for k in MMA_KERNELS) and (
+                    n["HMMA"] + n["HGMMA"] == 0
+                    or n["LDGSTS"] + n["UTMALDG"] == 0):
+                raise AssertionError(
+                    f"{lib}: {name} has no tensor-core or no asynchronous-"
+                    f"copy instruction: {n}")
+    return out
 
 
 # -- kernel phase -----------------------------------------------------------
@@ -347,9 +407,11 @@ def check_close(name, got, want, rows=None):
 
 
 def _time_decode(label, c):
-    """Times of kernel, plain version and library yardstick on a decode
-    case, with the bytes and operations its inputs need."""
-    import torch
+    """Device times of kernel, plain version and library yardstick on a
+    decode case (``probes/timing.py``: queued behind a spin kernel, since
+    a 0.05 ms launch is shorter than the host's time to make it), with
+    the bytes and operations its inputs need."""
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
 
     B, H, D = c["q"].shape
     ctx_len = int(c["context_lens"].max())
@@ -360,19 +422,22 @@ def _time_decode(label, c):
     n_tok = int(c["context_lens"].sum())
     q_bytes = c["q"].element_size()
     return dict(
-        ms=cuda_time_ms(lambda: run_decode(c)),
-        plain_ms=cuda_time_ms(lambda: plain_decode(c)),
-        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg)),
+        ms=cuda_time_ms(lambda: run_decode(c), iters=50),
+        plain_ms=cuda_time_ms(lambda: plain_decode(c), iters=20),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg), iters=50),
         bytes=(n_tok * _page_bytes_per_token(c) + 2 * B * H * D * q_bytes
                + c["block_tables"].numel() * 4 + B * 4),
         ops=4 * H * D * n_tok)
 
 
 def _time_prefill(label, c):
-    """Times of kernel, plain version and library yardstick on a
-    single-row cached-prefill case, with the bytes and operations its
-    inputs need (the (query, key) pairs of its causal mask)."""
+    """Device times (as :func:`_time_decode`) of kernel, plain version and
+    library yardstick on a single-row cached-prefill case, with the bytes
+    and operations its inputs need (the (query, key) pairs of its causal
+    mask)."""
     import torch
+
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
 
     _, T, H, D = c["q"].shape
     P = int(c["positions"][0, 0])
@@ -399,34 +464,39 @@ def kernel_phase():
     (Llama-3-8B) cases."""
     import torch
 
-    f32 = torch.float32
     for int8 in (False, True):
-        enc = "int8 pages" if int8 else "f32 pages"
-        # Decode: small f32 shapes (GQA 4, 1 and 2; odd table widths;
-        # ragged contexts incl. 1 token) and the main-path head layout.
-        for i, (H, KVH, D, bs, MAXB, ctx) in enumerate([
-                (8, 2, 64, 16, 5, [1, 80, 33]),
-                (4, 4, 128, 4, 7, [28, 3, 17, 9]),
-                (4, 2, 32, 4, 16, [64, 1]),
-                (32, 8, 128, 64, 4, [1, 200, 64, 130])]):
-            c = decode_case(f32, len(ctx), H, KVH, D, 3, bs, MAXB, ctx,
-                            seed=i, int8=int8)
-            check_close(f"paged_attention f32 case {i}, {enc}",
-                        run_decode(c), plain_decode(c))
-        # Cached prefill: small f32 shapes (GQA 3 and 1, empty prefix
-        # rows, multi-tile queries, padded rows) and the main-path head
-        # layout.
-        for i, (T, H, KVH, D, bs, MAXB, prefix, take) in enumerate([
-                (24, 6, 2, 64, 8, 12, [0, 17, 40], [24, 5, 13]),
-                (40, 4, 4, 128, 4, 32, [3, 64], [40, 1]),
-                (16, 4, 2, 32, 4, 16, [0, 0], [16, 7]),
-                (96, 32, 8, 128, 64, 4, [0, 100], [96, 50])]):
-            c = prefill_case(f32, len(prefix), T, H, KVH, D, 2, bs, MAXB,
-                             prefix, take, seed=20 + i, int8=int8)
-            got, want = run_prefill(c), plain_prefill(c)
-            for b, n in enumerate(take):
-                check_close(f"cached_prefill f32 case {i} row {b}, {enc}",
-                            got[b, :n], want[b, :n])
+        enc = "int8 pages" if int8 else "pages in q's dtype"
+        for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            # Decode: small shapes (GQA 4, 1, 2, 32 and 3; odd table
+            # widths; ragged contexts incl. 1 token; in bf16 several
+            # splits, contexts at, below and above a split boundary and
+            # more splits than live pages) and the main-path heads.
+            for i, (H, KVH, D, bs, MAXB, ctx) in enumerate([
+                    (8, 2, 64, 16, 5, [1, 80, 33]),
+                    (4, 4, 128, 4, 7, [28, 3, 17, 9]),
+                    (4, 2, 32, 4, 16, [64, 1]),
+                    (32, 8, 128, 64, 4, [1, 200, 64, 130]),
+                    (32, 8, 128, 4, 256, [1, 1024, 255, 256, 257, 700]),
+                    (96, 3, 64, 16, 64, [1000, 1, 513])]):
+                c = decode_case(dtype, len(ctx), H, KVH, D, 3, bs, MAXB, ctx,
+                                seed=i, int8=int8)
+                check_close(f"paged_attention {dname} case {i}, {enc}",
+                            run_decode(c), plain_decode(c))
+            # Cached prefill: small shapes (GQA 3, 1, 2 and 4; empty
+            # prefix rows, diagonals crossing key tiles mid-tile, padded
+            # rows) and the main-path heads.
+            for i, (T, H, KVH, D, bs, MAXB, prefix, take) in enumerate([
+                    (24, 6, 2, 64, 8, 12, [0, 17, 40], [24, 5, 13]),
+                    (40, 4, 4, 128, 4, 32, [3, 64], [40, 1]),
+                    (16, 4, 2, 32, 4, 16, [0, 0], [16, 7]),
+                    (96, 32, 8, 128, 64, 4, [0, 100], [96, 50]),
+                    (200, 12, 4, 64, 16, 32, [0, 130], [200, 77])]):
+                c = prefill_case(dtype, len(prefix), T, H, KVH, D, 2, bs,
+                                 MAXB, prefix, take, seed=20 + i, int8=int8)
+                got, want = run_prefill(c), plain_prefill(c)
+                for b, n in enumerate(take):
+                    check_close(f"cached_prefill {dname} case {i} row {b}, "
+                                f"{enc}", got[b, :n], want[b, :n])
 
     errs = {name: 0.0 for name in KERNELS}
     cases = {}
@@ -485,8 +555,8 @@ JAX_PROBE_SHAPE = dict(B=16, MAXB=64, NB=843, ctx=3000, L=16, bs=64, KVH=8,
 DECODE_PROBE_SHAPE = dict(B=8, MAXB=32, NB=8 * 32 + 3, ctx=2048, L=32,
                           bs=64, KVH=8, D=128, G=4)
 # P of each sweep: the gather, then reads and dots. Each holds P = MAXB
-# (one block walks a sequence, the decode kernel's grid), where the
-# decomposition is read.
+# (one block walks a sequence, the first decode kernel's grid, which the
+# strided probe keeps), where that layout's decomposition is read.
 PROBE_SWEEPS = {"jax_shapes": ((4, 8, 16, 64), (8, 64)),
                 "decode_case": ((4, 8, 16, 32), (4, 32))}
 PROBE_DTYPES = ("bf16", "int8")  # page dtypes of the kernels line
@@ -606,32 +676,54 @@ def _plain_run(mode, P, q, k, v, bt, cl):
     return acc.reshape(1, 8)
 
 
-def _decomposition(rows, q, k, v, bt, cl, dtype):
-    """The decode kernel's time split by the probes at P = MAXB, where the
-    strided probe has the decode kernel's grid, tiles and loads and reads
-    the same tokens (every live sequence's table in full, as the probes
-    read whole chunks): the ring gather of whole pages (``dma_only``), the
-    kernel's per-head loads over it (reads - dma_only), its products
-    (dots - reads) and its softmax with the rest (the decode kernel over
-    the same tokens - dots). With int8 pages the decode kernel also reads
-    and applies the scales (1/32 of the code bytes at D = 128), which
-    lands in the last term."""
-    import torch
-
-    MAXB, bs = bt.shape[1], k.shape[2]
-    read_lens = torch.where(cl > 0, MAXB * bs, 0).to(cl.dtype)
-    decode_s = rows["decode_kernel_all_L_s"] if torch.equal(read_lens, cl) \
-        else _decode_all_layers_ms(q, k, v, bt, read_lens, dtype) / 1e3
+def _first_layout_decomposition(rows, MAXB):
+    """The first decode kernel's layout (one block per kv head and
+    sequence, 32-token tiles, synchronous loads widened to f32, CUDA-core
+    products), which the strided probe keeps, split by the probes at
+    P = MAXB, where the probe has that layout's grid: the ring gather of
+    whole pages (``dma_only``), the per-head loads over it (reads -
+    dma_only) and the products (dots - reads). It no longer describes
+    the decode kernel, which is split-K on the tensor cores; the record
+    of what that layout spent is PERF.md's."""
     dma_s = rows[f"dma_only_P{MAXB}"]["dma_only_all_L_s"]
     reads_s = rows[f"reads_P{MAXB}"]["all_L_s"]
     dots_s = rows[f"dots_P{MAXB}"]["all_L_s"]
-    return {"P": MAXB, "tokens_per_sequence": MAXB * bs,
-            "decode_kernel_s": decode_s, "ring_gather_s": dma_s,
+    return {"P": MAXB, "ring_gather_s": dma_s,
             "strided_loads_s": reads_s - dma_s,
             "products_s": dots_s - reads_s,
             "products_tflops": rows[f"dots_P{MAXB}"]["gflop"] / 1e3
-            / (dots_s - reads_s),
-            "softmax_rest_s": decode_s - dots_s}
+            / (dots_s - reads_s)}
+
+
+def _gather_floor(rows, k, v, bt, cl, H):
+    """The decode kernel over every layer of the pool beside ``dma_only``
+    at the kernel's own split (its plan's pages a block; ``dma_only``
+    takes only a P that divides the table, so the nearest such P at or
+    below it): the load floor it is held to."""
+    import torch
+
+    from production_stack_tpu_torch.ops.paged_attention import (
+        ROW_TILE,
+        split_pages,
+        split_plan,
+    )
+    from production_stack_tpu_torch.probes import kernel_dma_only as kdma
+
+    B, MAXB = bt.shape
+    KVH, bs = k.shape[3], k.shape[2]
+    splits = split_plan(
+        B, KVH, MAXB, bs, row_tiles=-(-(H // KVH) // ROW_TILE),
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    P = split_pages(MAXB, splits)
+    floor_P = max(p for p in range(1, P + 1) if MAXB % p == 0)
+    key = f"dma_only_P{floor_P}"
+    if key not in rows:
+        rows[key] = kdma.sweep_row(k, v, bt, cl, floor_P)
+    floor_s = rows[key]["dma_only_all_L_s"]
+    decode_s = rows["decode_kernel_all_L_s"]
+    return {"splits": splits, "P": P, "floor_P": floor_P,
+            "decode_kernel_s": decode_s, "dma_only_s": floor_s,
+            "over_floor": decode_s / floor_s}
 
 
 def probe_phase():
@@ -641,7 +733,8 @@ def probe_phase():
     set to 0 just before and read just after: at both shapes the
     ``dma_only``, ``reads`` and ``dots`` sweeps of ``PROBE_SWEEPS`` (and
     the contiguous yardstick at the JAX shapes), each held to the rate
-    limit, the decode kernel on the same pools and its decomposition.
+    limit, the decode kernel on the same pools beside ``dma_only`` at its
+    own split, and the first decode layout's split by the probes.
     Returns (per-entry measurements, the ``probes`` summary)."""
     import torch
 
@@ -741,8 +834,10 @@ def probe_phase():
                     rows[f"{mode}_P{P}"] = row
             rows["decode_kernel_all_L_s"] = _decode_all_layers_ms(
                 q, k, v, bt, cl, dtype) / 1e3
-            rows["decomposition"] = _decomposition(rows, q, k, v, bt, cl,
-                                                   dtype)
+            rows["first_layout_decomposition"] = _first_layout_decomposition(
+                rows, bt.shape[1])
+            rows["decode_vs_gather_floor"] = _gather_floor(
+                rows, k, v, bt, cl, q.shape[1])
             rows["split_gather_headroom"] = (
                 rows[f"dma_only_P{gather_ps[-1]}"]["dma_only_all_L_s"]
                 / rows[f"dma_only_P{gather_ps[0]}"]["dma_only_all_L_s"])
@@ -1166,12 +1261,13 @@ def main(argv=None) -> int:
         print(f"card: {smi}", flush=True)
         return 0
     t0 = time.time()
-    _build.build(["paged_attention", "prefill_attention", "page_probes"],
-                 verbose=True)
+    paths = _build.build(["paged_attention", "prefill_attention",
+                          "page_probes"], verbose=True)
     build_s = time.time() - t0
     for name, text in _build.build.last_log.items():
         log(f"[build] {name}:\n{text}")
     log(f"[build] all three kernel libraries built in {build_s:.1f} s")
+    print(json.dumps({"sass": sass_counts(paths)}), flush=True)
 
     results = kernel_phase()
     probe_results, probes = probe_phase()

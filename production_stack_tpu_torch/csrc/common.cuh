@@ -1,8 +1,8 @@
 // Shared helpers of the attention kernels: 8-element vector loads and
 // stores that convert between the storage type (float, bf16, or int8
 // codes of a quantized page) and the float32 the kernels compute in,
-// warp reductions, and the C-interface error helper every kernel library
-// exports.
+// warp reductions, the head-dim dispatch of the launch functions, and the
+// C-interface error helper every kernel library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +84,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float masked_exp(float s, float m) {
   return s > 0.5f * KERNEL_NEG_INF ? expf(s - m) : 0.f;
 }
+
+// `return fn<P, D>(a);` for the head dims the kernels are built for.
+#define KERNEL_DISPATCH_D(fn, P, D, a)             \
+  switch (D) {                                     \
+    case 32: return fn<P, 32>(a);                  \
+    case 64: return fn<P, 64>(a);                  \
+    case 128: return fn<P, 128>(a);                \
+    default: return (int)cudaErrorInvalidValue;    \
+  }
 
 #define KERNEL_ERROR_STRING_FN                                   \
   extern "C" const char* kernel_error_string(int code) {         \

@@ -42,7 +42,7 @@ from production_stack_tpu_torch.ops.paged_attention import (
 )
 
 KERNEL = "prefill_attention"
-MAX_GROUP = 64  # query heads per kv head one block holds (its 64 rows)
+MAX_GROUP = 64  # query heads per kv head (the f32 mode's 64-row blocks)
 
 
 def _lib():

@@ -4,16 +4,20 @@
     python3 scripts/torch_kernel_faults.py
 
 Shows that the kernel-vs-plain check of ``chip_smoke.py`` catches the
-faults a tiled online softmax is prone to, at the Llama-3-8B main-path
-shapes: for each kernel it builds copies of the source with one fault
-planted (a key tile skipped, or the running rescale ``alpha`` left out in
-one tile; in the int8 page path, each row's scale read from kv head 0's
-row, or the scale left out), each in a temporary directory under the
-git-ignored build directory, swaps the faulty library in behind the
-kernel's wrapper, and holds the output against the plain version with
-``chip_smoke.compare`` on every main-path case of that kernel entry (the
-int8 faults on the int8-page cases). The unchanged kernels go through
-the same cases first and must pass.
+faults the bf16 kernels are prone to, at the Llama-3-8B main-path shapes:
+for each kernel it builds copies of the sources with one fault planted,
+each in a temporary directory under the git-ignored build directory,
+swaps the faulty library in behind the kernel's wrapper, and holds the
+output against the plain version with ``chip_smoke.compare`` on every
+main-path case of that kernel entry (the int8 faults on the int8-page
+cases). The faults: in the tensor-core cached prefill the last key tile
+skipped, the accumulator rescale left out on the second tile, and the
+causal test off by one (``<`` for ``<=``); in the split-K decode one
+split's partial left out of the merge, and the last live split of each
+sequence skipping its last tile; in the int8 page staging of both
+(``csrc/mma.cuh``) each row's scale read from kv head 0's row, or the
+scale left out. The unchanged kernels go through the same cases first
+and must pass.
 
 The page probes (``csrc/page_probes.cu``) get three faults: ``dma_only``
 copying only the 8 token rows its checksum consumes (every consumed value
@@ -46,43 +50,44 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel entry (chip_smoke.KERNELS) -> (library name, faults)
-# A fault is (label, text of the source it replaces, replacement).
-_DECODE_LOOP = "for (int start = 0; start < ctx; start += kTile) {"
-_DECODE_ALPHA = "float a = acc_sh[i] * alpha_sh[g];"
-_PREFILL_LOOP = "for (int k0 = 0; k0 < n_keys; k0 += kTK) {"
-_PREFILL_ALPHA = "const float a = alpha_sh[pr * RPT + i];"
-# The int8 path of both kernels scales each loaded row by its own scale.
-_SCALES = ("scale8(kt, k_scales[row]);\n"
-           "          scale8(vt, v_scales[row]);")
+# A fault is (label, source file (None: the library's .cu), text of the
+# source it replaces, replacement).
+_TILES = "const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;"
+_RESCALE = ("          o[dn][2 * h] *= alpha;\n"
+            "          o[dn][2 * h + 1] *= alpha;")
+_CAUSAL = "const bool live = key <= rp && key < total;"
+_MERGE_W = "const float w = ls > 0.f ? __expf(wgt[s * 16 + r] - M) : 0.f;"
+# The int8 page staging that both kernels share (csrc/mma.cuh).
+_SCALE_LOAD = ("    cp_async4(ks + tid, k_scales + row, scale_live);\n"
+               "    cp_async4(vs + tid, v_scales + row, scale_live);")
+_DEQUANT = ("h[j] = pack_bf16((float)b[2 * j] * s, "
+            "(float)b[2 * j + 1] * s);")
 _SCALE_FAULTS = [
-    ("scale of kv head h read from head 0", _SCALES,
-     "scale8(kt, k_scales[row - kvh]);\n"
-     "          scale8(vt, v_scales[row - kvh]);"),
-    ("scale left out", _SCALES, "")]
+    ("scale of kv head h read from head 0", "mma.cuh", _SCALE_LOAD,
+     "    cp_async4(ks + tid, k_scales + row - (scale_live ? pr.kvh : 0),"
+     " scale_live);\n"
+     "    cp_async4(vs + tid, v_scales + row - (scale_live ? pr.kvh : 0),"
+     " scale_live);"),
+    ("scale left out", "mma.cuh", _DEQUANT,
+     "h[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);"),
+]
 FAULTS = {
     "paged_attention": ("paged_attention", [
-        ("skip the last key tile", _DECODE_LOOP,
-         "for (int start = 0; start + kTile < ctx; start += kTile) {"),
-        ("skip the middle key tile", _DECODE_LOOP,
-         _DECODE_LOOP + "\n    if (start == ctx / (2 * kTile) * kTile) "
-         "continue;"),
-        ("no rescale in the second tile", _DECODE_ALPHA,
-         "float a = acc_sh[i] * (start == kTile ? 1.f : alpha_sh[g]);"),
-        ("no rescale in the middle tile", _DECODE_ALPHA,
-         "float a = acc_sh[i] * (start == ctx / (2 * kTile) * kTile ? 1.f "
-         ": alpha_sh[g]);"),
+        ("one split's partial left out of the merge", None, _MERGE_W,
+         "const float w = (ls > 0.f && s != splits / 2) ? "
+         "__expf(wgt[s * 16 + r] - M) : 0.f;"),
+        ("the last live split skips its last tile", None, _TILES,
+         "const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile - "
+         "(start + split_tokens >= ctx ? 1 : 0);"),
     ]),
     "cached_prefill_attention": ("prefill_attention", [
-        ("skip the last key tile", _PREFILL_LOOP,
-         "for (int k0 = 0; k0 + kTK < n_keys; k0 += kTK) {"),
-        ("skip the middle key tile", _PREFILL_LOOP,
-         _PREFILL_LOOP + "\n    if (k0 == n_keys / (2 * kTK) * kTK) "
-         "continue;"),
-        ("no rescale in the second tile", _PREFILL_ALPHA,
-         "const float a = k0 == kTK ? 1.f : alpha_sh[pr * RPT + i];"),
-        ("no rescale in the middle tile", _PREFILL_ALPHA,
-         "const float a = k0 == n_keys / (2 * kTK) * kTK ? 1.f : "
-         "alpha_sh[pr * RPT + i];"),
+        ("skip the last key tile", None, _TILES,
+         "const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile - 1;"),
+        ("no accumulator rescale in the second tile", None, _RESCALE,
+         "          o[dn][2 * h] *= it == 1 ? 1.f : alpha;\n"
+         "          o[dn][2 * h + 1] *= it == 1 ? 1.f : alpha;"),
+        ("causal test off by one (< for <=)", None, _CAUSAL,
+         "const bool live = key < rp && key < total;"),
     ]),
     "paged_attention_int8": ("paged_attention", _SCALE_FAULTS),
     "cached_prefill_attention_int8": ("prefill_attention", _SCALE_FAULTS),
@@ -97,20 +102,21 @@ def _plant(src: str, old: str, new: str) -> str:
 
 def _build_faulty(_build, workdir: str, plants):
     """Compile every faulty copy, one nvcc each, all started together.
-    ``plants``: [(kernel entry, label, library name, anchor, replacement)].
-    Returns [(kernel entry, label, library path)]."""
+    ``plants``: [(kernel entry, label, library name, source file, anchor,
+    replacement)]. Returns [(kernel entry, label, library path)]."""
     jobs = []
-    for i, (kernel, label, lib_name, old, new) in enumerate(plants):
-        with open(os.path.join(_build.CSRC, f"{lib_name}.cu")) as f:
-            src = f.read()
+    for i, (kernel, label, lib_name, where, old, new) in enumerate(plants):
         d = os.path.join(workdir, f"{kernel}-{i}")
         os.makedirs(d)
-        for h in os.listdir(_build.CSRC):
-            if h.endswith(".cuh"):
-                shutil.copy(os.path.join(_build.CSRC, h), d)
-        cu = os.path.join(d, f"{lib_name}.cu")
-        with open(cu, "w") as f:
+        for name in os.listdir(_build.CSRC):
+            if name.endswith(".cuh") or name == f"{lib_name}.cu":
+                shutil.copy(os.path.join(_build.CSRC, name), d)
+        target = os.path.join(d, where or f"{lib_name}.cu")
+        with open(target) as f:
+            src = f.read()
+        with open(target, "w") as f:
             f.write(_plant(src, old, new))
+        cu = os.path.join(d, f"{lib_name}.cu")
         out = os.path.join(d, f"{lib_name}.so")
         cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-I", d, "-o", out, cu]
@@ -234,10 +240,10 @@ def main() -> int:
         print(json.dumps({"clean": {"kernel": "page_probes " + kind,
                                     "cases": rows}}), flush=True)
     clean = dict(_build._libs)
-    plants = [(kernel, label, lib_name, old, new)
+    plants = [(kernel, label, lib_name, where, old, new)
               for kernel, (lib_name, faults) in FAULTS.items()
-              for label, old, new in faults]
-    plants += [(kind, label, "page_probes", old, new)
+              for label, where, old, new in faults]
+    plants += [(kind, label, "page_probes", None, old, new)
                for kind, label, old, new in PROBE_FAULTS]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:

@@ -111,6 +111,94 @@ def test_cached_prefill_matches_plain(cuda, dtype, H, KVH, D, int8):
         assert_close(got[b, :take[b]], want[b, :take[b]])
 
 
+# -- the bf16 kernels' own cases (split-K decode, tensor-core prefill) -------
+
+def _tables(rng, B, MAXB, NB, ctx, bs, cuda):
+    """Distinct shuffled pages per sequence; entries past each live range
+    point at page 0, which the kernel must never read for that row."""
+    t = rng.permutation(NB)[:B * MAXB].reshape(B, MAXB).astype(np.int32)
+    for b, c in enumerate(ctx):
+        t[b, -(-c // bs):] = 0
+    return torch.from_numpy(t).to(cuda)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bs", [4, 64])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 32])
+def test_split_decode_matches_plain(cuda, G, bs, D, int8):
+    from production_stack_tpu_torch.ops.paged_attention import (
+        ROW_TILE,
+        split_pages,
+        split_plan,
+    )
+
+    KVH, B = 2, 7
+    MAXB = 1024 // bs
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = split_plan(B, KVH, MAXB, bs, row_tiles=-(-G // ROW_TILE),
+                        sms=sms)
+    assert splits > 1
+    span = split_pages(MAXB, splits) * bs
+    # At, one below and one above a split boundary; one token (more
+    # splits than live pages); shorter than one split; the full table;
+    # one split's length past the second boundary.
+    ctx = [span, span - 1, span + 1, 1, span // 2, MAXB * bs,
+           min(2 * span + 7, MAXB * bs)]
+    rng = np.random.default_rng(G * 1000 + bs + D)
+    NB = B * MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=G + D,
+                 int8=int8)
+    q = torch.randn((B, G * KVH, D), device=cuda, dtype=torch.bfloat16)
+    tables = _tables(rng, B, MAXB, NB, ctx, bs, cuda)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    before = _launches(paged_attention, int8)
+    # Twice: the merge counters must be back at 0 after a launch.
+    for _ in range(2):
+        got = paged_attention(q, k, v, tables, cl, 1, scale=D ** -0.5)
+        want = att.paged_attention_reference(q, k, v, tables, cl, 1,
+                                             scale=D ** -0.5)
+        torch.cuda.synchronize()
+        assert_close(got, want)
+    assert _launches(paged_attention, int8) == before + 2
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KVH", [(4, 4), (6, 2), (32, 8), (16, 2)])
+def test_tensor_core_prefill_cases(cuda, H, KVH, D, int8):
+    # Rows: an empty prefix with a full chunk; a prefix of 37, so the
+    # causal diagonal crosses 64-key tiles mid-tile; a ragged short take
+    # over a longer prefix. G = 3 pads each 64-row block with one zero
+    # row; G = 8 splits a token's heads over two warps.
+    rng = np.random.default_rng(H * D + int8)
+    B, T, bs, MAXB = 3, 100, 16, 24
+    prefix, take = np.asarray([0, 37, 130]), np.asarray([100, 61, 7])
+    NB = B * MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=H + D,
+                 int8=int8)
+    q = torch.randn((B, T, H, D), device=cuda, dtype=torch.bfloat16)
+    k_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    v_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    tables = rng.permutation(NB)[:B * MAXB].reshape(B, MAXB)
+    positions = prefix[:, None] + np.arange(T)[None]
+    slots = np.full((B, T), -1, np.int64)
+    for b in range(B):
+        pos = positions[b, :take[b]]
+        slots[b, :take[b]] = tables[b, pos // bs] * bs + pos % bs
+    att.write_kv_pages(k, v, k_new, v_new, torch.from_numpy(slots), 1)
+    args = (q, k, v, torch.from_numpy(tables.astype(np.int32)).to(cuda),
+            torch.from_numpy(positions).to(cuda),
+            torch.from_numpy((prefix + take).astype(np.int32)).to(cuda), 1)
+    before = _launches(cached_prefill_attention, int8)
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(cached_prefill_attention, int8) == before + 1
+    for b in range(B):
+        assert_close(got[b, :take[b]], want[b, :take[b]])
+
+
 def test_unsupported_shapes_raise_not_fall_back(cuda):
     k, v = _pool(cuda, torch.float32, 1, 4, 4, 2, 48, seed=0)
     q = torch.randn((1, 4, 48), device=cuda)
