@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    report to standard error and a ``{"sass": ...}`` line of each kernel
    instantiation's tensor-core and asynchronous-copy instructions
    (``cuobjdump -sass``): a bf16 instantiation of either attention
-   kernel without both fails the run;
+   kernel or of the strided probe without both fails the run (the
+   probe's ``reads`` takes no products: asynchronous copies only);
 2. hold each attention kernel, in both page encodings (pages in q's
    dtype, and int8 pages with float32 scales), against its plain PyTorch
    version on the same CUDA tensors, at the Llama-3-8B main-path shapes
@@ -27,11 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    no softmax), each mode and page dtype against its plain version at
    small shapes, at the 8B decode case and at the JAX scripts' shapes;
    then the probe path driven through its entry points (the
-   ``torch.sum`` yardstick, the gather at 4-64 pages a block, reads and
-   products at 4, 8 and 64, the decode kernel on the same pools beside
-   the gather at its own split, the first decode layout's split by the
-   probes), every rate held under 1.05 x 3.35 TB/s, printed as a
-   ``{"probes": ...}`` line;
+   ``torch.sum`` yardstick, the gather, reads and products at 4-64 pages
+   a block and at the decode kernel's own split, and the decode kernel on
+   the same pools, its time split by the probes at that split:
+   ``decode_decomposition``), every rate held under 1.05 x 3.35 TB/s,
+   printed as a ``{"probes": ...}`` line;
 4. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
    weights through the port's OpenAI server (in-process, on a thread) and
    drive it over HTTP: concurrent greedy completions, a chunked long
@@ -107,8 +108,10 @@ def nvidia_smi_line() -> str:
 # Tensor-core and asynchronous-copy instructions in the SASS of a kernel
 # (mma.sync / wgmma; cp.async / TMA loads).
 SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")
-# The bf16 (q) instantiations of both attention kernels, by name stem.
-MMA_KERNELS = ("paged_decode_mma_kernel", "prefill_mma_kernel")
+# The bf16 (q) instantiations of both attention kernels and of the
+# strided page probe, by name stem.
+MMA_KERNELS = ("paged_decode_mma_kernel", "prefill_mma_kernel",
+               "strided_probe_mma_kernel")
 
 
 def _cuda_tool(name: str) -> str:
@@ -122,26 +125,34 @@ def _cuda_tool(name: str) -> str:
     return path
 
 
-# Template arguments of the kernels' mangled names: page type, head dim.
-_MANGLED = re.compile(r"((?:paged_decode|prefill)_(?:mma|f32)_kernel)"
-                      r"I(13__nv_bfloat16|a|f)Li(\d+)EE")
+# Template arguments of the kernels' mangled names: page type, the probe's
+# mode (a bool: dots), head dim.
+_MANGLED = re.compile(
+    r"((?:paged_decode|prefill|strided_probe)_(?:mma|f32)_kernel)"
+    r"I(13__nv_bfloat16|a|f)(?:Lb([01])E)?Li(\d+)EE")
 _PAGE_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "f32"}
 
 
 def _short_name(mangled: str) -> str:
-    """``kernel<pages, D>`` of a kernel's mangled name (the name itself
-    if it is not one of the attention kernels' instantiations)."""
+    """``kernel<pages, D>`` (the strided probe: ``kernel<pages, mode,
+    D>``) of a kernel's mangled name (the name itself if it is not one of
+    those kernels' instantiations)."""
     m = _MANGLED.search(mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{_PAGE_TYPES[m.group(2)]} pages, D={m.group(3)}>"
+    mode = "" if m.group(3) is None else (
+        "dots, " if m.group(3) == "1" else "reads, ")
+    return (f"{m.group(1)}<{_PAGE_TYPES[m.group(2)]} pages, {mode}"
+            f"D={m.group(4)}>")
 
 
 def sass_counts(paths):
     """Per kernel library and kernel instantiation, the count of each of
     ``SASS_OPS`` in ``cuobjdump -sass`` of the built library. Raises if a
-    bf16 instantiation of either attention kernel has no tensor-core
-    (HMMA, HGMMA) or no asynchronous-copy (LDGSTS, UTMALDG) instruction."""
+    bf16 instantiation of either attention kernel or of the strided probe
+    has no asynchronous-copy (LDGSTS, UTMALDG) instruction, or no
+    tensor-core one (HMMA, HGMMA) where it takes products (all but the
+    probe's reads)."""
     op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9]+)")
     out = {}
     for lib, path in paths.items():
@@ -162,9 +173,10 @@ def sass_counts(paths):
         out[lib] = {_short_name(k): n for k, n in funcs.items()}
     for lib, funcs in out.items():
         for name, n in funcs.items():
-            if any(k in name for k in MMA_KERNELS) and (
-                    n["HMMA"] + n["HGMMA"] == 0
-                    or n["LDGSTS"] + n["UTMALDG"] == 0):
+            if not any(k in name for k in MMA_KERNELS):
+                continue
+            products = n["HMMA"] + n["HGMMA"] > 0 or ", reads," in name
+            if not products or n["LDGSTS"] + n["UTMALDG"] == 0:
                 raise AssertionError(
                     f"{lib}: {name} has no tensor-core or no asynchronous-"
                     f"copy instruction: {n}")
@@ -554,9 +566,10 @@ JAX_PROBE_SHAPE = dict(B=16, MAXB=64, NB=843, ctx=3000, L=16, bs=64, KVH=8,
                        D=128, G=8)
 DECODE_PROBE_SHAPE = dict(B=8, MAXB=32, NB=8 * 32 + 3, ctx=2048, L=32,
                           bs=64, KVH=8, D=128, G=4)
-# P of each sweep: the gather, then reads and dots. Each holds P = MAXB
-# (one block walks a sequence, the first decode kernel's grid, which the
-# strided probe keeps), where that layout's decomposition is read.
+# P of each sweep: the gather, then reads and dots, from a split of the
+# context over many blocks to one block a sequence (P = MAXB). The probe
+# phase adds the decode kernel's own P (:func:`decode_plan`) to each,
+# where the decode kernel's time is split (:func:`decode_decomposition`).
 PROBE_SWEEPS = {"jax_shapes": ((4, 8, 16, 64), (8, 64)),
                 "decode_case": ((4, 8, 16, 32), (4, 32))}
 PROBE_DTYPES = ("bf16", "int8")  # page dtypes of the kernels line
@@ -642,19 +655,20 @@ def _probe_counters():
 
 def _decode_all_layers_ms(q, k, v, bt, cl, dtype):
     """Device ms of the port's decode kernel over every layer of a probe
-    pool at contexts ``cl`` (int8 pages get scales of one, so the kernel
-    does its dequant)."""
+    pool at contexts ``cl`` (int8 pages get the strided probe's unit
+    scales, so the kernel does its dequant as the probe does)."""
     import torch
 
     from production_stack_tpu_torch.ops.paged_attention import (
         paged_attention,
     )
+    from production_stack_tpu_torch.probes.common import unit_scales
     from production_stack_tpu_torch.probes.timing import cuda_time_ms
 
     L, NB, bs, KVH, D = k.shape
     if dtype == torch.int8:
-        ones = torch.ones((L, NB, bs * KVH), device="cuda")
-        k, v = (k, ones), (v, ones)
+        ks, vs = unit_scales(k)
+        k, v = (k, ks), (v, vs)
 
     def call():
         for layer in range(L):
@@ -676,54 +690,77 @@ def _plain_run(mode, P, q, k, v, bt, cl):
     return acc.reshape(1, 8)
 
 
-def _first_layout_decomposition(rows, MAXB):
-    """The first decode kernel's layout (one block per kv head and
-    sequence, 32-token tiles, synchronous loads widened to f32, CUDA-core
-    products), which the strided probe keeps, split by the probes at
-    P = MAXB, where the probe has that layout's grid: the ring gather of
-    whole pages (``dma_only``), the per-head loads over it (reads -
-    dma_only) and the products (dots - reads). It no longer describes
-    the decode kernel, which is split-K on the tensor cores; the record
-    of what that layout spent is PERF.md's."""
-    dma_s = rows[f"dma_only_P{MAXB}"]["dma_only_all_L_s"]
-    reads_s = rows[f"reads_P{MAXB}"]["all_L_s"]
-    dots_s = rows[f"dots_P{MAXB}"]["all_L_s"]
-    return {"P": MAXB, "ring_gather_s": dma_s,
-            "strided_loads_s": reads_s - dma_s,
-            "products_s": dots_s - reads_s,
-            "products_tflops": rows[f"dots_P{MAXB}"]["gflop"] / 1e3
-            / (dots_s - reads_s)}
+def _live_runs(ctx, MAXB, bs, pages):
+    """Runs of ``pages`` pages that hold a key, summed over sequences of
+    contexts ``ctx`` (one length, or one a sequence) in a table of MAXB."""
+    lens = [ctx] if isinstance(ctx, int) else list(ctx)
+    return sum(min(-(-MAXB // pages), -(-min(c, MAXB * bs) // (pages * bs)))
+               for c in lens)
 
 
-def _gather_floor(rows, k, v, bt, cl, H):
-    """The decode kernel over every layer of the pool beside ``dma_only``
-    at the kernel's own split (its plan's pages a block; ``dma_only``
-    takes only a P that divides the table, so the nearest such P at or
-    below it): the load floor it is held to."""
-    import torch
-
+def decode_plan(B, KVH, MAXB, bs, H, sms, ctx):
+    """The decode kernel's split plan on a probe pool of ``B`` sequences
+    of ``MAXB`` pages, ``H`` query rows and contexts ``ctx``: its
+    ``splits``, the pages of a split (``P``), the nearest P at or below
+    that divides the table (``floor_P``: the probes take only such a P),
+    and whether the probes' grid at ``floor_P`` has as many blocks with
+    keys as the decode kernel's (``grids_match``)."""
     from production_stack_tpu_torch.ops.paged_attention import (
         ROW_TILE,
         split_pages,
         split_plan,
     )
-    from production_stack_tpu_torch.probes import kernel_dma_only as kdma
 
-    B, MAXB = bt.shape
-    KVH, bs = k.shape[3], k.shape[2]
-    splits = split_plan(
-        B, KVH, MAXB, bs, row_tiles=-(-(H // KVH) // ROW_TILE),
-        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = split_plan(B, KVH, MAXB, bs, row_tiles=-(-(H // KVH) // ROW_TILE),
+                        sms=sms)
     P = split_pages(MAXB, splits)
     floor_P = max(p for p in range(1, P + 1) if MAXB % p == 0)
-    key = f"dma_only_P{floor_P}"
-    if key not in rows:
-        rows[key] = kdma.sweep_row(k, v, bt, cl, floor_P)
-    floor_s = rows[key]["dma_only_all_L_s"]
-    decode_s = rows["decode_kernel_all_L_s"]
     return {"splits": splits, "P": P, "floor_P": floor_P,
-            "decode_kernel_s": decode_s, "dma_only_s": floor_s,
-            "over_floor": decode_s / floor_s}
+            "grids_match": (_live_runs(ctx, MAXB, bs, P)
+                            == _live_runs(ctx, MAXB, bs, floor_P))}
+
+
+def _shape_plan(shape):
+    """:func:`decode_plan` of a probe shape on this card."""
+    import torch
+
+    return decode_plan(
+        shape["B"], shape["KVH"], shape["MAXB"], shape["bs"],
+        shape["KVH"] * shape["G"],
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        shape["ctx"])
+
+
+def decode_decomposition(rows, plan):
+    """The decode kernel's time over every layer of a probe pool, split by
+    the probes at its plan's P (``plan``: :func:`decode_plan`; ``rows``:
+    the probe sweeps of that pool and ``decode_kernel_all_L_s``): the
+    whole-row gather floor (``dma_only``, the load floor the decode
+    kernel is held to), the per-head ring gather with the int8 staging
+    (``reads``), the products (``dots - reads``, with the probe's one
+    extra S . V product a 16-key step), and the online softmax and split
+    merge (the decode kernel minus ``dots``). That last one is measured
+    only where the probes' grid has the decode kernel's blocks; else it
+    is None, and ``softmax_merge_note`` says why. Seconds, and the decode
+    kernel's and the ring gather's multiples of the floor."""
+    P = plan["floor_P"]
+    floor_s = rows[f"dma_only_P{P}"]["dma_only_all_L_s"]
+    reads_s = rows[f"reads_P{P}"]["all_L_s"]
+    dots_s = rows[f"dots_P{P}"]["all_L_s"]
+    decode_s = rows["decode_kernel_all_L_s"]
+    out = {"P": P, "plan_pages": plan["P"], "splits": plan["splits"],
+           "decode_kernel_s": decode_s, "gather_floor_s": floor_s,
+           "ring_gather_s": reads_s, "products_s": dots_s - reads_s,
+           "softmax_merge_s": decode_s - dots_s,
+           "ring_gather_over_floor": reads_s / floor_s,
+           "decode_over_floor": decode_s / floor_s}
+    if not plan["grids_match"]:
+        out["softmax_merge_s"] = None
+        out["softmax_merge_note"] = (
+            f"not measured: the probes split the table at P={P}, the "
+            f"decode kernel at {plan['P']} pages, so their grids differ "
+            f"in blocks with keys")
+    return out
 
 
 def probe_phase():
@@ -731,11 +768,12 @@ def probe_phase():
     8B decode case, the JAX shapes; every mode and page dtype), then the
     probe path driven through its entry points with every probe counter
     set to 0 just before and read just after: at both shapes the
-    ``dma_only``, ``reads`` and ``dots`` sweeps of ``PROBE_SWEEPS`` (and
-    the contiguous yardstick at the JAX shapes), each held to the rate
-    limit, the decode kernel on the same pools beside ``dma_only`` at its
-    own split, and the first decode layout's split by the probes.
-    Returns (per-entry measurements, the ``probes`` summary)."""
+    ``dma_only``, ``reads`` and ``dots`` sweeps of ``PROBE_SWEEPS`` and
+    the decode kernel's own P (and the contiguous yardstick at the JAX
+    shapes), each held to the rate limit, and the decode kernel on the
+    same pools, its time split by the probes at its own split
+    (:func:`decode_decomposition`). Returns (per-entry measurements, the
+    ``probes`` summary)."""
     import torch
 
     from production_stack_tpu_torch.probes import kernel_dma_only as kdma
@@ -774,12 +812,18 @@ def probe_phase():
             return f"kernel_dma_only_{dname}"
         return f"kernel_probe_strided_{kind}_{dname}"
 
-    for label, shape in (("decode_case", DECODE_PROBE_SHAPE),
-                         ("jax_shapes", JAX_PROBE_SHAPE)):
+    shapes = {"decode_case": DECODE_PROBE_SHAPE,
+              "jax_shapes": JAX_PROBE_SHAPE}
+    plans = {label: _shape_plan(shape) for label, shape in shapes.items()}
+    # Each sweep's P (the gather's, then reads' and dots') and the decode
+    # kernel's own.
+    sweeps = {label: [sorted(set(ps) | {plans[label]["floor_P"]})
+                      for ps in PROBE_SWEEPS[label]] for label in shapes}
+    for label, shape in shapes.items():
         for dname in PROBE_DTYPES:
             inputs = probe_inputs(shape, dtypes[dname])
             for kind in kinds:
-                for P in PROBE_SWEEPS[label][1]:
+                for P in sweeps[label][1]:
                     err = check_probe(f"{kind} {label} {dname} P={P}", kind,
                                       inputs, P, shape["L"] - 1)
                     errs[entry(kind, dname)] = max(errs[entry(kind, dname)],
@@ -819,7 +863,7 @@ def probe_phase():
                                  contig["pool_gb"] * 1e9,
                                  contig["contiguous_sum_s"])
                 rows["contiguous"] = contig
-            gather_ps, strided_ps = PROBE_SWEEPS[label]
+            gather_ps, strided_ps = sweeps[label]
             for P in gather_ps:
                 row = kdma.sweep_row(k, v, bt, cl, P)
                 check_probe_rate(f"dma_only {label} {dname} P={P}",
@@ -834,10 +878,8 @@ def probe_phase():
                     rows[f"{mode}_P{P}"] = row
             rows["decode_kernel_all_L_s"] = _decode_all_layers_ms(
                 q, k, v, bt, cl, dtype) / 1e3
-            rows["first_layout_decomposition"] = _first_layout_decomposition(
-                rows, bt.shape[1])
-            rows["decode_vs_gather_floor"] = _gather_floor(
-                rows, k, v, bt, cl, q.shape[1])
+            rows["decode_decomposition"] = decode_decomposition(
+                rows, plans[label])
             rows["split_gather_headroom"] = (
                 rows[f"dma_only_P{gather_ps[-1]}"]["dma_only_all_L_s"]
                 / rows[f"dma_only_P{gather_ps[0]}"]["dma_only_all_L_s"])

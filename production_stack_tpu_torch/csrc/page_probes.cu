@@ -10,17 +10,17 @@
 //   chunks, then for each kv head either the chunk's first G token rows
 //   are added up (reads, strided per-head reads) or both products
 //   (q_h . K_h^T) . V_h are taken over the whole chunk, unmasked, with no
-//   scale and no softmax (dots) (strided_probe_kernel).
+//   scale and no softmax (dots) (strided_probe_mma_kernel).
 //
 // Layout and semantics are the TPU kernels': pages [L, NB, bs, KVH, D] in
-// any of f32, bf16 or int8 (codes, read as values; no scales), tables
-// [B, MAXB] i32, context lengths [B] i32, chunks of P pages, the TPU grid
-// (B, MAXB / P). A chunk with c * P * bs >= ctx is neither read nor
-// consumed; a live chunk is read in full, tokens past ctx included, as the
-// TPU kernels do. The TPU grid ran in order and left in its one output
-// block what the last sequence's chunks added; here blocks run in
-// parallel, so every contribution is an atomicAdd into an output the
-// wrapper zeroed (dma_only: only blocks of sequence B - 1 add).
+// any of f32, bf16 or int8 (codes, read as values), tables [B, MAXB] i32,
+// context lengths [B] i32, chunks of P pages, the TPU grid (B, MAXB / P).
+// A chunk with c * P * bs >= ctx is neither read nor consumed; a live
+// chunk is read in full, tokens past ctx included, as the TPU kernels do.
+// The TPU grid ran in order and left in its one output block what the
+// last sequence's chunks added; here blocks run in parallel, so every
+// contribution is an atomicAdd into an output the wrapper zeroed
+// (dma_only: only blocks of sequence B - 1 add).
 //
 // Bound on an H100: bytes (the pages read over 3.35 TB/s; dots adds
 // 4 * KVH * G * D flops a token, below the card's ~295 flops a byte).
@@ -33,25 +33,45 @@
 //   rows (every kv head) of K and of V, at most 16 KB a side; a page row
 //   is contiguous, so a stage is two runs of 16-byte cp.async copies,
 //   started one stage ahead of the one being consumed.
-// - strided_probe_kernel: what the port's decode kernel
-//   (csrc/paged_attention.cu) spends on its reads and on its products.
-//   It keeps that kernel's layout: one 128-thread block per (kv head,
-//   chunk, sequence), so that at P = MAXB the grid is the decode kernel's
-//   (KVH, B); the chunk is walked in the same 32-token tiles, each row of
-//   the head loaded with the same synchronous 16-byte loads into the
-//   same f32 shared tiles, and dots does the same products with the same
-//   thread mappings. Only the softmax (and the score mask) is left out, so
-//   at P = MAXB the decode kernel minus dots is its softmax, dots minus
-//   reads its products, and reads its gather.
+// - strided_probe_mma_kernel (bf16 q; bf16 or int8 pages): what the
+//   port's split-K decode kernel (csrc/paged_attention.cu,
+//   paged_decode_mma_kernel) spends on its reads and on its products. It
+//   runs that kernel's block and ring (csrc/decode_ring.cuh) and its tile
+//   code (csrc/mma.cuh): the grid is (kv head x 16-row tile of its G
+//   rows, chunk, sequence), so with P the decode plan's pages a split it
+//   is the decode kernel's grid; a block of four warps streams its
+//   chunk's P * bs keys through the decode kernel's two-stage cp.async
+//   ring of 64-key tiles (stream_tiles; int8 pages: codes and scales
+//   staged, then the dequant_kv_tile pass into bf16 tiles, with unit
+//   scales from the wrapper, so a code is read as its value), and dots
+//   takes the same m16n8k16 products, 16 keys a warp: S = Q . K^T
+//   (qk_16), then O += S . V (pv_16) over the chunk, the warps' O summed
+//   through shared memory and added into out. There is no softmax, no
+//   scale and no mask. reads keeps the ring and adds the chunk's first
+//   G rows of the head from the staged tiles. So the decode kernel minus
+//   dots is its online softmax and split merge, dots minus reads its
+//   products, and reads its per-head ring gather (with int8 staging).
+//   One difference from the decode kernel: the probe is held to 1e-5 of
+//   its largest output, which one bf16 term of S misses (its rounding is
+//   2^-9 of |S|), so S . V takes two terms, bf16(S) and bf16(S -
+//   bf16(S)): one pv_16 a 16-key step more, and dots - reads overstates
+//   the decode kernel's products by that much.
+// - strided_probe_f32_kernel (f32 q or f32 pages; a check mode, as the
+//   decode kernel keeps its first body): the port's first decode layout,
+//   one 128-thread block per (kv head, chunk, sequence), 32-token tiles
+//   loaded synchronously into f32 shared tiles, CUDA-core products.
 //
 // Either way the bytes land in shared memory, where the compiler cannot
 // drop them, whatever the block reads of them. A dma_only that copied only
 // what it consumes would report more than the card's memory rate, which
-// chip_smoke.py rejects. reads runs below that rate whatever it loads; its
-// load loop is the one dots runs, where every loaded element feeds the
-// output, so the dots value check covers it.
+// chip_smoke.py rejects. reads consumes only G rows of a chunk; its ring
+// is the one dots runs, where every loaded element feeds the output, so
+// the dots value check covers it, and a reads that loaded only what it
+// adds would read above the memory rate too.
 
 #include "common.cuh"
+#include "decode_ring.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -162,7 +182,7 @@ constexpr size_t kStageBytes = 16384;  // most bytes of K (or V) a stage
 enum Mode { kDma = 0, kReads = 1, kDots = 2 };
 
 struct Args {
-  const void *q, *k, *v, *bt, *ctx;
+  const void *q, *k, *v, *k_scales, *v_scales, *bt, *ctx;
   void* out;
   int B, MAXB, NB, bs, KVH, D, G, P, layer;
   cudaStream_t stream;
@@ -193,15 +213,171 @@ int launch_dma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// -- reads and dots: the decode kernel's tiles, without its softmax -----------
+// -- reads and dots on the split-K decode kernel's tiles (bf16 q) -------------
 
-constexpr int kTileThreads = 128;  // the decode kernel's block
-constexpr int kTile = 32;          // the decode kernel's tile of tokens
+// The decode kernel's block and ring (csrc/decode_ring.cuh).
+constexpr int kMmaWarps = decode_ring::kWarps;
+constexpr int kMmaThreads = decode_ring::kThreads;
+constexpr int kKeyTile = decode_ring::kKeyTile;
+
+// q's 16-row tile, then the ring, which the warps' [16][D] f32 partials
+// reuse at the end of the chunk.
+template <typename E, int D>
+constexpr int mma_smem_bytes() {
+  return decode_ring::smem_bytes<E, D>(kMmaWarps * 16 * D * 4);
+}
+
+// The scores of 16 keys (n-tiles s[0], s[1]) as two A fragments of bf16
+// terms, hi = bf16(S) and lo = bf16(S - hi): hi + lo is S to about 2^-17
+// of |S|, hi alone to 2^-9.
+__device__ __forceinline__ void split_fragment(uint32_t hi[4], uint32_t lo[4],
+                                               const float s[2][4]) {
+  float h[2][4], l[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      h[nt][j] = __bfloat162float(__float2bfloat16_rn(s[nt][j]));
+      l[nt][j] = s[nt][j] - h[nt][j];
+    }
+  mma::p_fragment(hi, h[0], h[1]);
+  mma::p_fragment(lo, l[0], l[1]);
+}
+
+// E: the page type (bf16, or int8_t codes with unit scales); DOTS: both
+// products (else the first G rows added); D: the head dim.
+template <typename E, bool DOTS, int D>
+__global__ void __launch_bounds__(kMmaThreads) strided_probe_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,   // [B, KVH * G, D] (dots only)
+    const E* __restrict__ k_pages,         // [L, NB, bs, KVH, D]
+    const E* __restrict__ v_pages,
+    const float* __restrict__ k_scales,    // [L, NB, bs * KVH] (int8 only)
+    const float* __restrict__ v_scales,
+    const int* __restrict__ block_tables,  // [B, MAXB]
+    const int* __restrict__ context_lens,  // [B]
+    float* __restrict__ out,               // [B, KVH * G, D], added to
+    int MAXB, int NB, int bs, int KVH, int G, int P, int layer) {
+  using mma::bf16;
+  constexpr int KS = D + 8;  // row stride of the bf16 tiles
+  constexpr int NK = D / 16;
+  constexpr int ND = D / 8;
+
+  const int MT = (G + 15) / 16;  // 16-row tiles of the group
+  const int hx = blockIdx.x;     // kv head * MT + row tile
+  const int kvh = hx / MT;
+  const int g0 = (hx % MT) * 16;
+  const int gn = min(16, G - g0);  // live rows of the tile
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int span = P * bs;  // keys of a chunk
+  const int start = c * span;
+  if (start >= context_lens[b]) return;  // a chunk past the context
+
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bf16* q_sh = reinterpret_cast<bf16*>(dyn_smem);           // [16][KS]
+  unsigned char* ring = dyn_smem + 16 * KS * sizeof(bf16);
+
+  // The q and out row of the tile's row 0.
+  const size_t row0 = ((size_t)b * KVH + kvh) * G + g0;
+  if constexpr (DOTS)
+    decode_ring::issue_q_tile<D>(q_sh, q + row0 * D, gn, tid);
+
+  const mma::PageRows pr{block_tables + (size_t)b * MAXB, (size_t)layer * NB,
+                         bs, KVH, kvh};
+
+  uint32_t qf[NK][4];
+  float o[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[dn][j] = 0.f;
+  // reads: the tile that holds chunk tokens g0 .. g0 + gn - 1.
+  const int read_tile = g0 / kKeyTile;
+
+  // The whole chunk, tokens past the context included (zero rows past the
+  // chunk fill its last tile and add nothing).
+  decode_ring::stream_tiles<E, D>(
+      ring, k_pages, v_pages, k_scales, v_scales, pr, start, span, tid,
+      [&](int it, const bf16* kt, const bf16* vt) {
+        if constexpr (DOTS) {
+          if (it == 0) mma::load_a<D, KS>(qf, q_sh, lane);  // q has landed
+          if (it * kKeyTile + 16 * warp < span) {
+            float s[2][4];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+            mma::qk_16<D, KS>(s, qf, kt + 16 * warp * KS, lane);
+            uint32_t hi[4], lo[4];
+            split_fragment(hi, lo, s);
+            mma::pv_16<D, KS>(o, hi, vt + 16 * warp * KS, lane);
+            mma::pv_16<D, KS>(o, lo, vt + 16 * warp * KS, lane);
+          }
+        } else if (it == read_tile) {
+          // Chunk token g0 + r adds its K + V to output row g0 + r.
+          const int t0 = g0 % kKeyTile;
+          for (int i = tid; i < gn * D; i += kMmaThreads) {
+            const int r = i / D;
+            const int d = i % D;
+            const int e = (t0 + r) * KS + d;
+            atomicAdd(out + (row0 + r) * D + d,
+                      __bfloat162float(kt[e]) + __bfloat162float(vt[e]));
+          }
+        }
+      });
+  if constexpr (DOTS) {
+    __syncthreads();  // the partials below reuse the ring
+    float* ow = reinterpret_cast<float*>(ring);  // [warps][16][D]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn)
+        *reinterpret_cast<float2*>(ow + (warp * 16 + r) * D + dn * 8 +
+                                   2 * (lane & 3)) =
+            make_float2(o[dn][2 * h], o[dn][2 * h + 1]);
+    }
+    __syncthreads();
+    for (int i = tid; i < gn * D; i += kMmaThreads) {
+      const int r = i / D;
+      const int d = i % D;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w) acc += ow[(w * 16 + r) * D + d];
+      atomicAdd(out + (row0 + r) * D + d, acc);
+    }
+  }
+}
+
+template <typename E, bool DOTS, int D>
+int launch_mma(const Args& a) {
+  constexpr int smem = mma_smem_bytes<E, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      strided_probe_mma_kernel<E, DOTS, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.KVH * ((a.G + 15) / 16), a.MAXB / a.P, a.B);
+  strided_probe_mma_kernel<E, DOTS, D><<<grid, kMmaThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const float*>(a.k_scales),
+      static_cast<const float*>(a.v_scales), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.ctx), static_cast<float*>(a.out), a.MAXB,
+      a.NB, a.bs, a.KVH, a.G, a.P, a.layer);
+  return (int)cudaGetLastError();
+}
+
+// -- reads and dots, the f32 check mode: the first decode layout -------------
+
+constexpr int kTileThreads = 128;  // the first decode kernel's block
+constexpr int kTile = 32;          // its tile of tokens
 
 // E: the page type; DOTS: both products (else the first G rows added);
 // D: the head dim.
 template <typename E, bool DOTS, int D>
-__global__ void __launch_bounds__(kTileThreads) strided_probe_kernel(
+__global__ void __launch_bounds__(kTileThreads) strided_probe_f32_kernel(
     const float* __restrict__ q,           // [B, KVH * G, D] (dots only)
     const E* __restrict__ k_pages,         // [L, NB, bs, KVH, D]
     const E* __restrict__ v_pages,         // [L, NB, bs, KVH, D]
@@ -304,14 +480,14 @@ size_t strided_smem_bytes(int G, int D) {
 }
 
 template <typename E, bool DOTS, int D>
-int launch_strided(const Args& a) {
+int launch_f32(const Args& a) {
   const size_t smem = strided_smem_bytes(a.G, D);
   cudaError_t err = cudaFuncSetAttribute(
-      strided_probe_kernel<E, DOTS, D>,
+      strided_probe_f32_kernel<E, DOTS, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.KVH, a.MAXB / a.P, a.B);
-  strided_probe_kernel<E, DOTS, D><<<grid, kTileThreads, smem, a.stream>>>(
+  strided_probe_f32_kernel<E, DOTS, D><<<grid, kTileThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const E*>(a.k),
       static_cast<const E*>(a.v), static_cast<const int*>(a.bt),
       static_cast<const int*>(a.ctx), static_cast<float*>(a.out), a.MAXB,
@@ -319,34 +495,54 @@ int launch_strided(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename E, bool DOTS>
-int launch_strided_d(const Args& a) {
+// launch_mma (MMA) or launch_f32 at the head dim of the arguments.
+template <typename E, bool DOTS, bool MMA, int D>
+int launch_at(const Args& a) {
+  if constexpr (MMA)
+    return launch_mma<E, DOTS, D>(a);
+  else
+    return launch_f32<E, DOTS, D>(a);
+}
+
+template <typename E, bool DOTS, bool MMA>
+int launch_d(const Args& a) {
   switch (a.D) {
-    case 32: return launch_strided<E, DOTS, 32>(a);
-    case 64: return launch_strided<E, DOTS, 64>(a);
-    case 128: return launch_strided<E, DOTS, 128>(a);
+    case 32: return launch_at<E, DOTS, MMA, 32>(a);
+    case 64: return launch_at<E, DOTS, MMA, 64>(a);
+    case 128: return launch_at<E, DOTS, MMA, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename E>
+template <typename E, bool MMA>
 int launch_mode(int mode, const Args& a) {
   if (mode == kDma) return launch_dma<E>(a);
-  if (mode == kDots) return launch_strided_d<E, true>(a);
-  return launch_strided_d<E, false>(a);
+  if (mode == kDots) return launch_d<E, true, MMA>(a);
+  return launch_d<E, false, MMA>(a);
 }
 
-int launch(int mode, int dtype, const Args& a) {
+// q_dtype 0 (float32): dma_only, or the f32 check mode of reads and dots,
+// over any page type; 1 (bfloat16): reads and dots on the decode kernel's
+// tiles, over bf16 pages or int8 pages with scales.
+int launch(int mode, int q_dtype, int dtype, const Args& a) {
   if (a.B == 0 || a.MAXB == 0) return 0;
   if (a.P <= 0 || a.MAXB % a.P != 0 || a.bs <= 0 || a.G <= 0 ||
-      (mode == kDma && a.bs < kChecksumRows))
+      (mode == kDma && a.bs < kChecksumRows) ||
+      (mode != kDma && a.G > a.P * a.bs))
     return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return launch_mode<float>(mode, a);
-    case 1: return launch_mode<__nv_bfloat16>(mode, a);
-    case 2: return launch_mode<int8_t>(mode, a);
-    default: return (int)cudaErrorInvalidValue;
+  if (q_dtype == 0) {
+    switch (dtype) {
+      case 0: return launch_mode<float, false>(mode, a);
+      case 1: return launch_mode<__nv_bfloat16, false>(mode, a);
+      case 2: return launch_mode<int8_t, false>(mode, a);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (q_dtype != 1 || mode == kDma) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return launch_mode<__nv_bfloat16, true>(mode, a);
+  if (dtype == 2 && a.k_scales && a.v_scales)
+    return launch_mode<int8_t, true>(mode, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -359,26 +555,30 @@ extern "C" int dma_only_launch(const void* k_pages, const void* v_pages,
                                const void* context_lens, void* out, int dtype,
                                int B, int MAXB, int NB, int bs, int KVH,
                                int D, int P, int layer, void* stream) {
-  const Args a{nullptr, k_pages, v_pages, block_tables, context_lens, out,
-               B, MAXB, NB, bs, KVH, D, 1, P, layer,
+  const Args a{nullptr, k_pages, v_pages, nullptr, nullptr, block_tables,
+               context_lens, out, B, MAXB, NB, bs, KVH, D, 1, P, layer,
                static_cast<cudaStream_t>(stream)};
-  return launch(kDma, dtype, a);
+  return launch(kDma, 0, dtype, a);
 }
 
-// dots: 0 = per-head reads, 1 = both products. q: [B, KVH * G, D]
-// float32 (read by the products only); out: [B, KVH * G, D] float32,
-// zeroed by the caller. Other arguments as dma_only_launch.
+// dots: 0 = per-head reads, 1 = both products. q_dtype: 0 = q float32
+// (the check mode, any page dtype; the scales are ignored), 1 = q
+// bfloat16 over bf16 pages, or over int8 pages with float32 scales
+// [L, NB, bs * KVH] (the wrapper's unit scales). q: [B, KVH * G, D] (read
+// by the products only); out: [B, KVH * G, D] float32, zeroed by the
+// caller. Other arguments as dma_only_launch.
 extern "C" int probe_strided_launch(const void* q, const void* k_pages,
-                                    const void* v_pages,
+                                    const void* v_pages, const void* k_scales,
+                                    const void* v_scales,
                                     const void* block_tables,
                                     const void* context_lens, void* out,
-                                    int dots, int dtype, int B, int MAXB,
-                                    int NB, int bs, int KVH, int D, int G,
-                                    int P, int layer, void* stream) {
-  const Args a{q, k_pages, v_pages, block_tables, context_lens, out,
-               B, MAXB, NB, bs, KVH, D, G, P, layer,
+                                    int dots, int q_dtype, int dtype, int B,
+                                    int MAXB, int NB, int bs, int KVH, int D,
+                                    int G, int P, int layer, void* stream) {
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, block_tables,
+               context_lens, out, B, MAXB, NB, bs, KVH, D, G, P, layer,
                static_cast<cudaStream_t>(stream)};
-  return launch(dots ? kDots : kReads, dtype, a);
+  return launch(dots ? kDots : kReads, q_dtype, dtype, a);
 }
 
 KERNEL_ERROR_STRING_FN

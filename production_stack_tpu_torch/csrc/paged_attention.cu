@@ -29,7 +29,9 @@
 //   the 132 SMs; splits past a sequence's context load nothing;
 // - each block streams its pages through a two-stage cp.async ring of
 //   64-key tiles (int8: codes and scales, dequantized into bf16 tiles by
-//   one pass, the plain version's rounding), bounded by context_len;
+//   one pass, the plain version's rounding), bounded by context_len; the
+//   block and its ring (csrc/decode_ring.cuh) are shared with the strided
+//   probe (csrc/page_probes.cu) that splits this kernel's time;
 // - the G rows of the kv head are one 16-row mma.sync A fragment (zero
 //   padded: 4 live rows on Llama-3-8B); each of the four warps takes 16
 //   keys of a tile, computes S = Q.K^T and O += P.V with m16n8k16 bf16
@@ -54,6 +56,7 @@
 // on the CUDA cores. The card serves bf16.
 
 #include "common.cuh"
+#include "decode_ring.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -196,17 +199,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_f32_kernel(
 
 // -- the bf16 kernel: split-K on the tensor cores -------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kKeyTile = 16 * kMmaWarps;  // keys a ring stage, 16 a warp
-constexpr int kStages = 2;
+// The block and its ring of page tiles: csrc/decode_ring.cuh.
+constexpr int kMmaWarps = decode_ring::kWarps;
+constexpr int kMmaThreads = decode_ring::kThreads;
+constexpr int kKeyTile = decode_ring::kKeyTile;
 constexpr int kMaxSplits = 64;
-
-template <typename P, int D>
-constexpr int ring_bytes() {
-  return kStages * mma::stage_bytes<P, D, kKeyTile>() +
-         (sizeof(P) == 1 ? 2 * kKeyTile * (D + 8) * 2 : 0);  // int8: bf16 K, V
-}
 
 // The end of a split: each warp's (m, l) and O of 16 rows, then the
 // splits' maxima (turned into weights) and sums, and 1 / L of the final
@@ -218,9 +215,7 @@ constexpr int merge_bytes() {
 
 template <typename P, int D>
 constexpr int mma_smem_bytes() {
-  return 16 * (D + 8) * 2 + (ring_bytes<P, D>() > merge_bytes<D>()
-                                 ? ring_bytes<P, D>()
-                                 : merge_bytes<D>());
+  return decode_ring::smem_bytes<P, D>(merge_bytes<D>());
 }
 
 // P: the page type (bf16, or int8_t for quantized pages with scales).
@@ -239,11 +234,9 @@ __global__ void __launch_bounds__(kMmaThreads) paged_decode_mma_kernel(
     int* __restrict__ tickets,    // [B * KVH * MT], 0 between launches
     int H, int KVH, int NB, int bs, int MAXB, int layer, int splits) {
   using mma::bf16;
-  constexpr bool kQuantized = std::is_same<P, int8_t>::value;
   constexpr int KS = D + 8;  // row stride of the bf16 tiles
   constexpr int NK = D / 16;
   constexpr int ND = D / 8;
-  constexpr int kStage = mma::stage_bytes<P, D, kKeyTile>();
 
   const int G = H / KVH;
   const int MT = (G + 15) / 16;  // 16-row tiles of the group
@@ -259,26 +252,16 @@ __global__ void __launch_bounds__(kMmaThreads) paged_decode_mma_kernel(
 
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   bf16* q_sh = reinterpret_cast<bf16*>(dyn_smem);           // [16][KS]
-  unsigned char* ring = dyn_smem + 16 * KS * sizeof(bf16);  // kStages
-  bf16* kd = reinterpret_cast<bf16*>(ring + kStages * kStage);  // int8 only
-  bf16* vd = kd + kKeyTile * KS;
+  unsigned char* ring = dyn_smem + 16 * KS * sizeof(bf16);
 
   const size_t q_row0 = (size_t)b * H + (size_t)kvh * G + g0;
-  for (int i = tid; i < 16 * (D / 8); i += kMmaThreads) {
-    const int r = i / (D / 8);
-    const int c = i % (D / 8);
-    const bool live = r < gn;
-    mma::cp_async16(q_sh + r * KS + c * 8,
-                    q + (live ? (q_row0 + r) * D + c * 8 : 0), live);
-  }
-  mma::cp_async_commit();
+  decode_ring::issue_q_tile<D>(q_sh, q + q_row0 * D, gn, tid);
 
   const int ctx = max(0, min(context_lens[b], MAXB * bs));
   // This split's run of whole pages, cut at the context's end.
   const int split_tokens = (MAXB + splits - 1) / splits * bs;
   const int start = split * split_tokens;
   const int n_keys = max(0, min(ctx - start, split_tokens));
-  const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;
   const mma::PageRows pr{block_tables + (size_t)b * MAXB, (size_t)layer * NB,
                          bs, KVH, kvh};
 
@@ -291,86 +274,59 @@ __global__ void __launch_bounds__(kMmaThreads) paged_decode_mma_kernel(
   float m[2] = {KERNEL_NEG_INF, KERNEL_NEG_INF};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
 
-  auto issue = [&](int tile) {
-    const int k = tile * kKeyTile;
-    mma::issue_kv_tile<D, kKeyTile, kMmaThreads>(
-        ring + (tile % kStages) * kStage, k_pages, v_pages, k_scales,
-        v_scales, pr, start + k, min(kKeyTile, n_keys - k), tid);
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) issue(s);
-    mma::cp_async_commit();
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
-    mma::cp_async_commit();
-    mma::cp_async_wait<kStages - 1>();  // Q and tile it have landed
-    __syncthreads();
-    if (it == 0) mma::load_a<D, KS>(qf, q_sh, lane);
-    const unsigned char* st = ring + (it % kStages) * kStage;
-    const bf16* kt;
-    const bf16* vt;
-    if constexpr (kQuantized) {
-      mma::dequant_kv_tile<D, kKeyTile, kMmaThreads>(st, kd, vd, tid);
-      __syncthreads();
-      kt = kd;
-      vt = vd;
-    } else {
-      kt = reinterpret_cast<const bf16*>(st);
-      vt = kt + kKeyTile * KS;
-    }
-    const int kw = it * kKeyTile + 16 * warp;  // this warp's first key
-    if (kw < n_keys) {
-      float s[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-      mma::qk_16<D, KS>(s, qf, kt + 16 * warp * KS, lane);
-      if (kw + 16 > n_keys) {  // keys past the context
+  decode_ring::stream_tiles<P, D>(
+      ring, k_pages, v_pages, k_scales, v_scales, pr, start, n_keys, tid,
+      [&](int it, const bf16* kt, const bf16* vt) {
+      if (it == 0) mma::load_a<D, KS>(qf, q_sh, lane);  // q has landed
+      const int kw = it * kKeyTile + 16 * warp;  // this warp's first key
+      if (kw < n_keys) {
+        float s[2][4];
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (kw + nt * 8 + 2 * (lane & 3) + (j & 1) >= n_keys)
-              s[nt][j] = KERNEL_NEG_INF;
-      }
-      // Online softmax of rows h = 0 (s[.][0..1]) and h = 1 (s[.][2..3]);
-      // the four lanes of a quad hold one row.
+          for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+        mma::qk_16<D, KS>(s, qf, kt + 16 * warp * KS, lane);
+        if (kw + 16 > n_keys) {  // keys past the context
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = fmaxf(m[h], fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
-                                     fmaxf(s[1][2 * h], s[1][2 * h + 1])));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float alpha = __expf(m[h] - mx);
-        m[h] = mx;
-        float sum = 0.f;
+          for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int j = 2 * h; j < 2 * h + 2; ++j) {
-            const float p =
-                s[nt][j] > 0.5f * KERNEL_NEG_INF ? __expf(s[nt][j] - mx) : 0.f;
-            s[nt][j] = p;
-            sum += p;
-          }
-        l[h] = l[h] * alpha + sum;
-#pragma unroll
-        for (int dn = 0; dn < ND; ++dn) {
-          o[dn][2 * h] *= alpha;
-          o[dn][2 * h + 1] *= alpha;
+            for (int j = 0; j < 4; ++j)
+              if (kw + nt * 8 + 2 * (lane & 3) + (j & 1) >= n_keys)
+                s[nt][j] = KERNEL_NEG_INF;
         }
+        // Online softmax of rows h = 0 (s[.][0..1]) and h = 1 (s[.][2..3]);
+        // the four lanes of a quad hold one row.
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = fmaxf(m[h], fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
+                                       fmaxf(s[1][2 * h], s[1][2 * h + 1])));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float alpha = __expf(m[h] - mx);
+          m[h] = mx;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int j = 2 * h; j < 2 * h + 2; ++j) {
+              const float p = s[nt][j] > 0.5f * KERNEL_NEG_INF
+                                  ? __expf(s[nt][j] - mx)
+                                  : 0.f;
+              s[nt][j] = p;
+              sum += p;
+            }
+          l[h] = l[h] * alpha + sum;
+#pragma unroll
+          for (int dn = 0; dn < ND; ++dn) {
+            o[dn][2 * h] *= alpha;
+            o[dn][2 * h + 1] *= alpha;
+          }
+        }
+        uint32_t pf[4];
+        mma::p_fragment(pf, s[0], s[1]);
+        mma::pv_16<D, KS>(o, pf, vt + 16 * warp * KS, lane);
       }
-      uint32_t pf[4];
-      mma::p_fragment(pf, s[0], s[1]);
-      mma::pv_16<D, KS>(o, pf, vt + 16 * warp * KS, lane);
-    }
-    __syncthreads();  // the stage is free for the copy issued next
-  }
-  mma::cp_async_wait<0>();
+      });
   __syncthreads();  // the merge below reuses the ring
 
   float* mw = reinterpret_cast<float*>(ring);  // [warps][16] row maxima

@@ -33,10 +33,10 @@ def lib() -> ctypes.CDLL:
     out.dma_only_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 9 + [ctypes.c_void_p]
     out.dma_only_launch.restype = ctypes.c_int
-    # q, k, v, tables, lens, out; dots, dtype, B, MAXB, NB, bs, KVH, D, G,
-    # P, layer; the stream.
-    out.probe_strided_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 11 + [ctypes.c_void_p]
+    # q, k, v, k_scales, v_scales, tables, lens, out; dots, q_dtype,
+    # dtype, B, MAXB, NB, bs, KVH, D, G, P, layer; the stream.
+    out.probe_strided_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 12 + [ctypes.c_void_p]
     out.probe_strided_launch.restype = ctypes.c_int
     return out
 
@@ -119,6 +119,25 @@ def pages_read(context_lens, MAXB: int, bs: int, P: int) -> int:
 def page_bytes(k_pages) -> int:
     _, _, bs, KVH, D = k_pages.shape
     return bs * KVH * D * k_pages.element_size()
+
+
+_unit_scales = {}
+
+
+def unit_scales(k_pages):
+    """(k_scales, v_scales): float32 ones ``[L, NB, bs * KVH]`` on the
+    pages' device, the scales under which the decode kernel's int8 staging
+    reads a code as its value. Two tensors, as an int8 pool has, so that
+    their bytes are read as a real pool's would be; kept for the last pool
+    shape asked for."""
+    L, NB, bs, KVH, _ = k_pages.shape
+    key = ((L, NB, bs * KVH), k_pages.device)
+    if key not in _unit_scales:
+        _unit_scales.clear()
+        _unit_scales[key] = tuple(
+            torch.ones(key[0], dtype=torch.float32, device=k_pages.device)
+            for _ in range(2))
+    return _unit_scales[key]
 
 
 def make_tables(rng, B: int, MAXB: int, NB: int) -> np.ndarray:

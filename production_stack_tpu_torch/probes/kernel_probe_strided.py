@@ -20,11 +20,22 @@ the TPU kernel does. :func:`probe_strided` returns one layer's
 ``o [B, KVH*G, D]`` float32; :func:`build` returns the JAX script's
 ``run``, the sum over layers of ``o[0, 0, :8]`` as ``[1, 8]``.
 
-The CUDA kernel keeps the port's decode kernel's layout: a block per
-(kv head, chunk, sequence), 32-token tiles, the same per-head loads and
-products. At ``P = MAXB`` its grid is the decode kernel's, so ``reads``
-times that kernel's gather, ``dots - reads`` its products, and the
-decode kernel minus ``dots`` its softmax.
+With bf16 ``q`` over bf16 or int8 pages the CUDA kernel runs the port's
+split-K decode kernel's own block, ring and tile code
+(``csrc/decode_ring.cuh``, ``csrc/mma.cuh``): a block per (kv
+head x 16-row tile of its ``G`` rows, chunk, sequence), four warps, a
+two-stage ``cp.async`` ring of 64-key tiles, ``mma.sync`` products; int8
+pages go through that kernel's staging and dequantizing pass under unit
+scales (:func:`common.unit_scales`), so a code is read as its value. With
+``P`` the decode plan's pages a split its grid is the decode kernel's, so
+``reads`` times that kernel's per-head gather (and int8 staging),
+``dots`` minus ``reads`` its products (with one ``S . V`` product more
+than the decode kernel's: ``S`` is taken as two bf16 terms to keep the
+1e-5 bar), and the decode kernel minus ``dots`` its online softmax and
+split merge.
+float32 ``q`` or float32 pages take the check mode, the port's first
+decode layout (a block per kv head, chunk and sequence, 32-token tiles,
+CUDA-core products). :func:`route` says which.
 
 On a CPU tensor :func:`probe_strided` runs the plain version; on a CUDA
 tensor it launches the kernel or raises, and never falls back.
@@ -106,6 +117,16 @@ def probe_strided_reference(q, k_pages, v_pages, block_tables, context_lens,
     return o.reshape(Bn, KVHn * Gn, Dn)
 
 
+def route(q, k_pages) -> str:
+    """The body of the CUDA kernel a launch takes: ``"mma"`` (the split-K
+    decode kernel's tiles) for bf16 ``q`` over bf16 or int8 pages,
+    ``"f32"`` (the check mode, ``q`` cast to float32) for anything else."""
+    if q.dtype == torch.bfloat16 and k_pages.dtype in (torch.bfloat16,
+                                                       torch.int8):
+        return "mma"
+    return "f32"
+
+
 def probe_strided(q, k_pages, v_pages, block_tables, context_lens, layer, *,
                   mode, pages_per_block=8):
     """One layer's probe output ``o [B, KVH*G, D]`` float32 (see the
@@ -121,18 +142,22 @@ def probe_strided(q, k_pages, v_pages, block_tables, context_lens, layer, *,
                 pages_per_block)
     if not k_pages.is_cuda:
         raise ValueError("probe_strided kernel needs CUDA tensors")
-    qf = q.float().contiguous()
+    mma = route(q, k_pages) == "mma"
+    qk = (q if mma else q.float()).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     cl = context_lens.to(torch.int32).contiguous()
-    common.check_kernel_operands("probe_strided", k_pages, v_pages)
-    out = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    common.check_kernel_operands("probe_strided", k_pages, v_pages, qk)
+    ks, vs = (common.unit_scales(k_pages)
+              if mma and k_pages.dtype == torch.int8 else (None, None))
+    out = torch.zeros(qk.shape, dtype=torch.float32, device=q.device)
     lib = common.lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.probe_strided_launch(
-            common.ptr(qf), common.ptr(k_pages), common.ptr(v_pages),
-            common.ptr(bt), common.ptr(cl), common.ptr(out),
-            int(mode == "dots"), common.PAGE_DTYPES[k_pages.dtype],
+            common.ptr(qk), common.ptr(k_pages), common.ptr(v_pages),
+            common.ptr(ks), common.ptr(vs), common.ptr(bt), common.ptr(cl),
+            common.ptr(out), int(mode == "dots"), int(mma),
+            common.PAGE_DTYPES[k_pages.dtype],
             *common.shape_args(k_pages, bt), Gn, pages_per_block, layer,
             ctypes.c_void_p(stream))
     _build.check(lib, rc, "probe_strided")
@@ -169,7 +194,10 @@ def build(mode, pages_per_block=8):
 def work(q, k_pages, block_tables, context_lens, mode, P: int):
     """(bytes, flops) of one ``run``: K and V of every page of every live
     chunk in every layer, plus q read and o written once a layer; the
-    products' 4 * KVH * G * D flops a token of every live chunk (dots)."""
+    products' 4 * KVH * G * D flops a token of every live chunk (dots).
+    These are the bytes the function needs, so int8 pages count their
+    codes only: the unit scales that the ``mma`` route stages beside them
+    are the decode kernel's, not the function's."""
     MAXBn = block_tables.shape[1]
     Ln, _, bsn, _, Dn = k_pages.shape
     n = common.pages_read(context_lens, MAXBn, bsn, P)

@@ -19,17 +19,18 @@ sequence skipping its last tile; in the int8 page staging of both
 scale left out. The unchanged kernels go through the same cases first
 and must pass.
 
-The page probes (``csrc/page_probes.cu``) get three faults: ``dma_only``
+The page probes (``csrc/page_probes.cu``) get seven faults: ``dma_only``
 copying only the 8 token rows its checksum consumes (every consumed value
 stays right, so only chip_smoke.py's rate check can catch it: the sweep
-at the JAX shapes must read above 1.05 x 3.35 TB/s), ``reads`` loading
-only the first G token rows of each chunk, and ``dots`` skipping the last
-live chunk (caught by the value check). The ``reads`` fault also leaves
-every value ``reads`` consumes right, and ``reads`` in the decode
-kernel's layout runs far below the memory rate even with its loads cut,
-so the rate check misses it; its load loop is the one ``dots`` runs,
-whose value check catches it. So a probe fault is held to the checks of
-every mode that runs the faulted code.
+at the JAX shapes must read above 1.05 x 3.35 TB/s); in the strided
+probe on the decode kernel's tiles, ``reads`` loading only the first G
+token rows of each chunk (every value ``reads`` consumes stays right; the
+rate check of its sweep and the value check of ``dots``, which shares its
+ring, catch it), the last live chunk skipped, the ``S_lo`` term of the
+two-term ``S . V`` dropped, the chunk's last 64-key tile skipped,
+``reads`` staging kv head 0's rows, and the int8 dequantizing pass
+skipped (int8 cases). So a probe fault is held to the checks of every
+mode and page dtype that runs the faulted code.
 
 Prints one JSON line per kernel build (``{"clean": ...}`` or
 ``{"fault": ...}``, with each case's max_abs_err and error over its bar),
@@ -53,6 +54,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # A fault is (label, source file (None: the library's .cu), text of the
 # source it replaces, replacement).
 _TILES = "const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;"
+# The keys the decode kernel hands to the ring (csrc/decode_ring.cuh).
+_SPLIT_KEYS = ("ring, k_pages, v_pages, k_scales, v_scales, pr, start, "
+               "n_keys, tid,")
 _RESCALE = ("          o[dn][2 * h] *= alpha;\n"
             "          o[dn][2 * h + 1] *= alpha;")
 _CAUSAL = "const bool live = key <= rp && key < total;"
@@ -76,9 +80,10 @@ FAULTS = {
         ("one split's partial left out of the merge", None, _MERGE_W,
          "const float w = (ls > 0.f && s != splits / 2) ? "
          "__expf(wgt[s * 16 + r] - M) : 0.f;"),
-        ("the last live split skips its last tile", None, _TILES,
-         "const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile - "
-         "(start + split_tokens >= ctx ? 1 : 0);"),
+        ("the last live split skips its last tile", None, _SPLIT_KEYS,
+         "ring, k_pages, v_pages, k_scales, v_scales, pr, start, "
+         "start + split_tokens >= ctx ? (n_keys - 1) / kKeyTile * kKeyTile "
+         ": n_keys, tid,"),
     ]),
     "cached_prefill_attention": ("prefill_attention", [
         ("skip the last key tile", None, _TILES,
@@ -147,11 +152,12 @@ def _run_cases(chip_smoke, kernel, cases):
     return out
 
 
-def _run_probe_cases(chip_smoke, kind, inputs):
+def _run_probe_cases(chip_smoke, kind, dname, inputs):
     """The checks of chip_smoke.py's probe phase that a fault of ``kind``
-    must fail: the value against the plain version (every kind), and for
-    the copying probes also the rate of a sweep over all layers at the
-    JAX shapes (bf16 pages, P=8), as a multiple of the card's 3.35 TB/s."""
+    must fail, over ``dname`` pages: the value against the plain version
+    (every kind), and for the copying probes also the rate of a sweep over
+    all layers at the JAX shapes (P=8), as a multiple of the card's
+    3.35 TB/s."""
     from production_stack_tpu_torch.probes import kernel_dma_only as kdma
     from production_stack_tpu_torch.probes import kernel_probe_strided as kst
     from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
@@ -159,12 +165,14 @@ def _run_probe_cases(chip_smoke, kind, inputs):
     out = []
     for label, case, P in (("jax shapes", "jax", 8), ("jax shapes", "jax", 64),
                            ("8x2048", "decode", 4)):
-        err, over = chip_smoke.probe_compare(kind, inputs[case], P,
-                                             inputs[case][1].shape[0] - 1)
-        out.append({"case": f"{kind} {label} P={P}", "max_abs_err": err,
-                    "err_over_bar": over, "caught": not over <= 1.0})
+        case_inputs = inputs[case, dname]
+        err, over = chip_smoke.probe_compare(kind, case_inputs, P,
+                                             case_inputs[1].shape[0] - 1)
+        out.append({"case": f"{kind} {label} {dname} P={P}",
+                    "max_abs_err": err, "err_over_bar": over,
+                    "caught": not over <= 1.0})
     if kind != "dots":
-        q, k, v, bt, cl = inputs["jax"]
+        q, k, v, bt, cl = inputs["jax", dname]
         if kind == "dma_only":
             row = kdma.sweep_row(k, v, bt, cl, 8)
             seconds = row["dma_only_all_L_s"]
@@ -172,33 +180,49 @@ def _run_probe_cases(chip_smoke, kind, inputs):
             row = kst.sweep_row(q, k, v, bt, cl, kind, 8)
             seconds = row["all_L_s"]
         rate = row["bytes_gb"] * 1e9 / seconds
-        out.append({"case": f"{kind} sweep rate, jax shapes P=8",
+        out.append({"case": f"{kind} sweep rate, jax shapes {dname} P=8",
                     "rate_over_hbm": rate / HBM_BYTES_PER_S,
                     "caught": rate / HBM_BYTES_PER_S
                     > chip_smoke.PROBE_RATE_FACTOR})
     return out
 
 
-# Planted faults of the page probes (csrc/page_probes.cu): (probe, label,
-# anchor, replacement). The dma_only copy fault leaves every value the
+# Planted faults of the page probes: (label, source file (None:
+# csrc/page_probes.cu), anchor, replacement, the (probe kind, page dtype)
+# checks it must fail). The dma_only copy fault leaves every value the
 # probe consumes in place, so only the rate check can catch it.
 _DMA_COPY = "const int n16 = T * row16;"
-_TILE_LOAD = "if (t < n) {"
-_TILE_LIVE = ("if ((long long)c * span >= context_lens[b]) return;  "
-              "// not a live chunk")
+_CHUNK_KEYS = ("ring, k_pages, v_pages, k_scales, v_scales, pr, start, "
+               "span, tid,")
+_TILE_LIVE = ("if (start >= context_lens[b]) return;  "
+              "// a chunk past the context")
+_LO_TERM = "            mma::pv_16<D, KS>(o, lo, vt + 16 * warp * KS, lane);\n"
+_HEAD = "                         bs, KVH, kvh};"
+_STAGING = ("      mma::dequant_kv_tile<D, kKeyTile, kThreads>(st, kd, vd, "
+            "tid);\n")
+_STRIDED = (("reads", "bf16"), ("dots", "bf16"))
 PROBE_FAULTS = [
-    ("dma_only", "copy only the 8 token rows the checksum consumes",
+    ("dma_only: copy only the 8 token rows the checksum consumes", None,
      _DMA_COPY, "const int n16 = (p == 0 && t0 < 8) ? "
-     "min(T, 8 - t0) * row16 : 0;"),
-    ("reads", "load only the first G token rows of each chunk",
-     _TILE_LOAD, "if (t < n && start + t < G) {"),
-    ("dots", "skip the last live chunk", _TILE_LIVE,
-     "if ((long long)(c + 1) * span >= context_lens[b]) return;"),
+     "min(T, 8 - t0) * row16 : 0;", (("dma_only", "bf16"),)),
+    ("load only the first G token rows of each chunk", None, _CHUNK_KEYS,
+     "ring, k_pages, v_pages, k_scales, v_scales, pr, start, min(span, G), "
+     "tid,", _STRIDED),
+    ("skip the last live chunk", None, _TILE_LIVE,
+     "if (start + span >= context_lens[b]) return;", _STRIDED),
+    ("dots: the S_lo term of S . V dropped", None, _LO_TERM, "",
+     (("dots", "bf16"),)),
+    ("skip the chunk's last 64-key tile", None, _CHUNK_KEYS,
+     "ring, k_pages, v_pages, k_scales, v_scales, pr, start, "
+     "(span - 1) / kKeyTile * kKeyTile, tid,", _STRIDED),
+    ("reads: kv head 0's rows staged", None, _HEAD,
+     "                         bs, KVH, DOTS ? kvh : 0};",
+     (("reads", "bf16"),)),
+    # In the ring the decode kernel shares; only the probe's library is
+    # rebuilt with it.
+    ("int8: the dequantizing pass skipped", "decode_ring.cuh", _STAGING, "",
+     (("reads", "int8"), ("dots", "int8"))),
 ]
-# The probe kinds whose checks run on each fault: those that run the
-# faulted code (reads and dots share one load loop).
-PROBE_CHECKS = {"dma_only": ("dma_only",), "reads": ("reads", "dots"),
-                "dots": ("dots",)}
 
 
 def _swap_in(_build, lib_name, path):
@@ -222,10 +246,11 @@ def main() -> int:
     smi = chip_smoke.nvidia_smi_line()
     cases = chip_smoke.main_path_cases()
     probe_inputs = {
-        "jax": chip_smoke.probe_inputs(chip_smoke.JAX_PROBE_SHAPE,
-                                       torch.bfloat16),
-        "decode": chip_smoke.probe_inputs(chip_smoke.DECODE_PROBE_SHAPE,
-                                          torch.bfloat16)}
+        (case, dname): chip_smoke.probe_inputs(shape, dtype)
+        for case, shape in (("jax", chip_smoke.JAX_PROBE_SHAPE),
+                            ("decode", chip_smoke.DECODE_PROBE_SHAPE))
+        for dname, dtype in (("bf16", torch.bfloat16),
+                             ("int8", torch.int8))}
     ok = True
     for kernel, (lib_name, _) in FAULTS.items():
         _build.load(lib_name)
@@ -234,37 +259,38 @@ def main() -> int:
         print(json.dumps({"clean": {"kernel": kernel, "cases": rows}}),
               flush=True)
     _build.load("page_probes")
-    for kind, *_ in PROBE_FAULTS:
-        rows = _run_probe_cases(chip_smoke, kind, probe_inputs)
+    for kind, dname in sorted({c for *_, checks in PROBE_FAULTS
+                               for c in checks}):
+        rows = _run_probe_cases(chip_smoke, kind, dname, probe_inputs)
         ok &= not any(r["caught"] for r in rows)
-        print(json.dumps({"clean": {"kernel": "page_probes " + kind,
+        print(json.dumps({"clean": {"kernel": f"page_probes {kind} {dname}",
                                     "cases": rows}}), flush=True)
     clean = dict(_build._libs)
     plants = [(kernel, label, lib_name, where, old, new)
               for kernel, (lib_name, faults) in FAULTS.items()
               for label, where, old, new in faults]
-    plants += [(kind, label, "page_probes", None, old, new)
-               for kind, label, old, new in PROBE_FAULTS]
+    plants += [(i, label, "page_probes", where, old, new)
+               for i, (label, where, old, new, _) in enumerate(PROBE_FAULTS)]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         for kernel, label, path in _build_faulty(_build, workdir, plants):
-            probe = kernel in ("dma_only", "reads", "dots")
+            probe = isinstance(kernel, int)  # an index of PROBE_FAULTS
             lib_name = "page_probes" if probe else FAULTS[kernel][0]
             _swap_in(_build, lib_name, path)
             try:
                 if probe:
-                    rows = [r for kind in PROBE_CHECKS[kernel]
+                    rows = [r for kind, dname in PROBE_FAULTS[kernel][4]
                             for r in _run_probe_cases(chip_smoke, kind,
-                                                      probe_inputs)]
+                                                      dname, probe_inputs)]
                 else:
                     rows = _run_cases(chip_smoke, kernel, cases)
             finally:
                 _build._libs[lib_name] = clean[lib_name]
             caught = any(r["caught"] for r in rows)
             ok &= caught
-            print(json.dumps({"fault": {"kernel": kernel, "fault": label,
-                                        "caught": caught, "cases": rows}}),
-                  flush=True)
+            print(json.dumps({"fault": {
+                "kernel": "page_probes" if probe else kernel, "fault": label,
+                "caught": caught, "cases": rows}}), flush=True)
     print(f"card: {smi}", flush=True)
     return 0 if ok else 1
 

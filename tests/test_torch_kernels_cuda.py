@@ -295,6 +295,46 @@ def test_probe_strided_matches_plain(cuda, dtype, mode, bs, KVH, D, G, P):
     _probe_close(got, want, 1e-6 if mode == "reads" else 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bs", [4, 64])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 16, 32])
+def test_strided_probe_mma_matches_plain(cuda, G, bs, D, dtype):
+    """The strided probe on the decode kernel's tiles (bf16 q over bf16 or
+    int8 pages) at P 1/2/4/8/MAXB, contexts at, below and above a chunk
+    boundary, one token and the full table, in both modes, two launches
+    each, at the chip_smoke.py bars (1e-6 reads, 1e-5 dots)."""
+    from production_stack_tpu_torch.probes.kernel_probe_strided import (
+        probe_strided,
+        probe_strided_reference,
+        route,
+    )
+
+    KVH, MAXB = 2, 512 // bs
+    q, k, v, bt, _ = _probe_inputs(cuda, dtype, 5, MAXB, bs, KVH, D, G,
+                                   [1] * 5, seed=G * 100 + D + bs)
+    assert route(q, k) == "mma"
+    name = "bf16" if dtype == torch.bfloat16 else "int8"
+    for P in (1, 2, 4, 8, MAXB):
+        span = P * bs
+        if G > span:
+            continue  # a chunk must hold the G rows reads adds
+        cl = torch.tensor([span, span - 1, span + 1, 1, MAXB * bs],
+                          dtype=torch.int32, device=cuda)
+        for mode in ("reads", "dots"):
+            attr = f"launches_{mode}_{name}"
+            before = getattr(probe_strided, attr)
+            want = probe_strided_reference(q, k, v, bt, cl, 1, mode=mode,
+                                           pages_per_block=P)
+            for _ in range(2):
+                got = probe_strided(q, k, v, bt, cl, 1, mode=mode,
+                                    pages_per_block=P)
+                torch.cuda.synchronize()
+                _probe_close(got, want, 1e-6 if mode == "reads" else 1e-5)
+            assert getattr(probe_strided, attr) == before + 2
+
+
 def test_probes_raise_not_fall_back(cuda):
     from production_stack_tpu_torch.probes.kernel_dma_only import dma_only
     from production_stack_tpu_torch.probes.kernel_probe_strided import (
