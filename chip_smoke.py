@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # everything, as a check of the port
     python3 chip_smoke.py --profile  # where a decode step's time goes
-                                     # (bf16, then int8 KV + weights)
+                                     # (bf16, then int8 KV + weights),
+                                     # bursts read back serially and
+                                     # pipelined
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -15,15 +17,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``cuobjdump -sass``): a bf16 instantiation of either attention
    kernel or of the strided probe without both fails the run (the
    probe's ``reads`` takes no products: asynchronous copies only);
-2. hold each attention kernel, in both page encodings (pages in q's
+2. hold the port's threefry (``engine/prng.py``: key data, bits and
+   categorical draws) on the card to golden values that JAX computed
+   (``GOLDEN``, written by ``tests/test_torch_prng.py``), bit for bit
+   (a ``{"threefry": ...}`` line);
+3. hold each attention kernel, in both page encodings (pages in q's
    dtype, and int8 pages with float32 scales), against its plain PyTorch
    version on the same CUDA tensors, at the Llama-3-8B main-path shapes
-   in bf16 and at small shapes in f32 (the kernels' check mode) and in
-   bf16, and time kernel, plain version and a
-   library yardstick (``scaled_dot_product_attention`` on pre-gathered
-   contiguous K/V, dequantized beforehand for int8, which excludes the
-   page gather and the dequant and is never called by the port);
-3. the page probes of the decode kernel (``csrc/page_probes.cu``: the
+   in bf16 (the cached prefill also as the engine's batched prefill of a
+   storm: 4 rows at the 1,024 bucket, one of them padding) and at small
+   shapes in f32 (the kernels' check mode) and in bf16, and time kernel,
+   plain version and a library yardstick (``scaled_dot_product_attention``
+   on pre-gathered contiguous K/V, dequantized beforehand for int8, which
+   excludes the page gather and the dequant and is never called by the
+   port); the batched case is timed beside the single row (a
+   ``{"batched_prefill": ...}`` line);
+4. the page probes of the decode kernel (``csrc/page_probes.cu``: the
    page gather alone, and with per-head reads or with both products and
    no softmax), each mode and page dtype against its plain version at
    small shapes, at the 8B decode case and at the JAX scripts' shapes;
@@ -33,17 +42,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same pools, its time split by the probes at that split:
    ``decode_decomposition``), every rate held under 1.05 x 3.35 TB/s,
    printed as a ``{"probes": ...}`` line;
-4. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
-   weights through the port's OpenAI server (in-process, on a thread) and
-   drive it over HTTP: concurrent greedy completions, a chunked long
-   prompt, a prefix-cache hit, a streamed sampled chat, a repeated greedy
-   request and a ``/metrics`` scrape; every request must finish with
-   ``stop`` or ``length`` and both kernels must have launched;
-5. free that engine and serve the same model again with
+5. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
+   weights through the port's OpenAI server (in-process, on a thread)
+   under the JAX engine's default step (prefill batching at 4 rows, the
+   step recorder, pipelined decode bursts) and drive it over HTTP:
+   concurrent greedy completions, a chunked long prompt, a prefix-cache
+   hit, a streamed sampled chat, a repeated greedy request, a storm of
+   six ~2,000-token prompts (batched prefills), a seeded sampled request
+   sent twice (one text), ``/debug/steps`` and a ``/metrics`` scrape;
+   every request must finish with ``stop`` or ``length``, both kernels
+   must have launched and a batched prefill must have run (a
+   ``{"recorder": ...}`` line: step kinds, ``tpu:step_*`` series, the
+   bandwidth share against 3.35e12 B/s);
+6. free that engine and serve the same model again with
    ``--kv-cache-dtype int8 --quantization int8`` (int8 KV pages, int8
    weights), driven the same way; both kernels must have launched in
    their int8 mode, and never in the other. No probe launches on either
-   served path.
+   served path;
+7. serve bf16 again with chunked-prefill step plans
+   (``--enable-chunked-prefill --max-num-batched-tokens 512``, ten
+   slots): two ~2,000-token prompts arrive while eight sequences decode
+   and prefill in 512-token steps between decode bursts (a
+   ``{"chunked": ...}`` line).
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, each probe in each mode and page dtype), the card's
@@ -183,6 +203,61 @@ def sass_counts(paths):
     return out
 
 
+# -- threefry on the card -----------------------------------------------------
+
+# Golden values of the port's keyed draw, computed on the CPU by JAX
+# (tests/test_torch_prng.py::golden writes them and checks them against
+# this file): key data of make_rng_keys(0, 3, GOLDEN_SEEDS), the first 8
+# 32-bit words of each key's bits, and jax.random.categorical of each key
+# over the rows of golden_logits. The card's tensor-op threefry must give
+# them bit for bit.
+GOLDEN_SEEDS = (0, 7, 2**31 + 9, 2**33 + 5, -1, 123456789)
+GOLDEN = {
+    "keys": [[3223668805, 2222728495], [3722243546, 2605438598],
+             [1329879705, 2803758931], [1244721678, 2594860169],
+             [4196246994, 2395176892], [1209682192, 2454425494]],
+    "bits": [[4096103414, 3209468632, 1800361510, 3437501324, 3997350603,
+              4163326404, 3366530964, 318401958],
+             [1093064685, 340245451, 1565252539, 389234795, 1891130269,
+              2047988702, 3696102545, 4071142475],
+             [3644338829, 3935543667, 758793332, 1669268916, 3890846687,
+              1409047385, 3122422396, 1575780641],
+             [2147908501, 3885424548, 472692237, 3892122656, 1962420968,
+              4250648318, 2281264002, 2530049429],
+             [4122913618, 3448078844, 3447197624, 73583405, 2475189623,
+              3644278014, 1310597635, 2705665802],
+             [3634326767, 3670461195, 2900356360, 1362545154, 2353349308,
+              1551888889, 499497160, 400770793]],
+    "draws": [47, 25, 32, 27, 56, 18],
+}
+
+
+def golden_logits(n: int):
+    """[n, 64] float32 rows from numpy seed 0, a third of them masked."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(n, 64)).astype(np.float32) * 2.0
+    logits[rng.random((n, 64)) < 0.3] = -np.inf
+    logits[:, 0] = np.maximum(logits[:, 0], 0.0)
+    return logits
+
+
+def threefry_check(device: str = "cuda") -> dict:
+    """The port's key data, bits and categorical draws of the golden
+    inputs, computed on ``device``."""
+    import torch
+
+    from production_stack_tpu_torch.engine import prng
+
+    seeds = torch.tensor(GOLDEN_SEEDS, dtype=torch.int64, device=device)
+    keys = prng.make_rng_keys(0, 3, seeds)
+    logits = torch.from_numpy(golden_logits(len(GOLDEN_SEEDS))).to(device)
+    return {"keys": keys.cpu().tolist(),
+            "bits": prng.random_bits(keys, 8).cpu().tolist(),
+            "draws": prng.categorical(keys, logits).cpu().tolist()}
+
+
 # -- kernel phase -----------------------------------------------------------
 
 def _tables(rng, B, MAXB, NB):
@@ -268,6 +343,27 @@ def prefill_case(dtype, B, T, H, KVH, D, L, bs, MAXB, prefix, take, seed,
         layer=L - 1, scale=D ** -0.5)
 
 
+# The engine's batched cached prefill (``core.py::_prefill_rows``) at the
+# 1,024 chunk bucket: two first-round rows with an empty prefix, one over a
+# 1,024-token prefix and a padding row; real query tokens of each row.
+BATCHED_PREFIX = [0, 0, 1024, 0]
+BATCHED_TAKE = [1024, 700, 1024, 0]
+
+
+def batched_prefill_case(int8: bool, seed: int):
+    """Inputs of one batched cached-prefill launch at the Llama-3-8B heads,
+    the last row padding as the engine builds it: positions 0, total
+    length 1, an all-zero table, no page writes."""
+    import torch
+
+    c = prefill_case(torch.bfloat16, 4, 1024, 32, 8, 128, 2, 64, 32,
+                     BATCHED_PREFIX, BATCHED_TAKE, seed=seed, int8=int8)
+    c["positions"][3] = 0
+    c["total_lens"][3] = 1
+    c["block_tables"][3] = 0
+    return c
+
+
 def run_decode(c):
     from production_stack_tpu_torch.ops.paged_attention import paged_attention
 
@@ -349,6 +445,11 @@ def main_path_cases():
              "cached_prefill_attention" + suffix,
              prefill_case(bf16, 1, 1024, H, KVH, D, 2, bs, 32, [1024],
                           [1024], seed=seed + 31, int8=int8), None),
+            # A batched prefill of a storm: each live row's real tokens.
+            (f"cached_prefill {enc} batched 4x1024",
+             "cached_prefill_attention" + suffix,
+             batched_prefill_case(int8, seed + 32),
+             [(b, slice(0, n)) for b, n in enumerate(BATCHED_TAKE) if n]),
         ]
     return cases
 
@@ -394,6 +495,9 @@ def compare(got, want, rows=None):
     finite."""
     import torch
 
+    if isinstance(rows, list):
+        errs = [compare(got[r], want[r]) for r in rows]
+        return max(e for e, _ in errs), max(o for _, o in errs)
     if rows is not None:
         got, want = got[rows], want[rows]
     if not torch.isfinite(got).all():
@@ -470,6 +574,39 @@ def _time_prefill(label, c):
         ops=4 * H * D * pairs)
 
 
+def _time_prefill_batched(label, c):
+    """Device times (as :func:`_time_decode`) of kernel, plain version and
+    library yardstick on a batched cached-prefill case (one masked SDPA
+    call over the rows' gathered contexts), with the bytes and operations
+    of the live rows' real query tokens."""
+    import torch
+
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+
+    B, T, H, D = c["q"].shape
+    S = int(c["total_lens"].max())
+    kg, vg = _gathered(c, S)
+    qs = (c["q"] * c["scale"]).to(c["q"].dtype).transpose(1, 2)
+    span = torch.arange(S, device="cuda")
+    mask = ((span[None, None, :] <= c["positions"][:, :, None])
+            & (span[None, None, :] < c["total_lens"][:, None, None]))[:, None]
+    check_close(f"{label} vs sdpa yardstick", run_prefill(c),
+                _sdpa(qs, kg, vg, mask).transpose(1, 2),
+                [(b, slice(0, n)) for b, n in enumerate(BATCHED_TAKE) if n])
+    n_q = sum(BATCHED_TAKE)
+    pairs = sum(t * p + t * (t + 1) // 2
+                for p, t in zip(BATCHED_PREFIX, BATCHED_TAKE))
+    ctx = sum(p + t for p, t in zip(BATCHED_PREFIX, BATCHED_TAKE))
+    return dict(
+        ms=cuda_time_ms(lambda: run_prefill(c), iters=10),
+        plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=3),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=10),
+        bytes=(2 * n_q * H * D * c["q"].element_size()
+               + ctx * _page_bytes_per_token(c)
+               + c["block_tables"].numel() * 4 + n_q * 4 + B * 4),
+        ops=4 * H * D * pairs)
+
+
 def kernel_phase():
     """Kernel vs plain version at main-path and small shapes, in both page
     encodings; returns the per-entry measurements of the main-path
@@ -514,7 +651,10 @@ def kernel_phase():
     cases = {}
     for label, name, c, rows in main_path_cases():
         run, plain = KERNELS[name]
-        err, _ = check_close(label, run(c), plain(c), rows)
+        got = run(c)
+        err, _ = check_close(label, got, plain(c), rows)
+        if "batched" in label and not torch.isfinite(got[3]).all():
+            raise AssertionError(f"{label}: the padding row is not finite")
         errs[name] = max(errs[name], err)
         cases[label] = c
 
@@ -543,6 +683,21 @@ def kernel_phase():
         log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']})")
+    batched = {}
+    for enc in ("bf16", "int8"):
+        r = _time_prefill_batched(
+            f"cached_prefill {enc} batched",
+            cases[f"cached_prefill {enc} batched 4x1024"])
+        byte_ms = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        op_ms = r.pop("ops") / BF16_FLOPS * 1e3
+        single = results["cached_prefill_attention"
+                         + ("_int8" if enc == "int8" else "")]
+        batched[enc] = dict(r, bound_ms=max(byte_ms, op_ms),
+                            bound_by="bytes" if byte_ms >= op_ms
+                            else "operations", single_row_ms=single["ms"])
+        log(f"[kernel] cached_prefill {enc} batched 4x1024: "
+            f"{json.dumps(batched[enc])}")
+    print(json.dumps({"batched_prefill": batched}), flush=True)
     return results
 
 
@@ -925,9 +1080,14 @@ def probe_phase():
 
 # -- served main path ---------------------------------------------------------
 
+# The JAX engine's default step: prefill batching at EngineConfig's 4 rows
+# (the JAX server's flag defaults to 1), the step recorder on, pipelined
+# decode bursts.
 SERVE_ARGS = ["meta-llama/Llama-3-8B", "--device", "cuda", "--host",
               "127.0.0.1", "--port", "0", "--max-model-len", "4096",
-              "--max-num-seqs", "8", "--seed", "0"]
+              "--max-num-seqs", "8", "--seed", "0", "--prefill-batch", "4"]
+CHUNKED_ARGS = ["--enable-chunked-prefill", "--max-num-batched-tokens",
+                "512", "--max-num-seqs", "10"]
 INT8_ARGS = ["--kv-cache-dtype", "int8", "--quantization", "int8"]
 REQUIRED_SERIES = (
     "vllm:num_requests_running", "vllm:num_requests_waiting",
@@ -1135,6 +1295,36 @@ def serve_phase(label: str, extra_args, entries):
                 raise AssertionError(f"{name}: usage {usage}")
         if not chat_out["text"]:
             raise AssertionError("streamed chat returned no text")
+        # An arrival storm: six ~2,000-token prompts at once, none cached,
+        # so the storm gate opens (two or more qualifying prompts wait)
+        # and their chunks ride [4, 1024] batched prefills.
+        storm = [None] * 6
+
+        def storm_run(i):
+            storm[i] = client.post("/v1/completions", {
+                "prompt": _text(40 + i, 2000), "max_tokens": 8,
+                "temperature": 0})
+
+        threads = [threading.Thread(target=storm_run, args=(i,))
+                   for i in range(6)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        for i, out in enumerate(storm):
+            if out is None:
+                raise AssertionError(f"storm request {i} got no reply")
+            _finish(f"storm {i}", out)
+        # A seeded sampled request, sent twice, alone each time and shorter
+        # than a page (no prefix hit): the same keyed draws, the same text.
+        seeded = [client.post("/v1/completions", {
+            "prompt": _text(50, 40), "max_tokens": 32, "temperature": 0.8,
+            "top_p": 0.95, "seed": 1234}) for _ in range(2)]
+        for out in seeded:
+            _finish("seeded", out)
+        if seeded[0]["choices"][0]["text"] != seeded[1]["choices"][0]["text"]:
+            raise AssertionError("a seeded sampled request gave two texts")
+        steps_doc = json.loads(client.get("/debug/steps?limit=1024"))
         metrics = client.get("/metrics")
         launches = {name: getattr(fn, attr)
                     for name, (fn, attr) in counters.items()}
@@ -1151,9 +1341,14 @@ def serve_phase(label: str, extra_args, entries):
             "prefix_cache_hits", "prefill_time_total", "decode_time_total",
             "decode_forward_steps_total", "prefill_chunks_total",
             "cached_tokens_total", "prompt_tokens_total",
-            "generation_tokens_total")}
+            "generation_tokens_total", "prefill_group_count",
+            "prefill_group_rows", "prefill_batched_dispatch_total",
+            "flush_time_total", "decode_burst_count")}
         if stats["prefix_cache_hits"] <= 0:
             raise AssertionError("no prefix-cache hit was served")
+        if stats["prefill_batched_dispatch_total"] <= 0:
+            raise AssertionError("the storm ran no batched prefill")
+        recorder = recorder_summary(steps_doc, metrics, core)
         summary.update(
             run_s=time.time() - t_run,
             concurrent_latency_s=[r["_latency_s"] for r in results],
@@ -1170,6 +1365,14 @@ def serve_phase(label: str, extra_args, entries):
             cached_tokens=stats["cached_tokens_total"],
             prompt_tokens=stats["prompt_tokens_total"],
             generation_tokens=stats["generation_tokens_total"],
+            storm_latency_s=[r["_latency_s"] for r in storm],
+            prefill_groups=stats["prefill_group_count"],
+            prefill_group_rows=stats["prefill_group_rows"],
+            batched_prefill_dispatches=stats["prefill_batched_dispatch_total"],
+            decode_bursts=stats["decode_burst_count"],
+            flush_time_s=stats["flush_time_total"],
+            seeded_text=seeded[0]["choices"][0]["text"][:40],
+            recorder=recorder,
             launches=launches,
             sample_text=results[0]["choices"][0]["text"][:40])
     finally:
@@ -1182,6 +1385,129 @@ def serve_phase(label: str, extra_args, entries):
                                  f"served path")
         if name not in entries and n != 0:
             raise AssertionError(f"{name} launched {n} times on the {label} "
+                                 f"served path, which does not use it")
+    return {name: launches[name] for name in entries}, summary
+
+
+def recorder_summary(steps_doc: dict, metrics: str, core) -> dict:
+    """What the step recorder saw of a served run: step kinds and their
+    counts from ``/debug/steps``, the ``tpu:step_*`` scrape, and the
+    bandwidth share of the recent steps against the card's memory rate
+    (the recorder's 3.35e12 B/s). Raises if a series is missing."""
+    kinds = {}
+    for rec in steps_doc["steps"]:
+        kinds[rec["kind"]] = kinds.get(rec["kind"], 0) + 1
+    scrape = [line for line in metrics.splitlines()
+              if line.startswith(("tpu:step_", "tpu:model_bandwidth"))]
+    for family in ("tpu:step_duration_seconds_sum",
+                   "tpu:step_duration_seconds_count",
+                   "tpu:step_scheduled_tokens_total",
+                   "tpu:step_hbm_bytes_total",
+                   "tpu:model_bandwidth_utilization"):
+        if not any(line.startswith(family + "{") for line in scrape):
+            raise AssertionError(f"/metrics lacks {family}")
+    return {"kinds": kinds, "recorded_total": steps_doc["recorded_total"],
+            "hbm_bytes_per_s": steps_doc["hbm_bytes_per_s"],
+            "param_bytes": steps_doc["param_bytes"],
+            "bandwidth_utilization": steps_doc["bandwidth_utilization"],
+            "stats_bandwidth_utilization":
+                core.stats()["model_bandwidth_utilization"],
+            "scrape": [line for line in scrape
+                       if 'kind="prefill' in line or 'kind="decode' in line
+                       or line.startswith("tpu:model_bandwidth")]}
+
+
+def chunked_phase(entries):
+    """Serve Llama-3-8B in bf16 with chunked-prefill step plans
+    (``SERVE_ARGS`` plus ``CHUNKED_ARGS``: a 512-token step budget, ten
+    slots) while eight sequences decode: two ~2,000-token prompts arrive
+    once the eight are running and prefill in budgeted step plans that
+    alternate with the decode bursts. Counters as in :func:`serve_phase`.
+    Returns (launch counts by kernel entry, summary)."""
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    httpd, core = build_server(SERVE_ARGS + CHUNKED_ARGS)
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    try:
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": _text(98, 1100), "max_tokens": 9, "temperature": 0}))
+        base = core.stats()
+        counters = _counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t_run = time.time()
+        outs = [None] * 10
+
+        def run(i, prompt, max_tokens):
+            outs[i] = client.post("/v1/completions", {
+                "prompt": prompt, "max_tokens": max_tokens,
+                "temperature": 0})
+
+        threads = [threading.Thread(target=run, args=(
+            i, _text(60 + i, 120), 96)) for i in range(8)]
+        for th in threads:
+            th.start()
+        deadline = time.time() + 120
+        while core.scheduler.num_running < 8 and time.time() < deadline:
+            time.sleep(0.01)
+        if core.scheduler.num_running < 8:
+            raise AssertionError("the eight decoding sequences never ran")
+        longs = [threading.Thread(target=run, args=(
+            8 + i, _text(70 + i, 2000), 8)) for i in range(2)]
+        for th in longs:
+            th.start()
+        for th in threads + longs:
+            th.join(timeout=600)
+        for i, out in enumerate(outs):
+            if out is None:
+                raise AssertionError(f"chunked-run request {i} got no reply")
+            _finish(f"chunked run {i}", out)
+        steps_doc = json.loads(client.get("/debug/steps?limit=1024"))
+        metrics = client.get("/metrics")
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        now = core.stats()
+        order = [r["kind"] for r in reversed(steps_doc["steps"])]
+        chunk_steps = [i for i, k in enumerate(order) if k == "prefill_chunk"]
+        if not chunk_steps:
+            raise AssertionError("no chunked-prefill step plan ran")
+        interleaved = sum(1 for k in order[chunk_steps[0]:chunk_steps[-1]]
+                          if k == "decode_burst")
+        if interleaved <= 0:
+            raise AssertionError("no decode burst ran between the chunks")
+        deferred = (now["deferred_prefill_tokens_total"]
+                    - base["deferred_prefill_tokens_total"])
+        if deferred <= 0:
+            raise AssertionError("the step budget deferred no tokens")
+        summary = {
+            "config": "bf16, chunked prefill (512-token steps)",
+            "run_s": time.time() - t_run,
+            "prefill_chunk_steps": len(chunk_steps),
+            "decode_bursts_between_chunks": interleaved,
+            "deferred_prefill_tokens": deferred,
+            "prefill_chunks": (now["prefill_chunks_total"]
+                               - base["prefill_chunks_total"]),
+            "long_latency_s": [o["_latency_s"] for o in outs[8:]],
+            "short_latency_s": [o["_latency_s"] for o in outs[:8]],
+            "recorder": recorder_summary(steps_doc, metrics, core),
+            "launches": launches}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    for name, n in launches.items():
+        if name in entries and n <= 0:
+            raise AssertionError(f"{name} never launched on the chunked "
+                                 f"served path")
+        if name not in entries and n != 0:
+            raise AssertionError(f"{name} launched {n} times on the chunked "
                                  f"served path, which does not use it")
     return {name: launches[name] for name in entries}, summary
 
@@ -1200,10 +1526,21 @@ def _free_device_memory() -> None:
 def profile_phase(extra_args=()) -> dict:
     """Where a decode step's time goes: Llama-3-8B (``SERVE_ARGS`` plus
     ``extra_args``) with 8 sequences decoding at ~1k context, the engine's
-    steps driven on this thread (the engine thread is not started), one
-    warm-up burst, two timed bursts, then one burst under torch.profiler
-    (its op table goes to standard error)."""
+    steps driven on this thread (the engine thread is not started). Two
+    ways to run the bursts: "serial" reads each burst back before
+    launching the next (the engine's order before pipelining),
+    "pipelined" launches burst N+1 before reading burst N back (the
+    engine's step). Each is timed five times, alternating, over three
+    bursts after a warm-up burst (host clock, to the card's completion),
+    before any profiling (the profiler slows later launches): the least
+    of the five is the step (a stall of the shared host only adds time),
+    and the engine's readback wait (``flush_time_total``) is what the
+    pipelining can hide. Then each is profiled over two bursts under
+    torch.profiler for the device's busy time. Idle share = 1 - busy /
+    the least unprofiled step. The pipelined op table goes to standard
+    error."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from production_stack_tpu_torch.engine.core import EngineCore
@@ -1218,55 +1555,79 @@ def profile_phase(extra_args=()) -> dict:
     for i in range(core.config.max_num_seqs):
         core.add_request(
             f"p{i}", core.tokenizer.encode(_text(100 + i, 1000)),
-            SamplingParams(temperature=0, max_tokens=200, ignore_eos=True),
+            SamplingParams(temperature=0, max_tokens=800, ignore_eos=True),
             lambda t, f: None)
+    K = core.config.decode_steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    def burst(mode):
+        core._do_decode()
+        if mode == "serial":
+            core._flush_pending_burst()
+
+    times = {"serial": [], "pipelined": []}
+    waits = {"serial": [], "pipelined": []}
+    modes = {}
     with torch.inference_mode():
         while True:
             action, req = core.scheduler.next_action()
             if action != "prefill":
                 break
             core._do_prefill(req)
-        core._do_decode()  # warm-up burst
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            core._do_decode()
-        torch.cuda.synchronize()
-        burst_s = (time.perf_counter() - t0) / 2
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            core._do_decode()
+        core._do_decode()  # warm-up burst (lands the first tokens)
+        core._flush_pending_burst()
+        for _ in range(5):
+            for mode in times:
+                burst(mode)
+                torch.cuda.synchronize()
+                w0 = core.flush_time_total
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    burst(mode)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0) / 3 / K)
+                waits[mode].append(1e3 * (core.flush_time_total - w0) / 3 / K)
+                core._flush_pending_burst()
+        for mode in times:
+            burst(mode)
             torch.cuda.synchronize()
-            prof_wall_s = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    K = core.config.decode_steps
-    # Device-side rows only (kernels, copies, memsets): the CPU op rows
-    # carry their kernels' time as well and would count it twice.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    busy_us = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    table = [{"name": e.key[:70], "calls": e.count,
-              "device_ms_per_step": dev_us(e) / 1e3 / K} for e in top]
-    log(prof.key_averages().table(row_limit=40))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    burst(mode)
+                torch.cuda.synchronize()
+                prof_wall_s = (time.perf_counter() - t0) / 2
+            core._flush_pending_burst()
+            # Device-side rows only (kernels, copies, memsets): the CPU op
+            # rows carry their kernels' time as well.
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
+            step_ms = min(times[mode])
+            top = sorted(kernels, key=dev_us, reverse=True)[:12]
+            modes[mode] = {
+                "ms_per_step": step_ms, "ms_per_step_runs": times[mode],
+                "readback_wait_ms_per_step": sum(waits[mode]) / 5,
+                "profiled_ms_per_step": 1e3 * prof_wall_s / K,
+                "device_busy_ms_per_step": busy_ms,
+                "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+                "top_device_ops": [
+                    {"name": e.key[:70], "calls": e.count,
+                     "device_ms_per_step": dev_us(e) / 1e3 / K / 2}
+                    for e in top]}
+            if mode == "pipelined":
+                log(prof.key_averages().table(row_limit=40))
     core.stop()
     return {
         "config": " ".join(extra_args) or "bf16",
         "rows": core.config.max_num_seqs, "steps_per_burst": K,
         "context_tokens": [len(s.req.all_token_ids)
                            for s in core.scheduler.running()],
-        "ms_per_step": 1e3 * burst_s / K,
-        "profiled_ms_per_step": 1e3 * prof_wall_s / K,
-        "device_busy_ms_per_step": busy_us / 1e3 / K,
-        "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / prof_wall_s),
-        "top_device_ops": table,
+        "serial": modes["serial"], "pipelined": modes["pipelined"],
     }
 
 
@@ -1311,6 +1672,15 @@ def main(argv=None) -> int:
     log(f"[build] all three kernel libraries built in {build_s:.1f} s")
     print(json.dumps({"sass": sass_counts(paths)}), flush=True)
 
+    got = threefry_check("cuda")
+    if got != GOLDEN:
+        raise AssertionError(f"threefry on the card differs from JAX's "
+                             f"golden values: {got}")
+    print(json.dumps({"threefry": {"card": smi, "keys": len(got["keys"]),
+                                   "bits": sum(map(len, got["bits"])),
+                                   "draws": got["draws"],
+                                   "bit_equal": True}}), flush=True)
+
     results = kernel_phase()
     probe_results, probes = probe_phase()
     print(json.dumps({"probes": probes}), flush=True)
@@ -1324,8 +1694,26 @@ def main(argv=None) -> int:
         _free_device_memory()
         counts, summary = serve_phase(label, extra, entries)
         launches.update(counts)
+        summary["card"] = smi
         log(f"[serve] {json.dumps(summary)}")
         print(json.dumps({"serve": summary}), flush=True)
+        print(json.dumps({"recorder": dict(summary["recorder"], card=smi,
+                                           config=label)}), flush=True)
+        print(f"[serve] {label}: {summary['prefill_groups']} storm groups, "
+              f"{summary['batched_prefill_dispatches']} batched prefill "
+              f"dispatches, cached-prefill kernel launches "
+              f"{counts[entries[1]]}; step kinds "
+              f"{summary['recorder']['kinds']}; bandwidth share "
+              f"{summary['recorder']['bandwidth_utilization']} of 3.35e12 "
+              f"B/s ({smi})", flush=True)
+    _free_device_memory()
+    entries = ("paged_attention", "cached_prefill_attention")
+    counts, summary = chunked_phase(entries)
+    for name, n in counts.items():
+        launches[name] += n
+    summary["card"] = smi
+    log(f"[serve] {json.dumps(summary)}")
+    print(json.dumps({"chunked": summary}), flush=True)
     results.update(probe_results)
     replaces = {
         "paged_attention":

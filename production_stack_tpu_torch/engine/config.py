@@ -1,7 +1,7 @@
 """Engine configuration: a copy of the JAX engine's ``EngineConfig`` plus
-``device``. Fields of features this engine does not run yet are kept so a
-configuration reads the same in both packages; ``EngineCore`` refuses the
-values that would need them."""
+``device``, with the same defaults. Fields of features this engine does
+not run yet are kept so a configuration reads the same in both packages;
+``EngineCore`` refuses the values that would need them."""
 
 from __future__ import annotations
 
@@ -67,8 +67,7 @@ class EngineConfig:
     # queued — exactly the arrival-storm condition that serializes
     # first-round prefills into the p99 TTFT tail. 1 disables; requires
     # chunking.
-    # Off in this engine (prefill batching is not ported; > 1 is refused).
-    prefill_batch: int = 1
+    prefill_batch: int = 4
     # The storm gate: batch only when this many OTHER qualifying
     # (long, uncached-span) prompts are waiting. 0 = batch whenever a
     # group can form (round-4 always-on behavior).
@@ -150,8 +149,7 @@ class EngineConfig:
     # tpu:model_bandwidth_utilization series. Overhead is one dict append
     # per engine step (the A/B test bounds it at <1% tokens/s); disable
     # only to prove that bound.
-    # Off in this engine (the recorder is not ported; True is refused).
-    step_recorder: bool = False
+    step_recorder: bool = True
     step_record_capacity: int = 1024
     # Sampling safety cap
     max_top_k: int = 64

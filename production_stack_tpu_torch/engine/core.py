@@ -7,23 +7,39 @@ engine thread that drives them. The OpenAI server
 only, through ``add_request``/``abort_request``/``stats`` and the token
 callback ``on_token(token | (token, logprobs) | None, finish | None)``.
 
-A step is either a prefill (one prompt: its uncached suffix runs in
-chunks of at most ``prefill_chunk_size`` tokens, the first through causal
-prefill attention, later ones and prefix-cache hits through the
-cached-prefill kernel) or a decode burst: ``decode_steps`` forwards of
-the whole batch, each attending through the paged decode kernel, with
-the sampled tokens fed back on the device and read back once per burst.
+The engine's step is the JAX engine's default step:
+
+- a prefill: one prompt's uncached suffix in chunks of at most
+  ``prefill_chunk_size`` tokens (the first through causal prefill
+  attention, later ones and prefix-cache hits through the cached-prefill
+  kernel); during an arrival storm of long prompts, up to
+  ``prefill_batch`` of them in one ``[prefill_batch, chunk]`` cached
+  prefill per chunk (storm-scoped batching);
+- with chunked prefill on, a budgeted step plan of chunks
+  (``prefill_step``), several rows sharing one batched dispatch;
+- a decode burst: ``decode_steps`` forwards of the whole batch (fewer
+  under ``decode_steps_pressure`` while a prompt waits), each attending
+  through the paged decode kernel, the sampled tokens fed back on the
+  device.
+
+Dispatch and readback are pipelined: burst N+1 is launched from burst
+N's tokens on the device before burst N is read back, and a prefill's
+first token is read back after the next step's launches; the host copies
+go out right behind their launches, so a readback waits for its own
+dispatch only. Every sampled token is drawn under the JAX engine's
+threefry key (``engine/prng.py``), so a seeded request samples the JAX
+engine's tokens. The step recorder (``obs/steps.py``) keeps one record
+per step for ``/debug/steps`` and the ``tpu:step_*`` series.
 
 The KV pool is bf16 (the model dtype) or, with ``kv_cache_dtype="int8"``,
 int8 ``(data, scales)`` pairs that the page ops quantize on the scatter
 and both kernels dequantize on the card; ``quantization="int8"`` stores
 the weights as int8 with per-output-channel scales.
 
-Not here yet, and refused at construction when configured: chunked-
-prefill step plans, prefill batching, the fused step, speculation,
-structured output, tensor/pipeline/data parallelism, multihost, KV
-offload and extract/inject, sleep, LoRA load/unload, embeddings and the
-step recorder.
+Not here yet, and refused at construction when configured: the fused
+step, speculation, structured output, tensor/pipeline/data parallelism,
+multihost, KV offload and extract/inject, sleep, LoRA load/unload and
+embeddings.
 """
 
 from __future__ import annotations
@@ -35,15 +51,20 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from production_stack_tpu_torch.engine import prng
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.kvcache import KVCacheManager
+from production_stack_tpu_torch.engine.kvcache import (
+    BlockAllocator,
+    KVCacheManager,
+)
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGIT_BIAS,
     MAX_STOP_IDS,
     SamplingParams,
-    gumbel_noise,
     logprob_outputs,
+    make_rng_keys,
     sample_tokens,
+    sample_with_gumbel,
     shape_logits,
 )
 from production_stack_tpu_torch.engine.scheduler import (
@@ -53,6 +74,8 @@ from production_stack_tpu_torch.engine.scheduler import (
 )
 from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
 from production_stack_tpu_torch.models import build_model, get_model_config
+from production_stack_tpu_torch.obs.steps import StepRecorder
+from production_stack_tpu_torch.ops.attention import to_device
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -66,13 +89,9 @@ def _unsupported(config: EngineConfig) -> List[str]:
         (c.data_parallel_size > 1, "data_parallel_size > 1"),
         (c.pipeline_parallel_size > 1, "pipeline_parallel_size > 1"),
         (c.kv_offload_bytes > 0 or bool(c.kv_remote_url), "KV offload"),
-        (c.chunked_prefill_enabled, "chunked-prefill step plans"),
-        (c.prefill_batch > 1, "prefill batching (prefill_batch > 1)"),
         (c.fused_step, "fused_step"),
-        (c.decode_steps_pressure > 0, "decode_steps_pressure"),
         (c.speculative_num_tokens > 0 or bool(c.speculative_draft_model),
          "speculative decoding"),
-        (c.step_recorder, "the step recorder"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -146,7 +165,15 @@ class EngineCore:
             self.num_blocks, config.block_size, config.enable_prefix_caching,
             namespace=config.model)
         self.scheduler = Scheduler(
-            self.kv_mgr, config.max_num_seqs, config.max_model_len)
+            self.kv_mgr, config.max_num_seqs, config.max_model_len,
+            chunked_prefill=config.chunked_prefill_enabled,
+            chunk_tokens=config.chunk_tokens(),
+            token_budget=config.token_budget,
+            max_consecutive_prefills=config.max_consecutive_prefills,
+            # Multi-row chunk steps ride the batched prefill.
+            max_prefill_rows=(
+                config.prefill_batch if config.prefill_batch > 1 else 1),
+            fused_step=config.fused_step)
 
         # Adapter name -> slot. Loading adapters is a later slice, so only
         # slot 0 (the zero adapter) is ever selected.
@@ -159,10 +186,46 @@ class EngineCore:
         self.cached_tokens_total = 0
         self.generation_tokens_total = 0
         self.requests_finished_total = 0
+        # Wall-clock split of the engine thread: prefill steps, decode
+        # bursts (dispatch plus the previous burst's readback), readbacks.
         self.prefill_time_total = 0.0
         self.decode_time_total = 0.0
+        self.flush_time_total = 0.0
+        self.prefill_count = 0
+        # Storm-scoped batched prefills: groups and the prompts they
+        # carried; every batched (multi-row) prefill dispatch, groups' and
+        # step plans' alike.
+        self.prefill_group_count = 0
+        self.prefill_group_rows = 0
+        self.prefill_batched_dispatch_total = 0
+        # Prefill chunks dispatched (each span of a prompt, and each row
+        # of a step plan), prompt tokens a step plan deferred, and the
+        # last step plan's token count.
         self.prefill_chunks_total = 0
+        self.deferred_prefill_tokens_total = 0
+        self.last_step_batched_tokens = 0
+        self.decode_burst_count = 0
         self.decode_forward_steps_total = 0
+
+        # Step flight recorder: the step functions stash ``_step_info``
+        # only when it is on; _loop completes it with the step's wall time.
+        self.step_recorder: Optional[StepRecorder] = (
+            StepRecorder(capacity=config.step_record_capacity,
+                         kv_token_bytes=(self._kv_bytes_per_block()
+                                         // config.block_size))
+            if config.step_recorder else None)
+        self._step_info: Optional[dict] = None
+        # Requests a prefill step took from the queue besides its own (a
+        # storm group's members): failed with it if it raises.
+        self._step_reqs: List[EngineRequest] = []
+
+        # The decode burst in flight (launched, not yet read back), the
+        # prefills whose first token is not read back yet, and the [B,
+        # decode_steps] tokens of the last burst on the device: the next
+        # burst's feedback.
+        self._pending_burst: Optional[dict] = None
+        self._pending_prefills: List[dict] = []
+        self._last_burst_tokens: Optional[torch.Tensor] = None
 
         # Per-slot output-token counts [B, V] behind presence/frequency
         # penalties; a slot's row resets when a fresh output starts in it.
@@ -269,8 +332,14 @@ class EngineCore:
 
     def stats(self) -> dict:
         alloc = self.kv_mgr.allocator
+        budget = (self.scheduler.token_budget
+                  if self.scheduler.chunked_prefill else 0)
+        rec = self.step_recorder
         return {
-            "num_requests_running": self.scheduler.num_running,
+            # Mid-prefill chunked sequences count as running: they hold KV
+            # pages and will take a slot.
+            "num_requests_running": (
+                self.scheduler.num_running + len(self.scheduler.prefilling)),
             "num_requests_waiting": self.scheduler.num_waiting,
             "kv_usage": self.kv_mgr.usage(),
             "prefix_cache_hits": alloc.prefix_hits,
@@ -287,8 +356,25 @@ class EngineCore:
                 self._kv_bytes_per_block() // self.config.block_size),
             "prefill_time_total": round(self.prefill_time_total, 3),
             "decode_time_total": round(self.decode_time_total, 3),
+            "flush_time_total": round(self.flush_time_total, 3),
+            "prefill_count": self.prefill_count,
+            "prefill_group_count": self.prefill_group_count,
+            "prefill_group_rows": self.prefill_group_rows,
+            "prefill_batched_dispatch_total":
+                self.prefill_batched_dispatch_total,
             "prefill_chunks_total": self.prefill_chunks_total,
+            "deferred_prefill_tokens_total":
+                self.deferred_prefill_tokens_total,
+            "batched_token_utilization": (
+                min(self.last_step_batched_tokens / budget, 1.0)
+                if budget > 0 else 0.0),
+            "rejected_requests": dict(self.scheduler.rejected_total),
+            "decode_burst_count": self.decode_burst_count,
             "decode_forward_steps_total": self.decode_forward_steps_total,
+            "step_records_total": rec.recorded_total if rec else 0,
+            "step_kind_stats": rec.kind_stats() if rec else {},
+            "model_bandwidth_utilization": (
+                round(rec.bandwidth_utilization(), 6) if rec else 0.0),
         }
 
     # ------------------------------------------------------------------ #
@@ -297,22 +383,36 @@ class EngineCore:
     def _loop(self) -> None:
         while True:
             with self._lock:
-                while self._running and not self.scheduler.has_work():
+                while (self._running and self._pending_burst is None
+                       and not self.scheduler.has_work()):
                     self._lock.wait(timeout=0.1)
                 if not self._running:
                     return
                 action, req = self.scheduler.next_action()
+            self._step_info = None  # never carry info across a failed step
+            self._step_reqs = []
             try:
                 with torch.inference_mode():
-                    if action == "prefill":
+                    if action in ("prefill", "prefill_step"):
                         t0 = time.perf_counter()
-                        self._do_prefill(req)
-                        self.prefill_time_total += time.perf_counter() - t0
+                        if action == "prefill":
+                            self._do_prefill(req)
+                        else:
+                            self._do_prefill_step(req)
+                        dt = time.perf_counter() - t0
+                        self.prefill_time_total += dt
+                        self.prefill_count += 1
+                        self._record_step(dt)
                     elif action == "decode":
                         t0 = time.perf_counter()
                         self._do_decode()
-                        self.decode_time_total += time.perf_counter() - t0
+                        dt = time.perf_counter() - t0
+                        self.decode_time_total += dt
+                        self.decode_burst_count += 1
+                        self._record_step(dt)
                     else:
+                        self._flush_pending_prefills()
+                        self._flush_pending_burst()
                         time.sleep(0.001)
             except Exception as e:  # noqa: BLE001 - the loop must keep serving
                 # A failed step fails the requests it carried: the client
@@ -320,163 +420,628 @@ class EngineCore:
                 logger.exception("Engine step failed: %s", e)
                 self._fail_step(action, req)
 
-    def _fail_step(self, action: str, req: Optional[EngineRequest]) -> None:
+    def _fail_step(self, action: str, req) -> None:
+        """Finish the requests of a step that raised with "error": a
+        prefill's request and the storm-group members it took from the
+        queue, a step plan's members, or (decode) every running sequence,
+        with the burst and first tokens in flight dropped."""
+        if action == "prefill_step":
+            reqs = [pc.req for pc in (req or [])]
+        elif action == "prefill" and req is not None:
+            reqs = [req] + self._step_reqs
+        else:
+            reqs = []
         with self._lock:
-            if action == "prefill" and req is not None:
-                seq = self.scheduler._running_by_id.get(req.request_id)
+            for r in reqs:
+                seq = self.scheduler._running_by_id.get(r.request_id)
                 if seq is not None:
                     self.scheduler.finish(seq, "error")
-                else:
-                    self.kv_mgr.free(req.request_id)
-                    self.scheduler._requests.pop(req.request_id, None)
-                    req.on_token(None, "error")
-            elif action == "decode":
+                    continue
+                if r.request_id in self.scheduler._queued:
+                    continue  # requeued within the step: it runs again
+                if r in self.scheduler.prefilling:
+                    self.scheduler.prefilling.remove(r)
+                self.kv_mgr.free(r.request_id)
+                # An aborted request has had its finish already.
+                if self.scheduler._requests.pop(r.request_id, None):
+                    r.on_token(None, "error")
+            if action == "decode":
+                self._pending_burst = None
+                self._pending_prefills = []
                 for seq in self.scheduler.running():
                     self.scheduler.finish(seq, "error")
 
+    def _record_step(self, wall_s: float) -> None:
+        """Complete the record the step stashed (if any) with the wall time
+        _loop measured around it; nothing when the recorder is off or the
+        step dispatched nothing."""
+        rec, info = self.step_recorder, self._step_info
+        self._step_info = None
+        if rec is None or info is None:
+            return
+        if rec.param_bytes == 0 and self.params is not None:
+            rec.param_bytes = sum(t.numel() * t.element_size()
+                                  for t in _leaves(self.params))
+        rec.record(info.pop("kind"), wall_s, **info)
+
     # -- prefill -----------------------------------------------------------
-    def _do_prefill(self, req: EngineRequest) -> None:
-        """Allocate the prompt's pages (leading full blocks may come from
-        the prefix cache), run its uncached suffix in chunks, and emit
-        the first token."""
-        cfg = self.config
-        tokens = req.all_token_ids
-        n = len(tokens)
+    def _allocate_for_prefill(self, req: EngineRequest, limit=None):
+        """KV allocation for one prompt (``limit`` bounds fresh allocation
+        to the first chunk of a step plan). Returns (block_ids, cached) or
+        None after requeuing the request."""
         alloc = self.kv_mgr.allocate_prompt(
-            req.request_id, tokens, adapter=req.adapter_name)
+            req.request_id, req.all_token_ids, adapter=req.adapter_name,
+            limit=limit)
+        if alloc is None:
+            # Pool tight: settle the burst in flight (its emission may
+            # finish sequences and free pages), then retry once.
+            self._flush_pending_burst()
+            alloc = self.kv_mgr.allocate_prompt(
+                req.request_id, req.all_token_ids, adapter=req.adapter_name,
+                limit=limit)
         if alloc is None:
             with self._lock:
                 self.scheduler.requeue(req)
-            return
+            return None
         block_ids, cached, _ = alloc
+        return block_ids, cached
+
+    def _do_prefill(self, req: EngineRequest) -> None:
+        """Allocate the prompt's pages (leading full blocks may come from
+        the prefix cache), launch its uncached suffix in chunks, or, during
+        a storm of long prompts, as one row of a batched prefill. The first
+        token is read back at the next step (``_pending_prefills``): the
+        chunks are launched before the burst in flight is read back, and
+        the stream orders them after it."""
+        cfg = self.config
+        tokens = req.all_token_ids
+        n = len(tokens)
+        got = self._allocate_for_prefill(req)
+        if got is None:
+            return
+        block_ids, cached = got
         if req.trace is not None:
             if not req.trace.prefill_start:
                 req.trace.prefill_start = time.time()
             req.trace.cached_tokens = cached
             req.trace.preemptions = req.num_preemptions
-        # Only the uncached suffix runs through the model; long suffixes
-        # run in chunks so attention memory stays O(chunk * context).
+
+        # Storm-scoped batching: a long uncached span rides one [PB,
+        # chunk] dispatch with other waiting long prompts, but only while
+        # enough of them wait (the arrival storm); contexts wider than
+        # _prefill_batch_maxb() blocks stay on the single path.
+        chunk = cfg.prefill_chunk_size
+        if (cfg.prefill_batch > 1 and chunk > 0
+                and n - cached >= max(chunk // 2, 1)
+                and ((n + cfg.block_size - 1) // cfg.block_size
+                     <= self._prefill_batch_maxb())
+                and (self._qualifying_waiting()
+                     >= cfg.prefill_batch_min_waiting)):
+            group = self._gather_prefill_group(req, block_ids, cached)
+            if len(group) > 1:
+                self._do_prefill_group(group)
+                return
+
+        # Only the uncached suffix runs through the model, in chunks so
+        # attention memory stays O(chunk * context).
         chunk = cfg.prefill_chunk_size or (n - cached)
+        sampled = None
         start = cached
         while start < n:
             end = min(start + chunk, n)
-            out = self._prefill_span(req, tokens, block_ids, start, end)
+            sampled = self._prefill_span(req, tokens, block_ids, start, end)
             self.prefill_chunks_total += 1
             start = end
-        sampled, lp_arr, top_lp_arr, top_id_arr = (t.cpu() for t in out)
+        if self.step_recorder is not None:
+            n_chunks = max(1, -(-(n - cached) // max(chunk, 1)))
+            self._step_info = {
+                "kind": "prefill", "rows": 1, "tokens": n - cached,
+                "forwards": n_chunks,
+                "kv_read_tokens": (n_chunks * cached
+                                   + chunk * (n_chunks * (n_chunks - 1)) // 2),
+                "kv_write_tokens": n - cached,
+            }
+        # Read back the burst in flight while the chunks run, then the
+        # PREVIOUS prefill's first token (depth-1 pipelining).
+        self._flush_pending_burst()
+        self._flush_pending_prefills()
         self.prompt_tokens_total += n
         self.cached_tokens_total += cached
+        # Reserve the slot now (next_action guaranteed a free one); the
+        # first token lands before any decode burst is built.
         with self._lock:
             slot = self.scheduler._free_slot()
             seq = self.scheduler.start_running(req, slot)
-        token = int(sampled[0])
-        lp = None
-        if req.sampling.logprobs is not None:
-            k = min(req.sampling.logprobs, top_lp_arr.shape[1])
-            lp = {"logprob": float(lp_arr[0]),
-                  "top": [(int(top_id_arr[0, j]), float(top_lp_arr[0, j]))
-                          for j in range(k)]}
-        prior = req.output_token_ids
-        if prior and (req.sampling.presence_penalty
-                      or req.sampling.frequency_penalty):
-            # Resume after preemption with penalties: rebuild the slot's
-            # count row from the carried-forward outputs + this token.
-            ids = torch.tensor(prior + [token], dtype=torch.long).clamp(
-                0, self.model_config.vocab_size - 1)
-            row = torch.zeros((self.model_config.vocab_size,),
-                              dtype=torch.int32)
-            row.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-            self._token_counts[slot] = row.to(self.device)
+        self._pending_prefills.append(
+            {"req": req, "seq": seq, "slot": slot, "sampled": sampled})
+
+    def _do_prefill_step(self, plan) -> None:
+        """One budgeted chunked-prefill step plan: advance each member by
+        one chunk. Several members' chunks share one batched [PB, chunk]
+        dispatch when every row fits its block-table cap (consecutive
+        chunks of ONE prompt never share one). Final chunks claim a decode
+        slot and defer their first-token readback (_pending_prefills)."""
+        cfg = self.config
+        ready = []  # (req, tokens, block_ids, start, end)
+        step_tokens = 0
+        for pc in plan:
+            req = pc.req
             with self._lock:
-                self._counts_reset.discard(slot)
+                if req not in self.scheduler.prefilling:
+                    continue  # aborted after the plan was built
+            tokens = req.all_token_ids
+            n = len(tokens)
+            if pc.start == 0:
+                # First chunk: allocate its pages (the cached-prefix walk
+                # is unbounded, so `cached` can pass the chunk).
+                got = self._allocate_for_prefill(req, limit=pc.end)
+                if got is None:
+                    continue  # requeued
+                block_ids, cached = got
+                if req.trace is not None:
+                    if not req.trace.prefill_start:
+                        req.trace.prefill_start = time.time()
+                    req.trace.cached_tokens = cached
+                    req.trace.preemptions = req.num_preemptions
+                self.cached_tokens_total += cached
+                start = max(pc.start, cached)
+                end = max(pc.end, cached)
+                if start >= end or start >= n:
+                    # Covered by the cache: no dispatch; the next step
+                    # continues from the cached frontier.
+                    with self._lock:
+                        if req in self.scheduler.prefilling:
+                            req.num_computed_tokens = min(max(end, start), n)
+                    continue
+            else:
+                block_ids = self.kv_mgr.extend_tokens(
+                    req.request_id, tokens, pc.end)
+                if block_ids is None:
+                    # Pool tight: settle the burst in flight and retry
+                    # once, then give the pages back and requeue.
+                    self._flush_pending_burst()
+                    block_ids = self.kv_mgr.extend_tokens(
+                        req.request_id, tokens, pc.end)
+                if block_ids is None:
+                    self.kv_mgr.free(req.request_id)
+                    with self._lock:
+                        self.scheduler.requeue(req)
+                    continue
+                start, end = pc.start, pc.end
+            ready.append((req, tokens, block_ids, start, end))
+            step_tokens += end - start
+
+        if not ready:
+            return
+        sampled_for: Dict[int, tuple] = {}  # id(req) -> (readback, row)
+        batched = (
+            cfg.prefill_batch > 1 and cfg.prefill_chunk_size > 0
+            and len(ready) > 1
+            and all((end + cfg.block_size - 1) // cfg.block_size
+                    <= self._prefill_batch_maxb()
+                    for (_, _, _, _, end) in ready))
+        if batched:
+            sampled = self._prefill_rows(ready, pad_to=cfg.prefill_batch)
+            for row_i, (req, *_rest) in enumerate(ready):
+                sampled_for[id(req)] = (sampled, row_i)
         else:
+            for req, tokens, block_ids, start, end in ready:
+                sampled_for[id(req)] = (self._prefill_span(
+                    req, tokens, block_ids, start, end), 0)
+        self.prefill_chunks_total += len(ready)
+        self.last_step_batched_tokens = step_tokens
+        if self.step_recorder is not None:
+            self._step_info = {
+                "kind": "prefill_chunk", "rows": len(ready),
+                "tokens": step_tokens,
+                "forwards": 1 if batched else len(ready),
+                # The cached-prefill kernel reads each row's whole context
+                # from the pages, the chunk's own K/V included.
+                "kv_read_tokens": sum(e for (_r, _t, _b, _s, e) in ready),
+                "kv_write_tokens": step_tokens, "batched": batched,
+            }
+
+        # Read back the burst in flight and the previous prefill while
+        # these chunks run.
+        self._flush_pending_burst()
+        self._flush_pending_prefills()
+
+        now = time.time()
+        for req, tokens, block_ids, start, end in ready:
+            n = len(tokens)
+            if req.trace is not None:
+                req.trace.prefill_chunks += 1
+            if end < n:
+                self.deferred_prefill_tokens_total += n - end
+                with self._lock:
+                    if req in self.scheduler.prefilling:
+                        req.num_computed_tokens = end
+                continue
+            # Final chunk: its sample is the request's first token. Claim
+            # the decode slot now (admission kept one free per member).
+            sampled, row = sampled_for[id(req)]
             with self._lock:
-                # Fresh output in this slot: its counts reset at the next
-                # burst (which also counts this token).
-                self._counts_reset.add(slot)
-        if req.trace is not None:
-            req.trace.prefill_end = time.time()
-        self._emit_token(seq, token, lp)
-        req.scheduled_steps = len(req.output_token_ids)
+                if req not in self.scheduler.prefilling:
+                    continue  # aborted while the chunk was in flight
+                self.scheduler.prefilling.remove(req)
+                req.num_computed_tokens = n
+                slot = self.scheduler._free_slot()
+                seq = self.scheduler.start_running(req, slot)
+            if req.trace is not None:
+                req.trace.prefill_end = now
+            self.prompt_tokens_total += n
+            self._pending_prefills.append(
+                {"req": req, "seq": seq, "slot": slot,
+                 "sampled": sampled, "row": row})
+
+    def _flush_pending_prefills(self) -> None:
+        """Read back and emit deferred prefill first tokens, in dispatch
+        order. Runs before a decode burst is built (its feedback and
+        positions need each sequence's first token)."""
+        if not self._pending_prefills:
+            return
+        pending, self._pending_prefills = self._pending_prefills, []
+        t0 = time.perf_counter()
+        for entry in pending:
+            req, seq, slot = entry["req"], entry["seq"], entry["slot"]
+            row_i = entry.get("row", 0)  # batched prefills: a row a request
+            try:
+                s_arr, lp_arr, top_lp_arr, top_id_arr = entry["sampled"].get()
+            except Exception:  # noqa: BLE001 - asynchronous device failure
+                # The readback failed after the dispatch succeeded: finish
+                # the request instead of leaking its slot.
+                logger.exception("Deferred prefill readback failed for %s",
+                                 req.request_id)
+                with self._lock:
+                    if self.scheduler.slots[slot] is seq:
+                        self.scheduler.finish(seq, "error")
+                continue
+            with self._lock:
+                if self.scheduler.slots[slot] is not seq:
+                    continue  # aborted/finished before its first token
+            token = int(s_arr[row_i])
+            lp = None
+            if req.sampling.logprobs is not None:
+                k = min(req.sampling.logprobs, top_lp_arr.shape[1])
+                lp = {"logprob": float(lp_arr[row_i]),
+                      "top": [(int(top_id_arr[row_i, j]),
+                               float(top_lp_arr[row_i, j]))
+                              for j in range(k)]}
+            prior = req.output_token_ids
+            if prior and (req.sampling.presence_penalty
+                          or req.sampling.frequency_penalty):
+                # Resume after preemption with penalties: rebuild the
+                # slot's count row from the carried-forward outputs and
+                # this token (the row may hold another request's counts).
+                ids = torch.tensor(prior + [token], dtype=torch.long).clamp(
+                    0, self.model_config.vocab_size - 1)
+                row = torch.zeros((self.model_config.vocab_size,),
+                                  dtype=torch.int32)
+                row.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
+                self._token_counts[slot] = to_device(row, self.device)
+                with self._lock:
+                    self._counts_reset.discard(slot)
+            else:
+                with self._lock:
+                    # Fresh output in this slot: its counts reset at the
+                    # next burst (which also counts this token).
+                    self._counts_reset.add(slot)
+            if req.trace is not None and not req.trace.prefill_end:
+                req.trace.prefill_end = time.time()
+            self._emit_token(seq, token, lp)
+            # Decode positions start from the emitted tokens (a re-prefill
+            # after preemption carries prior outputs).
+            req.scheduled_steps = len(req.output_token_ids)
+        self.flush_time_total += time.perf_counter() - t0
+
+    # -- storm-scoped prefill batching --------------------------------------
+    def _cached_prefix_len(self, tokens: List[int], adapter: str = "") -> int:
+        """Read-only cached-prefix length: walk the chain hashes through
+        the prefix map without allocating, never past the last token (as
+        ``allocate_prompt`` bounds it). Callers hold self._lock."""
+        bs = self.config.block_size
+        alloc = self.kv_mgr.allocator
+        ext = self.kv_mgr.external_lookup
+        parent = self.kv_mgr.chain_root(adapter)
+        i = 0
+        while i + bs <= len(tokens) - 1:
+            h = BlockAllocator.chain_hash(parent, tuple(tokens[i:i + bs]))
+            if h not in alloc.prefix_map and not (
+                    ext is not None and alloc.enable_prefix_caching
+                    and ext(h)):
+                break
+            parent = h
+            i += bs
+        return i
+
+    def _qualifying_waiting(self) -> int:
+        """How many WAITING requests would qualify for a prefill-batch row
+        now: the storm signal. The qualifier is the UNCACHED span, so
+        long-but-cached follow-ups do not open the gate."""
+        cfg = self.config
+        chunk = cfg.prefill_chunk_size
+        maxb_cap = self._prefill_batch_maxb()
+        with self._lock:
+            n = 0
+            for cand in self.scheduler.live_waiting():
+                toks = cand.all_token_ids
+                if ((len(toks) + cfg.block_size - 1)
+                        // cfg.block_size) > maxb_cap:
+                    continue
+                cached = self._cached_prefix_len(toks, cand.adapter_name)
+                if len(toks) - cached >= max(chunk // 2, 1):
+                    n += 1
+            return n
+
+    def _prefill_batch_maxb(self) -> int:
+        """Widest block table a batched prefill takes (64 blocks, 4k-token
+        contexts at the default page size): bounds its working set."""
+        return min(64, self.config.max_blocks_per_seq)
+
+    def _gather_prefill_group(self, req: EngineRequest, block_ids,
+                              cached: int) -> List[dict]:
+        """Up to prefill_batch long-prompt requests (the head plus
+        qualifying waiters) that can be admitted NOW: a free slot counted
+        per member, KV allocated eagerly. Members that fail allocation
+        are requeued by _allocate_for_prefill."""
+        cfg = self.config
+        chunk = cfg.prefill_chunk_size
+        group = [{"req": req, "block_ids": block_ids, "cached": cached}]
+        # Candidates already walked and rejected this gather (the slot
+        # loop rescans the queue).
+        rejected: set = set()
+        while len(group) < cfg.prefill_batch:
+            with self._lock:
+                free_slots = sum(1 for s in self.scheduler.slots if s is None)
+                if free_slots <= len(group):  # head + members need slots
+                    break
+                nxt = None
+                maxb_cap = self._prefill_batch_maxb()
+                for cand in self.scheduler.live_waiting():
+                    if cand.request_id in rejected:
+                        continue
+                    n_c = len(cand.all_token_ids)
+                    blocks_c = (n_c + cfg.block_size - 1) // cfg.block_size
+                    if blocks_c > maxb_cap:
+                        rejected.add(cand.request_id)
+                        continue
+                    cached_c = self._cached_prefix_len(
+                        cand.all_token_ids, cand.adapter_name)
+                    if n_c - cached_c >= max(chunk // 2, 1):
+                        nxt = cand
+                        break
+                    rejected.add(cand.request_id)
+                if nxt is None:
+                    break
+                self.scheduler.take_waiting(nxt)
+                self._step_reqs.append(nxt)
+            got = self._allocate_for_prefill(nxt)
+            if got is None:
+                self._step_reqs.remove(nxt)
+                break  # pool tight: nxt was requeued; stop growing
+            bids_c, cached_c = got
+            if len(nxt.all_token_ids) - cached_c < max(chunk // 2, 1):
+                # A cache hit after all: its span is short. Release and
+                # requeue; the single path re-allocates it cheaply.
+                self.kv_mgr.free(nxt.request_id)
+                self._step_reqs.remove(nxt)
+                with self._lock:
+                    self.scheduler.requeue(nxt)
+                break
+            group.append({"req": nxt, "block_ids": bids_c,
+                          "cached": cached_c})
+        return group
+
+    def _do_prefill_group(self, group: List[dict]) -> None:
+        """Batched prefill: every member's chunk ``si`` rides ONE [PB,
+        chunk] dispatch (rows past the members are padding: seq_lens 0,
+        page writes dropped). Shared prefixes are safe within a dispatch
+        because every layer writes all rows' K/V before attention reads
+        them. A member's first token comes from its LAST chunk's dispatch,
+        read back at the next step as on the single path."""
+        cfg = self.config
+        chunk = cfg.prefill_chunk_size
+        self.prefill_group_count += 1
+        self.prefill_group_rows += len(group)
+        logger.info("Storm prefill batch engaged: %d prompts in one "
+                    "[%d, %d] dispatch chain", len(group),
+                    cfg.prefill_batch, chunk)
+        spans: Dict[int, list] = {}
+        group_start = time.time()
+        for m in group:
+            tr = m["req"].trace
+            if tr is not None:
+                if not tr.prefill_start:
+                    tr.prefill_start = group_start
+                tr.cached_tokens = m["cached"]
+                tr.preemptions = m["req"].num_preemptions
+            n_m = len(m["req"].all_token_ids)
+            s_list = []
+            start = m["cached"]
+            while start < n_m:
+                end = min(start + chunk, n_m)
+                s_list.append((start, end))
+                start = end
+            spans[id(m)] = s_list
+        max_spans = max(len(s) for s in spans.values())
+        finished = []  # (member, readback, row)
+        for si in range(max_spans):
+            rows = [m for m in group if si < len(spans[id(m)])]
+            sampled = self._prefill_rows(
+                [(m["req"], m["req"].all_token_ids, m["block_ids"],
+                  *spans[id(m)][si]) for m in rows],
+                pad_to=cfg.prefill_batch)
+            for row_i, m in enumerate(rows):
+                if si == len(spans[id(m)]) - 1:
+                    finished.append((m, sampled, row_i))
+        self._flush_pending_burst()
+        self._flush_pending_prefills()
+        group_end = time.time()
+        if self.step_recorder is not None:
+            new_tokens = sum(
+                len(m["req"].all_token_ids) - m["cached"] for m in group)
+            self._step_info = {
+                "kind": "prefill", "rows": len(group),
+                "tokens": new_tokens, "forwards": max_spans,
+                # Every row runs the cached-prefill kernel, which reads its
+                # whole context (the chunk included) from the pages.
+                "kv_read_tokens": sum(
+                    e for s_list in spans.values() for (_s, e) in s_list),
+                "kv_write_tokens": new_tokens, "batched": True,
+            }
+        for m, sampled, row in finished:
+            req_m = m["req"]
+            if req_m.trace is not None:
+                req_m.trace.prefill_end = group_end
+            self.prompt_tokens_total += len(req_m.all_token_ids)
+            self.cached_tokens_total += m["cached"]
+            with self._lock:
+                slot = self.scheduler._free_slot()
+                seq = self.scheduler.start_running(req_m, slot)
+            self._pending_prefills.append(
+                {"req": req_m, "seq": seq, "slot": slot,
+                 "sampled": sampled, "row": row})
+
+    def _prefill_rows(self, rows, pad_to: int) -> "_Readback":
+        """One batched prefill dispatch: rows = [(req, tokens, block_ids,
+        start, end), ...] padded to ``pad_to`` rows. Always the cached
+        prefill at the CHUNK bucket, its table width a power of two capped
+        at _prefill_batch_maxb(). A padding row has token 0 at positions
+        0, seq_len 0, context 1, an all-zero table and slot -1 (its page
+        writes drop); its sample is never read."""
+        cfg = self.config
+        R = pad_to
+        bucket = cfg.bucket_for(min(cfg.prefill_chunk_size,
+                                    cfg.max_model_len))
+        blocks_needed = max(
+            (m[4] + cfg.block_size - 1) // cfg.block_size for m in rows)
+        maxb = 4
+        while maxb < blocks_needed:
+            maxb *= 2
+        maxb = min(maxb, self._prefill_batch_maxb())
+
+        a = _prefill_arrays(R, bucket, maxb)
+        for i, (req, tokens, block_ids, start, end) in enumerate(rows):
+            self._fill_prefill_row(a, i, req, tokens, block_ids, start, end)
+        self.prefill_batched_dispatch_total += 1
+        return self._prefill_forward(a, cached=True)
 
     def _prefill_span(self, req: EngineRequest, tokens, block_ids,
-                      start: int, end: int):
-        """Run one prefill chunk (tokens[start:end]) and sample the next
+                      start: int, end: int) -> "_Readback":
+        """Launch one prefill chunk (tokens[start:end]) and sample the next
         token from its last real position. Chunks after the first attend
         to earlier tokens through the pages (prefill_cached); the chunk's
         own K/V are written first."""
         cfg = self.config
-        dev = self.device
-        bs = cfg.block_size
-        take = end - start
-        bucket = cfg.bucket_for(take)
-        # Power-of-two table width (min 4) over the context, as the JAX
-        # engine buckets it, capped at max_blocks_per_seq.
-        blocks_needed = (end + bs - 1) // bs
+        # Power-of-two table width (min 4) over the context, capped at
+        # max_blocks_per_seq, as the JAX engine buckets it.
+        blocks_needed = (end + cfg.block_size - 1) // cfg.block_size
         maxb = 4
         while maxb < blocks_needed:
             maxb *= 2
         maxb = min(maxb, cfg.max_blocks_per_seq)
+        a = _prefill_arrays(1, cfg.bucket_for(end - start), maxb)
+        self._fill_prefill_row(a, 0, req, tokens, block_ids, start, end)
+        return self._prefill_forward(a, cached=start > 0)
 
-        token_arr = np.zeros((1, bucket), np.int64)
-        token_arr[0, :take] = tokens[start:end]
-        positions = (start + np.arange(bucket, dtype=np.int64))[None]
-        slot_mapping = np.full((1, bucket), -1, np.int64)
+    def _fill_prefill_row(self, a: dict, i: int, req: EngineRequest, tokens,
+                          block_ids, start: int, end: int) -> None:
+        """Row ``i`` of a prefill dispatch's host arrays: the chunk
+        tokens[start:end] of ``req``."""
+        bs = self.config.block_size
+        take = end - start
+        bucket = a["tokens"].shape[1]
+        a["tokens"][i, :take] = tokens[start:end]
+        a["positions"][i] = start + np.arange(bucket)
         pos_idx = start + np.arange(take)
         blocks = np.asarray(block_ids, np.int64)
-        slot_mapping[0, :take] = (blocks[pos_idx // bs] * bs + pos_idx % bs)
-        block_table = np.zeros((1, maxb), np.int32)
-        use = min(len(block_ids), maxb)
-        block_table[0, :use] = block_ids[:use]
-        seq_lens = torch.tensor([take], device=dev)
+        a["slots"][i, :take] = blocks[pos_idx // bs] * bs + pos_idx % bs
+        use = min(len(block_ids), a["table"].shape[1])
+        a["table"][i, :use] = block_ids[:use]
+        a["context"][i] = end
+        a["seq_lens"][i] = take
+        a["adapter"][i] = req.adapter_id
+        (a["temp"][i], a["top_k"][i], a["top_p"][i],
+         a["seeds"][i]) = self._sampling_for(req)
+        a["steps"][i] = len(tokens)
+        a["suppress"][i] = len(req.output_token_ids) < req.sampling.min_tokens
+        a["bias"][i] = self._resume_bias(req)
+        a["stops"][i] = req.sampling.stop_token_ids
 
-        def t(a):
-            return torch.from_numpy(a).to(dev)
+    def _prefill_forward(self, a: dict, cached: bool) -> "_Readback":
+        """The prefill program: forward, logit shaping and sampling of each
+        row's last real token under the key ``make_rng_keys(seed,
+        steps.max(), seeds + steps)`` over the WHOLE dispatched batch,
+        padding rows included (as the JAX engine keys it, so a row's draw
+        depends on its batch-mates' steps). Returns the readback of
+        (sampled, logprob, top logprobs, top ids)."""
+        dev = self.device
 
+        def t(x):
+            return to_device(torch.from_numpy(x), dev)
+
+        seq_lens = t(a["seq_lens"])
         logits, _ = self._apply(
-            self.params, self.model_config, t(token_arr), t(positions),
-            self.kv, torch.from_numpy(slot_mapping), t(block_table),
-            torch.tensor([end], device=dev), seq_lens,
-            mode="prefill_cached" if start > 0 else "prefill",
-            adapter_ids=torch.tensor([req.adapter_id], device=dev),
-            last_token=seq_lens - 1)
-        sp = req.sampling
-        bias_ids, bias_vals = self._bias_rows([self._resume_bias(req)])
-        stop_ids, stop_valid = self._stop_rows([sp.stop_token_ids])
+            self.params, self.model_config, t(a["tokens"]),
+            t(a["positions"]), self.kv, torch.from_numpy(a["slots"]),
+            t(a["table"]), t(a["context"]), seq_lens,
+            mode="prefill_cached" if cached else "prefill",
+            adapter_ids=t(a["adapter"]),
+            last_token=torch.clamp(seq_lens - 1, min=0))
+        bias_ids, bias_vals = self._bias_rows(a["bias"])
+        stop_ids, stop_valid = self._stop_rows(a["stops"])
         shaped = shape_logits(
             logits[:, 0], bias_ids=bias_ids, bias_vals=bias_vals,
-            suppress=torch.tensor(
-                [len(req.output_token_ids) < sp.min_tokens], device=dev),
-            stop_ids=stop_ids, stop_valid=stop_valid, eos_id=self._eos_id)
-        temp, top_k, top_p, seed = self._sampling_for(req)
-        noise = gumbel_noise(
-            [self._draw_seed(seed, len(tokens)) if temp > 0 else None],
-            self.config.max_top_k, dev)
+            suppress=t(a["suppress"]), stop_ids=stop_ids,
+            stop_valid=stop_valid, eos_id=self._eos_id)
+        steps = a["steps"]
+        keys = make_rng_keys(self.config.seed, int(steps.max()),
+                             t(a["seeds"] + steps))
         sampled = sample_tokens(
-            shaped, torch.tensor([temp], device=dev),
-            torch.tensor([top_k], device=dev),
-            torch.tensor([top_p], device=dev), noise,
+            shaped, keys, t(a["temp"]), t(a["top_k"]), t(a["top_p"]),
             max_top_k=self.config.max_top_k)
-        return (sampled,) + logprob_outputs(shaped, sampled)
+        return _Readback((sampled,) + logprob_outputs(shaped, sampled))
 
     # -- decode ------------------------------------------------------------
     def _do_decode(self) -> None:
-        """One decode burst: ``decode_steps`` forwards of the whole batch,
-        each step's sampled tokens fed back to the next on the device;
-        the tokens are read back and emitted once, after the burst. Steps
-        a sequence cannot use carry slot -1 (their page writes drop) and
-        their tokens are discarded at emission."""
+        """Launch one decode burst, pipelined: burst N+1 is launched (its
+        feedback token taken on the device from burst N's output) BEFORE
+        burst N is read back, so the readback and the host's emission
+        overlap the card's work. A sequence whose burst-N tokens finish
+        it is covered speculatively by burst N+1: its extra tokens are
+        discarded at emission, and its stray page writes land before any
+        later owner of those pages writes them (stream order)."""
         cfg = self.config
-        dev = self.device
+        # Deferred first tokens land before the burst is built (feedback
+        # tokens and positions depend on them).
+        self._flush_pending_prefills()
         B = cfg.max_num_seqs
-        K = max(cfg.decode_steps, 1)
+        K_max = max(cfg.decode_steps, 1)
+        K = K_max
+        # A prompt waits AND is admissible (a free slot; its pages fit):
+        # shorten the burst so its prefill starts sooner.
+        with self._lock:
+            waiter = self.scheduler.peek_waiting()
+            admissible_waiter = (
+                waiter is not None
+                and self.scheduler._free_slot() is not None
+                and self.kv_mgr.can_allocate(len(waiter.all_token_ids) + 1))
+        if cfg.decode_steps_pressure > 0 and admissible_waiter:
+            K = min(K, max(cfg.decode_steps_pressure, 1))
 
+        # Per-sequence usable burst width. The bounds use all_token_ids,
+        # which may lag the burst in flight, so this over-schedules at most
+        # one burst near the caps.
         def seq_allow(r: EngineRequest) -> int:
             return max(1, min(
                 K,
                 r.sampling.max_tokens - len(r.output_token_ids),
                 cfg.max_model_len - len(r.all_token_ids) + 1,
             ))
+
+        prev = self._pending_burst
+        prev_slots = ({id(s): prev["allows"].get(s.req.request_id, 1)
+                       for s in prev["active"]} if prev else {})
 
         with self._lock:
             active0 = self.scheduler.running()
@@ -498,9 +1063,8 @@ class EngineCore:
             active0_ids = {id(s) for s in active0}
             active = [s for s in self.scheduler.running()
                       if id(s) in active0_ids]
-            reset_rows = sorted(self._counts_reset)
-            self._counts_reset.clear()
         if not active:
+            self._flush_pending_burst()
             return
 
         max_blocks = max(len(self.kv_mgr.block_table(s.req.request_id))
@@ -510,7 +1074,9 @@ class EngineCore:
             maxb *= 2
         maxb = min(maxb, cfg.max_blocks_per_seq)
 
-        tokens0 = np.zeros((B,), np.int64)
+        host_tokens = np.zeros((B,), np.int64)
+        use_host = np.ones((B,), bool)
+        tok_idx = np.zeros((B,), np.int64)
         positions0 = np.zeros((B,), np.int64)
         slot_mat = np.full((B, K), -1, np.int64)
         block_table = np.zeros((B, maxb), np.int32)
@@ -519,15 +1085,28 @@ class EngineCore:
         temperature = np.zeros((B,), np.float32)
         top_k = np.zeros((B,), np.int64)
         top_p = np.ones((B,), np.float32)
+        seed_base = np.zeros((B,), np.int64)
         presence = np.zeros((B,), np.float32)
         frequency = np.zeros((B,), np.float32)
         min_tok = np.zeros((B,), np.int64)
         out_len0 = np.zeros((B,), np.int64)
-        seeds: List[Optional[int]] = [None] * B
         biases, stops = [None] * B, [None] * B
+        reset_counts = np.zeros((B,), bool)
+        with self._lock:
+            for slot in self._counts_reset:
+                reset_counts[slot] = True
+            self._counts_reset.clear()
         for seq in active:
             i, r = seq.slot, seq.req
-            tokens0[i] = r.all_token_ids[-1]
+            # Positions count SCHEDULED tokens: with a burst in flight the
+            # host has not seen its tokens, but their pages and positions
+            # are committed.
+            if id(seq) in prev_slots:
+                # Feedback token from the burst in flight, on the device.
+                use_host[i] = False
+                tok_idx[i] = prev_slots[id(seq)] - 1
+            else:
+                host_tokens[i] = r.all_token_ids[-1]
             base = len(r.prompt_token_ids) + r.scheduled_steps
             allow = allows.get(r.request_id, 1)
             positions0[i] = base - 1
@@ -540,8 +1119,11 @@ class EngineCore:
             slot_mat[i, :allow] = (bid_arr[pos // cfg.block_size]
                                    * cfg.block_size + pos % cfg.block_size)
             adapter_ids[i] = r.adapter_id
-            temperature[i], top_k[i], top_p[i], seeds[i] = (
-                self._sampling_for(r))
+            temperature[i], top_k[i], top_p[i], seed = self._sampling_for(r)
+            # Step s of the burst draws under make_rng_keys(seed, 0,
+            # seed_base + s): seed_base is taken before scheduled_steps
+            # moves.
+            seed_base[i] = seed + r.scheduled_steps
             presence[i] = r.sampling.presence_penalty
             frequency[i] = r.sampling.frequency_penalty
             min_tok[i] = r.sampling.min_tokens
@@ -549,25 +1131,76 @@ class EngineCore:
             biases[i] = r.sampling.logit_bias
             stops[i] = r.sampling.stop_token_ids
             r.scheduled_steps += allow
-        bias_ids, bias_vals = self._bias_rows(biases)
-        stop_ids, stop_valid = self._stop_rows(stops)
 
-        def t(a):
-            return torch.from_numpy(a).to(dev)
+        outs = self._launch_burst(
+            K, prev is not None, reset_counts, tok_idx, host_tokens,
+            use_host, positions0, slot_mat, block_table, context0,
+            adapter_ids, temperature, top_k, top_p, seed_base, presence,
+            frequency, min_tok, out_len0, biases, stops)
+        self.decode_forward_steps_total += K
+        if self.step_recorder is not None:
+            sched = sum(allows.get(s.req.request_id, 1) for s in active)
+            self._step_info = {
+                "kind": "decode_burst", "rows": len(active),
+                "tokens": sched, "forwards": K,
+                # Every step re-reads each live row's context through
+                # paged attention (context0 is the lower bound).
+                "kv_read_tokens": K * int(
+                    sum(context0[s.slot] for s in active)),
+                "kv_write_tokens": sched,
+            }
+        # Read back the PREVIOUS burst while this one runs.
+        self._flush_pending_burst()
+        self._pending_burst = {"out": outs, "active": active,
+                               "allows": allows}
 
-        tokens = t(tokens0)
+    def _launch_burst(self, K, use_prev, reset_counts, tok_idx, host_tokens,
+                      use_host, positions0, slot_mat, block_table, context0,
+                      adapter_ids, temperature, top_k, top_p, seed_base,
+                      presence, frequency, min_tok, out_len0, biases,
+                      stops) -> "_Readback":
+        """The K-step decode program: each step's forward, logit shaping
+        and keyed sample, the sampled tokens fed back on the device. Its
+        [B, decode_steps] tokens (padded past K) stay on the device as the
+        next burst's feedback. Returns the readback of (sampled, logprob,
+        top logprobs, top ids), each [B, K, ...]."""
+        cfg = self.config
+        dev = self.device
+        B = cfg.max_num_seqs
+        K_max = max(cfg.decode_steps, 1)
+
+        def t(x):
+            return to_device(torch.from_numpy(x), dev)
+
+        tokens_prev = (self._last_burst_tokens if use_prev else
+                       torch.zeros((B, K_max), dtype=torch.long, device=dev))
+        tokens = torch.where(
+            t(use_host), t(host_tokens),
+            torch.gather(tokens_prev, 1, t(tok_idx)[:, None])[:, 0])
         counts = self._token_counts
-        if reset_rows:
-            rows = torch.tensor(reset_rows, device=dev)
-            counts[rows] = 0
-            counts[rows, tokens[rows]] += 1
+        arange_b = torch.arange(B, device=dev)
+        if reset_counts.any():
+            # Freshly prefilled slots start a new output: zero their count
+            # rows, then count their first token (sampled by the prefill,
+            # it arrives here as the feedback token).
+            reset = t(reset_counts)
+            counts.masked_fill_(reset[:, None], 0)
+            counts.index_put_((arange_b, tokens), reset.to(torch.int32),
+                              accumulate=True)
         positions0_t, context0_t = t(positions0), t(context0)
         block_table_t, adapter_t = t(block_table), t(adapter_ids)
         temp_t, top_k_t, top_p_t = t(temperature), t(top_k), t(top_p)
         presence_t, frequency_t = t(presence), t(frequency)
         min_tok_t, out_len0_t = t(min_tok), t(out_len0)
+        bias_ids, bias_vals = self._bias_rows(biases)
+        stop_ids, stop_valid = self._stop_rows(stops)
         ones = torch.ones((B,), dtype=torch.long, device=dev)
-        arange_b = torch.arange(B, device=dev)
+        # Every step's noise in one pass: step s keys as
+        # make_rng_keys(seed, 0, seed_base + s).
+        keys = make_rng_keys(
+            cfg.seed, 0, t(seed_base[:, None] + np.arange(K)[None, :]))
+        noise = prng.gumbel(keys, min(cfg.max_top_k,
+                                      self.model_config.vocab_size))
         outs = []
         for s in range(K):
             step_slots = torch.from_numpy(slot_mat[:, s:s + 1])
@@ -581,27 +1214,34 @@ class EngineCore:
                 suppress=(out_len0_t + s) < min_tok_t, stop_ids=stop_ids,
                 stop_valid=stop_valid, eos_id=self._eos_id, counts=counts,
                 presence_penalty=presence_t, frequency_penalty=frequency_t)
-            noise = gumbel_noise(
-                [None if seeds[i] is None or temperature[i] <= 0
-                 else self._draw_seed(seeds[i], int(context0[i]) + s)
-                 for i in range(B)], cfg.max_top_k, dev)
-            sampled = sample_tokens(shaped, temp_t, top_k_t, top_p_t, noise,
-                                    max_top_k=cfg.max_top_k)
+            sampled = sample_with_gumbel(shaped, noise[:, s], temp_t, top_k_t,
+                                         top_p_t, max_top_k=cfg.max_top_k)
             outs.append((sampled,) + logprob_outputs(shaped, sampled))
             # Only steps whose page slot is live count toward penalties.
-            live = torch.from_numpy(slot_mat[:, s] >= 0).to(dev)
+            live = t(slot_mat[:, s] >= 0)
             counts[arange_b, sampled] += live.to(torch.int32)
             tokens = sampled
-        self.decode_forward_steps_total += K
-        sampled, lps, top_lps, top_ids = (
-            torch.stack(x, dim=1).cpu() for x in zip(*outs))
-        self._emit_burst(active, allows, sampled, lps, top_lps, top_ids)
+        sampled, lps, top_lps, top_ids = (torch.stack(x, dim=1)
+                                          for x in zip(*outs))
+        fb = sampled
+        if K < K_max:
+            fb = torch.cat([sampled, torch.zeros(
+                (B, K_max - K), dtype=sampled.dtype, device=dev)], dim=1)
+        self._last_burst_tokens = fb
+        return _Readback((sampled, lps, top_lps, top_ids))
 
-    def _emit_burst(self, active, allows, sampled, lps, top_lps,
-                    top_ids) -> None:
+    def _flush_pending_burst(self) -> None:
+        """Read back and emit the burst in flight, if any."""
+        pending = self._pending_burst
+        if pending is None:
+            return
+        self._pending_burst = None
+        t0 = time.perf_counter()
+        sampled, lps, top_lps, top_ids = pending["out"].get()
+        self.flush_time_total += time.perf_counter() - t0
         emitted_seqs = []
-        for seq in active:
-            allow = allows.get(seq.req.request_id, 1)
+        for seq in pending["active"]:
+            allow = pending["allows"].get(seq.req.request_id, 1)
             want_lp = seq.req.sampling.logprobs
             emitted = 0
             for s in range(allow):
@@ -640,8 +1280,8 @@ class EngineCore:
                            if 0 <= tid < vocab)[:MAX_LOGIT_BIAS]
             for j, (tid, val) in enumerate(items):
                 ids[i, j], vals[i, j] = tid, val
-        return (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(vals).to(self.device))
+        return (to_device(torch.from_numpy(ids), self.device),
+                to_device(torch.from_numpy(vals), self.device))
 
     def _stop_rows(self, stop_lists):
         """[R, MAX_STOP_IDS] (ids, valid) of stop_token_ids rows."""
@@ -652,8 +1292,8 @@ class EngineCore:
             kept = [t for t in (stops or []) if 0 <= t < vocab][:MAX_STOP_IDS]
             for j, tid in enumerate(kept):
                 ids[i, j], valid[i, j] = tid, 1.0
-        return (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(valid).to(self.device))
+        return (to_device(torch.from_numpy(ids), self.device),
+                to_device(torch.from_numpy(valid), self.device))
 
     def _resume_bias(self, req: EngineRequest) -> "dict | None":
         """logit_bias for the prefill sample: the request's own, plus — on
@@ -672,18 +1312,13 @@ class EngineCore:
         return bias or None
 
     def _sampling_for(self, r: EngineRequest):
-        """(temperature, clamped top_k, top_p, seed) of a request."""
+        """(temperature, clamped top_k, top_p, seed) of a request; an
+        unseeded request draws under a seed from its id."""
         seed = (r.sampling.seed if r.sampling.seed is not None
                 else hash(r.request_id) % (2**31))
         return (r.sampling.temperature,
                 min(r.sampling.top_k, self.config.max_top_k),
                 r.sampling.top_p, seed)
-
-    def _draw_seed(self, seed: int, position: int) -> int:
-        """Generator seed of the token sampled at ``position`` of a
-        request: fixed by (engine seed, request seed, position), so a
-        seeded request, and a preempted one resumed, draws the same."""
-        return hash((self.config.seed, int(seed), int(position))) % (2**63)
 
     def _emit_token(self, seq: RunningSeq, token: int,
                     lp: Optional[dict] = None) -> None:
@@ -715,3 +1350,57 @@ class EngineCore:
             with self._lock:
                 self.scheduler.finish(seq, finish)
             self.requests_finished_total += 1
+
+
+class _Readback:
+    """The outputs of a dispatch and their copies to the host, started
+    right behind the dispatch's launches (on a card: asynchronous copies
+    into pinned memory and an event), so that :meth:`get` waits for this
+    dispatch only, not for work launched after it."""
+
+    def __init__(self, outs):
+        self.event = None
+        if outs[0].is_cuda:
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for t in outs]
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = list(outs)
+
+    def get(self):
+        """The outputs as numpy arrays, once their copies have landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return [t.numpy() for t in self.host]
+
+
+def _prefill_arrays(R: int, bucket: int, maxb: int) -> dict:
+    """Host arrays of an R-row prefill dispatch, every row padding: token
+    0 at positions 0, seq_len 0, context 1, an all-zero table, slot -1,
+    greedy, seed 0 and step 1 (the JAX engine's padding rows)."""
+    return {
+        "tokens": np.zeros((R, bucket), np.int64),
+        "positions": np.zeros((R, bucket), np.int64),
+        "slots": np.full((R, bucket), -1, np.int64),
+        "table": np.zeros((R, maxb), np.int32),
+        "context": np.ones((R,), np.int64),
+        "seq_lens": np.zeros((R,), np.int64),
+        "adapter": np.zeros((R,), np.int64),
+        "temp": np.zeros((R,), np.float32),
+        "top_k": np.zeros((R,), np.int64),
+        "top_p": np.ones((R,), np.float32),
+        "seeds": np.zeros((R,), np.int64),
+        "steps": np.ones((R,), np.int64),
+        "suppress": np.zeros((R,), bool),
+        "bias": [None] * R,
+        "stops": [None] * R,
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

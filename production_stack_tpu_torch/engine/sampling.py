@@ -9,18 +9,20 @@ errors here.
 The device half ports ``sample_tokens``, ``logprob_outputs`` and the logit
 shaping of the serving programs (logit_bias, min_tokens EOS masking,
 stop ids, presence/frequency penalties). Greedy rows take the argmax;
-sampled rows draw by Gumbel-max over the temperature-scaled top-k/top-p
-candidates with noise from a ``torch.Generator`` seeded per row, so a
-seeded request repeats exactly. These draws do not equal the JAX
-engine's threefry draws.
+sampled rows draw ``categorical`` over the temperature-scaled top-k/top-p
+candidates under a threefry key per row (``engine/prng.py``), the key
+the JAX engine derives with ``make_rng_keys``, so a seeded request
+samples the JAX engine's tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
+
+from production_stack_tpu_torch.engine import prng
 
 
 def _strict_int(body: dict, key: str) -> Optional[int]:
@@ -163,36 +165,36 @@ def keep_candidates(logits: torch.Tensor,  # [B, V] float32
     return top_idx, torch.where(keep_k & keep_p, scaled, neg_inf)
 
 
-def gumbel_noise(seeds: Sequence[Optional[int]], K: int,
-                 device) -> torch.Tensor:
-    """[B, K] Gumbel noise; row ``i`` from a generator seeded with
-    ``seeds[i]``, zeros where the seed is None (greedy rows draw nothing)."""
-    noise = torch.zeros((len(seeds), K), dtype=torch.float32, device=device)
-    for i, seed in enumerate(seeds):
-        if seed is None:
-            continue
-        g = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
-        u = torch.rand((K,), generator=g, device=device,
-                       dtype=torch.float32)
-        noise[i] = -torch.log(-torch.log(u.clamp(min=1e-20, max=1 - 1e-7)))
-    return noise
+# Per-sequence sampling keys from (engine seed, step, sequence seed), as
+# the JAX engine's sampling module derives them.
+make_rng_keys = prng.make_rng_keys
 
 
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] float32
+    rng_keys: torch.Tensor,  # [B, 2] key data (one key per sequence)
     temperature: torch.Tensor,  # [B] float32; <= 0 means greedy
     top_k: torch.Tensor,  # [B] int; 0 disables
     top_p: torch.Tensor,  # [B] float32
-    noise: torch.Tensor,  # [B, max_top_k] Gumbel noise (gumbel_noise)
     *,
     max_top_k: int = 64,
 ) -> torch.Tensor:
-    """Sampled token ids [B]: argmax for greedy rows, Gumbel-max over the
-    kept candidates for the others."""
+    """Sampled token ids [B]: argmax for greedy rows, ``categorical`` over
+    the kept candidates under each row's key for the others."""
+    K = min(max_top_k, logits.shape[-1])
+    return sample_with_gumbel(logits, prng.gumbel(rng_keys, K), temperature,
+                              top_k, top_p, max_top_k=max_top_k)
+
+
+def sample_with_gumbel(logits, gumbel, temperature, top_k, top_p, *,
+                       max_top_k: int = 64) -> torch.Tensor:
+    """:func:`sample_tokens` with each row's Gumbel noise ``[B, K]``
+    (``prng.gumbel`` of its key) drawn beforehand: a decode burst draws
+    the noise of all its steps in one pass."""
     greedy_ids = torch.argmax(logits, dim=-1)
     top_idx, masked = keep_candidates(logits, temperature, top_k, top_p,
                                       max_top_k)
-    choice = torch.argmax(masked + noise[:, :masked.shape[1]], dim=-1)
+    choice = torch.argmax(gumbel + masked, dim=-1)
     sampled_ids = torch.gather(top_idx, 1, choice[:, None])[:, 0]
     return torch.where(temperature <= 0.0, greedy_ids, sampled_ids)
 

@@ -10,14 +10,21 @@ per connection, server-sent events written by hand for ``stream: true``,
 - ``GET /metrics`` with the series the router's scraper parses
   (``vllm:num_requests_running``/``_waiting``,
   ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
-  ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``
-  and ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype``.
+  ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``,
+  ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype`` and,
+  with the step recorder on, the JAX server's ``tpu:step_*`` series and
+  ``tpu:model_bandwidth_utilization``;
+- ``GET /debug/steps`` (step recorder on): newest-first step records
+  under the recorder's summary; filters ``?limit=50`` and
+  ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it.
 
 A request that fails inside the engine finishes with ``finish_reason:
 "error"``. Not served yet (400): ``n > 1``, tools, structured output.
 
     python -m production_stack_tpu_torch.engine.server <model> --port N \\
-        [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8]
+        [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8] \\
+        [--prefill-batch 4] [--enable-chunked-prefill] \\
+        [--max-num-batched-tokens N] [--no-step-recorder]
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import argparse
 import json
 import queue
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
@@ -37,6 +45,7 @@ from production_stack_tpu_torch.engine.sampling import (
     SamplingParams,
 )
 from production_stack_tpu_torch.engine.tokenizer import IncrementalDetokenizer
+from production_stack_tpu_torch.obs.steps import STEP_KINDS
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -239,7 +248,50 @@ class EngineServer:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
             lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
+        rec = self.core.step_recorder
+        if rec is not None:
+            # Step flight recorder, as the JAX server exports it: every
+            # kind always present, so rate() never sees a series vanish.
+            kind_stats = rec.kind_stats()
+            lines.append("# TYPE tpu:step_duration_seconds summary")
+            for kind in sorted(kind_stats):
+                kl, ks = f'{labels},kind="{kind}"', kind_stats[kind]
+                lines += [f"tpu:step_duration_seconds_sum{{{kl}}} "
+                          f"{ks['wall_s']:.6f}",
+                          f"tpu:step_duration_seconds_count{{{kl}}} "
+                          f"{ks['count']}"]
+            for family, key in (("tpu:step_scheduled_tokens", "tokens"),
+                                ("tpu:step_hbm_bytes", "hbm_bytes")):
+                lines.append(f"# TYPE {family} counter")
+                for kind in sorted(kind_stats):
+                    lines.append(f'{family}_total{{{labels},kind="{kind}"}} '
+                                 f"{kind_stats[kind][key]}")
+            lines += ["# TYPE tpu:model_bandwidth_utilization gauge",
+                      f"tpu:model_bandwidth_utilization{{{labels}}} "
+                      f"{rec.bandwidth_utilization():.6f}"]
         return "\n".join(lines) + "\n"
+
+    def debug_steps(self, query: dict):
+        """(status, body) of ``GET /debug/steps``: the recorder's summary,
+        the pool's page occupancy and the newest-first records, filtered
+        by ``limit`` and ``kind``; 400 on a bad filter."""
+        rec = self.core.step_recorder
+        try:
+            limit = int(query.get("limit", 100) or 100)
+        except ValueError:
+            return 400, {"error": "limit must be an integer"}
+        if limit < 1:
+            return 400, {"error": "limit must be >= 1"}
+        kind = query.get("kind") or None
+        if kind is not None and kind not in STEP_KINDS:
+            return 400, {"error": f"unknown kind {kind!r} "
+                                  f"(one of: {', '.join(STEP_KINDS)})"}
+        out = rec.summary()
+        alloc = self.core.kv_mgr.allocator
+        out["kv_page_occupancy"] = {
+            "resident": self.core.num_blocks - alloc.num_free, "offload": 0}
+        out["steps"] = rec.snapshot(limit=limit, kind=kind)
+        return 200, out
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -262,8 +314,13 @@ class _Handler(BaseHTTPRequestHandler):
                         exc.status)
 
     def do_GET(self):  # noqa: N802 - http.server API
-        path = self.path.split("?", 1)[0]
-        if path == "/health":
+        path, _, qs = self.path.partition("?")
+        if path == "/debug/steps" and \
+                self.engine.core.step_recorder is not None:
+            query = dict(urllib.parse.parse_qsl(qs))
+            status, body = self.engine.debug_steps(query)
+            self._send_json(body, status)
+        elif path == "/health":
             self._send_json({"status": "ok"})
         elif path == "/v1/models":
             now = int(self.engine.start_time)
@@ -442,6 +499,30 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-lora-rank", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--prefill-chunk-size", type=int, default=1024)
+    p.add_argument("--enable-chunked-prefill", action="store_true",
+                   default=False,
+                   help="chunked prefill: schedule prompt prefills as "
+                        "bucket-snapped chunks interleaved with decode "
+                        "steps, bounded per step by "
+                        "--max-num-batched-tokens")
+    p.add_argument("--max-num-batched-tokens", type=int, default=0,
+                   help="per-step prefill token budget of chunked prefill "
+                        "(0 with --enable-chunked-prefill: use "
+                        "--prefill-chunk-size; > 0 also enables it)")
+    p.add_argument("--max-consecutive-prefills", type=int, default=2,
+                   help="chunked prefill: force a decode step after this "
+                        "many consecutive prefill steps while sequences "
+                        "are running")
+    p.add_argument("--prefill-batch", type=int, default=1,
+                   help="batch up to N queued long-prompt prefills into "
+                        "one dispatch during an arrival storm (1 "
+                        "disables)")
+    p.add_argument("--no-step-recorder", dest="step_recorder",
+                   action="store_false", default=True,
+                   help="disable the per-step flight recorder "
+                        "(/debug/steps + tpu:step_* metrics)")
+    p.add_argument("--step-record-capacity", type=int, default=1024,
+                   help="step records kept in the flight-recorder ring")
     p.add_argument("--chat-template", default=None,
                    help="custom jinja chat-template file (HF checkpoints)")
     return p
@@ -465,6 +546,12 @@ def config_from_args(args) -> EngineConfig:
         max_lora_rank=args.max_lora_rank,
         seed=args.seed,
         prefill_chunk_size=args.prefill_chunk_size,
+        prefill_batch=args.prefill_batch,
+        enable_chunked_prefill=args.enable_chunked_prefill,
+        max_num_batched_tokens=args.max_num_batched_tokens,
+        max_consecutive_prefills=args.max_consecutive_prefills,
+        step_recorder=args.step_recorder,
+        step_record_capacity=args.step_record_capacity,
         chat_template=args.chat_template,
     )
 

@@ -228,8 +228,10 @@ def _layer(
 def embed_tokens(params: Dict, cfg: ModelConfig, token_ids: torch.Tensor,
                  adapter_ids: Optional[torch.Tensor]):
     """Shared forward preamble: input embeddings + LoRA leaf plumbing.
-    Returns (x, lora_layers, lora_scaling, adapter_ids)."""
+    Returns (x, lora_layers, lora_scaling, adapter_ids). Ids past the
+    vocabulary read its last row, as the JAX gather clamps them."""
     emb = params["embed"]
+    token_ids = token_ids.clamp(0, emb.shape[0] - 1)
     if emb.dtype == torch.int8:
         # Row-quantized table: dequantize only the gathered rows.
         x = (emb[token_ids].to(cfg.torch_dtype)

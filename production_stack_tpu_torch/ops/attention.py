@@ -222,8 +222,19 @@ def valid_slots(slot_mapping: torch.Tensor, device) -> tuple:
     the host, so no device sync) and moved once per forward."""
     flat = slot_mapping.reshape(-1)
     rows = torch.nonzero(flat >= 0).reshape(-1)
-    slots = flat[rows]
-    return rows.to(device), slots.to(device=device, dtype=torch.long)
+    slots = flat[rows].to(torch.long)
+    return to_device(rows, device), to_device(slots, device)
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``. A host tensor bound for a card goes through
+    pinned memory as an asynchronous copy, so the host does not wait for
+    the work already queued on the card (a plain copy from pageable
+    memory synchronises the stream)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def scatter_kv_pages(k_pages, v_pages, k_new, v_new, valid, layer: int):

@@ -57,10 +57,11 @@ def test_engine_config_is_the_jax_copy_plus_device():
     ours = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
     assert set(ours) == set(jax_fields) | {"device"}
     assert ours["device"] == "cuda"
-    # Features this engine refuses default to off here.
+    # Every default is the JAX engine's (prefill batching and the step
+    # recorder included).
     differ = {k for k in jax_fields if ours[k] != jax_fields[k]}
-    assert differ == {"prefill_batch", "step_recorder"}
-    assert (ours["prefill_batch"], ours["step_recorder"]) == (1, False)
+    assert differ == set()
+    assert (ours["prefill_batch"], ours["step_recorder"]) == (4, True)
     cfg = EngineConfig(max_model_len=130, block_size=64)
     assert cfg.max_blocks_per_seq == 3
     assert cfg.bucket_for(40) == JaxEngineConfig(

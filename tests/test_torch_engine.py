@@ -219,10 +219,9 @@ def test_cuda_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("over", [
-    dict(enable_chunked_prefill=True), dict(prefill_batch=4),
     dict(speculative_num_tokens=4), dict(data_parallel_size=2),
     dict(pipeline_parallel_size=2), dict(tensor_parallel_size=2),
-    dict(step_recorder=True), dict(fused_step=True)])
+    dict(fused_step=True)])
 def test_unported_features_are_refused(over):
     cfg = EngineConfig(device="cpu", **dict(MAKE_ENGINE, **over))
     with pytest.raises(NotImplementedError, match="not supported"):

@@ -199,6 +199,46 @@ def test_tensor_core_prefill_cases(cuda, H, KVH, D, int8):
         assert_close(got[b, :take[b]], want[b, :take[b]])
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (6, 2, 64)])
+def test_batched_prefill_rows_with_a_padding_row(cuda, H, KVH, D, int8):
+    """The engine's batched cached prefill (``_prefill_rows``): rows at one
+    chunk bucket, two first-round rows with an empty prefix, one over a
+    prefix of a whole chunk, and a padding row as the engine builds it
+    (positions 0, total length 1, an all-zero table, no page writes).
+    The live rows match the plain version; the padding row is finite."""
+    rng = np.random.default_rng(D + int8)
+    B, T, bs, MAXB = 4, 128, 16, 16
+    prefix, take = np.asarray([0, 0, 128, 0]), np.asarray([128, 77, 128, 0])
+    NB = B * MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=7 * D,
+                 int8=int8)
+    q = torch.randn((B, T, H, D), device=cuda, dtype=torch.bfloat16)
+    k_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    v_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    tables = rng.permutation(NB)[:B * MAXB].reshape(B, MAXB)
+    tables[3] = 0
+    positions = prefix[:, None] + np.arange(T)[None]
+    positions[3] = 0
+    slots = np.full((B, T), -1, np.int64)
+    for b in range(3):
+        pos = positions[b, :take[b]]
+        slots[b, :take[b]] = tables[b, pos // bs] * bs + pos % bs
+    att.write_kv_pages(k, v, k_new, v_new, torch.from_numpy(slots), 1)
+    totals = np.where(take > 0, prefix + take, 1).astype(np.int32)
+    args = (q, k, v, torch.from_numpy(tables.astype(np.int32)).to(cuda),
+            torch.from_numpy(positions).to(cuda),
+            torch.from_numpy(totals).to(cuda), 1)
+    before = _launches(cached_prefill_attention, int8)
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(cached_prefill_attention, int8) == before + 1
+    for b in range(3):
+        assert_close(got[b, :take[b]], want[b, :take[b]])
+    assert bool(torch.isfinite(got[3]).all())
+
+
 def test_unsupported_shapes_raise_not_fall_back(cuda):
     k, v = _pool(cuda, torch.float32, 1, 4, 4, 2, 48, seed=0)
     q = torch.randn((1, 4, 48), device=cuda)

@@ -1,7 +1,7 @@
 """Sampling of the torch port against the JAX package: greedy ids, the
 logit shaping of the serving programs, logprobs and the top-k/top-p
-keep-set. The random draws themselves differ (torch generators against
-threefry) and are not compared."""
+keep-set. The keyed draws themselves are compared draw for draw in
+tests/test_torch_prng.py."""
 
 import jax
 import jax.numpy as jnp
@@ -30,9 +30,9 @@ def test_greedy_ids_match_jax():
         jnp.asarray(logits), keys, jnp.asarray(temp),
         jnp.zeros((B,), jnp.int32), jnp.ones((B,), jnp.float32), max_top_k=K)
     got = tsamp.sample_tokens(
-        torch.from_numpy(logits), torch.from_numpy(temp),
-        torch.zeros((B,), dtype=torch.long), torch.ones((B,)),
-        tsamp.gumbel_noise([None] * B, K, "cpu"), max_top_k=K)
+        torch.from_numpy(logits), torch.from_numpy(np.asarray(keys)),
+        torch.from_numpy(temp), torch.zeros((B,), dtype=torch.long),
+        torch.ones((B,)), max_top_k=K)
     assert got.tolist() == np.asarray(want).tolist()
 
 
@@ -126,17 +126,17 @@ def test_seeded_draws_repeat_and_stay_in_the_keep_set():
     temp = torch.full((B,), 0.8)
     top_k = torch.tensor([0, 2, 5, 0])
     top_p = torch.tensor([0.9, 1.0, 1.0, 0.3])
-    seeds = [11, 12, 13, 14]
-    a = tsamp.sample_tokens(logits, temp, top_k, top_p,
-                            tsamp.gumbel_noise(seeds, K, "cpu"), max_top_k=K)
-    b = tsamp.sample_tokens(logits, temp, top_k, top_p,
-                            tsamp.gumbel_noise(seeds, K, "cpu"), max_top_k=K)
+    seeds = torch.tensor([11, 12, 13, 14])
+    a = tsamp.sample_tokens(logits, tsamp.make_rng_keys(0, 5, seeds), temp,
+                            top_k, top_p, max_top_k=K)
+    b = tsamp.sample_tokens(logits, tsamp.make_rng_keys(0, 5, seeds), temp,
+                            top_k, top_p, max_top_k=K)
     assert torch.equal(a, b)
     top_idx, masked = tsamp.keep_candidates(logits, temp, top_k, top_p, K)
     for i in range(B):
         assert a[i].item() in top_idx[i][torch.isfinite(masked[i])].tolist()
     draws = {tuple(tsamp.sample_tokens(
-        logits, temp, top_k, top_p, tsamp.gumbel_noise(
-            [s + 100 * j for s in seeds], K, "cpu"), max_top_k=K).tolist())
+        logits, tsamp.make_rng_keys(0, 5, seeds + 100 * j), temp, top_k,
+        top_p, max_top_k=K).tolist())
         for j in range(20)}
     assert len(draws) > 1  # the seed really drives the draw
