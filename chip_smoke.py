@@ -63,10 +63,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``--enable-chunked-prefill --max-num-batched-tokens 512``, ten
    slots): two ~2,000-token prompts arrive while eight sequences decode
    and prefill in 512-token steps between decode bursts (a
-   ``{"chunked": ...}`` line).
+   ``{"chunked": ...}`` line);
+8. speculative decoding at full width: the same eight greedy 128-token
+   requests (four prompts repeating a phrase, four of ``_text``) and a
+   seeded sampled pair served by Llama-3-8B in bf16 plain, with
+   ``--speculative-num-tokens 4`` (prompt lookup), and drafting for
+   itself (``--speculative-draft-model meta-llama/Llama-3-8B``), a
+   ``{"spec": ...}`` line a run (verify bursts, acceptance, tokens per
+   target forward against the plain run, launches, the recorder's
+   ``spec_verify`` steps, the ``tpu:spec_*`` scrape); a speculative run
+   fails without a verify burst, the self-drafter below 0.5 acceptance,
+   and any run on an errored request or a seeded pair of two texts. The
+   kernel phase holds the verify's shape (8 rows x 4 tokens over
+   2,048-token contexts, both page encodings) to the plain version and
+   times it beside SDPA (a ``{"verify_prefill": ...}`` line);
+9. tiny-llama and tpu-llama-1b at float32 on the card (the kernels' f32
+   mode): streams of both proposers, greedy, through preemption and
+   seeded sampled, equal to plain decode's token for token (a
+   ``{"spec_parity": ...}`` line).
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
-page encoding, each probe in each mode and page dtype), the card's
+page encoding, the cached prefill also at the verify's shape, each probe
+in each mode and page dtype), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a CUDA device or outside a checkout of the repo.
@@ -408,7 +426,15 @@ def plain_prefill(c):
 KERNELS = {"paged_attention": (run_decode, plain_decode),
            "cached_prefill_attention": (run_prefill, plain_prefill),
            "paged_attention_int8": (run_decode, plain_decode),
-           "cached_prefill_attention_int8": (run_prefill, plain_prefill)}
+           "cached_prefill_attention_int8": (run_prefill, plain_prefill),
+           "cached_prefill_attention_verify": (run_prefill, plain_prefill),
+           "cached_prefill_attention_verify_int8": (run_prefill,
+                                                    plain_prefill)}
+
+# The speculative verify (``core.py::_launch_verify``) at
+# --speculative-num-tokens 4: every slot's last token and three drafts,
+# [8, 4] query rows at the end of 2,048-token contexts.
+VERIFY_K = 4
 
 
 def main_path_cases():
@@ -450,6 +476,13 @@ def main_path_cases():
              "cached_prefill_attention" + suffix,
              batched_prefill_case(int8, seed + 32),
              [(b, slice(0, n)) for b, n in enumerate(BATCHED_TAKE) if n]),
+            # A speculative verify of 8 slots: 4 query tokens a row at the
+            # end of its 2,048-token context.
+            (f"cached_prefill {enc} verify 8x{VERIFY_K}",
+             "cached_prefill_attention_verify" + suffix,
+             prefill_case(bf16, B, VERIFY_K, H, KVH, D, 2, bs,
+                          ctx_len // bs, [ctx_len - VERIFY_K] * B,
+                          [VERIFY_K] * B, seed=seed + 33, int8=int8), None),
         ]
     return cases
 
@@ -607,6 +640,34 @@ def _time_prefill_batched(label, c):
         ops=4 * H * D * pairs)
 
 
+def _time_verify(label, c):
+    """Device times (as :func:`_time_decode`) of kernel, plain version and
+    library yardstick (one SDPA call over every row's gathered context,
+    causal with the rows' common offset) on the verify case, with the
+    bytes and operations its inputs need."""
+    import torch
+
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+
+    B, T, H, D = c["q"].shape
+    P = int(c["positions"][0, 0])
+    kg, vg = _gathered(c, P + T)
+    qs = (c["q"] * c["scale"]).to(c["q"].dtype).transpose(1, 2)
+    span = torch.arange(P + T, device="cuda")
+    mask = span[None, :] <= (P + torch.arange(T, device="cuda"))[:, None]
+    check_close(f"{label} vs sdpa yardstick", run_prefill(c),
+                _sdpa(qs, kg, vg, mask).transpose(1, 2))
+    pairs = B * (T * P + T * (T + 1) // 2)
+    return dict(
+        ms=cuda_time_ms(lambda: run_prefill(c), iters=50),
+        plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=10),
+        library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=50),
+        bytes=(2 * B * T * H * D * c["q"].element_size()
+               + B * (P + T) * _page_bytes_per_token(c)
+               + c["block_tables"].numel() * 4 + B * T * 4 + B * 4),
+        ops=4 * H * D * pairs)
+
+
 def kernel_phase():
     """Kernel vs plain version at main-path and small shapes, in both page
     encodings; returns the per-entry measurements of the main-path
@@ -656,6 +717,9 @@ def kernel_phase():
         if "batched" in label and not torch.isfinite(got[3]).all():
             raise AssertionError(f"{label}: the padding row is not finite")
         errs[name] = max(errs[name], err)
+        if "verify" in label and not err <= F32_BAR:
+            raise AssertionError(f"{label}: max_abs_err {err:.3e} above "
+                                 f"{F32_BAR}")
         cases[label] = c
 
     from production_stack_tpu_torch.probes.common import (
@@ -698,6 +762,26 @@ def kernel_phase():
         log(f"[kernel] cached_prefill {enc} batched 4x1024: "
             f"{json.dumps(batched[enc])}")
     print(json.dumps({"batched_prefill": batched}), flush=True)
+    # The verify shape: the bf16 entry joins the kernels line (the spec
+    # serve phase launches it); both encodings go on a line of their own.
+    verify = {}
+    for enc in ("bf16", "int8"):
+        name = "cached_prefill_attention_verify" + (
+            "_int8" if enc == "int8" else "")
+        r = _time_verify(f"cached_prefill {enc} verify",
+                         cases[f"cached_prefill {enc} verify 8x{VERIFY_K}"])
+        byte_ms = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        op_ms = r.pop("ops") / BF16_FLOPS * 1e3
+        verify[enc] = dict(r, max_abs_err=errs[name],
+                           bound_ms=max(byte_ms, op_ms),
+                           bound_by="bytes" if byte_ms >= op_ms
+                           else "operations",
+                           decode_ms=results["paged_attention" + (
+                               "_int8" if enc == "int8" else "")]["ms"])
+        log(f"[kernel] cached_prefill {enc} verify 8x{VERIFY_K}: "
+            f"{json.dumps(verify[enc])}")
+    print(json.dumps({"verify_prefill": verify}), flush=True)
+    results["cached_prefill_attention_verify"] = verify["bf16"]
     return results
 
 
@@ -1512,6 +1596,319 @@ def chunked_phase(entries):
     return {name: launches[name] for name in entries}, summary
 
 
+# Speculative decoding at --speculative-num-tokens 4: prompt lookup, then
+# Llama-3-8B drafting for itself (the same seed gives the same weights).
+SPEC_ARGS = ["--speculative-num-tokens", "4"]
+SPEC_RUNS = (("ngram", SPEC_ARGS),
+             ("self-drafter", SPEC_ARGS + ["--speculative-draft-model",
+                                           "meta-llama/Llama-3-8B"]))
+SPEC_PHRASES = ("the pages of every layer stay resident on the card. ",
+                "a verify burst scores four tokens in one forward. ",
+                "drafts that match the samples are accepted in order. ",
+                "rejected positions roll their pages back at the flush. ")
+SPEC_SERIES = ("tpu:spec_proposed_tokens_total",
+               "tpu:spec_accepted_tokens_total",
+               "tpu:spec_acceptance_rate", "tpu:spec_disabled_requests_total",
+               "tpu:spec_verify_bursts_total",
+               "tpu:spec_draft_forward_steps_total")
+# The self-drafter's acceptance below which the phase fails.
+SELF_DRAFT_ACCEPTANCE = 0.5
+
+
+def _spec_prompts():
+    """Four prompts that repeat a phrase (~1,000 tokens) and four of
+    :func:`_text`."""
+    reps = [(p * (1000 // len(p) + 1))[:1000] for p in SPEC_PHRASES]
+    return reps + [_text(80 + i, 400) for i in range(4)]
+
+
+def _spec_drive(client, prompts, core):
+    """The eight prompts at once, greedy, 128 tokens each; then one seeded
+    sampled request sent twice, alone each time. Returns (texts, the
+    engine's stats between the two parts, the seeded pair's texts)."""
+    import threading
+
+    outs = [None] * len(prompts)
+
+    def run(i):
+        outs[i] = client.post("/v1/completions", {
+            "prompt": prompts[i], "max_tokens": 128, "temperature": 0,
+            "ignore_eos": True})
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for i, out in enumerate(outs):
+        if out is None:
+            raise AssertionError(f"spec request {i} got no reply")
+        _finish(f"spec request {i}", out)
+    between = core.stats()
+    seeded = [client.post("/v1/completions", {
+        "prompt": _text(51, 40), "max_tokens": 32, "temperature": 0.8,
+        "seed": 4321}) for _ in range(2)]
+    for out in seeded:
+        _finish("spec seeded", out)
+    return ([o["choices"][0]["text"] for o in outs], between,
+            [o["choices"][0]["text"] for o in seeded])
+
+
+def spec_phase(smi):
+    """Serve Llama-3-8B in bf16 three times on the same requests
+    (:func:`_spec_drive`): plain, then with prompt-lookup speculation,
+    then drafting for itself. Counters as in :func:`serve_phase`, around
+    each speculative drive. Prints a ``{"spec": ...}`` line a run and
+    returns the launch counts of the two speculative runs summed, by
+    kernel entry. Fails when a speculative run has no verify burst, a
+    request errors, the self-drafter's acceptance is below
+    ``SELF_DRAFT_ACCEPTANCE`` or a seeded pair gives two texts."""
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    prompts = _spec_prompts()
+    plain_tpf = plain_greedy_tpf = plain_texts = None
+    total = {}
+    # The plain run twice: greedy bf16 texts of random weights may part
+    # between two runs of one engine (arrival order changes which prompts
+    # share a batched prefill), which is what the speculative runs' text
+    # comparisons are read against.
+    for label, extra in (("plain", []), ("plain again", [])) + SPEC_RUNS:
+        _free_device_memory()
+        t0 = time.time()
+        httpd, core = build_server(SERVE_ARGS + list(extra))
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        client = Client(httpd.server_address[1])
+        try:
+            _finish("warm-up", client.post("/v1/completions", {
+                "prompt": _text(97, 1100), "max_tokens": 9,
+                "temperature": 0}))
+            base = core.stats()
+            rec_base = core.step_recorder.kind_stats()["spec_verify"]
+            counters = _counters()
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            t_run = time.time()
+            texts, between, seeded = _spec_drive(client, prompts, core)
+            run_s = time.time() - t_run
+            launches = {name: getattr(fn, attr)
+                        for name, (fn, attr) in counters.items()}
+            metrics = client.get("/metrics")
+            now = core.stats()
+            rec = core.step_recorder.kind_stats()["spec_verify"]
+            layers = core.model_config.num_layers
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            core.stop()
+        if seeded[0] != seeded[1]:
+            raise AssertionError(f"spec {label}: a seeded sampled request "
+                                 f"gave two texts")
+        d = {k: now[k] - base[k] for k in (
+            "generation_tokens_total", "decode_forward_steps_total",
+            "spec_verify_bursts_total", "spec_proposed_tokens_total",
+            "spec_accepted_tokens_total", "spec_draft_forward_steps_total",
+            "spec_disabled_requests_total", "decode_burst_count")}
+        by_source = {key: {src: now[key][src] - base[key][src]
+                           for src in now[key]}
+                     for key in ("spec_proposed_by_source",
+                                 "spec_accepted_by_source")}
+        tpf = (d["generation_tokens_total"]
+               / max(d["decode_forward_steps_total"], 1))
+        # The same over the eight greedy requests alone.
+        greedy_tpf = ((between["generation_tokens_total"]
+                       - base["generation_tokens_total"])
+                      / max(between["decode_forward_steps_total"]
+                            - base["decode_forward_steps_total"], 1))
+        summary = dict(
+            config=f"bf16, {label}", card=smi, init_s=init_s, run_s=run_s,
+            requests=len(prompts) + 2, **d, **by_source,
+            tokens_per_target_forward=tpf,
+            greedy_tokens_per_target_forward=greedy_tpf,
+            launches={k: v for k, v in launches.items() if v},
+            verify_launches=d["spec_verify_bursts_total"] * layers,
+            sample_text=texts[0][:40])
+        if label == "plain":
+            plain_tpf, plain_greedy_tpf, plain_texts = tpf, greedy_tpf, texts
+        else:
+            # Informational: bf16 greedy texts may part from the first
+            # plain run's at a near-tie.
+            summary["greedy_texts_equal_to_plain"] = sum(
+                a == b for a, b in zip(texts, plain_texts))
+            summary["first_difference_chars"] = [
+                next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b))) if a != b else None
+                for a, b in zip(texts, plain_texts)]
+        if extra:  # a speculative run
+            proposed = d["spec_proposed_tokens_total"]
+            greedy_proposed = (between["spec_proposed_tokens_total"]
+                               - base["spec_proposed_tokens_total"])
+            summary.update(
+                acceptance=(d["spec_accepted_tokens_total"] / proposed
+                            if proposed else 0.0),
+                # The eight greedy requests alone (the seeded pair samples
+                # at 0.8, which a greedy drafter rarely matches).
+                greedy_acceptance=(
+                    (between["spec_accepted_tokens_total"]
+                     - base["spec_accepted_tokens_total"]) / greedy_proposed
+                    if greedy_proposed else 0.0),
+
+                tokens_per_target_forward_vs_plain=tpf / plain_tpf,
+                greedy_tokens_per_target_forward_vs_plain=(
+                    greedy_tpf / plain_greedy_tpf),
+                recorder_spec_verify={k: rec[k] - rec_base[k] for k in rec},
+                metrics=[line for line in metrics.splitlines()
+                         if line.startswith("tpu:spec_")])
+            missing = [m for m in SPEC_SERIES if m not in metrics]
+            if missing:
+                raise AssertionError(f"spec {label}: /metrics lacks "
+                                     f"{missing}")
+            if d["spec_verify_bursts_total"] <= 0:
+                raise AssertionError(f"spec {label}: no verify burst ran")
+            if summary["recorder_spec_verify"]["count"] != \
+                    d["spec_verify_bursts_total"]:
+                raise AssertionError(f"spec {label}: the recorder kept "
+                                     f"{summary['recorder_spec_verify']} "
+                                     f"for {d['spec_verify_bursts_total']} "
+                                     f"verify bursts")
+            for name, n in launches.items():
+                on_path = name in ("paged_attention",
+                                   "cached_prefill_attention")
+                if on_path and n <= 0:
+                    raise AssertionError(f"{name} never launched on the "
+                                         f"spec {label} served path")
+                if not on_path and n != 0:
+                    raise AssertionError(f"{name} launched {n} times on "
+                                         f"the spec {label} served path")
+                if on_path:
+                    total[name] = total.get(name, 0) + n
+            if launches["cached_prefill_attention"] < summary[
+                    "verify_launches"]:
+                raise AssertionError(f"spec {label}: fewer cached-prefill "
+                                     f"launches than verify layers")
+            if label == "self-drafter" and (
+                    summary["acceptance"] < SELF_DRAFT_ACCEPTANCE):
+                raise AssertionError(
+                    f"spec self-drafter: acceptance "
+                    f"{summary['acceptance']:.3f} below "
+                    f"{SELF_DRAFT_ACCEPTANCE}")
+        log(f"[spec] {json.dumps(summary)}")
+        print(json.dumps({"spec": summary}), flush=True)
+    _free_device_memory()
+    return total
+
+
+# The card's float32 check of the whole speculative path: each model's
+# streams with each proposer equal to plain decode's, token for token
+# (tiny-llama: D 32, 4/2 heads; tpu-llama-1b: D 128, 16/8 heads).
+SPEC_PARITY_MODELS = ("tiny-llama", "tpu-llama-1b")
+SPEC_PARITY_CFG = dict(device="cuda", dtype="float32", max_model_len=256,
+                       max_num_seqs=2, block_size=8, num_blocks=64,
+                       min_prefill_bucket=16, max_loras=0)
+
+
+def spec_parity_phase(smi):
+    """``SPEC_PARITY_MODELS`` at float32 on the card (the kernels' f32
+    mode): the reference's spec requests (repetitive greedy prompts, a
+    prompt with no repeats, a tight pool's preemption, seeded sampled
+    rows on two tokens) through a plain engine, a prompt-lookup engine
+    and a self-drafting one; every stream must equal the plain engine's,
+    each speculative engine must have run verify bursts and the greedy
+    self-drafter must accept nine drafts in ten at least. Prints a
+    ``{"spec_parity": ...}`` line."""
+    import queue
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    def greedy(n):
+        return SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True)
+
+    def sampled(seed, bias):
+        return SamplingParams(max_tokens=24, temperature=0.8, seed=seed,
+                              ignore_eos=True,
+                              logit_bias={t: 100.0 for t in bias})
+
+    scenarios = {
+        "greedy": ({}, [([5, 6, 7, 8] * 6, greedy(24)),
+                        ([9, 10, 11] * 8, greedy(24)),
+                        ([31, 7, 2, 19, 44, 3, 28, 11], greedy(24))]),
+        "preempt": (dict(num_blocks=16),
+                    [([5, 6, 7, 8] * 2, greedy(60)),
+                     ([9, 10, 11, 12] * 12, greedy(60))]),
+        "sampled": ({}, [([5, 6] * 10, sampled(11, (5, 6))),
+                         ([7, 8, 9] * 6, sampled(12, (7, 8)))]),
+    }
+
+    def run(model, over, reqs):
+        eng = EngineCore(EngineConfig(model=model,
+                                      **dict(SPEC_PARITY_CFG, **over)))
+        eng.start()
+        queues = []
+        try:
+            with eng._lock:
+                for i, (prompt, sp) in enumerate(reqs):
+                    q = queue.Queue()
+                    eng.add_request(f"p{i}", list(prompt), sp,
+                                    lambda t, f, q=q: q.put((t, f)))
+                    queues.append(q)
+            out = []
+            for q in queues:
+                tokens = []
+                while True:
+                    t, f = q.get(timeout=300)
+                    if t is not None:
+                        tokens.append(t)
+                    if f is not None:
+                        out.append((tokens, f))
+                        break
+        finally:
+            eng.stop()
+        return out, eng.stats()
+
+    report = {"card": smi, "dtype": "float32"}
+    for model in SPEC_PARITY_MODELS:
+        for name, (over, reqs) in scenarios.items():
+            want, _ = run(model, over, reqs)
+            for label, spec in (
+                    ("ngram", dict(speculative_num_tokens=4)),
+                    ("self-drafter", dict(speculative_num_tokens=4,
+                                          speculative_draft_model=model))):
+                case = f"{model} {name} {label}"
+                got, stats = run(model, dict(over, **spec), reqs)
+                if got != want:
+                    raise AssertionError(
+                        f"spec parity {case}: streams differ from plain "
+                        f"decode on the card: {got} vs {want}")
+                if stats["spec_verify_bursts_total"] <= 0:
+                    raise AssertionError(f"spec parity {case}: no verify "
+                                         f"burst")
+                report[case] = {
+                    k: stats[k] for k in ("spec_verify_bursts_total",
+                                          "spec_proposed_tokens_total",
+                                          "spec_accepted_tokens_total",
+                                          "num_preempted_total")}
+                if name == "greedy" and label == "self-drafter" and (
+                        stats["spec_accepted_tokens_total"]
+                        < 0.9 * stats["spec_proposed_tokens_total"]):
+                    # The same weights draft: a drafter whose catch-up or
+                    # scan reads wrong keys on the card shows up here.
+                    raise AssertionError(
+                        f"spec parity {case}: the drafter's "
+                        f"{stats['spec_accepted_tokens_total']} of "
+                        f"{stats['spec_proposed_tokens_total']} drafts "
+                        f"accepted")
+    print(json.dumps({"spec_parity": report}), flush=True)
+
+
 def _free_device_memory() -> None:
     """Drop what a finished engine left (its server's handler class holds
     it in a reference cycle) and return the cached blocks to the card."""
@@ -1682,8 +2079,10 @@ def main(argv=None) -> int:
                                    "bit_equal": True}}), flush=True)
 
     results = kernel_phase()
+    log(f"[time] {time.time() - t0:.0f} s through the kernel phase")
     probe_results, probes = probe_phase()
     print(json.dumps({"probes": probes}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the probe phase")
     launches = {}
     for label, extra, entries in (
             ("bf16", (), ("paged_attention", "cached_prefill_attention")),
@@ -1714,6 +2113,16 @@ def main(argv=None) -> int:
     summary["card"] = smi
     log(f"[serve] {json.dumps(summary)}")
     print(json.dumps({"chunked": summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s before the spec phases")
+    spec_counts = spec_phase(smi)
+    for name, n in spec_counts.items():
+        launches[name] += n
+    # The verify row counts the cached-prefill kernel's launches on the
+    # speculative runs (their verify, catch-up and prompt chunks).
+    launches["cached_prefill_attention_verify"] = spec_counts[
+        "cached_prefill_attention"]
+    spec_parity_phase(smi)
+    log(f"[time] {time.time() - t0:.0f} s through the spec phases")
     results.update(probe_results)
     replaces = {
         "paged_attention":

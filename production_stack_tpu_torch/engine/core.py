@@ -36,10 +36,17 @@ int8 ``(data, scales)`` pairs that the page ops quantize on the scatter
 and both kernels dequantize on the card; ``quantization="int8"`` stores
 the weights as int8 with per-output-channel scales.
 
+Speculative decoding (``speculative_num_tokens > 0``) is the JAX
+engine's: drafts from prompt lookup (``SpecState``) or from a draft model
+(``engine/draft.py``), one verify forward of ``[last token, drafts]``
+through the cached-prefill kernel that samples each position under plain
+decode's shaping and key, acceptance of the longest matching prefix, and
+rollback of the rejected positions' pages; the pipeline collapses while
+it is on, since drafts need the true last token.
+
 Not here yet, and refused at construction when configured: the fused
-step, speculation, structured output, tensor/pipeline/data parallelism,
-multihost, KV offload and extract/inject, sleep, LoRA load/unload and
-embeddings.
+step, structured output, tensor/pipeline/data parallelism, multihost, KV
+offload and extract/inject, sleep, LoRA load/unload and embeddings.
 """
 
 from __future__ import annotations
@@ -61,8 +68,11 @@ from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGIT_BIAS,
     MAX_STOP_IDS,
     SamplingParams,
+    accepted_prefix_len,
+    apply_fsm_mask,
     logprob_outputs,
     make_rng_keys,
+    mask_row_bytes,
     sample_tokens,
     sample_with_gumbel,
     shape_logits,
@@ -71,6 +81,7 @@ from production_stack_tpu_torch.engine.scheduler import (
     EngineRequest,
     RunningSeq,
     Scheduler,
+    SpecState,
 )
 from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
 from production_stack_tpu_torch.models import build_model, get_model_config
@@ -90,8 +101,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
         (c.pipeline_parallel_size > 1, "pipeline_parallel_size > 1"),
         (c.kv_offload_bytes > 0 or bool(c.kv_remote_url), "KV offload"),
         (c.fused_step, "fused_step"),
-        (c.speculative_num_tokens > 0 or bool(c.speculative_draft_model),
-         "speculative decoding"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -114,10 +123,12 @@ def kv_bytes_per_block(model_config, block_size: int,
 
 class EngineCore:
     def __init__(self, config: EngineConfig,
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None,
+                 draft_params: Optional[Dict] = None):
         """``params``: a parameter dict for the configured model (e.g. a
         JAX tree carried over by ``models/convert.py``); None draws the
-        random init from ``config.seed`` on the device."""
+        random init from ``config.seed`` on the device. ``draft_params``
+        likewise for ``config.speculative_draft_model``."""
         missing = _unsupported(config)
         if missing:
             raise NotImplementedError(
@@ -151,6 +162,17 @@ class EngineCore:
                     **lora_kwargs)
         self.params = params
 
+        # -- draft model (speculative decoding proposer) -------------------
+        # Built BEFORE the target's pool is sized: its weights and its
+        # worst-case pool come out of free memory first, so the target's
+        # pool never shrinks for drafts mid-flight.
+        self._draft = None
+        if config.speculative_draft_model:
+            from production_stack_tpu_torch.engine.draft import DraftModel
+
+            self._draft = DraftModel(config, self.model_config, self.device,
+                                     params=draft_params)
+
         # -- KV pages ------------------------------------------------------
         free_before = self._free_device_bytes()
         self.num_blocks = config.num_blocks or self._auto_num_blocks()
@@ -164,6 +186,10 @@ class EngineCore:
         self.kv_mgr = KVCacheManager(
             self.num_blocks, config.block_size, config.enable_prefix_caching,
             namespace=config.model)
+        if self._draft is not None:
+            # Every teardown (finish, preempt, abort) frees target KV
+            # through kv_mgr.free: the drafter's pages go with it.
+            self.kv_mgr.on_free = self._draft.release
         self.scheduler = Scheduler(
             self.kv_mgr, config.max_num_seqs, config.max_model_len,
             chunked_prefill=config.chunked_prefill_enabled,
@@ -205,7 +231,23 @@ class EngineCore:
         self.deferred_prefill_tokens_total = 0
         self.last_step_batched_tokens = 0
         self.decode_burst_count = 0
+        # Target-model forwards of the decode path: K a plain K-step
+        # burst, one a verify burst (generation tokens per forward is what
+        # speculation buys).
         self.decode_forward_steps_total = 0
+        # Speculative decoding: draft tokens sent to the verify and
+        # accepted by it (in total and by proposer, the source label of
+        # tpu:spec_*_tokens_total), requests latched back to plain decode,
+        # verify bursts, and the drafter's own forwards (not in
+        # decode_forward_steps_total).
+        self.spec_proposed_tokens_total = 0
+        self.spec_accepted_tokens_total = 0
+        self.spec_disabled_requests_total = 0
+        self.spec_verify_bursts_total = 0
+        self.spec_proposed_by_source = {"ngram": 0, "draft_model": 0}
+        self.spec_accepted_by_source = {"ngram": 0, "draft_model": 0}
+        self.spec_draft_forward_steps_total = 0
+        self._mask_row_bytes = mask_row_bytes(mc.vocab_size)
 
         # Step flight recorder: the step functions stash ``_step_info``
         # only when it is on; _loop completes it with the step's wall time.
@@ -371,6 +413,14 @@ class EngineCore:
             "rejected_requests": dict(self.scheduler.rejected_total),
             "decode_burst_count": self.decode_burst_count,
             "decode_forward_steps_total": self.decode_forward_steps_total,
+            "spec_proposed_tokens_total": self.spec_proposed_tokens_total,
+            "spec_accepted_tokens_total": self.spec_accepted_tokens_total,
+            "spec_proposed_by_source": dict(self.spec_proposed_by_source),
+            "spec_accepted_by_source": dict(self.spec_accepted_by_source),
+            "spec_draft_forward_steps_total":
+                self.spec_draft_forward_steps_total,
+            "spec_disabled_requests_total": self.spec_disabled_requests_total,
+            "spec_verify_bursts_total": self.spec_verify_bursts_total,
             "step_records_total": rec.recorded_total if rec else 0,
             "step_kind_stats": rec.kind_stats() if rec else {},
             "model_bandwidth_utilization": (
@@ -1015,6 +1065,15 @@ class EngineCore:
         # Deferred first tokens land before the burst is built (feedback
         # tokens and positions depend on them).
         self._flush_pending_prefills()
+        if cfg.speculative_num_tokens > 0:
+            # Drafts need the TRUE last token: speculation collapses the
+            # pipeline (the burst in flight is read back first, and the
+            # next burst feeds from host tokens).
+            self._flush_pending_burst()
+            plan = self._propose_spec_drafts()
+            if plan:
+                self._do_decode_spec(plan)
+                return
         B = cfg.max_num_seqs
         K_max = max(cfg.decode_steps, 1)
         K = K_max
@@ -1239,6 +1298,9 @@ class EngineCore:
         t0 = time.perf_counter()
         sampled, lps, top_lps, top_ids = pending["out"].get()
         self.flush_time_total += time.perf_counter() - t0
+        if pending.get("spec"):
+            self._flush_spec_burst(pending, sampled, lps, top_lps, top_ids)
+            return
         emitted_seqs = []
         for seq in pending["active"]:
             allow = pending["allows"].get(seq.req.request_id, 1)
@@ -1266,6 +1328,397 @@ class EngineCore:
                 for seq in emitted_seqs:
                     self.kv_mgr.register_decode_blocks(
                         seq.req.request_id, seq.req.all_token_ids)
+
+    # -- speculative decoding ----------------------------------------------
+    def _propose_spec_drafts(self):
+        """Drafts for the next burst: ``[(seq, draft), ...]`` covering
+        EVERY running row, or None for a plain burst. From the draft model
+        when one is configured, from prompt lookup otherwise.
+
+        All or nothing: a verify burst replaces the whole batch's step, so
+        a row without a draft, latched off by its acceptance, that allows
+        fewer than two tokens, or with presence/frequency penalties (the
+        verify has no in-pass token counts) sends the batch down the
+        plain path."""
+        cfg = self.config
+        K = cfg.speculative_num_tokens
+        use_draft = self._draft is not None
+        with self._lock:
+            active = [s for s in self.scheduler.running()
+                      if self.scheduler.slots[s.slot] is s]
+        if not active:
+            return None
+        rows = []
+        for seq in active:
+            r = seq.req
+            if r.sampling.presence_penalty or r.sampling.frequency_penalty:
+                return None
+            if r.spec is None:
+                r.spec = SpecState(
+                    cfg.speculative_ngram_size,
+                    source="draft_model" if use_draft else "ngram",
+                    probation=(cfg.speculative_draft_probation
+                               if use_draft else 0))
+            if r.spec.disabled:
+                # Each plain burst sat out counts against a drafter's
+                # probation; a prompt-lookup latch (probation 0) stays.
+                r.spec.tick_probation()
+                if r.spec.disabled:
+                    return None
+            allow = max(1, min(
+                K,
+                r.sampling.max_tokens - len(r.output_token_ids),
+                cfg.max_model_len - len(r.all_token_ids) + 1,
+            ))
+            if allow < 2:
+                return None
+            rows.append((seq, allow))
+        if use_draft:
+            return self._propose_draft_model(rows)
+        plan = []
+        for seq, allow in rows:
+            draft = seq.req.spec.propose(seq.req.all_token_ids, allow - 1)
+            if not draft:
+                return None
+            plan.append((seq, list(draft)))
+        return plan
+
+    def _propose_draft_model(self, rows):
+        """Batched draft-model proposal. Phase A catches the drafter's
+        pages up with every token it has not seen, in chunks at the
+        catch-up buckets, and takes the greedy token at each row's
+        frontier as its first draft. Phase B extends every row to its
+        width in one greedy scan. Returns a plan for
+        :meth:`_do_decode_spec`, or None (the drafter's pool is out of
+        pages) for a plain burst."""
+        cfg = self.config
+        d = self._draft
+        B = cfg.max_num_seqs
+        bs = cfg.block_size
+        maxb = cfg.max_blocks_per_seq
+        info = []
+        with self._lock:
+            for seq, allow in rows:
+                r = seq.req
+                rid = r.request_id
+                n = len(r.all_token_ids)
+                # Worst case this burst: catch up to n, then allow - 2
+                # draft-extension steps.
+                if not d.ensure_capacity(rid, n + allow - 2):
+                    return None
+                start = min(d.computed.get(rid, 0), n - 1)
+                info.append({
+                    "seq": seq, "rid": rid, "allow": allow, "n": n,
+                    "start": start,
+                    "feed": list(r.all_token_ids[start:]),
+                    "table": np.asarray(d.block_table(rid), np.int64),
+                })
+        maxW = d.buckets()[-1]
+
+        def page_slots(table, positions):
+            return table[positions // bs] * bs + positions % bs
+
+        # -- phase A: chunked catch-up and the first draft token --------
+        drafts: list = [None] * len(info)
+        fed = [0] * len(info)
+        pending = set(range(len(info)))
+        while pending:
+            take = {i: min(len(info[i]["feed"]) - fed[i], maxW)
+                    for i in pending}
+            W = cfg.bucket_for(max(take.values()))
+            tokens = np.zeros((B, W), np.int64)
+            positions = np.zeros((B, W), np.int64)
+            slot_map = np.full((B, W), -1, np.int64)
+            tables = np.zeros((B, maxb), np.int32)
+            ctx = np.ones((B,), np.int64)
+            sl = np.ones((B,), np.int64)
+            mask_bits = np.zeros((B, self._mask_row_bytes), np.uint8)
+            mask_on = np.zeros((B,), bool)
+            done_now = []
+            for i in sorted(pending):
+                e = info[i]
+                b = e["seq"].slot
+                t = take[i]
+                lo = e["start"] + fed[i]
+                span = np.arange(lo, lo + t, dtype=np.int64)
+                tokens[b, :t] = e["feed"][fed[i]:fed[i] + t]
+                # Positions ascend past the row's span too (the JAX
+                # engine's are 0 there): the cached-prefill kernel takes a
+                # query tile's key range from its last row's position.
+                # Those columns write no page and their outputs go unread.
+                positions[b] = lo + np.arange(W)
+                slot_map[b, :t] = page_slots(e["table"], span)
+                use = min(len(e["table"]), maxb)
+                tables[b, :use] = e["table"][:use]
+                ctx[b] = lo + t
+                sl[b] = t
+                fed[i] += t
+                if lo + t == e["n"]:
+                    done_now.append(i)
+            toks = d.forward(tokens, positions, slot_map, tables, ctx, sl,
+                             mask_bits, mask_on).cpu().numpy()
+            self.spec_draft_forward_steps_total += 1
+            for i in done_now:
+                drafts[i] = [int(toks[info[i]["seq"].slot])]
+                pending.discard(i)
+
+        # -- phase B: extend to the full draft width ---------------------
+        if max(e["allow"] for e in info) - 2 >= 1:
+            S = cfg.speculative_num_tokens - 2
+            token0 = np.zeros((B,), np.int64)
+            positions0 = np.zeros((B,), np.int64)
+            slot_mat = np.full((B, S), -1, np.int64)
+            tables = np.zeros((B, maxb), np.int32)
+            ctx0 = np.ones((B,), np.int64)
+            for i, e in enumerate(info):
+                b = e["seq"].slot
+                token0[b] = drafts[i][0]
+                positions0[b] = e["n"]
+                ctx0[b] = e["n"] + 1
+                t = e["allow"] - 2
+                if t > 0:
+                    span = np.arange(e["n"], e["n"] + t, dtype=np.int64)
+                    slot_mat[b, :t] = page_slots(e["table"], span)
+                use = min(len(e["table"]), maxb)
+                tables[b, :use] = e["table"][:use]
+            toks = d.scan(token0, positions0, slot_mat, tables,
+                          ctx0).cpu().numpy()
+            self.spec_draft_forward_steps_total += S
+            for i, e in enumerate(info):
+                drafts[i].extend(
+                    int(x) for x in toks[e["seq"].slot, :e["allow"] - 2])
+
+        plan = []
+        with self._lock:
+            for i, e in enumerate(info):
+                dr = drafts[i][:e["allow"] - 1]
+                # The drafter's pages now cover the request's n tokens and
+                # the drafts fed back (all but the last one drafted).
+                d.computed[e["rid"]] = e["n"] + len(dr) - 1
+                plan.append((e["seq"], dr))
+        return plan
+
+    def _do_decode_spec(self, plan) -> None:
+        """Launch one verify burst: ONE forward scores each row's last
+        emitted token and its drafts at their positions; the flush
+        accepts the longest draft prefix that matches what plain decode
+        would have sampled and rolls back the pages appended for the
+        rejected positions. Not pipelined: acceptance depends on the data,
+        so the next drafts need this burst's tokens on the host."""
+        cfg = self.config
+        B = cfg.max_num_seqs
+        K = cfg.speculative_num_tokens
+        drafts = {s.req.request_id: d for s, d in plan}
+        with self._lock:
+            active0_ids = {id(s) for s, _ in plan}
+            allows: Dict[str, int] = {}
+            # Account the tokens about to be written; preempt on OOM, as
+            # _do_decode does: a surviving row ends with exactly `allow`
+            # tokens appended, which the flush's rollback relies on.
+            for seq, draft in plan:
+                if self.scheduler.slots[seq.slot] is not seq:
+                    continue  # already preempted this pass
+                need = len(draft) + 1
+                allows[seq.req.request_id] = need
+                while need > 0:
+                    if self.kv_mgr.append_token(seq.req.request_id,
+                                                seq.req.all_token_ids[-1]):
+                        need -= 1
+                        continue
+                    victim = self.scheduler.preempt_victim()
+                    if victim is None or victim.req is seq.req:
+                        break
+            active = [s for s in self.scheduler.running()
+                      if id(s) in active0_ids]
+        if not active:
+            return
+
+        max_blocks = max(len(self.kv_mgr.block_table(s.req.request_id))
+                         for s in active)
+        maxb = 4
+        while maxb < max_blocks:
+            maxb *= 2
+        maxb = min(maxb, cfg.max_blocks_per_seq)
+
+        tokens = np.zeros((B, K), np.int64)
+        positions0 = np.zeros((B,), np.int64)
+        slot_mat = np.full((B, K), -1, np.int64)
+        block_table = np.zeros((B, maxb), np.int32)
+        context0 = np.ones((B,), np.int64)
+        adapter_ids = np.zeros((B,), np.int64)
+        temperature = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int64)
+        top_p = np.ones((B,), np.float32)
+        seed_base = np.zeros((B,), np.int64)
+        min_tok = np.zeros((B,), np.int64)
+        out_len0 = np.zeros((B,), np.int64)
+        biases, stops = [None] * B, [None] * B
+        mask_bits = np.zeros((B, K, self._mask_row_bytes), np.uint8)
+        mask_on = np.zeros((B, K), bool)
+        for seq in active:
+            i, r = seq.slot, seq.req
+            draft = drafts[r.request_id]
+            allow = allows.get(r.request_id, 1)
+            base = len(r.prompt_token_ids) + r.scheduled_steps
+            row = [r.all_token_ids[-1]] + draft
+            tokens[i, :len(row)] = row
+            positions0[i] = base - 1
+            context0[i] = base
+            bids = self.kv_mgr.block_table(r.request_id)
+            use = min(len(bids), maxb)
+            block_table[i, :use] = bids[:use]
+            pos = base - 1 + np.arange(allow)
+            bid_arr = np.asarray(bids, np.int64)
+            slot_mat[i, :allow] = (bid_arr[pos // cfg.block_size]
+                                   * cfg.block_size + pos % cfg.block_size)
+            adapter_ids[i] = r.adapter_id
+            temperature[i], top_k[i], top_p[i], seed = self._sampling_for(r)
+            seed_base[i] = seed + r.scheduled_steps
+            min_tok[i] = r.sampling.min_tokens
+            out_len0[i] = r.scheduled_steps
+            biases[i] = r.sampling.logit_bias
+            stops[i] = r.sampling.stop_token_ids
+            # scheduled_steps advances at the flush, by the emitted count.
+
+        outs = self._launch_verify(
+            K, tokens, positions0, slot_mat, block_table, context0,
+            adapter_ids, temperature, top_k, top_p, seed_base, min_tok,
+            out_len0, biases, stops, mask_bits, mask_on)
+        self.spec_verify_bursts_total += 1
+        self.decode_forward_steps_total += 1
+        if self.step_recorder is not None:
+            sched = sum(allows.get(s.req.request_id, 1) for s in active)
+            self._step_info = {
+                "kind": "spec_verify", "rows": len(active),
+                "tokens": sched, "forwards": 1,
+                "kv_read_tokens": int(
+                    sum(context0[s.slot] for s in active)),
+                "kv_write_tokens": sched,
+            }
+        self._pending_burst = {"out": outs, "active": active,
+                               "allows": allows, "spec": True,
+                               "drafts": drafts}
+
+    def _launch_verify(self, K, tokens, positions0, slot_mat, block_table,
+                       context0, adapter_ids, temperature, top_k, top_p,
+                       seed_base, min_tok, out_len0, biases, stops,
+                       mask_bits, mask_on) -> "_Readback":
+        """The verify program: one cached-prefill forward of ``[B, K]``
+        rows (row b: its last emitted token and drafts at positions
+        positions0[b]..+K-1, context context0[b] + K - 1, each token's
+        page written before attention reads it), then position s of
+        every row shaped and sampled as step s of a plain burst would be:
+        bias, min_tokens EOS/stop masking, the mask term, and the key
+        ``make_rng_keys(seed, 0, seed_base + s)``. Penalty rows never get
+        here, so no token counts. A padding row is token 0 at positions
+        0.., context K, slots -1, an all-zero table. Returns the readback
+        of (sampled, logprob, top logprobs, top ids), each [B, K, ...]."""
+        cfg = self.config
+        dev = self.device
+        B = cfg.max_num_seqs
+
+        def t(x):
+            return to_device(torch.from_numpy(x), dev)
+
+        positions = positions0[:, None] + np.arange(K)[None, :]
+        logits, _ = self._apply(
+            self.params, self.model_config, t(tokens), t(positions),
+            self.kv, torch.from_numpy(slot_mat), t(block_table),
+            t(context0 + K - 1), t(np.full((B,), K, np.int64)),
+            mode="prefill_cached", adapter_ids=t(adapter_ids))
+        temp_t, top_k_t, top_p_t = t(temperature), t(top_k), t(top_p)
+        min_tok_t, out_len0_t = t(min_tok), t(out_len0)
+        mask_bits_t, mask_on_t = t(mask_bits), t(mask_on)
+        bias_ids, bias_vals = self._bias_rows(biases)
+        stop_ids, stop_valid = self._stop_rows(stops)
+        keys = make_rng_keys(
+            cfg.seed, 0, t(seed_base[:, None] + np.arange(K)[None, :]))
+        noise = prng.gumbel(keys, min(cfg.max_top_k,
+                                      self.model_config.vocab_size))
+        outs = []
+        for s in range(K):
+            shaped = shape_logits(
+                logits[:, s], bias_ids=bias_ids, bias_vals=bias_vals,
+                suppress=(out_len0_t + s) < min_tok_t, stop_ids=stop_ids,
+                stop_valid=stop_valid, eos_id=self._eos_id)
+            shaped = apply_fsm_mask(shaped, mask_bits_t[:, s],
+                                    mask_on_t[:, s])
+            sampled = sample_with_gumbel(shaped, noise[:, s], temp_t,
+                                         top_k_t, top_p_t,
+                                         max_top_k=cfg.max_top_k)
+            outs.append((sampled,) + logprob_outputs(shaped, sampled))
+        return _Readback(tuple(torch.stack(x, dim=1) for x in zip(*outs)))
+
+    def _flush_spec_burst(self, pending, sampled, lps, top_lps,
+                          top_ids) -> None:
+        """Emit a verify burst: accept the longest draft prefix that
+        matches plain decode's samples, then emit the SAMPLES (the
+        accepted drafts are those samples; the first mismatch is the
+        corrected token, so every row moves by one at least). Roll back
+        the pages appended for rejected positions, in the target's pool
+        and the drafter's, and feed each request's adaptive latch."""
+        cfg = self.config
+        emitted_seqs = []
+        rollbacks = []
+        draft_rollbacks = []
+        for seq in pending["active"]:
+            r = seq.req
+            allow = pending["allows"].get(r.request_id, 1)
+            draft = pending["drafts"].get(r.request_id, [])
+            if self.scheduler.slots[seq.slot] is not seq:
+                # Finished, aborted or preempted between launch and flush:
+                # its pages went wholesale.
+                continue
+            j = accepted_prefix_len(draft, sampled[seq.slot])
+            want_lp = r.sampling.logprobs
+            emitted = 0
+            for s in range(j + 1):
+                if self.scheduler.slots[seq.slot] is not seq:
+                    break  # finished mid-burst (EOS, stop, max_tokens)
+                lp = None
+                if want_lp is not None:
+                    k = min(want_lp, top_lps.shape[2])
+                    lp = {"logprob": float(lps[seq.slot, s]),
+                          "top": [(int(top_ids[seq.slot, s, jj]),
+                                   float(top_lps[seq.slot, s, jj]))
+                                  for jj in range(k)]}
+                self._emit_token(seq, int(sampled[seq.slot, s]), lp)
+                emitted += 1
+            r.scheduled_steps += emitted
+            self.generation_tokens_total += emitted
+            self.spec_proposed_tokens_total += len(draft)
+            self.spec_accepted_tokens_total += j
+            source = r.spec.source if r.spec is not None else "ngram"
+            self.spec_proposed_by_source[source] = (
+                self.spec_proposed_by_source.get(source, 0) + len(draft))
+            self.spec_accepted_by_source[source] = (
+                self.spec_accepted_by_source.get(source, 0) + j)
+            if r.spec is not None and r.spec.judge(
+                    len(draft), j, cfg.speculative_accept_window,
+                    cfg.speculative_accept_threshold):
+                self.spec_disabled_requests_total += 1
+            rollbacks.append((r.request_id, allow - emitted))
+            if self._draft is not None:
+                # The drafter fed len(draft) - 1 drafts past the pre-burst
+                # length; keep the accepted ones (all fed drafts when the
+                # whole draft landed).
+                n_before = len(r.all_token_ids) - emitted
+                draft_rollbacks.append(
+                    (r.request_id,
+                     n_before + min(j, max(len(draft) - 1, 0))))
+            if emitted and self.scheduler.slots[seq.slot] is seq:
+                emitted_seqs.append(seq)
+        with self._lock:
+            for rid, n in rollbacks:
+                # Stale device pages past the accepted tail stay: every
+                # later step writes its own position before attention
+                # reads it.
+                self.kv_mgr.rollback_tokens(rid, n)
+            for rid, keep in draft_rollbacks:
+                self._draft.truncate(rid, keep)
+            for seq in emitted_seqs:
+                self.kv_mgr.register_decode_blocks(
+                    seq.req.request_id, seq.req.all_token_ids)
 
     # -- per-request sampling inputs ---------------------------------------
     def _bias_rows(self, biases):

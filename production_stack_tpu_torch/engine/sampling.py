@@ -12,7 +12,10 @@ stop ids, presence/frequency penalties). Greedy rows take the argmax;
 sampled rows draw ``categorical`` over the temperature-scaled top-k/top-p
 candidates under a threefry key per row (``engine/prng.py``), the key
 the JAX engine derives with ``make_rng_keys``, so a seeded request
-samples the JAX engine's tokens.
+samples the JAX engine's tokens. Speculative decoding adds the verify's
+acceptance rule (``accepted_prefix_len``) and the packed FSM mask term
+(``apply_fsm_mask``) that the verify and the drafter carry; its rows are
+all off until structured output is ported.
 """
 
 from __future__ import annotations
@@ -207,6 +210,48 @@ def logprob_outputs(logits: torch.Tensor, sampled: torch.Tensor,
     chosen = torch.gather(lp, 1, sampled[:, None].long())[:, 0]
     top_lp, top_ids = torch.topk(lp, k, dim=-1)
     return chosen, top_lp, top_ids
+
+
+# Structured-output FSM mask: finite large-negative (like the stop-id term)
+# so temperature scaling cannot make NaNs the way -inf can.
+FSM_MASK_NEG = -1e30
+
+
+def mask_row_bytes(vocab_size: int) -> int:
+    """Bytes of one packed FSM mask row: a bit a token."""
+    return (vocab_size + 7) // 8
+
+
+def apply_fsm_mask(logits: torch.Tensor,  # [B, V]
+                   mask_bits: torch.Tensor,  # [B, ceil(V/8)] uint8
+                   mask_on: torch.Tensor,  # [B] bool
+                   ) -> torch.Tensor:
+    """The dense packed-bitmask grammar term of the serving programs: bit
+    ``v`` of row ``b`` (little bit order, ``numpy.packbits(...,
+    bitorder="little")``) allows token ``v``; rows with ``mask_on`` false
+    pass through unchanged. Disallowed tokens get ``FSM_MASK_NEG``."""
+    V = logits.shape[-1]
+    B, MB = mask_bits.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask_bits.device)
+    bits = (mask_bits[:, :, None] >> shifts[None, None, :]) & 1
+    bits = bits.reshape(B, MB * 8)[:, :V]
+    allowed = (bits != 0) | ~mask_on[:, None]
+    return torch.where(allowed, logits,
+                       torch.full_like(logits, FSM_MASK_NEG))
+
+
+def accepted_prefix_len(draft, sampled_row) -> int:
+    """Speculative-verify acceptance: how many draft tokens equal, in
+    order from the first, what the verify sampled at their positions
+    (under plain decode's keys and shaping). The caller emits
+    ``sampled_row[:j + 1]``: the ``j`` accepted drafts and the sample at
+    the first mismatch."""
+    j = 0
+    for d in draft:
+        if int(sampled_row[j]) != int(d):
+            break
+        j += 1
+    return j
 
 
 def shape_logits(

@@ -12,7 +12,8 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
   ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``,
   ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype`` and,
-  with the step recorder on, the JAX server's ``tpu:step_*`` series and
+  the JAX server's ``tpu:spec_*`` series (speculative decoding) and,
+  with the step recorder on, its ``tpu:step_*`` series and
   ``tpu:model_bandwidth_utilization``;
 - ``GET /debug/steps`` (step recorder on): newest-first step records
   under the recorder's summary; filters ``?limit=50`` and
@@ -24,7 +25,9 @@ A request that fails inside the engine finishes with ``finish_reason:
     python -m production_stack_tpu_torch.engine.server <model> --port N \\
         [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8] \\
         [--prefill-batch 4] [--enable-chunked-prefill] \\
-        [--max-num-batched-tokens N] [--no-step-recorder]
+        [--max-num-batched-tokens N] [--no-step-recorder] \\
+        [--speculative-num-tokens 4 [--speculative-ngram-size 3] \\
+         [--speculative-draft-model M --speculative-draft-probation 64]]
 """
 
 from __future__ import annotations
@@ -248,6 +251,31 @@ class EngineServer:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
             lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
+        # Speculative decoding, as the JAX server exports it: proposed and
+        # accepted draft tokens by proposer (both label values always
+        # present), the acceptance rate, latched-off requests, verify
+        # bursts and the drafter's own forwards (not target forwards).
+        proposed = s["spec_proposed_tokens_total"]
+        rate = (s["spec_accepted_tokens_total"] / proposed
+                if proposed else 0.0)
+        for family, key in (("tpu:spec_proposed_tokens",
+                             "spec_proposed_by_source"),
+                            ("tpu:spec_accepted_tokens",
+                             "spec_accepted_by_source")):
+            lines.append(f"# TYPE {family} counter")
+            for source in ("ngram", "draft_model"):
+                lines.append(f'{family}_total{{{labels},source="{source}"}} '
+                             f"{s[key].get(source, 0)}")
+        lines += ["# TYPE tpu:spec_acceptance_rate gauge",
+                  f"tpu:spec_acceptance_rate{{{labels}}} {rate:.6f}"]
+        for family, key in (
+                ("tpu:spec_disabled_requests",
+                 "spec_disabled_requests_total"),
+                ("tpu:spec_verify_bursts", "spec_verify_bursts_total"),
+                ("tpu:spec_draft_forward_steps",
+                 "spec_draft_forward_steps_total")):
+            lines += [f"# TYPE {family} counter",
+                      f"{family}_total{{{labels}}} {s[key]}"]
         rec = self.core.step_recorder
         if rec is not None:
             # Step flight recorder, as the JAX server exports it: every
@@ -517,6 +545,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="batch up to N queued long-prompt prefills into "
                         "one dispatch during an arrival storm (1 "
                         "disables)")
+    p.add_argument("--speculative-num-tokens", type=int, default=0,
+                   help="speculative decoding: verify up to this many "
+                        "tokens per forward pass; 0 disables. Drafts come "
+                        "from the draft model when "
+                        "--speculative-draft-model is set, otherwise from "
+                        "prompt lookup (an n-gram index over each "
+                        "request's own prompt+output)")
+    p.add_argument("--speculative-ngram-size", type=int, default=3,
+                   help="n-gram length matched by the prompt-lookup "
+                        "draft index (ignored when a draft model is "
+                        "configured)")
+    p.add_argument("--speculative-draft-model", default=None,
+                   help="zoo model that drafts for the target (same "
+                        "vocab; e.g. tpu-llama-1b drafting for "
+                        "Llama-3-8B), with its own weights and page pool "
+                        "in the model dtype on the same device; replaces "
+                        "the prompt-lookup proposer")
+    p.add_argument("--speculative-draft-probation", type=int, default=64,
+                   help="plain bursts after which a request whose "
+                        "draft-model speculation was adaptively latched "
+                        "off retries drafting (0 = latch is permanent, "
+                        "as prompt-lookup latches always are)")
     p.add_argument("--no-step-recorder", dest="step_recorder",
                    action="store_false", default=True,
                    help="disable the per-step flight recorder "
@@ -550,6 +600,10 @@ def config_from_args(args) -> EngineConfig:
         enable_chunked_prefill=args.enable_chunked_prefill,
         max_num_batched_tokens=args.max_num_batched_tokens,
         max_consecutive_prefills=args.max_consecutive_prefills,
+        speculative_num_tokens=args.speculative_num_tokens,
+        speculative_ngram_size=args.speculative_ngram_size,
+        speculative_draft_model=args.speculative_draft_model,
+        speculative_draft_probation=args.speculative_draft_probation,
         step_recorder=args.step_recorder,
         step_record_capacity=args.step_record_capacity,
         chat_template=args.chat_template,

@@ -4,9 +4,10 @@
 ``jax.tree.map(np.asarray, params)`` (nested dicts of numpy arrays) and
 returns the same dict structure of torch tensors on ``device``, with the
 same leaf names, shapes and dtypes. Both models keep the ``[in, out]``
-weight orientation, so no leaf is transposed. The parity tests use it to
-make both packages compute with the same weights; this module imports
-nothing of JAX.
+weight orientation, so no leaf is transposed. ``draft_params_from_numpy``
+does the same for a JAX ``DraftModel``'s tree, at the drafter's model
+configuration. The parity tests use them to make both packages compute
+with the same weights; this module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.config import (
+    ModelConfig,
+    get_model_config,
+)
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -42,3 +46,15 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
         return tensor_from_numpy(node, device)
 
     return convert(tree)
+
+
+def draft_params_from_numpy(tree: Dict, engine_config, device) -> Dict:
+    """A JAX ``DraftModel``'s parameter tree (as numpy) as the port
+    drafter's dict: the model ``engine_config.speculative_draft_model``
+    at the engine's dtype, which has no LoRA slots."""
+    cfg = get_model_config(engine_config.speculative_draft_model)
+    if engine_config.dtype:
+        cfg = cfg.replace(dtype=engine_config.dtype)
+    if "lora" in tree:
+        raise ValueError("a draft model carries no LoRA slots")
+    return params_from_numpy(tree, cfg, device)

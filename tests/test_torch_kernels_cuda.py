@@ -239,6 +239,81 @@ def test_batched_prefill_rows_with_a_padding_row(cuda, H, KVH, D, int8):
     assert bool(torch.isfinite(got[3]).all())
 
 
+def _cached_rows(cuda, H, KVH, D, bs, MAXB, T, prefix, take, pad, seed,
+                 int8=False):
+    """Cached-prefill inputs of rows laid out as the engine builds them:
+    row b's ``take[b]`` tokens written at ``prefix[b]``.., its positions
+    ascending over the whole bucket ``T`` (the columns past the take
+    write no page), its total length ``prefix + take``; the rows in
+    ``pad`` are padding (positions 0, total 1, an all-zero table, no
+    writes)."""
+    rng = np.random.default_rng(seed)
+    B = len(prefix)
+    NB = B * MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=seed,
+                 int8=int8)
+    q = torch.randn((B, T, H, D), device=cuda, dtype=torch.bfloat16)
+    k_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    v_new = torch.randn((B, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    tables = rng.permutation(NB)[:B * MAXB].reshape(B, MAXB)
+    positions = np.asarray(prefix)[:, None] + np.arange(T)[None]
+    slots = np.full((B, T), -1, np.int64)
+    totals = np.asarray(prefix) + np.asarray(take)
+    for b in range(B):
+        if b in pad:
+            tables[b], positions[b], totals[b] = 0, 0, 1
+            continue
+        pos = positions[b, :take[b]]
+        slots[b, :take[b]] = tables[b, pos // bs] * bs + pos % bs
+    att.write_kv_pages(k, v, k_new, v_new, torch.from_numpy(slots), 1)
+    return (q, k, v, torch.from_numpy(tables.astype(np.int32)).to(cuda),
+            torch.from_numpy(positions).to(cuda),
+            torch.from_numpy(totals.astype(np.int32)).to(cuda), 1)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (6, 2, 64)])
+def test_spec_verify_rows(cuda, H, KVH, D, int8):
+    """The speculative verify at --speculative-num-tokens 4
+    (``core.py::_launch_verify``): 8 rows of 4 query tokens, six at the end
+    of 2,048-token contexts, one over a 5-token prefix and one padding row
+    as the verify builds it for a free slot. The live rows match the plain
+    version; the padding row is finite."""
+    T, bs, MAXB = 4, 64, 32
+    prefix = [2044] * 6 + [5, 0]
+    args = _cached_rows(cuda, H, KVH, D, bs, MAXB, T, prefix, [T] * 8,
+                        pad={7}, seed=3 * D + int8, int8=int8)
+    before = _launches(cached_prefill_attention, int8)
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(cached_prefill_attention, int8) == before + 1
+    assert_close(got[:7], want[:7])
+    assert bool(torch.isfinite(got[7]).all())
+
+
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (6, 2, 64)])
+def test_draft_catch_up_rows_with_padding(cuda, H, KVH, D):
+    """The drafter's catch-up (``core.py::_propose_draft_model``, phase A)
+    over its pages in the model dtype: [4, 64] rows, a whole prompt's
+    first 50 tokens, a steady-state row of 3 tokens past a 200-token
+    context, a padding row, and a full bucket over a 64-token prefix. The
+    live rows' real tokens match the plain version (the last of each is
+    the one the drafter samples from); the padding row is finite."""
+    T, bs, MAXB = 64, 16, 24
+    prefix, take = [0, 200, 0, 64], [50, 3, 0, 64]
+    args = _cached_rows(cuda, H, KVH, D, bs, MAXB, T, prefix, take,
+                        pad={2}, seed=5 * D)
+    before = cached_prefill_attention.launches
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert cached_prefill_attention.launches == before + 1
+    for b in (0, 1, 3):
+        assert_close(got[b, :take[b]], want[b, :take[b]])
+    assert bool(torch.isfinite(got[2]).all())
+
+
 def test_unsupported_shapes_raise_not_fall_back(cuda):
     k, v = _pool(cuda, torch.float32, 1, 4, 4, 2, 48, seed=0)
     q = torch.randn((1, 4, 48), device=cuda)
