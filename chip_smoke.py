@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # where a decode step's time goes
                                      # (bf16, then int8 KV + weights),
                                      # bursts read back serially and
-                                     # pipelined
+                                     # pipelined; then 8 structured rows:
+                                     # the mask term's device time
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -78,13 +79,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2,048-token contexts, both page encodings) to the plain version and
    times it beside SDPA (a ``{"verify_prefill": ...}`` line);
 9. tiny-llama and tpu-llama-1b at float32 on the card (the kernels' f32
-   mode): streams of both proposers, greedy, through preemption and
-   seeded sampled, equal to plain decode's token for token (a
-   ``{"spec_parity": ...}`` line).
+   mode): streams of both proposers, greedy, through preemption, seeded
+   sampled and under grammars, equal to plain decode's token for token,
+   the greedy self-drafter accepting every draft under a grammar (a
+   ``{"spec_parity": ...}`` line);
+10. structured output at full width (before the speculative phases):
+   Llama-3-8B in bf16, then with ``--kv-cache-dtype int8 --quantization
+   int8``, eight requests at once (a corpus ``guided_json`` schema, a
+   ``response_format`` ``json_schema``, ``guided_regex`` ``[ab]{3}``, an
+   enum schema on a ~2,000-token prompt, a grammar on a prompt that hits
+   the prefix cache, three unconstrained rows, two of them ~2,000-token
+   prompts): a finite language's text must fullmatch its grammar, an open
+   one's keep its automaton alive, and ``structured_violations_total``
+   must move by the length caps mid-structure only; a plain and a
+   structured request alone give the decode forwards a token costs each;
+   the mask's host seconds a state at the 128,256-token vocabulary and
+   its device time (``mask_costs``); in bf16 also a seeded ``n = 4``
+   completion (choice ``i`` equal to a single request under seed ``base
+   + i``, its streamed form carrying every index) and a chat with
+   ``tools`` (a ``{"structured": ...}`` line a run). The speculative runs
+   of phase 8 end with two grammar requests (the self-drafter's take
+   FSM-constrained draft steps: its ``[8, 32]`` rows with one live token
+   a row run the cached-prefill kernel, which the kernel phase holds to
+   the plain version at that shape over 2,048-token contexts, timed
+   beside the decode kernel, a ``{"draft_step_prefill": ...}`` line).
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
-page encoding, the cached prefill also at the verify's shape, each probe
-in each mode and page dtype), the card's
+page encoding, the cached prefill also at the verify's and the
+FSM-constrained draft step's shapes, each probe in each mode and page
+dtype), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a CUDA device or outside a checkout of the repo.
@@ -429,12 +452,21 @@ KERNELS = {"paged_attention": (run_decode, plain_decode),
            "cached_prefill_attention_int8": (run_prefill, plain_prefill),
            "cached_prefill_attention_verify": (run_prefill, plain_prefill),
            "cached_prefill_attention_verify_int8": (run_prefill,
-                                                    plain_prefill)}
+                                                    plain_prefill),
+           "cached_prefill_attention_draft_step": (run_prefill,
+                                                   plain_prefill),
+           "cached_prefill_attention_draft_step_int8": (run_prefill,
+                                                        plain_prefill)}
 
 # The speculative verify (``core.py::_launch_verify``) at
 # --speculative-num-tokens 4: every slot's last token and three drafts,
 # [8, 4] query rows at the end of 2,048-token contexts.
 VERIFY_K = 4
+# The drafter's FSM-constrained draft step (``core.py::_draft_constrained``):
+# [8, W0] rows at the smallest prefill bucket (EngineConfig's
+# min_prefill_bucket), one live token a row in column 0 at the end of its
+# context, the positions ascending over the whole row.
+DRAFT_STEP_W0 = 32
 
 
 def main_path_cases():
@@ -483,6 +515,14 @@ def main_path_cases():
              prefill_case(bf16, B, VERIFY_K, H, KVH, D, 2, bs,
                           ctx_len // bs, [ctx_len - VERIFY_K] * B,
                           [VERIFY_K] * B, seed=seed + 33, int8=int8), None),
+            # An FSM-constrained draft step of 8 slots: the live token is
+            # the 2,048th of its context, 31 padding columns after it.
+            (f"cached_prefill {enc} draft step 8x{DRAFT_STEP_W0}",
+             "cached_prefill_attention_draft_step" + suffix,
+             prefill_case(bf16, B, DRAFT_STEP_W0, H, KVH, D, 2, bs,
+                          2 * ctx_len // bs, [ctx_len - 1] * B, [1] * B,
+                          seed=seed + 34, int8=int8),
+             (slice(None), slice(0, 1))),
         ]
     return cases
 
@@ -640,30 +680,34 @@ def _time_prefill_batched(label, c):
         ops=4 * H * D * pairs)
 
 
-def _time_verify(label, c):
+def _time_verify(label, c, rows=None):
     """Device times (as :func:`_time_decode`) of kernel, plain version and
     library yardstick (one SDPA call over every row's gathered context,
-    causal with the rows' common offset) on the verify case, with the
-    bytes and operations its inputs need."""
+    each query seeing the keys up to its position; the rows share their
+    positions and context) on a short-rows case, the verify's or the
+    FSM-constrained draft step's (whose padding columns see the whole
+    context), with the bytes and operations its inputs need; ``rows``
+    are the output rows compared with the yardstick."""
     import torch
 
     from production_stack_tpu_torch.probes.timing import cuda_time_ms
 
     B, T, H, D = c["q"].shape
-    P = int(c["positions"][0, 0])
-    kg, vg = _gathered(c, P + T)
+    S = int(c["total_lens"][0])
+    pos = c["positions"][0]
+    kg, vg = _gathered(c, S)
     qs = (c["q"] * c["scale"]).to(c["q"].dtype).transpose(1, 2)
-    span = torch.arange(P + T, device="cuda")
-    mask = span[None, :] <= (P + torch.arange(T, device="cuda"))[:, None]
+    span = torch.arange(S, device="cuda")
+    mask = span[None, :] <= pos[:, None]
     check_close(f"{label} vs sdpa yardstick", run_prefill(c),
-                _sdpa(qs, kg, vg, mask).transpose(1, 2))
-    pairs = B * (T * P + T * (T + 1) // 2)
+                _sdpa(qs, kg, vg, mask).transpose(1, 2), rows)
+    pairs = B * int(torch.clamp(pos + 1, max=S).sum())
     return dict(
         ms=cuda_time_ms(lambda: run_prefill(c), iters=50),
         plain_ms=cuda_time_ms(lambda: plain_prefill(c), iters=10),
         library_ms=cuda_time_ms(lambda: _sdpa(qs, kg, vg, mask), iters=50),
         bytes=(2 * B * T * H * D * c["q"].element_size()
-               + B * (P + T) * _page_bytes_per_token(c)
+               + B * S * _page_bytes_per_token(c)
                + c["block_tables"].numel() * 4 + B * T * 4 + B * 4),
         ops=4 * H * D * pairs)
 
@@ -717,7 +761,8 @@ def kernel_phase():
         if "batched" in label and not torch.isfinite(got[3]).all():
             raise AssertionError(f"{label}: the padding row is not finite")
         errs[name] = max(errs[name], err)
-        if "verify" in label and not err <= F32_BAR:
+        if ("verify" in label or "draft step" in label) and \
+                not err <= F32_BAR:
             raise AssertionError(f"{label}: max_abs_err {err:.3e} above "
                                  f"{F32_BAR}")
         cases[label] = c
@@ -782,6 +827,29 @@ def kernel_phase():
             f"{json.dumps(verify[enc])}")
     print(json.dumps({"verify_prefill": verify}), flush=True)
     results["cached_prefill_attention_verify"] = verify["bf16"]
+    # The FSM-constrained draft step, beside the decode kernel over the
+    # same contexts: the bf16 entry joins the kernels line (the
+    # self-drafting run's grammar rows launch it).
+    draft_step = {}
+    for enc in ("bf16", "int8"):
+        suffix = "_int8" if enc == "int8" else ""
+        name = "cached_prefill_attention_draft_step" + suffix
+        r = _time_verify(
+            f"cached_prefill {enc} draft step",
+            cases[f"cached_prefill {enc} draft step 8x{DRAFT_STEP_W0}"],
+            (slice(None), slice(0, 1)))
+        byte_ms = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        op_ms = r.pop("ops") / BF16_FLOPS * 1e3
+        draft_step[enc] = dict(r, max_abs_err=errs[name],
+                               bound_ms=max(byte_ms, op_ms),
+                               bound_by="bytes" if byte_ms >= op_ms
+                               else "operations",
+                               decode_ms=results["paged_attention"
+                                                 + suffix]["ms"])
+        log(f"[kernel] cached_prefill {enc} draft step 8x{DRAFT_STEP_W0}: "
+            f"{json.dumps(draft_step[enc])}")
+    print(json.dumps({"draft_step_prefill": draft_step}), flush=True)
+    results["cached_prefill_attention_draft_step"] = draft_step["bf16"]
     return results
 
 
@@ -1596,6 +1664,355 @@ def chunked_phase(entries):
     return {name: launches[name] for name in entries}, summary
 
 
+# -- structured output, n > 1 and tools ----------------------------------------
+
+# The grammars of the structured serve phase's eight concurrent requests:
+# (name, request fields, max_tokens, whether the language is finite). A
+# finite language (an enum, a bounded regex) must be fullmatched with
+# finish "stop"; an open one (free strings, integers) may end by length
+# mid-structure, which counts one violation, as in the JAX engine.
+WEATHER_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "description": "Current weather for a city",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string"}}, "required": ["city"]}}}
+
+
+def _grammar_requests():
+    from production_stack_tpu_torch.structured.corpus import (
+        case_request_fields,
+        load_corpus,
+    )
+
+    cases = {c["name"]: c for c in load_corpus()}
+    return [
+        ("guided_json schema-object-two-required", case_request_fields(
+            cases["schema-object-two-required"], "guided"), 48, False),
+        ("response_format schema-object-one-required", case_request_fields(
+            cases["schema-object-one-required"], "response_format"), 32,
+         False),
+        ("guided_regex [ab]{3}", {"guided_regex": "[ab]{3}"}, 16, True),
+        ("guided_json enum", {"guided_json": {
+            "enum": ["red", "green", "blue"]}}, 16, True),
+        ("guided_regex (yes|no|maybe), prefix hit",
+         {"guided_regex": "(yes|no|maybe)"}, 8, True),
+    ]
+
+
+def _grammar_check(name, fields, finite, out):
+    """(text, whether it counts a violation): the text must keep the
+    automaton alive; a finite language's must be a whole member ending
+    in "stop"; an open one's ending by length mid-structure counts a
+    violation (the engine's count is held to these)."""
+    from production_stack_tpu_torch.structured.api import (
+        compile_char_dfa,
+        parse_structured,
+    )
+
+    finish = _finish(name, out)
+    text = out["choices"][0]["text"]
+    dfa = compile_char_dfa(parse_structured(fields))
+    if dfa.walk(0, text) < 0:
+        raise AssertionError(f"{name}: {text!r} leaves its grammar")
+    whole = dfa.fullmatch(text)
+    if finite and not (whole and finish == "stop"):
+        raise AssertionError(f"{name}: {text!r} ({finish}) is not a whole "
+                             f"member of its finite language")
+    if finish == "stop" and not whole:
+        raise AssertionError(f"{name}: stopped mid-structure: {text!r}")
+    return text, finish == "length" and not whole
+
+
+def mask_costs(core, texts_by_fields) -> dict:
+    """The mask term's costs at the served vocabulary. Host: a fresh
+    ``TokenFSM`` over the engine's token table materialises the mask row
+    of every state each served text walks through (``mask_row``, timed
+    on the host clock; the engine does the same once per state and
+    schema). Device: ``apply_fsm_mask`` on ``[8, V]`` float32 logits
+    (a prefill's first token, a verify position), its unpacking alone
+    (once a decode burst) and the masking alone (each burst step)."""
+    import torch
+
+    from production_stack_tpu_torch.engine.sampling import (
+        apply_fsm_mask,
+        fsm_allowed,
+        mask_disallowed,
+    )
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+    from production_stack_tpu_torch.structured.api import (
+        compile_char_dfa,
+        parse_structured,
+    )
+    from production_stack_tpu_torch.structured.tokenfsm import (
+        TokenFSM,
+        mask_row_bytes,
+    )
+
+    V = core.model_config.vocab_size
+    table = core._structured_cache._token_table
+    eos = core.tokenizer.eos_token_id
+    per_request, seconds = [], []
+    for fields, text in texts_by_fields:
+        fsm = TokenFSM(compile_char_dfa(parse_structured(fields)), table,
+                       eos, V)
+        state, states = fsm.start, {fsm.start}
+        for byte in text.encode("utf-8"):
+            state = fsm.advance(state, byte)
+            states.add(state)
+        for st in sorted(states):
+            t0 = time.perf_counter()
+            fsm.mask_row(st)
+            seconds.append(time.perf_counter() - t0)
+        per_request.append(len(states))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((8, V), generator=g, device="cuda")
+    rows = torch.randint(0, 256, (8, mask_row_bytes(V)), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    on = torch.ones((8,), dtype=torch.bool, device="cuda")
+    allowed = fsm_allowed(rows, on, V)
+    return {
+        "vocab": V, "row_bytes": mask_row_bytes(V),
+        "host_states_per_request": per_request,
+        "host_s_per_state_mean": sum(seconds) / len(seconds),
+        "host_s_per_state_max": max(seconds),
+        "host_s_total": sum(seconds),
+        "device_apply_ms": cuda_time_ms(
+            lambda: apply_fsm_mask(logits, rows, on), iters=50),
+        "device_unpack_ms": cuda_time_ms(
+            lambda: fsm_allowed(rows, on, V), iters=50),
+        "device_mask_ms": cuda_time_ms(
+            lambda: mask_disallowed(logits, allowed), iters=50)}
+
+
+def _sse_choices(client, path, body):
+    """A streamed response's chunks: [(index, delta or text, finish)]."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        client.base + path, data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    chunks = []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            c = json.loads(line[6:])["choices"][0]
+            piece = c.get("text")
+            if piece is None:
+                piece = c.get("delta", {}).get("content") or ""
+            chunks.append((c["index"], piece, c.get("finish_reason")))
+    return chunks
+
+
+def surface_drive(client) -> dict:
+    """``n = 4`` and ``tools`` through the server: the seeded ``n = 4``
+    completion has four choices, choice ``i`` the text of a single
+    request under seed ``base + i`` (the singles sent together, so that
+    they share a decode batch as the choices did; the prompt is shorter
+    than a page, so no run hits the prefix cache); its streamed form
+    carries every index; a chat with ``tools`` returns a well-formed
+    message (random weights emit no call)."""
+    import threading
+
+    base_seed = 500
+    body = {"prompt": _text(220, 40), "n": 4, "max_tokens": 16,
+            "temperature": 0.8, "seed": base_seed}
+    out = client.post("/v1/completions", body)
+    choices = out["choices"]
+    if [c["index"] for c in choices] != [0, 1, 2, 3]:
+        raise AssertionError(f"n=4: choices {choices}")
+    for c in choices:
+        if c["finish_reason"] not in ("stop", "length"):
+            raise AssertionError(f"n=4: finish {c['finish_reason']!r}")
+    singles = [None] * 4
+
+    def single(i):
+        singles[i] = client.post("/v1/completions", dict(
+            body, n=1, seed=base_seed + i))
+
+    threads = [threading.Thread(target=single, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    equal = [s is not None and s["choices"][0]["text"] == c["text"]
+             for s, c in zip(singles, choices)]
+    if not all(equal):
+        raise AssertionError(f"n=4: choices equal to single requests under "
+                             f"seed base + i: {equal}")
+    chunks = _sse_choices(client, "/v1/completions", body)
+    indices = sorted({i for i, _, _ in chunks})
+    finishes = [f for _, _, f in chunks if f]
+    if indices != [0, 1, 2, 3] or len(finishes) != 4:
+        raise AssertionError(f"n=4 streamed: indices {indices}, finishes "
+                             f"{finishes}")
+    tools = client.post("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "weather in Paris?"}],
+        "tools": [WEATHER_TOOL], "max_tokens": 16, "temperature": 0})
+    msg = tools["choices"][0]["message"]
+    finish = tools["choices"][0]["finish_reason"]
+    if msg.get("role") != "assistant" or finish not in (
+            "stop", "length", "tool_calls") or not (
+            isinstance(msg.get("content"), str) or msg.get("tool_calls")):
+        raise AssertionError(f"tools: malformed reply {tools['choices']}")
+    return {"n4_texts_equal_singles": equal,
+            "n4_usage": out["usage"], "n4_stream_indices": indices,
+            "tools_finish": finish,
+            "tools_prompt_tokens": tools["usage"]["prompt_tokens"],
+            "tools_calls": len(msg.get("tool_calls") or [])}
+
+
+def structured_phase(label: str, extra_args, entries, surface: bool):
+    """Serve Llama-3-8B (``SERVE_ARGS`` plus ``extra_args``) and send
+    eight requests at once: the grammars of :func:`_grammar_requests`
+    (one on a prompt that hits the prefix cache, the enum on a
+    ~2,000-token prompt) beside three unconstrained ones (two more
+    ~2,000-token prompts, so that the long prompts may arrive as a
+    storm); then a plain and a structured request alone each, for the
+    decode forwards a generated token costs each (a structured row uses
+    one step of each burst); with ``surface``, :func:`surface_drive`.
+    Counters as in :func:`serve_phase`. Every grammar is held by
+    :func:`_grammar_check`, and the engine's violation count to the
+    texts'. Returns (launch counts by kernel entry, summary)."""
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    grammars = _grammar_requests()
+    warm = _text(96, 1100)
+    t0 = time.time()
+    httpd, core = build_server(SERVE_ARGS + list(extra_args))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    try:
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": warm, "max_tokens": 9, "temperature": 0}))
+        base = core.stats()
+        counters = _counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t_run = time.time()
+        prompts = [_text(200, 300), _text(201, 300), _text(202, 100),
+                   _text(203, 2000), warm + _text(204, 200),
+                   _text(205, 2000), _text(206, 1800), _text(207, 200)]
+        bodies = [dict(fields, prompt=prompts[i], max_tokens=mt,
+                       temperature=0)
+                  for i, (_n, fields, mt, _f) in enumerate(grammars)]
+        bodies += [{"prompt": prompts[5], "max_tokens": 16,
+                    "temperature": 0},
+                   {"prompt": prompts[6], "max_tokens": 16,
+                    "temperature": 0},
+                   {"prompt": prompts[7], "max_tokens": 64,
+                    "temperature": 0.8, "seed": 9}]
+        outs = [None] * len(bodies)
+
+        def run(i):
+            outs[i] = client.post("/v1/completions", bodies[i])
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        for i, out in enumerate(outs):
+            if out is None:
+                raise AssertionError(f"structured request {i} got no reply")
+        checked = [_grammar_check(name, fields, finite, outs[i])
+                   for i, (name, fields, _mt, finite) in enumerate(grammars)]
+        for i in range(len(grammars), len(bodies)):
+            _finish(f"unconstrained {i}", outs[i])
+        mid = core.stats()
+        # The decode forwards a token costs, plain and structured, each
+        # request alone (32 tokens; the grammar's 32nd is EOS).
+        alone = {}
+        for kind, body in (
+                ("plain", {"prompt": _text(210, 40), "max_tokens": 32,
+                           "temperature": 0, "ignore_eos": True}),
+                ("structured", {"prompt": _text(210, 40), "max_tokens": 40,
+                                "temperature": 0,
+                                "guided_regex": "[a-z ]{31}"})):
+            before = core.stats()
+            t_req = time.perf_counter()
+            out = client.post("/v1/completions", body)
+            wall = time.perf_counter() - t_req
+            _finish(kind, out)
+            after = core.stats()
+            gen = (after["generation_tokens_total"]
+                   - before["generation_tokens_total"])
+            fwd = (after["decode_forward_steps_total"]
+                   - before["decode_forward_steps_total"])
+            # The engine counts the decode bursts' tokens (the first token
+            # comes from the prefill).
+            alone[kind] = {"decode_tokens": gen, "decode_forwards": fwd,
+                           "decode_forwards_per_token": fwd / max(gen, 1),
+                           "request_s": wall}
+        if alone["structured"]["decode_tokens"] != 31:
+            raise AssertionError(f"the structured request alone decoded "
+                                 f"{alone['structured']['decode_tokens']} "
+                                 f"tokens")
+        surface = surface_drive(client) if surface else None
+        metrics = client.get("/metrics")
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        now = core.stats()
+        costs = mask_costs(core, [(fields, text) for (_n, fields, _m, _f),
+                                  (text, _v) in zip(grammars, checked)])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    d = {k: mid[k] - base[k] for k in (
+        "structured_requests_total", "structured_violations_total",
+        "structured_mask_states_total", "structured_compile_seconds_total",
+        "prefix_cache_hits", "prefill_batched_dispatch_total",
+        "prefill_group_count", "decode_forward_steps_total",
+        "generation_tokens_total")}
+    want_violations = sum(v for _t, v in checked)
+    if d["structured_requests_total"] != len(grammars):
+        raise AssertionError(f"structured requests {d}")
+    if d["structured_violations_total"] != want_violations:
+        raise AssertionError(
+            f"structured_violations_total moved by "
+            f"{d['structured_violations_total']}, the texts show "
+            f"{want_violations} (length caps mid-structure)")
+    if d["prefix_cache_hits"] <= 0:
+        raise AssertionError("the prefix-hit grammar request hit no cache")
+    series = [line for line in metrics.splitlines()
+              if line.startswith("tpu:structured_")]
+    for family in ("requests", "compile_seconds", "mask_states",
+                   "violations"):
+        if not any(line.startswith(f"tpu:structured_{family}_total{{")
+                   for line in series):
+            raise AssertionError(f"/metrics lacks tpu:structured_{family}")
+    for name, n in launches.items():
+        if name in entries and n <= 0:
+            raise AssertionError(f"{name} never launched on the structured "
+                                 f"{label} served path")
+        if name not in entries and n != 0:
+            raise AssertionError(f"{name} launched {n} times on the "
+                                 f"structured {label} served path")
+    summary = dict(
+        config=label, init_s=init_s, run_s=time.time() - t_run,
+        requests=len(bodies), **d,
+        structured_violations_from_length_caps=want_violations,
+        texts={name: (text[:48], out["choices"][0]["finish_reason"])
+               for (name, *_r), (text, _v), out in zip(
+                   grammars, checked, outs)},
+        alone=alone,
+        decode_forwards_per_token_structured_vs_plain=(
+            alone["structured"]["decode_forwards_per_token"]
+            / alone["plain"]["decode_forwards_per_token"]),
+        mask=costs, surface=surface, series=series,
+        launches={k: v for k, v in launches.items() if v})
+    return {name: launches[name] for name in entries}, summary
+
+
 # Speculative decoding at --speculative-num-tokens 4: prompt lookup, then
 # Llama-3-8B drafting for itself (the same seed gives the same weights).
 SPEC_ARGS = ["--speculative-num-tokens", "4"]
@@ -1655,15 +2072,73 @@ def _spec_drive(client, prompts, core):
             [o["choices"][0]["text"] for o in seeded])
 
 
+# Two grammar requests added to each speculative run, at once after its
+# drive: a finite language and a corpus schema (free strings).
+SPEC_GRAMMARS = (
+    ("guided_regex [a-z ]{24}", {"guided_regex": "[a-z ]{24}"}, 32, True),
+    ("guided_json schema-object-two-required", {"guided_json": {
+        "type": "object", "properties": {"name": {"type": "string"},
+                                         "age": {"type": "integer"}},
+        "required": ["name", "age"]}}, 64, False))
+
+
+def _spec_grammar_drive(client, core):
+    """The two ``SPEC_GRAMMARS`` requests at once (greedy, on a phrase
+    prompt of the drive), each held by :func:`_grammar_check`. Returns
+    (texts, the violations the texts show, the engine's stats before and
+    after, the drafter's FSM-constrained draft forwards in between)."""
+    import threading
+
+    constrained = [0]
+    wrapped = core._draft_constrained
+
+    def counted(info, drafts, steps_max, W0):
+        before = core.spec_draft_forward_steps_total
+        wrapped(info, drafts, steps_max, W0)
+        constrained[0] += core.spec_draft_forward_steps_total - before
+
+    core._draft_constrained = counted
+    before = core.stats()
+    outs = [None] * len(SPEC_GRAMMARS)
+
+    def run(i):
+        _name, fields, max_tokens, _finite = SPEC_GRAMMARS[i]
+        outs[i] = client.post("/v1/completions", dict(
+            fields, prompt=SPEC_PHRASES[i] * 8, max_tokens=max_tokens,
+            temperature=0))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(SPEC_GRAMMARS))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    try:
+        checked = []
+        for i, (name, fields, _mt, finite) in enumerate(SPEC_GRAMMARS):
+            if outs[i] is None:
+                raise AssertionError(f"spec grammar request {i} got no "
+                                     f"reply")
+            checked.append(_grammar_check(name, fields, finite, outs[i]))
+    finally:
+        core._draft_constrained = wrapped
+    return ([t for t, _v in checked], sum(v for _t, v in checked), before,
+            core.stats(), constrained[0])
+
+
 def spec_phase(smi):
     """Serve Llama-3-8B in bf16 three times on the same requests
     (:func:`_spec_drive`): plain, then with prompt-lookup speculation,
     then drafting for itself. Counters as in :func:`serve_phase`, around
-    each speculative drive. Prints a ``{"spec": ...}`` line a run and
-    returns the launch counts of the two speculative runs summed, by
-    kernel entry. Fails when a speculative run has no verify burst, a
-    request errors, the self-drafter's acceptance is below
-    ``SELF_DRAFT_ACCEPTANCE`` or a seeded pair gives two texts."""
+    each speculative drive, which ends with the two grammar requests of
+    :func:`_spec_grammar_drive`. Prints a ``{"spec": ...}`` line a run
+    and returns the launch counts of the two speculative runs summed and
+    of the self-drafting run, by kernel entry. Fails when a speculative
+    run has no verify burst, a request errors, the self-drafter's
+    acceptance is below ``SELF_DRAFT_ACCEPTANCE``, it ran no
+    FSM-constrained draft step, a grammar text is empty or leaves its
+    grammar, the violation count differs from the texts' or a seeded
+    pair gives two texts."""
     import threading
 
     import torch
@@ -1672,7 +2147,7 @@ def spec_phase(smi):
 
     prompts = _spec_prompts()
     plain_tpf = plain_greedy_tpf = plain_texts = None
-    total = {}
+    total, drafter = {}, {}
     # The plain run twice: greedy bf16 texts of random weights may part
     # between two runs of one engine (arrival order changes which prompts
     # share a batched prefill), which is what the speculative runs' text
@@ -1697,11 +2172,14 @@ def spec_phase(smi):
                 setattr(fn, attr, 0)
             t_run = time.time()
             texts, between, seeded = _spec_drive(client, prompts, core)
+            (g_texts, g_violations, g_before, g_after,
+             g_constrained) = _spec_grammar_drive(client, core)
             run_s = time.time() - t_run
             launches = {name: getattr(fn, attr)
                         for name, (fn, attr) in counters.items()}
             metrics = client.get("/metrics")
-            now = core.stats()
+            # The drive's own counts stop before the grammar requests.
+            now = g_before
             rec = core.step_recorder.kind_stats()["spec_verify"]
             layers = core.model_config.num_layers
         finally:
@@ -1727,13 +2205,35 @@ def spec_phase(smi):
                        - base["generation_tokens_total"])
                       / max(between["decode_forward_steps_total"]
                             - base["decode_forward_steps_total"], 1))
+        g = {k: g_after[k] - g_before[k] for k in (
+            "spec_proposed_tokens_total", "spec_accepted_tokens_total",
+            "spec_verify_bursts_total", "spec_draft_forward_steps_total",
+            "structured_violations_total", "generation_tokens_total",
+            "decode_forward_steps_total")}
+        if g["structured_violations_total"] != g_violations:
+            raise AssertionError(
+                f"spec {label}: structured_violations_total moved by "
+                f"{g['structured_violations_total']}, the grammar texts "
+                f"show {g_violations} (length caps mid-structure)")
+        if not all(g_texts):
+            raise AssertionError(f"spec {label}: an empty grammar text")
+        grammar = dict(
+            g, texts=[t[:48] for t in g_texts],
+            violations_from_length_caps=g_violations,
+            acceptance=(g["spec_accepted_tokens_total"]
+                        / g["spec_proposed_tokens_total"]
+                        if g["spec_proposed_tokens_total"] else None),
+            constrained_draft_forwards=g_constrained)
         summary = dict(
             config=f"bf16, {label}", card=smi, init_s=init_s, run_s=run_s,
-            requests=len(prompts) + 2, **d, **by_source,
+            requests=len(prompts) + 2 + len(SPEC_GRAMMARS), **d, **by_source,
+            grammar=grammar,
             tokens_per_target_forward=tpf,
             greedy_tokens_per_target_forward=greedy_tpf,
             launches={k: v for k, v in launches.items() if v},
-            verify_launches=d["spec_verify_bursts_total"] * layers,
+            # Every verify of the run, the grammar requests' included.
+            verify_launches=(d["spec_verify_bursts_total"]
+                             + g["spec_verify_bursts_total"]) * layers,
             sample_text=texts[0][:40])
         if label == "plain":
             plain_tpf, plain_greedy_tpf, plain_texts = tpf, greedy_tpf, texts
@@ -1772,12 +2272,12 @@ def spec_phase(smi):
                                      f"{missing}")
             if d["spec_verify_bursts_total"] <= 0:
                 raise AssertionError(f"spec {label}: no verify burst ran")
-            if summary["recorder_spec_verify"]["count"] != \
-                    d["spec_verify_bursts_total"]:
+            n_verify = (d["spec_verify_bursts_total"]
+                        + g["spec_verify_bursts_total"])
+            if summary["recorder_spec_verify"]["count"] != n_verify:
                 raise AssertionError(f"spec {label}: the recorder kept "
                                      f"{summary['recorder_spec_verify']} "
-                                     f"for {d['spec_verify_bursts_total']} "
-                                     f"verify bursts")
+                                     f"for {n_verify} verify bursts")
             for name, n in launches.items():
                 on_path = name in ("paged_attention",
                                    "cached_prefill_attention")
@@ -1789,10 +2289,15 @@ def spec_phase(smi):
                                          f"the spec {label} served path")
                 if on_path:
                     total[name] = total.get(name, 0) + n
+            if label == "self-drafter":
+                drafter = launches
             if launches["cached_prefill_attention"] < summary[
                     "verify_launches"]:
                 raise AssertionError(f"spec {label}: fewer cached-prefill "
                                      f"launches than verify layers")
+            if label == "self-drafter" and g_constrained <= 0:
+                raise AssertionError("spec self-drafter: no FSM-constrained "
+                                     "draft step ran")
             if label == "self-drafter" and (
                     summary["acceptance"] < SELF_DRAFT_ACCEPTANCE):
                 raise AssertionError(
@@ -1802,7 +2307,7 @@ def spec_phase(smi):
         log(f"[spec] {json.dumps(summary)}")
         print(json.dumps({"spec": summary}), flush=True)
     _free_device_memory()
-    return total
+    return total, drafter
 
 
 # The card's float32 check of the whole speculative path: each model's
@@ -1828,6 +2333,7 @@ def spec_parity_phase(smi):
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.core import EngineCore
     from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.structured.api import parse_structured
 
     def greedy(n):
         return SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True)
@@ -1836,6 +2342,10 @@ def spec_parity_phase(smi):
         return SamplingParams(max_tokens=24, temperature=0.8, seed=seed,
                               ignore_eos=True,
                               logit_bias={t: 100.0 for t in bias})
+
+    def guided(n, **fields):
+        return SamplingParams(max_tokens=n, temperature=0.0,
+                              structured=parse_structured(fields))
 
     scenarios = {
         "greedy": ({}, [([5, 6, 7, 8] * 6, greedy(24)),
@@ -1846,6 +2356,15 @@ def spec_parity_phase(smi):
                      ([9, 10, 11, 12] * 12, greedy(60))]),
         "sampled": ({}, [([5, 6] * 10, sampled(11, (5, 6))),
                          ([7, 8, 9] * 6, sampled(12, (7, 8)))]),
+        # Grammar rows: every sampling site masked, the self-drafter's
+        # FSM-constrained draft steps on the cached-prefill kernel.
+        "structured": ({}, [
+            ([5, 6, 7, 8] * 6, guided(16, guided_json={
+                "type": "object", "properties": {"n": {"type": "integer"}},
+                "required": ["n"]})),
+            ([31, 7, 2, 19, 44, 3, 28, 11],
+             guided(16, guided_regex="[ab]{3}")),
+            (list(b"abababab ab ab"), guided(24, guided_regex="(ab)+c"))]),
     }
 
     def run(model, over, reqs):
@@ -1888,14 +2407,32 @@ def spec_parity_phase(smi):
                     raise AssertionError(
                         f"spec parity {case}: streams differ from plain "
                         f"decode on the card: {got} vs {want}")
-                if stats["spec_verify_bursts_total"] <= 0:
+                # Prompt lookup rarely finds a draft for every grammar
+                # row at once (their random-weight tokens seldom repeat);
+                # the self-drafter always drafts.
+                if stats["spec_verify_bursts_total"] <= 0 and not (
+                        name == "structured" and label == "ngram"):
                     raise AssertionError(f"spec parity {case}: no verify "
                                          f"burst")
                 report[case] = {
                     k: stats[k] for k in ("spec_verify_bursts_total",
                                           "spec_proposed_tokens_total",
                                           "spec_accepted_tokens_total",
-                                          "num_preempted_total")}
+                                          "num_preempted_total",
+                                          "structured_violations_total")}
+                if name == "structured":
+                    report[case]["streams_equal_plain"] = True
+                if name == "structured" and label == "self-drafter" and (
+                        stats["spec_accepted_tokens_total"]
+                        != stats["spec_proposed_tokens_total"]):
+                    # Greedy drafts under the target's own weights and
+                    # grammar: a constrained draft step that hid keys
+                    # from its live token on the card shows up here.
+                    raise AssertionError(
+                        f"spec parity {case}: the drafter's "
+                        f"{stats['spec_accepted_tokens_total']} of "
+                        f"{stats['spec_proposed_tokens_total']} drafts "
+                        f"accepted under a grammar")
                 if name == "greedy" and label == "self-drafter" and (
                         stats["spec_accepted_tokens_total"]
                         < 0.9 * stats["spec_proposed_tokens_total"]):
@@ -2028,6 +2565,127 @@ def profile_phase(extra_args=()) -> dict:
     }
 
 
+def profile_structured_phase() -> dict:
+    """The mask term in served decode bursts: Llama-3-8B bf16 with 8
+    sequences at ~1k context, each under a grammar that never closes
+    (``[a-z ]*``; EOS ignored), driven on this thread as in
+    :func:`profile_phase`. A structured row takes one token a burst and
+    reads each burst back before the next (the collapsed pipeline). The
+    step is timed five times over three bursts, then two bursts are
+    profiled with the mask term's two calls (``fsm_allowed`` once a
+    burst, ``mask_disallowed`` each step) under named ranges: the device
+    time of the kernels and copies each launches, a call and a step (a
+    range's own device span would count the card's waits between its
+    launches too), the device's busy time and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import production_stack_tpu_torch.engine.core as core_mod
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+    from production_stack_tpu_torch.engine.server import (
+        build_arg_parser,
+        config_from_args,
+    )
+    from production_stack_tpu_torch.structured.api import parse_structured
+
+    core = EngineCore(config_from_args(build_arg_parser().parse_args(
+        SERVE_ARGS)))
+    spec = parse_structured({"guided_regex": "[a-z ]*"})
+    for i in range(core.config.max_num_seqs):
+        core.add_request(
+            f"s{i}", core.tokenizer.encode(_text(100 + i, 1000)),
+            SamplingParams(temperature=0, max_tokens=800, ignore_eos=True,
+                           structured=spec),
+            lambda t, f: None)
+    K = core.config.decode_steps
+    names = ("fsm_allowed", "mask_disallowed")
+    originals = {n: getattr(core_mod, n) for n in names}
+
+    def named(n):
+        def call(*a, **k):
+            with record_function(n):
+                return originals[n](*a, **k)
+        return call
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    runs = []
+    with torch.inference_mode():
+        while True:
+            action, req = core.scheduler.next_action()
+            if action != "prefill":
+                break
+            core._do_prefill(req)
+        core._do_decode()
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                core._do_decode()
+            core._flush_pending_burst()
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0) / 3 / K)
+        for n in names:
+            setattr(core_mod, n, named(n))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    core._do_decode()
+                core._flush_pending_burst()
+                torch.cuda.synchronize()
+        finally:
+            for n in names:
+                setattr(core_mod, n, originals[n])
+    stats = core.stats()
+    core.stop()
+    # The device work under each range, by kernel (or copy) name.
+    breakdown = {n: {} for n in names}
+
+    calls = {n: 0 for n in names}
+
+    def collect(ev, into):
+        for k in getattr(ev, "kernels", []):
+            into[k.name[:100]] = into.get(k.name[:100], 0.0) + k.duration
+        for child in ev.cpu_children:
+            collect(child, into)
+
+    for ev in prof.events():
+        # The host-side range (the trace also holds its device-side span).
+        if ev.name in names and ev.device_type == DeviceType.CPU:
+            calls[ev.name] += 1
+            collect(ev, breakdown[ev.name])
+    events = prof.key_averages()
+    log(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(self_dev_us(e) for e in kernels) / 2 / 1e3 / K
+    if not all(calls.values()) or not all(breakdown.values()):
+        raise AssertionError(f"profile: the mask term's ranges {calls} "
+                             f"launched {breakdown}")
+    mask = {n: {"calls": calls[n],
+                "device_us_per_call": sum(breakdown[n].values()) / calls[n],
+                "device_ms_per_step": sum(breakdown[n].values()) / 1e3
+                / K / 2,
+                "kernels_us_per_call": {k: us / calls[n]
+                                        for k, us in breakdown[n].items()}}
+            for n in names}
+    return {
+        "config": "bf16, 8 structured rows ([a-z ]*)",
+        "rows": core.config.max_num_seqs, "steps_per_burst": K,
+        "ms_per_step": min(runs), "ms_per_step_runs": runs,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / min(runs)),
+        "mask_term": mask,
+        "mask_term_device_ms_per_step": sum(
+            m["device_ms_per_step"] for m in mask.values()),
+        "structured_violations_total": stats["structured_violations_total"],
+        "structured_mask_states_total": stats["structured_mask_states_total"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2058,6 +2716,9 @@ def main(argv=None) -> int:
             report = profile_phase(extra)
             print(json.dumps({"profile": report}), flush=True)
             _free_device_memory()
+        report = profile_structured_phase()
+        print(json.dumps({"profile_structured": report}), flush=True)
+        _free_device_memory()
         print(f"card: {smi}", flush=True)
         return 0
     t0 = time.time()
@@ -2113,13 +2774,32 @@ def main(argv=None) -> int:
     summary["card"] = smi
     log(f"[serve] {json.dumps(summary)}")
     print(json.dumps({"chunked": summary}), flush=True)
+    for label, extra, entries, surface in (
+            ("bf16", (), ("paged_attention", "cached_prefill_attention"),
+             True),
+            ("int8 KV + int8 weights", INT8_ARGS,
+             ("paged_attention_int8", "cached_prefill_attention_int8"),
+             False)):
+        _free_device_memory()
+        counts, summary = structured_phase(label, extra, entries, surface)
+        for name, n in counts.items():
+            launches[name] += n
+        summary["card"] = smi
+        log(f"[structured] {json.dumps(summary)}")
+        print(json.dumps({"structured": summary}), flush=True)
+        log(f"[time] {time.time() - t0:.0f} s through the structured "
+            f"{label} phase")
     log(f"[time] {time.time() - t0:.0f} s before the spec phases")
-    spec_counts = spec_phase(smi)
+    spec_counts, drafter_counts = spec_phase(smi)
     for name, n in spec_counts.items():
         launches[name] += n
     # The verify row counts the cached-prefill kernel's launches on the
-    # speculative runs (their verify, catch-up and prompt chunks).
+    # speculative runs (their verify, catch-up and prompt chunks); the
+    # draft-step row those of the self-drafting run, whose grammar rows
+    # take the FSM-constrained draft steps.
     launches["cached_prefill_attention_verify"] = spec_counts[
+        "cached_prefill_attention"]
+    launches["cached_prefill_attention_draft_step"] = drafter_counts[
         "cached_prefill_attention"]
     spec_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the spec phases")

@@ -44,9 +44,22 @@ decode's shaping and key, acceptance of the longest matching prefix, and
 rollback of the rejected positions' pages; the pipeline collapses while
 it is on, since drafts need the true last token.
 
+Structured output (``guided_json``, ``guided_regex``,
+``response_format``) is the JAX engine's: each request's spec compiles
+to a token FSM (``structured/``, cached by ``StructuredCache``), and its
+current automaton state's packed mask row joins the logit shaping at
+every sampling site: a prefill's first token, every step of a decode
+burst (one row a sequence, constant across the burst, so a structured
+row uses one step of it and collapses the pipeline), every position of
+the verify (walked through the draft) and the drafter's drafts (walked
+with a local cursor, one forward a draft step, under
+``speculative_draft_constrain``). The automaton advances at emission,
+where a token outside the grammar, or a finish mid-structure, counts a
+violation.
+
 Not here yet, and refused at construction when configured: the fused
-step, structured output, tensor/pipeline/data parallelism, multihost, KV
-offload and extract/inject, sleep, LoRA load/unload and embeddings.
+step, tensor/pipeline/data parallelism, multihost, KV offload and
+extract/inject, sleep, LoRA load/unload and embeddings.
 """
 
 from __future__ import annotations
@@ -70,9 +83,10 @@ from production_stack_tpu_torch.engine.sampling import (
     SamplingParams,
     accepted_prefix_len,
     apply_fsm_mask,
+    fsm_allowed,
     logprob_outputs,
     make_rng_keys,
-    mask_row_bytes,
+    mask_disallowed,
     sample_tokens,
     sample_with_gumbel,
     shape_logits,
@@ -87,6 +101,12 @@ from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
 from production_stack_tpu_torch.models import build_model, get_model_config
 from production_stack_tpu_torch.obs.steps import StepRecorder
 from production_stack_tpu_torch.ops.attention import to_device
+from production_stack_tpu_torch.structured.api import compile_char_dfa
+from production_stack_tpu_torch.structured.tokenfsm import (
+    FSMState,
+    StructuredCache,
+    mask_row_bytes,
+)
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -247,7 +267,13 @@ class EngineCore:
         self.spec_proposed_by_source = {"ngram": 0, "draft_model": 0}
         self.spec_accepted_by_source = {"ngram": 0, "draft_model": 0}
         self.spec_draft_forward_steps_total = 0
+        # Structured output: the compiled token-FSM cache (LRU) and the
+        # tpu:structured_* counters. Every mask row is as wide as the
+        # vocabulary's bits.
+        self._structured_cache = StructuredCache(config.structured_cache_size)
         self._mask_row_bytes = mask_row_bytes(mc.vocab_size)
+        self.structured_requests_total = 0
+        self.structured_violations_total = 0
 
         # Step flight recorder: the step functions stash ``_step_info``
         # only when it is on; _loop completes it with the step's wall time.
@@ -341,6 +367,18 @@ class EngineCore:
         priority: int = 0,
     ) -> None:
         adapter_id = self.lora_slots.get(adapter_name or "", 0)
+        structured = None
+        if sampling.structured is not None:
+            try:
+                structured = FSMState(
+                    self._structured_fsm(sampling.structured))
+            except Exception:  # noqa: BLE001 - the server compiles first
+                logger.exception(
+                    "Structured constraint failed to compile for %s",
+                    request_id)
+                on_token(None, "error")
+                return
+            self.structured_requests_total += 1
         req = EngineRequest(
             request_id=request_id,
             prompt_token_ids=list(prompt_token_ids),
@@ -350,10 +388,36 @@ class EngineCore:
             adapter_name=(adapter_name or "") if adapter_id else "",
             priority=priority,
             trace=trace,
+            structured=structured,
         )
         with self._lock:
             self.scheduler.add(req)
             self._lock.notify()
+
+    def _structured_fsm(self, spec):
+        """The compiled token FSM of a StructuredSpec, LRU-cached by
+        (spec hash, tokenizer key)."""
+        tok = self.tokenizer
+        tok_key = "%s-%d-%s" % (type(tok).__name__,
+                                self.model_config.vocab_size,
+                                self.config.model)
+        eos = getattr(tok, "eos_token_id", None)
+        return self._structured_cache.get(
+            spec.kind, spec.spec, tok, tok_key,
+            self.model_config.vocab_size,
+            int(eos) if eos is not None else None,
+            lambda: compile_char_dfa(spec))
+
+    def _fill_mask_row(self, mask_bits: np.ndarray, mask_on: np.ndarray,
+                       i: int, req: EngineRequest) -> None:
+        """Row ``i``'s FSM mask from the request's CURRENT automaton
+        state; unconstrained and dead-latched rows stay all off (their
+        logits pass through)."""
+        st = req.structured
+        if st is None or not st.masking:
+            return
+        mask_bits[i, :] = st.mask_row()
+        mask_on[i] = True
 
     def abort_request(self, request_id: str) -> bool:
         with self._lock:
@@ -421,6 +485,13 @@ class EngineCore:
                 self.spec_draft_forward_steps_total,
             "spec_disabled_requests_total": self.spec_disabled_requests_total,
             "spec_verify_bursts_total": self.spec_verify_bursts_total,
+            "structured_requests_total": self.structured_requests_total,
+            "structured_compile_seconds_total": round(
+                self._structured_cache.compile_seconds_total, 6),
+            "structured_mask_states_total":
+                self._structured_cache.mask_states_total,
+            "structured_violations_total": self.structured_violations_total,
+            "structured_cache_entries": len(self._structured_cache),
             "step_records_total": rec.recorded_total if rec else 0,
             "step_kind_stats": rec.kind_stats() if rec else {},
             "model_bandwidth_utilization": (
@@ -970,7 +1041,7 @@ class EngineCore:
             maxb *= 2
         maxb = min(maxb, self._prefill_batch_maxb())
 
-        a = _prefill_arrays(R, bucket, maxb)
+        a = _prefill_arrays(R, bucket, maxb, self._mask_row_bytes)
         for i, (req, tokens, block_ids, start, end) in enumerate(rows):
             self._fill_prefill_row(a, i, req, tokens, block_ids, start, end)
         self.prefill_batched_dispatch_total += 1
@@ -990,7 +1061,8 @@ class EngineCore:
         while maxb < blocks_needed:
             maxb *= 2
         maxb = min(maxb, cfg.max_blocks_per_seq)
-        a = _prefill_arrays(1, cfg.bucket_for(end - start), maxb)
+        a = _prefill_arrays(1, cfg.bucket_for(end - start), maxb,
+                            self._mask_row_bytes)
         self._fill_prefill_row(a, 0, req, tokens, block_ids, start, end)
         return self._prefill_forward(a, cached=start > 0)
 
@@ -1017,6 +1089,10 @@ class EngineCore:
         a["suppress"][i] = len(req.output_token_ids) < req.sampling.min_tokens
         a["bias"][i] = self._resume_bias(req)
         a["stops"][i] = req.sampling.stop_token_ids
+        # Only a prompt's final chunk samples a token that is read, with
+        # the automaton at the request's current state (a re-prefill after
+        # preemption included: emitted outputs advanced it already).
+        self._fill_mask_row(a["mask_bits"], a["mask_on"], i, req)
 
     def _prefill_forward(self, a: dict, cached: bool) -> "_Readback":
         """The prefill program: forward, logit shaping and sampling of each
@@ -1044,6 +1120,9 @@ class EngineCore:
             logits[:, 0], bias_ids=bias_ids, bias_vals=bias_vals,
             suppress=t(a["suppress"]), stop_ids=stop_ids,
             stop_valid=stop_valid, eos_id=self._eos_id)
+        if a["mask_on"].any():
+            shaped = apply_fsm_mask(shaped, t(a["mask_bits"]),
+                                    t(a["mask_on"]))
         steps = a["steps"]
         keys = make_rng_keys(self.config.seed, int(steps.max()),
                              t(a["seeds"] + steps))
@@ -1074,6 +1153,15 @@ class EngineCore:
             if plan:
                 self._do_decode_spec(plan)
                 return
+        # A structured row's mask comes from its CURRENT automaton state,
+        # which only the emitted tokens advance: it collapses the pipeline
+        # as speculation does (the burst in flight is read back first).
+        with self._lock:
+            has_structured = any(
+                s.req.structured is not None and s.req.structured.masking
+                for s in self.scheduler.running())
+        if has_structured:
+            self._flush_pending_burst()
         B = cfg.max_num_seqs
         K_max = max(cfg.decode_steps, 1)
         K = K_max
@@ -1092,6 +1180,11 @@ class EngineCore:
         # which may lag the burst in flight, so this over-schedules at most
         # one burst near the caps.
         def seq_allow(r: EngineRequest) -> int:
+            if r.structured is not None and r.structured.masking:
+                # The mask is constant across the burst: one usable step;
+                # the later ones would sample under a stale mask and are
+                # discarded at emission.
+                return 1
             return max(1, min(
                 K,
                 r.sampling.max_tokens - len(r.output_token_ids),
@@ -1150,6 +1243,8 @@ class EngineCore:
         min_tok = np.zeros((B,), np.int64)
         out_len0 = np.zeros((B,), np.int64)
         biases, stops = [None] * B, [None] * B
+        mask_bits = np.zeros((B, self._mask_row_bytes), np.uint8)
+        mask_on = np.zeros((B,), bool)
         reset_counts = np.zeros((B,), bool)
         with self._lock:
             for slot in self._counts_reset:
@@ -1189,13 +1284,14 @@ class EngineCore:
             out_len0[i] = r.scheduled_steps
             biases[i] = r.sampling.logit_bias
             stops[i] = r.sampling.stop_token_ids
+            self._fill_mask_row(mask_bits, mask_on, i, r)
             r.scheduled_steps += allow
 
         outs = self._launch_burst(
             K, prev is not None, reset_counts, tok_idx, host_tokens,
             use_host, positions0, slot_mat, block_table, context0,
             adapter_ids, temperature, top_k, top_p, seed_base, presence,
-            frequency, min_tok, out_len0, biases, stops)
+            frequency, min_tok, out_len0, biases, stops, mask_bits, mask_on)
         self.decode_forward_steps_total += K
         if self.step_recorder is not None:
             sched = sum(allows.get(s.req.request_id, 1) for s in active)
@@ -1217,12 +1313,14 @@ class EngineCore:
                       use_host, positions0, slot_mat, block_table, context0,
                       adapter_ids, temperature, top_k, top_p, seed_base,
                       presence, frequency, min_tok, out_len0, biases,
-                      stops) -> "_Readback":
+                      stops, mask_bits, mask_on) -> "_Readback":
         """The K-step decode program: each step's forward, logit shaping
-        and keyed sample, the sampled tokens fed back on the device. Its
-        [B, decode_steps] tokens (padded past K) stay on the device as the
-        next burst's feedback. Returns the readback of (sampled, logprob,
-        top logprobs, top ids), each [B, K, ...]."""
+        (penalties, bias, min_tokens EOS/stop masking, then the FSM mask
+        rows ``mask_bits [B, MB]`` / ``mask_on [B]``, the same at every
+        step) and keyed sample, the sampled tokens fed back on the
+        device. Its [B, decode_steps] tokens (padded past K) stay on the
+        device as the next burst's feedback. Returns the readback of
+        (sampled, logprob, top logprobs, top ids), each [B, K, ...]."""
         cfg = self.config
         dev = self.device
         B = cfg.max_num_seqs
@@ -1260,6 +1358,10 @@ class EngineCore:
             cfg.seed, 0, t(seed_base[:, None] + np.arange(K)[None, :]))
         noise = prng.gumbel(keys, min(cfg.max_top_k,
                                       self.model_config.vocab_size))
+        # The mask rows are constant across the burst: unpacked once.
+        allowed = (fsm_allowed(t(mask_bits), t(mask_on),
+                               self.model_config.vocab_size)
+                   if mask_on.any() else None)
         outs = []
         for s in range(K):
             step_slots = torch.from_numpy(slot_mat[:, s:s + 1])
@@ -1273,6 +1375,8 @@ class EngineCore:
                 suppress=(out_len0_t + s) < min_tok_t, stop_ids=stop_ids,
                 stop_valid=stop_valid, eos_id=self._eos_id, counts=counts,
                 presence_penalty=presence_t, frequency_penalty=frequency_t)
+            if allowed is not None:
+                shaped = mask_disallowed(shaped, allowed)
             sampled = sample_with_gumbel(shaped, noise[:, s], temp_t, top_k_t,
                                          top_p_t, max_top_k=cfg.max_top_k)
             outs.append((sampled,) + logprob_outputs(shaped, sampled))
@@ -1387,8 +1491,10 @@ class EngineCore:
         """Batched draft-model proposal. Phase A catches the drafter's
         pages up with every token it has not seen, in chunks at the
         catch-up buckets, and takes the greedy token at each row's
-        frontier as its first draft. Phase B extends every row to its
-        width in one greedy scan. Returns a plan for
+        frontier as its first draft (masked by a structured row's current
+        automaton state). Phase B extends every row to its width: in one
+        greedy scan when no row is masked, else a forward a draft step
+        (:meth:`_draft_constrained`). Returns a plan for
         :meth:`_do_decode_spec`, or None (the drafter's pool is out of
         pages) for a plain burst."""
         cfg = self.config
@@ -1407,13 +1513,16 @@ class EngineCore:
                 if not d.ensure_capacity(rid, n + allow - 2):
                     return None
                 start = min(d.computed.get(rid, 0), n - 1)
+                st = r.structured if cfg.speculative_draft_constrain else None
                 info.append({
                     "seq": seq, "rid": rid, "allow": allow, "n": n,
                     "start": start,
                     "feed": list(r.all_token_ids[start:]),
                     "table": np.asarray(d.block_table(rid), np.int64),
+                    "st": st if (st is not None and st.masking) else None,
                 })
-        maxW = d.buckets()[-1]
+        buckets = d.buckets()
+        maxW = buckets[-1]
 
         def page_slots(table, positions):
             return table[positions // bs] * bs + positions % bs
@@ -1454,7 +1563,13 @@ class EngineCore:
                 sl[b] = t
                 fed[i] += t
                 if lo + t == e["n"]:
+                    # This round gives the row's first draft: masked by
+                    # the request's CURRENT automaton state, the verify's
+                    # mask at position 0.
                     done_now.append(i)
+                    if e["st"] is not None and e["st"].state >= 0:
+                        mask_bits[b] = e["st"].mask_row()
+                        mask_on[b] = True
             toks = d.forward(tokens, positions, slot_map, tables, ctx, sl,
                              mask_bits, mask_on).cpu().numpy()
             self.spec_draft_forward_steps_total += 1
@@ -1463,7 +1578,8 @@ class EngineCore:
                 pending.discard(i)
 
         # -- phase B: extend to the full draft width ---------------------
-        if max(e["allow"] for e in info) - 2 >= 1:
+        steps_max = max(e["allow"] for e in info) - 2
+        if steps_max >= 1 and not any(e["st"] is not None for e in info):
             S = cfg.speculative_num_tokens - 2
             token0 = np.zeros((B,), np.int64)
             positions0 = np.zeros((B,), np.int64)
@@ -1487,6 +1603,8 @@ class EngineCore:
             for i, e in enumerate(info):
                 drafts[i].extend(
                     int(x) for x in toks[e["seq"].slot, :e["allow"] - 2])
+        elif steps_max >= 1:
+            self._draft_constrained(info, drafts, steps_max, buckets[0])
 
         plan = []
         with self._lock:
@@ -1497,6 +1615,62 @@ class EngineCore:
                 d.computed[e["rid"]] = e["n"] + len(dr) - 1
                 plan.append((e["seq"], dr))
         return plan
+
+    def _draft_constrained(self, info, drafts, steps_max: int,
+                           W0: int) -> None:
+        """FSM-constrained drafting (phase B with a masked row): one
+        drafter forward a draft step over ``[B, W0]`` rows whose column 0
+        is the live token, each masked row under a LOCAL automaton cursor
+        walked through its drafts as the verify walks them (the request's
+        own state moves only at emission); past the language the row
+        drafts unmasked. Positions ascend over the whole bucket (the JAX
+        engine leaves 0 past column 0): the cached-prefill kernel takes a
+        query tile's key range from its last row's position. Columns past
+        0 write no page and their outputs go unread. Appends to
+        ``drafts``."""
+        cfg = self.config
+        d = self._draft
+        B, bs, maxb = cfg.max_num_seqs, cfg.block_size, cfg.max_blocks_per_seq
+        cur = []
+        for i, e in enumerate(info):
+            c = e["st"].state if e["st"] is not None else -1
+            if c >= 0:
+                c = e["st"].fsm.advance(c, drafts[i][0])
+            cur.append(c)
+        for s in range(1, steps_max + 1):
+            live = [i for i, e in enumerate(info) if e["allow"] - 1 > s]
+            if not live:
+                break
+            tokens = np.zeros((B, W0), np.int64)
+            positions = np.zeros((B, W0), np.int64)
+            slot_map = np.full((B, W0), -1, np.int64)
+            tables = np.zeros((B, maxb), np.int32)
+            ctx = np.ones((B,), np.int64)
+            sl = np.ones((B,), np.int64)
+            mask_bits = np.zeros((B, self._mask_row_bytes), np.uint8)
+            mask_on = np.zeros((B,), bool)
+            for i in live:
+                e = info[i]
+                b = e["seq"].slot
+                p = e["n"] + s - 1
+                tokens[b, 0] = drafts[i][s - 1]
+                positions[b] = p + np.arange(W0)
+                slot_map[b, 0] = int(e["table"][p // bs]) * bs + p % bs
+                ctx[b] = p + 1
+                use = min(len(e["table"]), maxb)
+                tables[b, :use] = e["table"][:use]
+                if e["st"] is not None and cur[i] >= 0:
+                    mask_bits[b] = e["st"].fsm.mask_row(cur[i])
+                    mask_on[b] = True
+            toks = d.forward(tokens, positions, slot_map, tables, ctx, sl,
+                             mask_bits, mask_on).cpu().numpy()
+            self.spec_draft_forward_steps_total += 1
+            for i in live:
+                e = info[i]
+                tok = int(toks[e["seq"].slot])
+                drafts[i].append(tok)
+                if e["st"] is not None and cur[i] >= 0:
+                    cur[i] = e["st"].fsm.advance(cur[i], tok)
 
     def _do_decode_spec(self, plan) -> None:
         """Launch one verify burst: ONE forward scores each row's last
@@ -1578,6 +1752,21 @@ class EngineCore:
             out_len0[i] = r.scheduled_steps
             biases[i] = r.sampling.logit_bias
             stops[i] = r.sampling.stop_token_ids
+            st = r.structured
+            if st is not None and st.masking:
+                # Position s gets the mask plain decode would apply after
+                # emitting drafts 0..s-1. A draft that leaves the language
+                # at position t makes sampled[t] differ from it, so
+                # acceptance stops there and the positions past it are
+                # never emitted.
+                cur = st.state
+                for s in range(allow):
+                    if cur < 0:
+                        break
+                    mask_bits[i, s] = st.fsm.mask_row(cur)
+                    mask_on[i, s] = True
+                    if s < len(draft):
+                        cur = st.fsm.advance(cur, draft[s])
             # scheduled_steps advances at the flush, by the emitted count.
 
         outs = self._launch_verify(
@@ -1779,6 +1968,13 @@ class EngineCore:
         asked for logprobs, else the bare int."""
         req = seq.req
         req.output_token_ids.append(token)
+        if req.structured is not None and not req.structured.advance(token):
+            # The token left the grammar (the mask makes this unreachable):
+            # counted, and the request latches mask-off and finishes
+            # unconstrained.
+            self.structured_violations_total += 1
+            logger.warning("Structured request %s emitted token %d outside "
+                           "its grammar", req.request_id, token)
         if req.trace is not None:
             now = time.time()
             if not req.trace.first_token:
@@ -1800,6 +1996,11 @@ class EngineCore:
             finish = "length"
         req.on_token(token if lp is None else (token, lp), None)
         if finish is not None:
+            st = req.structured
+            if st is not None and not st.dead and not st.accepting:
+                # Finished (length cap, stop id) mid-structure: the stream
+                # is not a whole member of the grammar.
+                self.structured_violations_total += 1
             with self._lock:
                 self.scheduler.finish(seq, finish)
             self.requests_finished_total += 1
@@ -1828,10 +2029,11 @@ class _Readback:
         return [t.numpy() for t in self.host]
 
 
-def _prefill_arrays(R: int, bucket: int, maxb: int) -> dict:
+def _prefill_arrays(R: int, bucket: int, maxb: int, row_bytes: int) -> dict:
     """Host arrays of an R-row prefill dispatch, every row padding: token
     0 at positions 0, seq_len 0, context 1, an all-zero table, slot -1,
-    greedy, seed 0 and step 1 (the JAX engine's padding rows)."""
+    greedy, seed 0, step 1 and the FSM mask off (the JAX engine's padding
+    rows)."""
     return {
         "tokens": np.zeros((R, bucket), np.int64),
         "positions": np.zeros((R, bucket), np.int64),
@@ -1848,6 +2050,8 @@ def _prefill_arrays(R: int, bucket: int, maxb: int) -> dict:
         "suppress": np.zeros((R,), bool),
         "bias": [None] * R,
         "stops": [None] * R,
+        "mask_bits": np.zeros((R, row_bytes), np.uint8),
+        "mask_on": np.zeros((R,), bool),
     }
 
 

@@ -12,7 +12,9 @@ stay those of plain decode.
   bucket]`` rows at the full-width block table, the mask term, and the
   greedy next token of each row's last real position. It catches the
   drafter's pages up with the tokens it has not seen (the whole prompt
-  right after prefill, the last verified tokens in steady state).
+  right after prefill, the last verified tokens in steady state), and
+  takes the FSM-constrained draft steps of structured rows: ``[B, W0]``
+  rows at the smallest bucket with one live token each, masked.
 - :meth:`DraftModel.scan`: ``K - 2`` greedy decode steps, each sampled
   token fed back on the device, that extend the first draft token to the
   full draft width (only when ``speculative_num_tokens > 2``).
@@ -93,7 +95,10 @@ class DraftModel:
         positions, slot_mapping [B, W] (slot -1: no write), block_tables
         [B, MAXB], context_lens and seq_lens [B], the packed mask rows
         [B, MB] and their gates [B]. A padding row is token 0 at position
-        0, context 1, seq_len 1, slot -1, an all-zero table."""
+        0, context 1, seq_len 1, slot -1, an all-zero table. Every live
+        row's positions ascend over the whole bucket, past its seq_len
+        too: the cached-prefill kernel takes a query tile's key range from
+        the tile's last position."""
         seq_lens_t = self._t(seq_lens)
         logits, _ = self._apply(
             self.params, self.model_config, self._t(tokens),

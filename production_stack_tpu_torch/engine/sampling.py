@@ -1,10 +1,9 @@
 """Sampling: request parameters (host) and batched token selection (device).
 
-The host half is a copy of the JAX engine's: :class:`SamplingParams`,
-``_strict_int`` and the capacities baked into the serving programs.
-Structured-output specs (``guided_json``, ``guided_regex``,
-``response_format``) belong to a later slice and are refused as client
-errors here.
+The host half is a copy of the JAX engine's: :class:`SamplingParams`
+(structured-output specs parsed by the port's own
+``structured.parse_structured``), ``_strict_int`` and the capacities
+baked into the serving programs.
 
 The device half ports ``sample_tokens``, ``logprob_outputs`` and the logit
 shaping of the serving programs (logit_bias, min_tokens EOS masking,
@@ -13,9 +12,9 @@ sampled rows draw ``categorical`` over the temperature-scaled top-k/top-p
 candidates under a threefry key per row (``engine/prng.py``), the key
 the JAX engine derives with ``make_rng_keys``, so a seeded request
 samples the JAX engine's tokens. Speculative decoding adds the verify's
-acceptance rule (``accepted_prefix_len``) and the packed FSM mask term
-(``apply_fsm_mask``) that the verify and the drafter carry; its rows are
-all off until structured output is ported.
+acceptance rule (``accepted_prefix_len``); structured output adds the
+packed FSM mask term (``apply_fsm_mask``) that every sampling site
+applies after the rest of the shaping.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from typing import Optional
 import torch
 
 from production_stack_tpu_torch.engine import prng
+from production_stack_tpu_torch.structured.api import parse_structured
 
 
 def _strict_int(body: dict, key: str) -> Optional[int]:
@@ -36,19 +36,6 @@ def _strict_int(body: dict, key: str) -> Optional[int]:
     if isinstance(value, bool) or not isinstance(value, int):
         raise ValueError(f"'{key}' must be an integer")
     return value
-
-
-_STRUCTURED_KEYS = ("guided_json", "guided_regex", "guided_choice",
-                    "guided_grammar")
-
-
-def _reject_structured(body: dict) -> None:
-    fmt = body.get("response_format")
-    structured = any(body.get(k) is not None for k in _STRUCTURED_KEYS) or (
-        isinstance(fmt, dict) and fmt.get("type") not in (None, "text"))
-    if structured:
-        raise ValueError(
-            "structured output is not supported by this engine yet")
 
 
 @dataclasses.dataclass
@@ -75,7 +62,9 @@ class SamplingParams:
     logit_bias: Optional[dict] = None
     # Completions-only: prepend the prompt text to the output.
     echo: bool = False
-    # Structured output spec; always None in this engine (refused).
+    # Structured output: a StructuredSpec (guided_json / guided_regex /
+    # response_format), compiled by the engine to a token FSM whose mask
+    # joins the logit shaping at every sampling site.
     structured: Optional[object] = None
 
     @staticmethod
@@ -108,8 +97,13 @@ class SamplingParams:
             except (TypeError, ValueError):
                 raise ValueError(
                     "'logit_bias' keys must be token ids")
-        _reject_structured(body)
+        structured = parse_structured(body)
         min_tokens = _strict_int(body, "min_tokens") or 0
+        if structured is not None and min_tokens > 0:
+            # In a completed FSM state only EOS is legal, while min_tokens
+            # masks EOS: the two constraints cannot both hold.
+            raise ValueError(
+                "'min_tokens' is incompatible with structured output")
         return SamplingParams(
             temperature=1.0 if t is None else float(t),
             top_p=1.0 if p is None else float(p),
@@ -131,6 +125,7 @@ class SamplingParams:
                             (body.get("stop_token_ids") or [])] or None,
             logit_bias=logit_bias or None,
             echo=bool(body.get("echo", False)),
+            structured=structured,
         )
 
 
@@ -217,27 +212,37 @@ def logprob_outputs(logits: torch.Tensor, sampled: torch.Tensor,
 FSM_MASK_NEG = -1e30
 
 
-def mask_row_bytes(vocab_size: int) -> int:
-    """Bytes of one packed FSM mask row: a bit a token."""
-    return (vocab_size + 7) // 8
+def fsm_allowed(mask_bits: torch.Tensor,  # [B, ceil(V/8)] uint8
+                mask_on: torch.Tensor,  # [B] bool
+                vocab_size: int) -> torch.Tensor:
+    """The allowed tokens ``[B, V]`` (bool) of packed FSM mask rows: bit
+    ``v`` of row ``b`` (little bit order, ``numpy.packbits(...,
+    bitorder="little")``) allows token ``v``; a row with ``mask_on``
+    false allows every token."""
+    B, MB = mask_bits.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask_bits.device)
+    bits = (mask_bits[:, :, None] >> shifts[None, None, :]) & 1
+    bits = bits.reshape(B, MB * 8)[:, :vocab_size]
+    return (bits != 0) | ~mask_on[:, None]
+
+
+def mask_disallowed(logits: torch.Tensor,
+                    allowed: torch.Tensor) -> torch.Tensor:
+    """``logits`` with the tokens ``allowed`` leaves out at
+    ``FSM_MASK_NEG``."""
+    return torch.where(allowed, logits,
+                       torch.full_like(logits, FSM_MASK_NEG))
 
 
 def apply_fsm_mask(logits: torch.Tensor,  # [B, V]
                    mask_bits: torch.Tensor,  # [B, ceil(V/8)] uint8
                    mask_on: torch.Tensor,  # [B] bool
                    ) -> torch.Tensor:
-    """The dense packed-bitmask grammar term of the serving programs: bit
-    ``v`` of row ``b`` (little bit order, ``numpy.packbits(...,
-    bitorder="little")``) allows token ``v``; rows with ``mask_on`` false
-    pass through unchanged. Disallowed tokens get ``FSM_MASK_NEG``."""
-    V = logits.shape[-1]
-    B, MB = mask_bits.shape
-    shifts = torch.arange(8, dtype=torch.uint8, device=mask_bits.device)
-    bits = (mask_bits[:, :, None] >> shifts[None, None, :]) & 1
-    bits = bits.reshape(B, MB * 8)[:, :V]
-    allowed = (bits != 0) | ~mask_on[:, None]
-    return torch.where(allowed, logits,
-                       torch.full_like(logits, FSM_MASK_NEG))
+    """The dense packed-bitmask grammar term of the serving programs
+    (:func:`fsm_allowed`): rows with ``mask_on`` false pass through
+    unchanged; disallowed tokens get ``FSM_MASK_NEG``."""
+    return mask_disallowed(
+        logits, fsm_allowed(mask_bits, mask_on, logits.shape[-1]))
 
 
 def accepted_prefix_len(draft, sampled_row) -> int:

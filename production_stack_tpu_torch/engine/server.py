@@ -5,27 +5,35 @@ per connection, server-sent events written by hand for ``stream: true``,
 ``/metrics`` as plain Prometheus text). Routes:
 
 - ``POST /v1/completions`` and ``POST /v1/chat/completions``, plain and
-  streamed (``data: {...}`` events ending with ``data: [DONE]``);
+  streamed (``data: {...}`` events ending with ``data: [DONE]``), with
+  structured output (``guided_json``, ``guided_regex``,
+  ``response_format``; compiled here, an uncompilable one is a 400),
+  ``n > 1`` (``n`` engine requests, choice ``i > 0`` as ``"{id}-c{i}"``
+  under seed ``base + i``; streamed chunks carry each choice's
+  ``index``, interleaved from a merged queue fed by a thread a choice)
+  and, on chat, ``tools`` (a system preamble, and tool calls parsed from
+  the whole text: a streamed response with tools is buffered);
 - ``GET /v1/models`` and ``GET /health``;
 - ``GET /metrics`` with the series the router's scraper parses
   (``vllm:num_requests_running``/``_waiting``,
   ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
   ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``,
   ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype`` and,
-  the JAX server's ``tpu:spec_*`` series (speculative decoding) and,
-  with the step recorder on, its ``tpu:step_*`` series and
-  ``tpu:model_bandwidth_utilization``;
+  the JAX server's ``tpu:spec_*`` series (speculative decoding), its
+  ``tpu:structured_*`` series and, with the step recorder on, its
+  ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``;
 - ``GET /debug/steps`` (step recorder on): newest-first step records
   under the recorder's summary; filters ``?limit=50`` and
   ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it.
 
 A request that fails inside the engine finishes with ``finish_reason:
-"error"``. Not served yet (400): ``n > 1``, tools, structured output.
+"error"``.
 
     python -m production_stack_tpu_torch.engine.server <model> --port N \\
         [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8] \\
         [--prefill-batch 4] [--enable-chunked-prefill] \\
         [--max-num-batched-tokens N] [--no-step-recorder] \\
+        [--structured-cache-size 32] \\
         [--speculative-num-tokens 4 [--speculative-ngram-size 3] \\
          [--speculative-draft-model M --speculative-draft-probation 64]]
 """
@@ -33,8 +41,10 @@ A request that fails inside the engine finishes with ``finish_reason:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import queue
+import threading
 import time
 import urllib.parse
 import uuid
@@ -48,7 +58,13 @@ from production_stack_tpu_torch.engine.sampling import (
     SamplingParams,
 )
 from production_stack_tpu_torch.engine.tokenizer import IncrementalDetokenizer
+from production_stack_tpu_torch.engine.tools import (
+    parse_tool_calls,
+    render_tools_preamble,
+    tool_names,
+)
 from production_stack_tpu_torch.obs.steps import STEP_KINDS
+from production_stack_tpu_torch.structured.api import compile_char_dfa
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -83,17 +99,21 @@ class EngineServer:
                              "NotFoundError")
 
     def parse_sampling(self, body: dict, default_max_tokens: int):
+        """The request's SamplingParams; a malformed field or a structured
+        constraint that does not compile is a 400 (the automaton is
+        compiled here, before admission, and memoized, so the engine's
+        own compile is a cache hit)."""
         try:
             sampling = SamplingParams.from_request(
                 body, default_max_tokens=default_max_tokens)
-        except ValueError as exc:
+            if sampling.structured is not None:
+                compile_char_dfa(sampling.structured)
+        except ValueError as exc:  # StructuredError is a ValueError
             raise BadRequest(str(exc))
         if sampling.logit_bias and len(sampling.logit_bias) > MAX_LOGIT_BIAS:
             raise BadRequest(
                 f"logit_bias supports at most {MAX_LOGIT_BIAS} entries on "
                 f"this engine (got {len(sampling.logit_bias)})")
-        if sampling.n > 1:
-            raise BadRequest("n > 1 is not supported by this engine yet")
         return sampling
 
     def check_prompt(self, prompt_ids: List[int]) -> None:
@@ -144,17 +164,27 @@ class EngineServer:
         return delta, False
 
     def generate(self, body: dict, kind: str):
-        """Admit one request. Returns (request id, model, prompt ids,
-        sampling, token stream of :meth:`_stream`); parsing errors raise
-        BadRequest before the request reaches the engine."""
+        """Admit a request's ``n`` choices. Returns (request id, model,
+        prompt ids, sampling, a token stream of :meth:`_stream` a choice);
+        parsing errors raise BadRequest before anything reaches the
+        engine. Choice ``i > 0`` runs as ``"{rid}-c{i}"`` under seed
+        ``base + i``, ``base`` the request's seed or, unseeded, the seed
+        the engine draws choice 0 under."""
         model = body.get("model", self.config.model)
         self.check_model(model)
         tok = self.core.tokenizer
         if kind == "chat":
-            if body.get("tools") and body.get("tool_choice") != "none":
-                raise BadRequest("tools are not supported by this engine yet")
-            prompt_ids = tok.encode(
-                tok.apply_chat_template(body.get("messages", [])))
+            messages = body.get("messages", [])
+            tools = body.get("tools") or []
+            if tools and body.get("tool_choice") != "none":
+                # The function schemas and the <tool_call> output contract
+                # lead the system context; tool_choice "none" skips both
+                # the preamble and the output parsing.
+                messages = [{"role": "system",
+                             "content": render_tools_preamble(
+                                 tools, body.get("tool_choice", "auto"))}
+                            ] + list(messages)
+            prompt_ids = tok.encode(tok.apply_chat_template(messages))
             sampling = self.parse_sampling(body, default_max_tokens=128)
         else:
             prompt = body.get("prompt", "")
@@ -171,11 +201,21 @@ class EngineServer:
             sampling = self.parse_sampling(body, default_max_tokens=16)
         self.check_prompt(prompt_ids)
         rid = f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-{uuid.uuid4().hex[:16]}"
+        streams = [self._admit(rid, prompt_ids, sampling)]
+        base_seed = (sampling.seed if sampling.seed is not None
+                     else hash(rid) % (2**31))
+        for i in range(1, sampling.n):
+            streams.append(self._admit(
+                f"{rid}-c{i}", prompt_ids,
+                dataclasses.replace(sampling, seed=base_seed + i, n=1)))
+        return rid, model, prompt_ids, sampling, streams
+
+    def _admit(self, rid: str, prompt_ids: List[int], sampling):
+        """Queue one engine request; returns its token stream."""
         tokens: "queue.Queue" = queue.Queue()
         self.core.add_request(rid, prompt_ids, sampling,
                               lambda t, f: tokens.put((t, f)))
-        return rid, model, prompt_ids, sampling, self._stream(
-            rid, tokens, sampling)
+        return self._stream(rid, tokens, sampling)
 
     def _stream(self, rid, tokens: "queue.Queue", sampling):
         """Yields (text_delta, logprob_entry | None, finish | None,
@@ -191,7 +231,9 @@ class EngineServer:
                     return
                 entry = None
                 if payload is None:
-                    delta, is_token = detok.flush(), False
+                    # Bytes held back as a partial UTF-8 sequence at the
+                    # finish are dropped, as the JAX server drops them.
+                    delta, is_token = "", False
                     finish = finish or "stop"
                 else:
                     token_id, lp = (payload if isinstance(payload, tuple)
@@ -245,6 +287,16 @@ class EngineServer:
              s["cached_tokens_total"]),
             ("tpu:decode_forward_steps_total", "counter",
              s["decode_forward_steps_total"]),
+            # Structured output: grammar constraints compiled to token FSMs
+            # whose masks join the logit shaping.
+            ("tpu:structured_requests_total", "counter",
+             s["structured_requests_total"]),
+            ("tpu:structured_compile_seconds_total", "counter",
+             f"{s['structured_compile_seconds_total']:.6f}"),
+            ("tpu:structured_mask_states_total", "counter",
+             s["structured_mask_states_total"]),
+            ("tpu:structured_violations_total", "counter",
+             s["structured_violations_total"]),
         ]
         lines = []
         for name, kind, value, *extra in rows:
@@ -375,19 +427,26 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json({"error": {"message": f"no route {path}",
                                        "type": "NotFoundError"}}, 404)
             return
+        kind = kinds[path]
         try:
             body = self._read_json()
-            rid, model, prompt_ids, sampling, stream = self.engine.generate(
-                body, kinds[path])
+            rid, model, prompt_ids, sampling, streams = self.engine.generate(
+                body, kind)
         except BadRequest as exc:
             self._send_error(exc)
             return
-        if body.get("stream"):
-            self._respond_stream(kinds[path], rid, model, prompt_ids,
-                                 sampling, stream)
+        # Tool calls are parsed from a choice's whole text, so a chat with
+        # tools buffers its output.
+        tools = (body.get("tools") or []) if kind == "chat" else []
+        declared = (tool_names(tools)
+                    if tools and body.get("tool_choice") != "none" else None)
+        args = (kind, rid, model, prompt_ids, sampling, streams, declared)
+        if len(streams) > 1:
+            self._respond_n(bool(body.get("stream")), *args)
+        elif body.get("stream"):
+            self._respond_stream(*args)
         else:
-            self._respond_full(kinds[path], rid, model, prompt_ids,
-                               sampling, stream)
+            self._respond_full(*args)
 
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
@@ -402,10 +461,50 @@ class _Handler(BaseHTTPRequestHandler):
             raise BadRequest("request body must be a JSON object")
         return body
 
-    def _respond_full(self, kind, rid, model, prompt_ids, sampling, stream):
+    def _chunk(self, kind, rid, model, created, choice) -> None:
+        """Write one server-sent event of a streamed response."""
+        obj = "chat.completion.chunk" if kind == "chat" else "text_completion"
+        payload = {"id": rid, "object": obj, "created": created,
+                   "model": model, "choices": [choice]}
+        self.wfile.write(f"data: {json.dumps(payload)}\n\n".encode())
+        self.wfile.flush()
+
+    @staticmethod
+    def _tool_message(text: str, declared):
+        """(message, tool calls) of a chat choice's whole text: the
+        parsed calls and the text around them, or the text alone."""
+        if declared is None:
+            return {"role": "assistant", "content": text}, []
+        content, calls = parse_tool_calls(text, declared)
+        if not calls:
+            return {"role": "assistant", "content": text}, []
+        return ({"role": "assistant", "content": content or None,
+                 "tool_calls": calls}, calls)
+
+    @staticmethod
+    def _tool_delta(index: int, text: str, declared, entries):
+        """The one delta of a buffered (tools) streamed choice, and
+        whether it carries calls; all of the choice's logprob entries
+        ride it."""
+        content, calls = parse_tool_calls(text, declared)
+        delta = {"role": "assistant"}
+        if calls:
+            delta["tool_calls"] = [dict(tc, index=k)
+                                   for k, tc in enumerate(calls)]
+            if content:
+                delta["content"] = content
+        else:
+            delta["content"] = text
+        choice = {"index": index, "delta": delta, "finish_reason": None}
+        if entries:
+            choice["logprobs"] = {"content": entries}
+        return choice, bool(calls)
+
+    def _respond_full(self, kind, rid, model, prompt_ids, sampling, streams,
+                      declared):
         pieces, entries, finish = [], [], "stop"
         n_generated = 0
-        for delta, entry, reason, is_token in stream:
+        for delta, entry, reason, is_token in streams[0]:
             pieces.append(delta)
             n_generated += is_token
             if entry is not None:
@@ -418,9 +517,9 @@ class _Handler(BaseHTTPRequestHandler):
                  "total_tokens": len(prompt_ids) + n_generated}
         created = int(time.time())
         if kind == "chat":
-            choice = {"index": 0,
-                      "message": {"role": "assistant", "content": text},
-                      "finish_reason": finish}
+            message, calls = self._tool_message(text, declared)
+            choice = {"index": 0, "message": message,
+                      "finish_reason": "tool_calls" if calls else finish}
             if entries:
                 choice["logprobs"] = {"content": entries}
             obj = "chat.completion"
@@ -435,7 +534,9 @@ class _Handler(BaseHTTPRequestHandler):
                          "model": model, "choices": [choice],
                          "usage": usage})
 
-    def _respond_stream(self, kind, rid, model, prompt_ids, sampling, stream):
+    def _respond_stream(self, kind, rid, model, prompt_ids, sampling,
+                        streams, declared):
+        stream = streams[0]
         created = int(time.time())
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -451,17 +552,12 @@ class _Handler(BaseHTTPRequestHandler):
                 choice = {"index": 0, "delta": d, "finish_reason": finish}
                 if entries:
                     choice["logprobs"] = {"content": entries}
-                obj = "chat.completion.chunk"
             else:
                 choice = {"index": 0, "text": delta, "finish_reason": finish}
                 if entries:
                     choice["logprobs"] = self.engine.completions_logprobs(
                         entries)
-                obj = "text_completion"
-            payload = {"id": rid, "object": obj, "created": created,
-                       "model": model, "choices": [choice]}
-            self.wfile.write(f"data: {json.dumps(payload)}\n\n".encode())
-            self.wfile.flush()
+            self._chunk(kind, rid, model, created, choice)
 
         try:
             first = True
@@ -471,9 +567,16 @@ class _Handler(BaseHTTPRequestHandler):
                 first = False
             pending: List[dict] = []
             finish = "stop"
+            text = ""
             for delta, entry, reason, _ in stream:
                 if entry is not None:
                     pending.append(entry)
+                text += delta
+                if declared is not None:
+                    if reason is not None:
+                        finish = reason
+                        break
+                    continue
                 if reason is not None:
                     finish = reason
                     if delta:
@@ -483,11 +586,150 @@ class _Handler(BaseHTTPRequestHandler):
                 if delta or first:
                     event(delta, None, first, pending)
                     first, pending = False, []
+            if declared is not None:
+                choice, calls = self._tool_delta(0, text, declared, pending)
+                self._chunk(kind, rid, model, created, choice)
+                first, pending = False, []
+                if calls:
+                    finish = "tool_calls"
             event("", finish, first, pending)
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError):
             stream.close()  # aborts the request in the engine
+
+    def _respond_n(self, stream_mode: bool, kind, rid, model, prompt_ids,
+                   sampling, streams, declared):
+        """``n > 1``: the choices' streams, each drained by a thread of
+        its own into one merged queue; a streamed response writes their
+        chunks interleaved, tagged with the choice's ``index``, then a
+        finish chunk a choice (after the buffered delta of a chat with
+        tools), a whole one a choices array. A client that goes away
+        aborts every choice."""
+        n = len(streams)
+        rids = [rid] + [f"{rid}-c{i}" for i in range(1, n)]
+        texts, finishes, counts = [""] * n, ["stop"] * n, [0] * n
+        lp_all: List[List[dict]] = [[] for _ in range(n)]
+        # Entries whose text has not been written yet (held back by the
+        # detokenizer, an EOS, a stop-trimmed tail): the finish chunk
+        # drains them.
+        pendings: List[List[dict]] = [[] for _ in range(n)]
+        merged: "queue.Queue" = queue.Queue()
+
+        def pump(i: int) -> None:
+            try:
+                for delta, entry, reason, is_token in streams[i]:
+                    counts[i] += is_token
+                    if entry is not None:
+                        lp_all[i].append(entry)
+                        pendings[i].append(entry)
+                    texts[i] += delta
+                    if reason is not None:
+                        finishes[i] = reason
+                    if delta:
+                        merged.put((i, delta, pendings[i]))
+                        pendings[i] = []
+            finally:
+                # The merge loop must not wait on a choice that is gone.
+                merged.put((i, None, None))
+
+        threads = [threading.Thread(target=pump, args=(i,), daemon=True,
+                                    name=f"choice-{i}") for i in range(n)]
+        for th in threads:
+            th.start()
+        created = int(time.time())
+        chat = kind == "chat"
+        try:
+            if stream_mode:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("X-Request-Id", rid)
+                self.end_headers()
+                if sampling.echo and not chat:
+                    prompt_text = self.engine.core.tokenizer.decode(prompt_ids)
+                    for i in range(n):
+                        self._chunk(kind, rid, model, created, {
+                            "index": i, "text": prompt_text,
+                            "finish_reason": None})
+            first = [True] * n
+            live = n
+            while live:
+                i, emit, entries = merged.get()
+                if emit is None:
+                    live -= 1
+                    continue
+                if not stream_mode or declared is not None:
+                    continue  # whole response, or parsed per choice below
+                if chat:
+                    delta = {"content": emit}
+                    if first[i]:
+                        delta = {"role": "assistant", "content": emit}
+                    choice = {"index": i, "delta": delta,
+                              "finish_reason": None}
+                else:
+                    choice = {"index": i, "text": emit,
+                              "finish_reason": None}
+                first[i] = False
+                if entries:
+                    choice["logprobs"] = (
+                        {"content": entries} if chat
+                        else self.engine.completions_logprobs(entries))
+                self._chunk(kind, rid, model, created, choice)
+            for th in threads:
+                th.join()
+            if stream_mode:
+                for i in range(n):
+                    finish = finishes[i]
+                    if declared is not None:
+                        choice, calls = self._tool_delta(i, texts[i],
+                                                         declared, lp_all[i])
+                        self._chunk(kind, rid, model, created, choice)
+                        pendings[i] = []
+                        if calls:
+                            finish = "tool_calls"
+                    choice = ({"index": i, "delta": {}, "finish_reason": finish}
+                              if chat else {"index": i, "text": "",
+                                            "finish_reason": finish})
+                    if pendings[i]:
+                        choice["logprobs"] = (
+                            {"content": pendings[i]} if chat
+                            else self.engine.completions_logprobs(pendings[i]))
+                    self._chunk(kind, rid, model, created, choice)
+                self.wfile.write(b"data: [DONE]\n\n")
+                self.wfile.flush()
+                return
+        except (BrokenPipeError, ConnectionResetError):
+            for r in rids:
+                self.engine.core.abort_request(r)
+            return
+        choices = []
+        for i in range(n):
+            if chat:
+                message, calls = self._tool_message(texts[i], declared)
+                choice = {"index": i, "message": message,
+                          "finish_reason": ("tool_calls" if calls
+                                            else finishes[i])}
+                if lp_all[i]:
+                    choice["logprobs"] = {"content": lp_all[i]}
+            else:
+                text = texts[i]
+                if sampling.echo:
+                    text = self.engine.core.tokenizer.decode(prompt_ids) + text
+                choice = {"index": i, "text": text,
+                          "finish_reason": finishes[i]}
+                if lp_all[i]:
+                    choice["logprobs"] = self.engine.completions_logprobs(
+                        lp_all[i])
+            choices.append(choice)
+        total = sum(counts)
+        self._send_json({
+            "id": rid,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": created, "model": model, "choices": choices,
+            "usage": {"prompt_tokens": len(prompt_ids),
+                      "completion_tokens": total,
+                      "total_tokens": len(prompt_ids) + total}})
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -541,6 +783,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="chunked prefill: force a decode step after this "
                         "many consecutive prefill steps while sequences "
                         "are running")
+    p.add_argument("--structured-cache-size", type=int, default=32,
+                   help="LRU capacity of the compiled structured-output "
+                        "token-FSM cache (one entry per distinct "
+                        "schema/regex per tokenizer)")
     p.add_argument("--prefill-batch", type=int, default=1,
                    help="batch up to N queued long-prompt prefills into "
                         "one dispatch during an arrival storm (1 "
@@ -600,6 +846,7 @@ def config_from_args(args) -> EngineConfig:
         enable_chunked_prefill=args.enable_chunked_prefill,
         max_num_batched_tokens=args.max_num_batched_tokens,
         max_consecutive_prefills=args.max_consecutive_prefills,
+        structured_cache_size=args.structured_cache_size,
         speculative_num_tokens=args.speculative_num_tokens,
         speculative_ngram_size=args.speculative_ngram_size,
         speculative_draft_model=args.speculative_draft_model,

@@ -46,7 +46,10 @@ def test_every_port_module_imports_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     # The walk really covered the package, server included.
     for mod in ("engine.core", "engine.server", "engine.scheduler",
-                "engine.prng", "engine.draft", "obs.steps",
+                "engine.prng", "engine.draft", "engine.tools", "obs.steps",
+                "structured", "structured.api", "structured.corpus",
+                "structured.regex_dfa", "structured.schema",
+                "structured.tokenfsm",
                 "models.llama", "models.convert", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build"):
         assert f"{PKG}.{mod}" in out["names"], mod

@@ -314,6 +314,31 @@ def test_draft_catch_up_rows_with_padding(cuda, H, KVH, D):
     assert bool(torch.isfinite(got[2]).all())
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (6, 2, 64)])
+def test_constrained_draft_step_rows(cuda, H, KVH, D, int8):
+    """The drafter's FSM-constrained draft step
+    (``core.py::_draft_constrained``): [8, 32] rows at the smallest
+    bucket, one live token a row in column 0 (six at the end of 2,048-token
+    contexts, one past a 100-token context), its positions ascending over
+    the whole row, and a row that drafts nothing this step (positions 0,
+    total 1, an all-zero table). Each live token matches the plain
+    version: with the JAX layout's zeros past column 0 the kernel would
+    take the tile's key range from position 0 and hide the context from
+    it. The idle row is finite."""
+    T, bs, MAXB = 32, 64, 64
+    prefix = [2047] * 6 + [100, 0]
+    args = _cached_rows(cuda, H, KVH, D, bs, MAXB, T, prefix, [1] * 8,
+                        pad={7}, seed=7 * D + int8, int8=int8)
+    before = _launches(cached_prefill_attention, int8)
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(cached_prefill_attention, int8) == before + 1
+    assert_close(got[:7, :1], want[:7, :1])
+    assert bool(torch.isfinite(got[7]).all())
+
+
 def test_unsupported_shapes_raise_not_fall_back(cuda):
     k, v = _pool(cuda, torch.float32, 1, 4, 4, 2, 48, seed=0)
     q = torch.randn((1, 4, 48), device=cuda)

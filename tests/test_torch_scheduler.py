@@ -116,11 +116,26 @@ def test_sampling_params_reject_the_same(body):
 
 
 def test_structured_specs_are_refused_by_the_port():
+    """Since structured output was ported, the port parses these bodies
+    into the StructuredSpec JAX parses (the name is kept from when it
+    refused them), and refuses what JAX refuses."""
     for body in ({"guided_regex": "[0-9]+"},
                  {"guided_json": {"type": "object"}},
-                 {"response_format": {"type": "json_object"}}):
-        with pytest.raises(ValueError, match="structured"):
+                 {"guided_json": '{"type": "integer"}'},
+                 {"response_format": {"type": "json_object"}},
+                 {"response_format": {"type": "json_schema", "json_schema": {
+                     "name": "n", "schema": {"type": "integer"}}}},
+                 {"response_format": {"type": "text"}},
+                 {"guided_choice": ["a", "b"]},  # neither package reads it
+                 {"guided_grammar": "root ::= x"}):
+        got = t_sampling.SamplingParams.from_request(body).structured
+        want = jax_sampling.SamplingParams.from_request(body).structured
+        assert (None if got is None else (got.kind, got.spec)) == (
+            None if want is None else (want.kind, want.spec))
+    for body in ({"guided_regex": "[0-9]+", "min_tokens": 2},
+                 {"guided_regex": ""}, {"response_format": {"type": "yaml"}}):
+        with pytest.raises(ValueError) as want:
+            jax_sampling.SamplingParams.from_request(body)
+        with pytest.raises(ValueError) as got:
             t_sampling.SamplingParams.from_request(body)
-    # Plain text response_format is not a structured spec.
-    t_sampling.SamplingParams.from_request(
-        {"response_format": {"type": "text"}})
+        assert str(got.value) == str(want.value)

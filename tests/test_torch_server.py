@@ -1,5 +1,6 @@
 """The torch port's OpenAI server on tiny-llama / CPU: completions and chat,
-plain and streamed, /health, /v1/models, the refusals, and a /metrics
+plain and streamed, /health, /v1/models, n > 1 and structured output
+accepted, the refusals (an uncompilable grammar among them), and a /metrics
 page that the router's own scraper parses."""
 
 import json
@@ -103,9 +104,19 @@ def test_health_models_and_refusals(server):
         assert resp.status == 200
     with urllib.request.urlopen(base + "/v1/models", timeout=10) as resp:
         assert json.loads(resp.read())["data"][0]["id"] == "tiny-llama"
+    # n > 1 and structured output are served since they were ported.
+    out = _post(base, "/v1/completions",
+                {"prompt": "x", "n": 2, "max_tokens": 3, "seed": 1})
+    assert [c["index"] for c in out["choices"]] == [0, 1]
+    out = _post(base, "/v1/completions",
+                {"prompt": "x", "guided_regex": "[0-9]{2}", "max_tokens": 8,
+                 "temperature": 0})
+    assert len(out["choices"][0]["text"]) == 2
+    assert out["choices"][0]["text"].isdigit()
     for body, code in [
-            ({"prompt": "x", "n": 2}, 400),
-            ({"prompt": "x", "guided_regex": "[0-9]+"}, 400),
+            ({"prompt": "x", "guided_regex": "(a"}, 400),  # uncompilable
+            ({"prompt": "x", "guided_json": {"not": {"type": "string"}}},
+             400),
             ({"prompt": "x", "max_tokens": "5"}, 400),
             ({"prompt": "x" * 300}, 400),  # over max_model_len
             ({"prompt": "x", "model": "other"}, 404)]:

@@ -38,6 +38,7 @@ from production_stack_tpu_torch.models.convert import (
     draft_params_from_numpy,
     params_from_numpy,
 )
+from production_stack_tpu_torch.structured.tokenfsm import mask_row_bytes
 
 from test_spec_decode import SPEC_CFG as REFERENCE_SPEC_CFG
 from test_spec_decode import de_bruijn
@@ -309,7 +310,7 @@ def test_apply_fsm_mask_matches_jax(vocab):
     rng = np.random.default_rng(vocab)
     B = 5
     logits = rng.standard_normal((B, vocab)).astype(np.float32)
-    bits = rng.integers(0, 256, size=(B, sampling.mask_row_bytes(vocab)),
+    bits = rng.integers(0, 256, size=(B, mask_row_bytes(vocab)),
                         dtype=np.uint8)
     on = np.array([True, False, True, True, False])
     want = np.asarray(jax_sampling.apply_fsm_mask(
