@@ -104,6 +104,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain version at that shape over 2,048-token contexts, timed
    beside the decode kernel, a ``{"draft_step_prefill": ...}`` line).
 
+11. KV movement at full width and depth (after the speculative
+   phases), in bf16 and with ``--kv-cache-dtype int8 --quantization
+   int8``, each engine's pool bounded to 96 blocks (:func:`kv_phase`):
+   a 2,048-token prompt evicted to the host tier and restored (its
+   stream equal to its prefix-hit stream, at least 31 blocks restored,
+   the cached-prefill kernel run), ``/kv/pull`` between two engines
+   behind their servers over the host relay and the local-device rung,
+   a prompt spilled to a stdlib L3 block store by one engine and
+   restored from it by the other, ``/kv/prepare_pull`` answering 501;
+   spill, restore and card-to-card times and the prefix hashes' host
+   cost (a ``{"kv": ...}`` line each).
+
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
 FSM-constrained draft step's shapes, each probe in each mode and page
@@ -1284,7 +1296,8 @@ class Client:
                 if not line.startswith("data: ") or line == "data: [DONE]":
                     continue
                 choice = json.loads(line[6:])["choices"][0]
-                piece = choice.get("delta", {}).get("content") or ""
+                piece = (choice.get("delta", {}).get("content")
+                         or choice.get("text") or "")
                 if piece and first_s is None:
                     first_s = time.perf_counter() - t0
                 text += piece
@@ -2446,6 +2459,360 @@ def spec_parity_phase(smi):
     print(json.dumps({"spec_parity": report}), flush=True)
 
 
+KV_BLOCKS = 96  # a small pool: 2,048-token prompts evict each other
+KV_BS = 64  # the serving runs' block size
+KV_PROMPT = 2048  # tokens: 32 full blocks (31 can be a hit)
+KV_MAX_TOKENS = 16
+
+
+class _BlockStore:
+    """A minimal L3 cache server: the JAX cache server's block API
+    (``PUT/GET/HEAD /v1/blocks/{hash}``) over a dict, on a thread."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        import threading
+
+        blocks = self.blocks = {}
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _key(self):
+                return self.path.rsplit("/", 1)[-1]
+
+            def do_PUT(self):  # noqa: N802 - http.server API
+                n = int(self.headers.get("Content-Length") or 0)
+                blocks[self._key()] = self.rfile.read(n)
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def do_GET(self):  # noqa: N802
+                data = blocks.get(self._key())
+                self.send_response(200 if data is not None else 404)
+                self.send_header("Content-Length", str(len(data or b"")))
+                self.end_headers()
+                if data is not None and self.command == "GET":
+                    self.wfile.write(data)
+
+            do_HEAD = do_GET
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def _kv_ids(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [int(t) for t in rng.integers(1, 32000, size=KV_PROMPT)]
+
+
+def _kv_serve(label, extra):
+    """One port server on a thread with the KV phase's pool."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    httpd, core = build_server(SERVE_ARGS + list(extra) + [
+        "--num-blocks", str(KV_BLOCKS), "--block-size", str(KV_BS)])
+    threading.Thread(target=httpd.serve_forever, daemon=True,
+                     name=f"kv-{label}").start()
+    return httpd, core, Client(httpd.server_address[1])
+
+
+def _kv_stop(*servers):
+    for httpd, core, _ in servers:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+
+
+def _greedy(client, ids, max_tokens=KV_MAX_TOKENS):
+    out = client.post("/v1/completions", {
+        "prompt": ids, "max_tokens": max_tokens, "temperature": 0,
+        "ignore_eos": True, "stream": True}, stream=True)
+    _finish("kv greedy", out)
+    return out
+
+
+def _pull(client, source, ids, kv_path):
+    out = client.post("/kv/pull", {"source_url": source.base,
+                                   "request": {"prompt": ids},
+                                   "kv_path": kv_path})
+    return out
+
+
+def _same(name, got, want):
+    if got["text"] != want["text"]:
+        raise AssertionError(f"kv {name}: stream {got['text'][:60]!r} is not "
+                             f"the prefix-hit stream {want['text'][:60]!r}")
+
+
+def _move_timings(core, n_blocks: int) -> dict:
+    """Spill and restore of ``n_blocks`` pool blocks through the engine's
+    own helpers, timed on the host clock with the card synchronised: the
+    gather and the pinned copy (enqueue alone, then landed; with fresh
+    pinned buffers, then with the allocator's cached ones), and the
+    restore from pinned and from pageable host tensors (the same bytes
+    written back into the same blocks). Plus the card-to-card move of the
+    local-device rung (gather and scatter, CUDA events)."""
+    import torch
+
+    bids = list(range(n_blocks))
+    nbytes = n_blocks * core._kv_bytes_per_block()
+    out = {"blocks": n_blocks, "bytes": nbytes}
+    with core._step_lock:
+        # The first spill allocates its pinned buffers; the second reuses
+        # them from the pinned allocator's cache (a drain after the store
+        # has let older buffers go).
+        for key in ("spill_first", "spill"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k, v, ready = core._pages_to_host(bids)
+            t1 = time.perf_counter()
+            ready()
+            t2 = time.perf_counter()
+            out[f"{key}_enqueue_ms"] = (t1 - t0) * 1e3
+            out[f"{key}_ms"] = (t2 - t0) * 1e3
+            if key == "spill_first":
+                del k, v, ready
+        from production_stack_tpu_torch.engine.core import _leaf_map
+
+        for mode, hashes in (("pinned", range(-1, -n_blocks - 1, -1)),
+                             ("pageable", range(-10 ** 6, -10 ** 6 - n_blocks,
+                                                -1))):
+            for n, h in enumerate(hashes):
+                pick = (lambda t, n=n: t[n]) if mode == "pinned" else (
+                    lambda t, n=n: t[n].clone())
+                core.offload.put(h, _leaf_map(pick, k), _leaf_map(pick, v))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not core._restore_blocks(list(zip(bids, hashes))):
+                raise AssertionError("kv timing: a restore missed")
+            torch.cuda.synchronize()
+            out[f"restore_{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        sel = torch.tensor(bids, device=core.device)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(10):
+            core._write_pages(bids, *(
+                _leaf_map(lambda t: t.index_select(1, sel), pages)
+                for pages in core.kv))
+        end.record()
+        end.synchronize()
+        out["card_to_card_device_ms"] = start.elapsed_time(end) / 10
+    for key in ("spill_first", "spill", "restore_pinned",
+                "restore_pageable"):
+        out[f"{key}_gbps"] = nbytes / (out[f"{key}_ms"] / 1e3) / 1e9
+    out["card_to_card_bound_ms"] = 2 * nbytes / 3.35e12 * 1e3
+    return out
+
+
+def _hash_cost() -> dict:
+    """Host time of the chain hashes of one 2,048-token prompt (32
+    blocks), and of the XXH64 digests alone (their 276-byte inputs: the
+    root's text and 64 tokens of 4 bytes)."""
+    from production_stack_tpu_torch.engine.kvcache import BlockAllocator
+    from production_stack_tpu_torch.utils.xxh64 import xxh64_intdigest
+
+    ids = _kv_ids(99)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        parent = "meta-llama/Llama-3-8B|"
+        for i in range(0, KV_PROMPT, KV_BS):
+            parent = BlockAllocator.chain_hash(parent,
+                                               tuple(ids[i:i + KV_BS]))
+    chain_ms = (time.perf_counter() - t0) / reps * 1e3
+    data = bytes(276)
+    t0 = time.perf_counter()
+    for _ in range(reps * (KV_PROMPT // KV_BS)):
+        xxh64_intdigest(data)
+    return {"chain_hash_ms_per_2048_tokens": chain_ms,
+            "xxh64_ms_per_2048_tokens":
+                (time.perf_counter() - t0) / reps * 1e3}
+
+
+def kv_phase(label: str, extra_args, entries, smi):
+    """KV movement at Llama-3-8B full width and depth (``SERVE_ARGS`` plus
+    ``extra_args``, ``KV_BLOCKS``-block pools), driven over HTTP:
+
+    1. one engine with ``--kv-offload-gb 4``: a greedy 2,048-token prompt A
+       twice (the second run a prefix hit, ``S_hit``), other 2,048-token
+       prompts until every full block of A sits in the host store and
+       none in the pool, then A again: it restores at least 31 blocks,
+       runs the cached-prefill kernel and gives ``S_hit``;
+    2. engines P and D (both over a stdlib L3 block store, remote-only
+       tiers): P serves R with ``max_tokens: 1``; D pulls it with
+       ``kv_path: "host"`` (32 blocks over TKV2) and serves R with P's
+       prefix-hit stream;
+    3. the same for R2 with ``kv_path: "auto"``: the local-device rung;
+    4. P serves R3 (then its prefix hit) and other prompts until R3's
+       blocks have spilled to the L3, flushes; D pulls R3 (P misses:
+       ``status: "l3"``) and serves it, restoring through the remote tier,
+       with P's prefix-hit stream;
+    5. ``/kv/prepare_pull`` answers 501.
+
+    Launch counters are set to 0 before the drive and read after it.
+    Returns (launch counts by kernel entry, summary)."""
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    t_phase = time.time()
+    summary = {"config": label, "card": smi}
+    counters = _counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    prefill_fn, prefill_attr = counters[entries[1]]
+    # -- 1. offload and restore ------------------------------------------
+    e = _kv_serve("offload", list(extra_args) + ["--kv-offload-gb", "4"])
+    try:
+        _, core, client = e
+        a = _kv_ids(1)
+        fresh = _greedy(client, a)
+        hit = _greedy(client, a)
+        a_chain = core.kv_mgr.chain_hashes(a)
+        fillers = 0
+        while (any(h in core.kv_mgr.allocator.prefix_map for h in a_chain)
+               and fillers < 8):
+            _greedy(client, _kv_ids(100 + fillers), max_tokens=2)
+            fillers += 1
+        if not all(core.offload.contains(h) for h in a_chain):
+            raise AssertionError(f"kv offload: {fillers} other prompts did "
+                                 f"not spill every block of A")
+        before = core.stats()["offload"]
+        launches0 = getattr(prefill_fn, prefill_attr)
+        restored = _greedy(client, a)
+        after = core.stats()["offload"]
+        restores = after["hits"] - before["hits"]
+        if restores < KV_PROMPT // KV_BS - 1:
+            raise AssertionError(f"kv offload: {restores} blocks restored")
+        if getattr(prefill_fn, prefill_attr) <= launches0:
+            raise AssertionError("kv offload: the restored prompt ran no "
+                                 "cached-prefill kernel")
+        _same("restore", restored, hit)
+        summary["offload"] = {
+            "fillers": fillers, "restored_blocks": restores,
+            "stored": after["stored"], "host_blocks": after["blocks"],
+            "host_bytes": after["bytes"],
+            "first_token_s": {"fresh": fresh["_first_token_s"],
+                              "prefix_hit": hit["_first_token_s"],
+                              "restored": restored["_first_token_s"]},
+            "fresh_equals_hit": fresh["text"] == hit["text"]}
+        summary["moves"] = _move_timings(core, KV_PROMPT // KV_BS)
+    finally:
+        _kv_stop(e)
+    _free_device_memory()
+    # -- 2-5. disaggregated prefill, the local-device rung, the L3 -------
+    store = _BlockStore()
+    remote = ["--kv-remote-url", store.url]
+    p = d = None
+    try:
+        p = _kv_serve("P", list(extra_args) + remote)
+        d = _kv_serve("D", list(extra_args) + remote)
+        pc, dc = p[2], d[2]
+        for part, seed, kv_path, rung in (("host", 2, "host", "host"),
+                                          ("local", 3, "auto",
+                                           "local-device")):
+            r = _kv_ids(seed)
+            _greedy(pc, r, max_tokens=1)  # P prefills, as a prefiller
+            out = _pull(dc, pc, r, kv_path)
+            if (out.get("status") != "ok" or out["transfer"]["path"] != rung
+                    or out["injected_blocks"] != KV_PROMPT // KV_BS):
+                raise AssertionError(f"kv {part} pull: {out}")
+            got = _greedy(dc, r)
+            _same(part, got, _greedy(pc, r))
+            summary[part] = dict(out["transfer"],
+                                 first_token_s=got["_first_token_s"])
+        r3 = _kv_ids(4)
+        _greedy(pc, r3)
+        s3 = _greedy(pc, r3)  # P's prefix-hit stream
+        p_core = p[1]
+        r3_chain = p_core.kv_mgr.chain_hashes(r3)
+        fillers = 0
+        while (any(h in p_core.kv_mgr.allocator.prefix_map for h in r3_chain)
+               and fillers < 8):
+            _greedy(pc, _kv_ids(200 + fillers), max_tokens=2)
+            fillers += 1
+        t0 = time.perf_counter()
+        if not p_core.offload.flush_remote(timeout=120):
+            raise AssertionError("kv l3: P's uploads did not land")
+        flush_s = time.perf_counter() - t0
+        missing = [h for h in r3_chain if str(h) not in store.blocks]
+        if missing:
+            raise AssertionError(f"kv l3: {len(missing)} blocks of R3 are "
+                                 f"not in the L3")
+        out = _pull(dc, pc, r3, "host")
+        if out.get("status") != "l3" or out["l3_blocks"] < len(r3_chain):
+            raise AssertionError(f"kv l3 pull: {out}")
+        d_core = d[1]
+        before = d_core.stats()["offload"]
+        got = _greedy(dc, r3)
+        after = d_core.stats()["offload"]
+        fetched = after["remote_get_blocks"] - before["remote_get_blocks"]
+        if fetched < len(r3_chain) - 1:
+            raise AssertionError(f"kv l3: D fetched {fetched} blocks")
+        _same("l3", got, s3)
+        summary["l3"] = {
+            "fillers": fillers, "flush_s": flush_s,
+            "store_blocks": len(store.blocks),
+            "p_spill_blocks": p_core.stats()["offload"]["remote_put_blocks"],
+            "d_fetched_blocks": fetched,
+            "d_fetched_bytes": (after["remote_get_bytes"]
+                                - before["remote_get_bytes"]),
+            "first_token_s": got["_first_token_s"], "pull": out}
+        req = urllib.request.Request(
+            dc.base + "/kv/prepare_pull", data=json.dumps(
+                {"prompt": r3}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            raise AssertionError("kv: /kv/prepare_pull did not answer 501")
+        except urllib.error.HTTPError as err:
+            if err.code != 501:
+                raise AssertionError(f"kv: /kv/prepare_pull answered "
+                                     f"{err.code}")
+        summary["prepare_pull"] = 501
+        metrics = dc.get("/metrics")
+        for series in ("tpu:kv_transfer_rx_bytes_total",
+                       "tpu:kv_transfer_device_pulls_total",
+                       "tpu:l3_hit_blocks_total", "tpu:l3_pull_hits_total",
+                       'tpu:kv_page_occupancy{model_name='):
+            if series not in metrics:
+                raise AssertionError(f"kv: /metrics lacks {series}")
+    finally:
+        _kv_stop(*[s for s in (p, d) if s is not None])
+        store.stop()
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    for name, n in launches.items():
+        if name in entries and n <= 0:
+            raise AssertionError(f"{name} never launched in the kv phase")
+        if name not in entries and n != 0:
+            raise AssertionError(f"{name} launched {n} times in the {label} "
+                                 f"kv phase, which does not use it")
+    summary["hash_cost"] = _hash_cost()
+    summary["launches"] = {name: launches[name] for name in entries}
+    summary["phase_s"] = time.time() - t_phase
+    torch.cuda.synchronize()
+    return {name: launches[name] for name in entries}, summary
+
+
 def _free_device_memory() -> None:
     """Drop what a finished engine left (its server's handler class holds
     it in a reference cycle) and return the cached blocks to the card."""
@@ -2803,6 +3170,16 @@ def main(argv=None) -> int:
         "cached_prefill_attention"]
     spec_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the spec phases")
+    for label, extra, entries in (
+            ("bf16", (), ("paged_attention", "cached_prefill_attention")),
+            ("int8 KV + int8 weights", INT8_ARGS,
+             ("paged_attention_int8", "cached_prefill_attention_int8"))):
+        _free_device_memory()
+        counts, summary = kv_phase(label, extra, entries, smi)
+        for name, n in counts.items():
+            launches[name] += n
+        print(json.dumps({"kv": summary}), flush=True)
+        log(f"[time] {time.time() - t0:.0f} s through the kv {label} phase")
     results.update(probe_results)
     replaces = {
         "paged_attention":

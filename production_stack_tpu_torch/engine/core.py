@@ -57,9 +57,22 @@ with a local cursor, one forward a draft step, under
 where a token outside the grammar, or a finish mid-structure, counts a
 violation.
 
+KV movement is the JAX engine's, single host: with ``kv_offload_bytes``
+or ``kv_remote_url`` an evicted cached page spills to a host-RAM store
+with an optional remote (L3) tier (``kv/offload.py``) and a later prompt
+over that prefix restores it instead of recomputing; ``extract_kv``,
+``inject_kv`` and ``inject_from_core`` move a prompt's cached prefix
+pages out of a pool, into one, or between two pools on one card. Every
+page movement is ordered on the card's stream against the forwards
+around it: a spill's gather runs before the next forward can overwrite
+the recycled page, and its copy to pinned host memory runs on a side
+stream (:meth:`EngineCore._pages_to_host`); a restore or an inject is
+copied in and scattered before the next forward reads it. HTTP threads
+that extract or inject take ``_step_lock``, which each step holds.
+
 Not here yet, and refused at construction when configured: the fused
-step, tensor/pipeline/data parallelism, multihost, KV offload and
-extract/inject, sleep, LoRA load/unload and embeddings.
+step, tensor/pipeline/data parallelism, multihost, sleep, LoRA
+load/unload and embeddings.
 """
 
 from __future__ import annotations
@@ -98,6 +111,7 @@ from production_stack_tpu_torch.engine.scheduler import (
     SpecState,
 )
 from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
+from production_stack_tpu_torch.kv.offload import HostKVStore
 from production_stack_tpu_torch.models import build_model, get_model_config
 from production_stack_tpu_torch.obs.steps import StepRecorder
 from production_stack_tpu_torch.ops.attention import to_device
@@ -119,7 +133,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
         (c.tensor_parallel_size > 1, "tensor_parallel_size > 1"),
         (c.data_parallel_size > 1, "data_parallel_size > 1"),
         (c.pipeline_parallel_size > 1, "pipeline_parallel_size > 1"),
-        (c.kv_offload_bytes > 0 or bool(c.kv_remote_url), "KV offload"),
         (c.fused_step, "fused_step"),
     ]
     return [name for bad, name in checks if bad]
@@ -210,6 +223,22 @@ class EngineCore:
             # Every teardown (finish, preempt, abort) frees target KV
             # through kv_mgr.free: the drafter's pages go with it.
             self.kv_mgr.on_free = self._draft.release
+        # -- KV offload tier and the eviction fan-out ----------------------
+        self.offload: Optional[HostKVStore] = None
+        # (prefix hash, block id) of cached pages evicted since the last
+        # drain: spilled before any forward can overwrite them.
+        self._pending_offload: List[tuple] = []
+        self._copy_stream = None  # the spills' device-to-host copies
+        if config.kv_offload_bytes > 0 or config.kv_remote_url:
+            self.offload = HostKVStore(max(config.kv_offload_bytes, 0),
+                                       config.kv_remote_url)
+            self.kv_mgr.external_lookup = self.offload.contains
+        # The server's KV-controller evict report. Fired on the engine
+        # thread, possibly under self._lock: a listener only enqueues.
+        self.prefix_evict_listener: Optional[Callable[[int, int], None]] = None
+        self.prefix_evicts_total = 0
+        self.evict_listener_errors_total = 0
+        self.kv_mgr.allocator.on_evict = self._dispatch_evict
         self.scheduler = Scheduler(
             self.kv_mgr, config.max_num_seqs, config.max_model_len,
             chunked_prefill=config.chunked_prefill_enabled,
@@ -304,6 +333,10 @@ class EngineCore:
 
         # -- engine thread -------------------------------------------------
         self._lock = threading.Condition()
+        # Held around each step's body; KV extract/inject from HTTP
+        # threads take it so no step rewrites the pool meanwhile. Lock
+        # order: _step_lock before _lock.
+        self._step_lock = threading.Lock()
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="engine-core")
@@ -349,6 +382,273 @@ class EngineCore:
         # Cap by what max_num_seqs could ever use, plus prefix-cache headroom.
         cap = self.config.max_blocks_per_seq * (self.config.max_num_seqs * 4)
         return min(num, cap)
+
+    # ------------------------------------------------------------------ #
+    # KV movement: offload, restore, extract, inject
+    # ------------------------------------------------------------------ #
+    def _dispatch_evict(self, prefix_hash: int, bid: int) -> None:
+        """The allocator's eviction hook (engine thread, maybe under
+        self._lock). With an offload tier the block is queued for a spill
+        and the controller keeps its claim (the prefix is still served
+        here, through a restore); without one the eviction is counted and
+        reported to the listener."""
+        if self.offload is not None:
+            self._pending_offload.append((prefix_hash, bid))
+            return
+        self.prefix_evicts_total += 1
+        listener = self.prefix_evict_listener
+        if listener is not None:
+            try:
+                listener(prefix_hash, bid)
+            except Exception:  # noqa: BLE001 - never break the allocator
+                self.evict_listener_errors_total += 1
+
+    def _drain_offload(self) -> None:
+        """Spill the blocks evicted since the last drain into the offload
+        store (engine thread, no self._lock held). Called after every
+        allocation that can evict and before the forward that follows
+        it, so the gather reads the pages before they are recycled."""
+        pending, self._pending_offload = self._pending_offload, []
+        if not pending:
+            return
+        k, v, ready = self._pages_to_host([bid for _, bid in pending])
+        for n, (prefix_hash, _) in enumerate(pending):
+            self.offload.put(prefix_hash, _leaf_map(lambda t: t[n], k),
+                             _leaf_map(lambda t: t[n], v), ready=ready)
+
+    def _pages_to_host(self, bids: List[int]):
+        """(k, v, ready) of blocks ``bids`` on the host, block-major
+        ``[N, L, bs, KVH, D]`` (int8: with ``[N, L, bs*KVH]`` scales). On a
+        card one gather on the engine's stream (ordered before any later
+        forward) and one copy into pinned memory on a side stream, so the
+        engine thread does not wait for it; ``ready()`` waits until the
+        copy has landed. On the CPU, plain copies (``ready`` is None)."""
+        idx = torch.tensor(bids, dtype=torch.long, device=self.device)
+
+        def gather(t):
+            return t.transpose(0, 1).index_select(0, idx)
+
+        k = _leaf_map(gather, self.kv[0])
+        v = _leaf_map(gather, self.kv[1])
+        if self.device.type != "cuda":
+            return k, v, None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        cs = self._copy_stream
+        cs.wait_stream(torch.cuda.current_stream(self.device))
+
+        def to_host(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with torch.cuda.stream(cs):
+                host.copy_(t, non_blocking=True)
+            t.record_stream(cs)  # the gathered pages live until copied
+            return host
+
+        k, v = _leaf_map(to_host, k), _leaf_map(to_host, v)
+        done = torch.cuda.Event()
+        done.record(cs)
+        return k, v, done.synchronize
+
+    def _to_card(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device through pinned memory, as
+        an asynchronous copy ordered on the engine's stream. A transposed
+        view of a contiguous buffer (an ``[N, L]`` payload read as ``[L,
+        N]``) moves as its buffer and is transposed on the card."""
+        if t.device == self.device:
+            return t
+        if (not t.is_contiguous() and t.dim() > 1
+                and t.transpose(0, 1).is_contiguous()):
+            return self._to_card(t.transpose(0, 1)).transpose(0, 1)
+        return to_device(t.contiguous(), self.device)
+
+    def _write_pages(self, bids: List[int], k, v) -> None:
+        """The page-write helper of restores and injects: layer-major
+        ``[L, N, ...]`` leaves on the card into blocks ``bids``, one
+        scatter a leaf on the engine's stream. A payload whose layout or
+        encoding differs from the pool's raises before any page is
+        written."""
+        kv = (k, v)
+        for pages, new in zip(self.kv, kv):
+            if isinstance(pages, tuple) != isinstance(new, (tuple, list)):
+                raise ValueError("payload page encoding differs from the "
+                                 "pool's")
+            for p, x in zip(_leaves_of(pages), _leaves_of(new)):
+                if (x.dtype != p.dtype or x.shape[0] != p.shape[0]
+                        or tuple(x.shape[2:]) != tuple(p.shape[2:])
+                        or x.shape[1] != len(bids)):
+                    raise ValueError(
+                        f"payload {tuple(x.shape)} {x.dtype} does not fit "
+                        f"pages {tuple(p.shape)} {p.dtype}")
+        idx = torch.tensor(bids, dtype=torch.long, device=self.device)
+        for pages, new in zip(self.kv, kv):
+            for p, x in zip(_leaves_of(pages), _leaves_of(new)):
+                p.index_copy_(1, idx, x)
+
+    def _restore_blocks(self, restores) -> bool:
+        """Copy offloaded blocks ``[(block id, hash), ...]`` back to the
+        card before the prefill forward reads them. False at the first
+        miss: the store answered ``contains`` but not ``get``, or gave a
+        block of another page encoding or shape (an L3 shared with
+        engines of other encodings holds their blocks under the same
+        chain hashes)."""
+        entries = []
+        for _, h in restores:
+            entry = self.offload.get(h) if self.offload is not None else None
+            if entry is None:
+                return False
+            if not self._fits_pool(entry):
+                logger.warning("offloaded block %d does not fit this pool's "
+                               "pages: recomputing", h)
+                return False
+            entries.append(entry)
+        if self._copy_stream is not None:
+            # A block spilled moments ago may still be on its way to the
+            # host: the copies below wait for it on the card.
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._copy_stream)
+
+        def stacked(side: int):
+            first = entries[0][side]
+            if isinstance(first, (tuple, list)):
+                return tuple(torch.stack([self._to_card(e[side][j])
+                                          for e in entries], dim=1)
+                             for j in range(len(first)))
+            return torch.stack([self._to_card(e[side]) for e in entries],
+                               dim=1)
+
+        self._write_pages([bid for bid, _ in restores], stacked(0),
+                          stacked(1))
+        return True
+
+    def _fits_pool(self, entry) -> bool:
+        """Whether an offloaded block ``(k, v)`` has this pool's page
+        encoding, dtypes and per-block shapes."""
+        for pages, side in zip(self.kv, entry):
+            if isinstance(pages, tuple) != isinstance(side, (tuple, list)):
+                return False
+            for p, x in zip(_leaves_of(pages), _leaves_of(side)):
+                if (x.dtype != p.dtype or tuple(x.shape)
+                        != (p.shape[0],) + tuple(p.shape[2:])):
+                    return False
+        return True
+
+    def _cached_chain(self, token_ids: List[int], adapter: str):
+        """(hashes, block ids) of the longest cached full-block prefix of
+        ``token_ids`` in this pool's prefix map. Callers hold self._lock."""
+        prefix_map = self.kv_mgr.allocator.prefix_map
+        hashes, bids = [], []
+        for h in self.kv_mgr.chain_hashes(token_ids, adapter):
+            bid = prefix_map.get(h)
+            if bid is None:
+                break
+            hashes.append(h)
+            bids.append(bid)
+        return hashes, bids
+
+    def extract_kv(self, token_ids: List[int], adapter: str = ""):
+        """The pages of the longest cached prefix of ``token_ids``, on the
+        host: ``{"hashes", "num_tokens", "k", "v"}`` with block-major
+        ``[N, L, bs, KVH, D]`` leaves (the TKV2 layout), or None when no
+        full block is cached. The gather is enqueued under _step_lock
+        (after the work already queued, before any later step); the copy
+        is waited for outside it."""
+        with self._step_lock:
+            with self._lock:
+                hashes, bids = self._cached_chain(token_ids, adapter)
+            if not hashes:
+                return None
+            k, v, ready = self._pages_to_host(bids)
+        if ready is not None:
+            ready()
+        return {"hashes": hashes,
+                "num_tokens": len(hashes) * self.config.block_size,
+                "k": k, "v": v}
+
+    def _install(self, hashes: List[int], write) -> int:
+        """Allocate a block for each of ``hashes`` not cached here yet,
+        ``write(positions, block ids)`` their pages, then register them as
+        cold cached blocks (ref_count 0). A write that raises gives the
+        blocks back and re-raises. Returns the blocks cached and
+        installed. Callers hold _step_lock."""
+        alloc = self.kv_mgr.allocator
+        if not alloc.enable_prefix_caching:
+            return 0
+        take, dst, already = [], [], 0
+        with self._lock:
+            for n, h in enumerate(hashes):
+                if h in alloc.prefix_map:
+                    already += 1
+                    continue
+                bid = alloc.allocate()
+                if bid is None:
+                    break
+                take.append(n)
+                dst.append(bid)
+        # Pages the allocations evicted spill before they are overwritten.
+        self._drain_offload()
+        if dst:
+            try:
+                write(take, dst)
+            except Exception:
+                with self._lock:
+                    for bid in dst:
+                        alloc.release(bid)
+                raise
+            with self._lock:
+                for n, bid in zip(take, dst):
+                    alloc.register_full_block(bid, hashes[n])
+                    alloc.release(bid)  # cached, ref_count 0
+        return already + len(dst)
+
+    def inject_kv_blocks(self, hashes: List[int], k, v) -> int:
+        """Install transferred pages (layer-major ``[L, N, ...]`` leaves,
+        on the host or the card) as cached prefix blocks, in one scatter
+        a leaf. Returns the blocks cached here afterwards (already cached
+        ones count). A payload that does not fit the pool raises, and its
+        blocks go back to the pool."""
+        def write(take, dst):
+            sel = torch.tensor(take, dtype=torch.long, device=self.device)
+            self._write_pages(dst, *(
+                _leaf_map(lambda t: self._to_card(t).index_select(1, sel),
+                          x) for x in (k, v)))
+
+        with self._step_lock:
+            return self._install(list(hashes), write)
+
+    def inject_kv(self, hashes: List[int], k_blocks, v_blocks) -> int:
+        """:meth:`inject_kv_blocks` for block-major ``[N, L, ...]``
+        payloads (the TKV2 layout, what :meth:`extract_kv` returns)."""
+        if not hashes:
+            return 0
+        return self.inject_kv_blocks(
+            list(hashes), _leaf_map(lambda t: t.transpose(0, 1), k_blocks),
+            _leaf_map(lambda t: t.transpose(0, 1), v_blocks))
+
+    def inject_from_core(self, src: "EngineCore", token_ids: List[int],
+                         adapter: str = "") -> int:
+        """Move the cached prefix pages of ``token_ids`` from another
+        core's pool into this one, card to card with no host transit (one
+        gather and one scatter a leaf). 0 when the two pools' page
+        encodings or devices differ (the host relay re-encodes). Takes
+        both cores' step locks in ``id()`` order."""
+        if (src.config.kv_cache_dtype != self.config.kv_cache_dtype
+                or src.device != self.device):
+            return 0
+        first, second = (src, self) if id(src) < id(self) else (self, src)
+        with first._step_lock, second._step_lock:
+            with src._lock:
+                hashes, src_bids = src._cached_chain(token_ids, adapter)
+            if not hashes:
+                return 0
+
+            def write(take, dst):
+                sel = torch.tensor([src_bids[n] for n in take],
+                                   dtype=torch.long, device=self.device)
+                self._write_pages(dst, *(
+                    _leaf_map(lambda t: t.index_select(1, sel), pages)
+                    for pages in src.kv))
+
+            return self._install(hashes, write)
 
     # ------------------------------------------------------------------ #
     # request interface
@@ -429,6 +729,8 @@ class EngineCore:
             self._lock.notify()
         if self._thread.ident is not None:  # started
             self._thread.join(timeout=30)
+        if self.offload is not None:
+            self.offload.close()
 
     def kv_never_fits(self, n_tokens: int) -> bool:
         """True when a prompt (+1-token decode headroom) needs more pages
@@ -441,6 +743,7 @@ class EngineCore:
         budget = (self.scheduler.token_budget
                   if self.scheduler.chunked_prefill else 0)
         rec = self.step_recorder
+        offload = self.offload.stats() if self.offload else None
         return {
             # Mid-prefill chunked sequences count as running: they hold KV
             # pages and will take a slot.
@@ -453,6 +756,14 @@ class EngineCore:
             "prompt_tokens_total": self.prompt_tokens_total,
             "cached_tokens_total": self.cached_tokens_total,
             "generation_tokens_total": self.generation_tokens_total,
+            "offload": offload,
+            # Pages allocated on the card, and blocks in the offload tier
+            # (host RAM; 0 without a tier).
+            "kv_page_occupancy": {
+                "resident": self.num_blocks - alloc.num_free,
+                "offload": offload["blocks"] if offload else 0},
+            "prefix_evicts_total": self.prefix_evicts_total,
+            "evict_listener_errors_total": self.evict_listener_errors_total,
             "requests_finished_total": self.requests_finished_total,
             "num_preempted_total": self.scheduler.num_preempted_total,
             "num_blocks": self.num_blocks,
@@ -513,7 +824,7 @@ class EngineCore:
             self._step_info = None  # never carry info across a failed step
             self._step_reqs = []
             try:
-                with torch.inference_mode():
+                with self._step_lock, torch.inference_mode():
                     if action in ("prefill", "prefill_step"):
                         t0 = time.perf_counter()
                         if action == "prefill":
@@ -552,6 +863,9 @@ class EngineCore:
             reqs = [req] + self._step_reqs
         else:
             reqs = []
+        # Pages evicted by the failed step are dropped, not spilled: a
+        # forward of it may have written them already.
+        self._pending_offload = []
         with self._lock:
             for r in reqs:
                 seq = self.scheduler._running_by_id.get(r.request_id)
@@ -588,7 +902,8 @@ class EngineCore:
     # -- prefill -----------------------------------------------------------
     def _allocate_for_prefill(self, req: EngineRequest, limit=None):
         """KV allocation for one prompt (``limit`` bounds fresh allocation
-        to the first chunk of a step plan). Returns (block_ids, cached) or
+        to the first chunk of a step plan), with the offload tier's
+        restores and their miss fallback. Returns (block_ids, cached) or
         None after requeuing the request."""
         alloc = self.kv_mgr.allocate_prompt(
             req.request_id, req.all_token_ids, adapter=req.adapter_name,
@@ -600,11 +915,38 @@ class EngineCore:
             alloc = self.kv_mgr.allocate_prompt(
                 req.request_id, req.all_token_ids, adapter=req.adapter_name,
                 limit=limit)
+        self._drain_offload()
         if alloc is None:
             with self._lock:
                 self.scheduler.requeue(req)
             return None
-        block_ids, cached, _ = alloc
+        block_ids, cached, restores = alloc
+        if restores and not self._restore_blocks(restores):
+            # The tier lied (a remote block evicted between HEAD and GET):
+            # recompute with the tier bypassed. The restore blocks were
+            # registered before their pages were written: unregister them
+            # so neither the retry nor another prompt reads them as cache.
+            kv_alloc = self.kv_mgr.allocator
+            with self._lock:
+                for bid, h in restores:
+                    if kv_alloc.prefix_map.get(h) == bid:
+                        del kv_alloc.prefix_map[h]
+                        kv_alloc.blocks[bid].prefix_hash = None
+            self.kv_mgr.free(req.request_id)
+            ext = self.kv_mgr.external_lookup
+            self.kv_mgr.external_lookup = None
+            try:
+                alloc = self.kv_mgr.allocate_prompt(
+                    req.request_id, req.all_token_ids,
+                    adapter=req.adapter_name, limit=limit)
+            finally:
+                self.kv_mgr.external_lookup = ext
+            self._drain_offload()
+            if alloc is None:
+                with self._lock:
+                    self.scheduler.requeue(req)
+                return None
+            block_ids, cached, _ = alloc
         return block_ids, cached
 
     def _do_prefill(self, req: EngineRequest) -> None:
@@ -723,6 +1065,9 @@ class EngineCore:
                     self._flush_pending_burst()
                     block_ids = self.kv_mgr.extend_tokens(
                         req.request_id, tokens, pc.end)
+                # Pages the extension evicted spill before this chunk's
+                # forward can overwrite them.
+                self._drain_offload()
                 if block_ids is None:
                     self.kv_mgr.free(req.request_id)
                     with self._lock:
@@ -1215,6 +1560,7 @@ class EngineCore:
             active0_ids = {id(s) for s in active0}
             active = [s for s in self.scheduler.running()
                       if id(s) in active0_ids]
+        self._drain_offload()  # pages the block accounting evicted
         if not active:
             self._flush_pending_burst()
             return
@@ -1704,6 +2050,7 @@ class EngineCore:
                         break
             active = [s for s in self.scheduler.running()
                       if id(s) in active0_ids]
+        self._drain_offload()
         if not active:
             return
 
@@ -2053,6 +2400,17 @@ def _prefill_arrays(R: int, bucket: int, maxb: int, row_bytes: int) -> dict:
         "mask_bits": np.zeros((R, row_bytes), np.uint8),
         "mask_on": np.zeros((R,), bool),
     }
+
+
+def _leaf_map(fn, x):
+    """``fn`` over a page leaf: a tensor, or an int8 (data, scales) pair."""
+    if isinstance(x, (tuple, list)):
+        return tuple(fn(t) for t in x)
+    return fn(x)
+
+
+def _leaves_of(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
 def _leaves(tree):

@@ -17,7 +17,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-import hashlib
+from production_stack_tpu_torch.utils.xxh64 import xxh64
 
 
 @dataclass
@@ -54,12 +54,12 @@ class BlockAllocator:
         """parent: None (chain root), a previous chain hash (int), or an
         adapter namespace string.
 
-        64-bit BLAKE2b (standard library) where the JAX engine uses
-        xxh64, so prefix hashes differ between the two engines."""
-        h = hashlib.blake2b(digest_size=8)
+        XXH64 (``utils/xxh64.py``), equal to the JAX engine's hash, so
+        pages and offloaded blocks interchange between the engines."""
+        h = xxh64()
         h.update(str(parent).encode())
         h.update(bytes(b for t in tokens for b in int(t).to_bytes(4, "little", signed=True)))
-        return int.from_bytes(h.digest(), "little")
+        return h.intdigest()
 
     @property
     def num_free(self) -> int:
@@ -193,6 +193,18 @@ class KVCacheManager:
         if not self.namespace and not adapter:
             return None
         return f"{self.namespace}|{adapter}"
+
+    def chain_hashes(self, tokens: List[int], adapter: str = "") -> List[int]:
+        """The chain hash of every full block of ``tokens``, in order:
+        the keys its pages have in the prefix map, the offload tiers and
+        a KV transfer."""
+        bs = self.block_size
+        parent = self.chain_root(adapter)
+        out: List[int] = []
+        for i in range(0, len(tokens) - bs + 1, bs):
+            parent = BlockAllocator.chain_hash(parent, tuple(tokens[i:i + bs]))
+            out.append(parent)
+        return out
 
     def can_allocate(self, num_tokens: int) -> bool:
         needed = (num_tokens + self.block_size - 1) // self.block_size

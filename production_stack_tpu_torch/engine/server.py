@@ -24,7 +24,23 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``;
 - ``GET /debug/steps`` (step recorder on): newest-first step records
   under the recorder's summary; filters ``?limit=50`` and
-  ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it.
+  ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it;
+- KV movement, as the JAX server answers it: ``POST /kv/extract`` (a
+  prompt's cached prefix pages as one TKV2 payload, written buffer by
+  buffer under one ``Content-Length``; 404 without a cached block),
+  ``POST /kv/inject`` (the inverse), ``POST /kv/pull`` (the decode side
+  of disaggregated prefill: ``{"source_url", "request", "kv_path":
+  "auto" | "host" | "device"}``; rungs local-device (a server of this
+  process, card to card), then the TKV2 host relay from the source's
+  ``/kv/extract``, then ``status: "l3"`` when the prefix sits in this
+  engine's offload tier; 503 with ``Retry-After: 1`` past
+  ``--kv-pull-max-concurrency`` pulls in flight), and ``POST
+  /kv/prepare_pull`` (501: no device transfer runtime) and ``POST
+  /kv/release``;
+- with ``--kv-controller-url``, the engine's side of the router's KV
+  controller: it registers, heartbeats, resyncs its claim digest and
+  reports every admitted prompt's text chunks and every eviction (on
+  threads of their own: the engine thread only enqueues).
 
 A request that fails inside the engine finishes with ``finish_reason:
 "error"``.
@@ -34,6 +50,8 @@ A request that fails inside the engine finishes with ``finish_reason:
         [--prefill-batch 4] [--enable-chunked-prefill] \\
         [--max-num-batched-tokens N] [--no-step-recorder] \\
         [--structured-cache-size 32] \\
+        [--kv-offload-gb 4] [--kv-remote-url URL] \\
+        [--kv-controller-url ROUTER --advertise-url URL] \\
         [--speculative-num-tokens 4 [--speculative-ngram-size 3] \\
          [--speculative-draft-model M --speculative-draft-probation 64]]
 """
@@ -42,14 +60,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import queue
+import struct
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
 import uuid
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.core import EngineCore
@@ -63,6 +86,16 @@ from production_stack_tpu_torch.engine.tools import (
     render_tools_preamble,
     tool_names,
 )
+from production_stack_tpu_torch.kv.controller import (
+    CHUNK_SIZE,
+    chunk_hashes,
+    claim_digest,
+    path_keys,
+)
+from production_stack_tpu_torch.kv.offload import (
+    pack_transfer_buffers,
+    unpack_transfer,
+)
 from production_stack_tpu_torch.obs.steps import STEP_KINDS
 from production_stack_tpu_torch.structured.api import compile_char_dfa
 from production_stack_tpu_torch.utils.log import init_logger
@@ -70,6 +103,9 @@ from production_stack_tpu_torch.utils.log import init_logger
 logger = init_logger(__name__)
 
 MAX_BODY_BYTES = 32 << 20
+# A TKV2 payload is a prompt's whole prefix over every layer: 268 MB for
+# 2,048 tokens of Llama-3-8B in bf16.
+MAX_KV_BODY_BYTES = 16 << 30
 # How long a handler waits for the engine's next token before giving up.
 TOKEN_TIMEOUT_S = 600.0
 
@@ -86,11 +122,61 @@ class EngineServer:
     """The OpenAI surface of one engine: request parsing, the token
     stream from the engine thread, and the response bodies."""
 
-    def __init__(self, core: EngineCore, served_models: List[str]):
+    # Servers of THIS process by bound port: a pull from one of them
+    # moves pages card to card (the local-device rung).
+    _local_peers: "dict[str, EngineServer]" = {}
+
+    def __init__(self, core: EngineCore, served_models: List[str],
+                 kv_controller_url: Optional[str] = None,
+                 advertise_url: Optional[str] = None,
+                 instance_id: Optional[str] = None,
+                 kv_heartbeat_interval: float = 10.0,
+                 kv_resync_interval: float = 30.0,
+                 kv_pull_max_concurrency: int = 8):
         self.core = core
         self.config = core.config
         self.served_models = served_models
         self.start_time = time.time()
+        # -- the KV controller's engine side ------------------------------
+        self.kv_controller_url = (kv_controller_url.rstrip("/")
+                                  if kv_controller_url else None)
+        self.advertise_url = advertise_url
+        self.instance_id = instance_id or f"engine-{uuid.uuid4().hex[:8]}"
+        # A fresh generation a process: a restart on the same URL is a new
+        # incarnation, whose registration sweeps the old one's claims.
+        self.generation = uuid.uuid4().hex
+        self.kv_heartbeat_interval = float(kv_heartbeat_interval)
+        self.kv_resync_interval = float(kv_resync_interval)
+        self._kv_registered = False
+        self._kv_stop = threading.Event()
+        self._kv_threads: List[threading.Thread] = []
+        # Reports (admit, evict) run in order on one thread.
+        self._reports: "queue.Queue[Optional[Callable[[], None]]]" = (
+            queue.Queue())
+        # Admission registry: this engine's page chain hashes -> the
+        # controller's text-chunk hashes of the prompts that admitted
+        # them, so an eviction is reported as root-anchored chunk paths.
+        self._adm_lock = threading.Lock()
+        self._admissions: "OrderedDict[int, tuple]" = OrderedDict()
+        self._block_admissions: "dict[int, set]" = {}
+        self._adm_counter = itertools.count(1)
+        self._bound_port: Optional[int] = None
+        # -- /kv/pull admission and the transfer counters -----------------
+        self.kv_pull_max_concurrency = max(1, int(kv_pull_max_concurrency))
+        self._kv_lock = threading.Lock()
+        self._pull_inflight = 0
+        self.kv_pull_rejected_total = 0
+        self.kv_transfer_tx_bytes = 0
+        self.kv_transfer_rx_bytes = 0
+        self.kv_transfer_rx_seconds = 0.0
+        self.kv_transfer_pulls = 0
+        self.kv_transfer_device_pulls = 0
+        self.kv_transfer_device_bytes = 0
+        self.kv_transfer_device_seconds = 0.0
+        # Pulls answered from the offload tier (the peer missed, the
+        # prefix is in host RAM or the L3): prefill restores it.
+        self.l3_pull_hits = 0
+        self.l3_pull_blocks = 0
 
     # -- helpers -------------------------------------------------------------
     def check_model(self, model: str) -> None:
@@ -173,6 +259,7 @@ class EngineServer:
         model = body.get("model", self.config.model)
         self.check_model(model)
         tok = self.core.tokenizer
+        text, offsets = None, None  # the admission report's prompt text
         if kind == "chat":
             messages = body.get("messages", [])
             tools = body.get("tools") or []
@@ -184,7 +271,8 @@ class EngineServer:
                              "content": render_tools_preamble(
                                  tools, body.get("tool_choice", "auto"))}
                             ] + list(messages)
-            prompt_ids = tok.encode(tok.apply_chat_template(messages))
+            text = tok.apply_chat_template(messages)
+            prompt_ids, offsets = self._encode_prompt(text)
             sampling = self.parse_sampling(body, default_max_tokens=128)
         else:
             prompt = body.get("prompt", "")
@@ -197,9 +285,12 @@ class EngineServer:
             else:
                 if isinstance(prompt, list):
                     prompt = prompt[0] if prompt else ""
-                prompt_ids = tok.encode(str(prompt))
+                text = str(prompt)
+                prompt_ids, offsets = self._encode_prompt(text)
             sampling = self.parse_sampling(body, default_max_tokens=16)
         self.check_prompt(prompt_ids)
+        if text is not None:
+            self._report_kv_admission(text, prompt_ids, offsets)
         rid = f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-{uuid.uuid4().hex[:16]}"
         streams = [self._admit(rid, prompt_ids, sampling)]
         base_seed = (sampling.seed if sampling.seed is not None
@@ -254,6 +345,391 @@ class EngineServer:
             # the engine drops the request (a no-op once it has finished).
             self.core.abort_request(rid)
 
+    # -- the KV controller's engine side ---------------------------------
+    def start_kv_reporting(self, host: str, port: int) -> None:
+        """Hook the eviction report, register this server as a local peer
+        (by bound port) and, with a controller URL, register with the
+        controller and start the heartbeat, resync and report threads."""
+        self._bound_port = port
+        EngineServer._local_peers[str(port)] = self
+        self.core.prefix_evict_listener = self._on_prefix_evict
+        if self.kv_controller_url is None:
+            return
+        if self.advertise_url is None:
+            self.advertise_url = f"http://{host}:{port}"
+        self._kv_register()
+        loops = [("kv-report", self._report_loop)]
+        if self.kv_heartbeat_interval > 0:
+            loops.append(("kv-heartbeat", self._heartbeat_loop))
+        if self.kv_resync_interval > 0:
+            loops.append(("kv-resync", self._resync_loop))
+        for name, fn in loops:
+            th = threading.Thread(target=fn, daemon=True, name=name)
+            th.start()
+            self._kv_threads.append(th)
+
+    def close(self) -> None:
+        """Stop the reporting threads and drop the local-peer entry, so a
+        recycled port never resolves to this server's frozen pool."""
+        self._kv_stop.set()
+        self._reports.put(None)
+        for th in self._kv_threads:
+            th.join(timeout=10)
+        self._kv_threads = []
+        if (self._bound_port is not None and EngineServer._local_peers.get(
+                str(self._bound_port)) is self):
+            del EngineServer._local_peers[str(self._bound_port)]
+
+    def _post_json(self, path: str, body: dict, timeout: float = 5.0):
+        """(status, JSON body or {}) of a POST to the controller; (None,
+        {}) when it cannot be reached."""
+        req = urllib.request.Request(
+            self.kv_controller_url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                raw = resp.read()
+                status = resp.status
+        except urllib.error.HTTPError as e:
+            return e.code, {}
+        except (urllib.error.URLError, OSError) as e:
+            logger.debug("KV controller %s failed: %s", path, e)
+            return None, {}
+        try:
+            out = json.loads(raw.decode() or "{}")
+        except ValueError:
+            out = {}
+        return status, out if isinstance(out, dict) else {}
+
+    def _kv_register(self) -> bool:
+        status, _ = self._post_json("/kv/register", {
+            "instance_id": self.instance_id, "url": self.advertise_url,
+            "generation": self.generation,
+            "heartbeat_interval": self.kv_heartbeat_interval})
+        self._kv_registered = status == 200
+        return self._kv_registered
+
+    def _report_loop(self) -> None:
+        while True:
+            job = self._reports.get()
+            try:
+                if job is None:
+                    return
+                job()
+            except Exception:  # noqa: BLE001 - a lost report: resync heals
+                logger.exception("KV report failed")
+            finally:
+                self._reports.task_done()
+
+    def _heartbeat_loop(self) -> None:
+        """Lease renewal. An unknown instance (the controller restarted,
+        or superseded this record) re-registers and pushes its state; a
+        revived one (its lease had expired and its claims were swept)
+        pushes its state."""
+        while not self._kv_stop.wait(self.kv_heartbeat_interval):
+            status, body = self._post_json("/kv/heartbeat", {
+                "instance_id": self.instance_id,
+                "generation": self.generation,
+                "heartbeat_interval": self.kv_heartbeat_interval,
+                "url": self.advertise_url})
+            if status != 200:
+                continue
+            if not body.get("known"):
+                if self._kv_register():
+                    self._kv_resync(force=True)
+            elif body.get("revived"):
+                logger.info("KV lease revived; resyncing swept claims")
+                self._kv_resync(force=True)
+
+    def _resync_loop(self) -> None:
+        while not self._kv_stop.wait(self.kv_resync_interval):
+            try:
+                self._kv_resync()
+            except Exception as e:  # noqa: BLE001 - resync is best-effort
+                logger.debug("KV resync failed: %s", e)
+
+    def _admitted_paths(self) -> "list[list[int]]":
+        """The root-anchored chunk-hash paths this engine still serves."""
+        paths, seen = [], set()
+        with self._adm_lock:
+            for chunks, _blocks in self._admissions.values():
+                t = tuple(int(h) for h in chunks)
+                if t and t not in seen:
+                    seen.add(t)
+                    paths.append(list(t))
+        return paths
+
+    def _kv_resync(self, force: bool = False) -> None:
+        """Anti-entropy: compare claim digests with the controller and, on
+        a mismatch (or ``force``), replace this engine's claims."""
+        paths = self._admitted_paths()
+        keys: "set[int]" = set()
+        for p in paths:
+            keys.update(path_keys(p))
+        count, xor = claim_digest(keys)
+        if not force:
+            status, check = self._post_json("/kv/resync", {
+                "instance_id": self.instance_id, "count": count, "xor": xor})
+            if status != 200 or check.get("match"):
+                return
+            if not check.get("known") and not self._kv_register():
+                return
+        status, body = self._post_json("/kv/resync_state", {
+            "instance_id": self.instance_id, "paths": paths}, timeout=10.0)
+        if status == 200 and body.get("swept"):
+            logger.info("KV resync: swept %s drifted claims, %s claim "
+                        "nodes reasserted", body.get("swept"),
+                        body.get("claims", 0))
+
+    def _encode_prompt(self, text: str):
+        """(ids, per-token char offsets | None); the offsets only when a
+        controller is wired (the admission registry needs them)."""
+        tok = self.core.tokenizer
+        if self.kv_controller_url is not None and hasattr(
+                tok, "encode_with_offsets"):
+            return tok.encode_with_offsets(text)
+        return tok.encode(text), None
+
+    def _report_kv_admission(self, text: str, ids: List[int],
+                             offsets: Optional[List[int]]) -> None:
+        """Queue the admission of a prompt: its registry entry, then
+        ``/kv/admit`` with the prompt text (registering first if the
+        controller has not accepted this instance yet)."""
+        if self.kv_controller_url is None or not text:
+            return
+
+        def job():
+            self._track_admission(text, list(ids), offsets)
+            if not self._kv_registered and not self._kv_register():
+                return
+            self._post_json("/kv/admit", {"instance_id": self.instance_id,
+                                          "text": text})
+
+        self._reports.put(job)
+
+    def _track_admission(self, text: str, ids: List[int],
+                         offsets: Optional[List[int]],
+                         adapter: str = "") -> None:
+        """Map this prompt's page chain hashes to the controller's text
+        chunks (by each block's first token's character offset), so an
+        eviction names exactly the chunks its chain covered."""
+        chunks = chunk_hashes(text, salt=adapter or None)
+        n = len(ids)
+        if not chunks or n == 0:
+            return
+        bs = self.config.block_size
+        if offsets is None or len(offsets) != n:
+            offsets = self.core.tokenizer.token_char_offsets(text, ids)
+        blocks = [(h, min(offsets[j * bs] // CHUNK_SIZE, len(chunks) - 1))
+                  for j, h in enumerate(
+                      self.core.kv_mgr.chain_hashes(ids, adapter))]
+        if not blocks:
+            return
+        aid = next(self._adm_counter)
+        with self._adm_lock:
+            self._admissions[aid] = (chunks, blocks)
+            for bh, _ in blocks:
+                self._block_admissions.setdefault(bh, set()).add(aid)
+            while len(self._admissions) > 1024:
+                old_aid, (_, old_blocks) = self._admissions.popitem(False)
+                for bh, _ in old_blocks:
+                    members = self._block_admissions.get(bh)
+                    if members is not None:
+                        members.discard(old_aid)
+                        if not members:
+                            del self._block_admissions[bh]
+
+    def _on_prefix_evict(self, prefix_hash: int, bid: int) -> None:
+        """The engine's eviction listener (engine thread, maybe under its
+        lock; fires only without an offload tier): queue ``/kv/evict``
+        with the root-anchored chunk path down to each affected
+        admission's first dead chunk. Never reported as spilled."""
+        paths, seen = [], set()
+        with self._adm_lock:
+            aids = self._block_admissions.get(prefix_hash)
+            if not aids:
+                return
+            for aid in list(aids):
+                entry = self._admissions.pop(aid, None)
+                if entry is None:
+                    continue
+                chunks, blocks = entry
+                cut = next((cs for bh, cs in blocks if bh == prefix_hash),
+                           None)
+                if cut is not None:
+                    path = tuple(int(h) for h in chunks[:cut + 1])
+                    if path and path not in seen:
+                        seen.add(path)
+                        paths.append(list(path))
+                for bh, _ in blocks:
+                    members = self._block_admissions.get(bh)
+                    if members is not None:
+                        members.discard(aid)
+                        if not members:
+                            del self._block_admissions[bh]
+        if paths and self.kv_controller_url is not None:
+            self._reports.put(lambda: self._post_json(
+                "/kv/evict", {"instance_id": self.instance_id,
+                              "paths": paths}))
+
+    # -- KV transfer -----------------------------------------------------
+    def tokens_from_body(self, body: dict) -> List[int]:
+        """Token ids of a KV request: ``token_ids``, chat ``messages`` or a
+        ``prompt`` (text or ids), as the serving path tokenizes them."""
+        tok = self.core.tokenizer
+        if body.get("token_ids"):
+            return [int(t) for t in body["token_ids"]]
+        if body.get("messages") is not None:
+            return tok.encode(tok.apply_chat_template(body["messages"]))
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list) and prompt and isinstance(prompt[0], int):
+            return [int(t) for t in prompt]
+        return tok.encode(str(prompt))
+
+    def _resolve_local_peer(self, source_url: str) -> "EngineServer | None":
+        """A live server of this process behind ``source_url`` whose pool
+        has this one's page layout, else None."""
+        parsed = urllib.parse.urlparse(source_url)
+        if parsed.hostname not in ("127.0.0.1", "localhost", "::1"):
+            return None
+        peer = EngineServer._local_peers.get(str(parsed.port))
+        if peer is None or peer is self:
+            return None
+        if (peer.core.model_config != self.core.model_config
+                or peer.core.config.block_size != self.config.block_size
+                or not peer.core._running):
+            return None
+        return peer
+
+    def _l3_probe(self, token_ids: List[int]) -> int:
+        """Leading blocks of ``token_ids`` held by the offload tier (host
+        RAM or the remote L3); 0 without a tier."""
+        offload = self.core.offload
+        if offload is None:
+            return 0
+        blocks = 0
+        for h in self.core.kv_mgr.chain_hashes(token_ids):
+            if not offload.contains(h):
+                break
+            blocks += 1
+        return blocks
+
+    def _l3_fallback(self, token_ids: List[int]) -> Optional[dict]:
+        """The peer missed: ``status: "l3"`` when the tier holds the
+        prefix (prefill restores it), else None."""
+        blocks = self._l3_probe(token_ids)
+        if blocks <= 0:
+            return None
+        with self._kv_lock:
+            self.l3_pull_hits += 1
+            self.l3_pull_blocks += blocks
+        return {"status": "l3", "injected_blocks": 0, "l3_blocks": blocks,
+                "num_tokens": blocks * self.config.block_size}
+
+    def kv_pull(self, body: dict):
+        """(status, body, headers) of ``POST /kv/pull``, admission-gated
+        at ``kv_pull_max_concurrency`` transfers in flight."""
+        with self._kv_lock:
+            if self._pull_inflight >= self.kv_pull_max_concurrency:
+                self.kv_pull_rejected_total += 1
+                return 503, {
+                    "status": "rejected",
+                    "error": "pull admission full "
+                             f"({self.kv_pull_max_concurrency} in flight)"}, {
+                    "Retry-After": "1"}
+            self._pull_inflight += 1
+        try:
+            status, out = self._kv_pull(body)
+        finally:
+            with self._kv_lock:
+                self._pull_inflight -= 1
+        return status, out, {}
+
+    def _kv_pull(self, body: dict):
+        source = body.get("source_url")
+        if not source:
+            return 400, {"error": "source_url required"}
+        req_body = body.get("request", body)
+        if not isinstance(req_body, dict):
+            return 400, {"error": "request must be a JSON object"}
+        token_ids = self.tokens_from_body(req_body)
+        kv_path = body.get("kv_path", "auto")
+        if kv_path not in ("auto", "host", "device"):
+            return 400, {"error": f"unknown kv_path {kv_path!r}"}
+        if kv_path == "device":
+            # No device transfer runtime on this backend (the JAX server's
+            # answer when it has none).
+            return 501, {"error": "device path unavailable"}
+        bs = self.config.block_size
+        peer = self._resolve_local_peer(source) if kv_path == "auto" else None
+        if peer is not None:
+            t0 = time.monotonic()
+            try:
+                injected = self.core.inject_from_core(peer.core, token_ids)
+            except Exception as e:  # noqa: BLE001 - fall to the next rung
+                logger.warning("local-device pull failed, falling back: %s",
+                               e)
+                injected = 0
+            if injected > 0:
+                total = time.monotonic() - t0
+                nbytes = injected * self.core._kv_bytes_per_block()
+                with self._kv_lock:
+                    self.kv_transfer_device_pulls += 1
+                    self.kv_transfer_device_bytes += nbytes
+                    self.kv_transfer_device_seconds += total
+                    self.kv_transfer_pulls += 1
+                return 200, {
+                    "status": "ok", "injected_blocks": injected,
+                    "num_tokens": injected * bs,
+                    "transfer": {
+                        "path": "local-device", "bytes": nbytes,
+                        "total_seconds": round(total, 6),
+                        "gigabytes_per_second": round(
+                            nbytes / max(total, 1e-9) / 1e9, 6)}}
+        t0 = time.monotonic()
+        req = urllib.request.Request(
+            source.rstrip("/") + "/kv/extract",
+            data=json.dumps({"token_ids": token_ids,
+                             "model": req_body.get("model", "")}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                data = resp.read()
+        except urllib.error.HTTPError:
+            # The peer has no cached prefix: the L3 before a recompute.
+            return 200, (self._l3_fallback(token_ids)
+                         or {"status": "miss", "injected_blocks": 0})
+        except (urllib.error.URLError, OSError) as e:
+            l3 = self._l3_fallback(token_ids)
+            if l3 is not None:
+                return 200, l3
+            return 502, {"error": f"source unreachable: {e}"}
+        fetch_seconds = time.monotonic() - t0
+        try:
+            payload = unpack_transfer(data)
+        except (ValueError, KeyError, struct.error) as e:
+            logger.warning("bad TKV2 payload from %s: %s", source, e)
+            return 200, (self._l3_fallback(token_ids)
+                         or {"status": "miss", "injected_blocks": 0})
+        injected = self.core.inject_kv(payload["hashes"], payload["k"],
+                                       payload["v"])
+        total = time.monotonic() - t0
+        with self._kv_lock:
+            self.kv_transfer_rx_bytes += len(data)
+            self.kv_transfer_rx_seconds += total
+            self.kv_transfer_pulls += 1
+        return 200, {
+            "status": "ok", "injected_blocks": injected,
+            "num_tokens": payload["num_tokens"],
+            "transfer": {
+                "path": "host", "bytes": len(data),
+                # fetch: the source's extract and the HTTP transfer; total
+                # adds the inject here. Handoff throughput, not a link's.
+                "fetch_seconds": round(fetch_seconds, 6),
+                "total_seconds": round(total, 6),
+                "gigabytes_per_second": round(
+                    len(data) / max(fetch_seconds, 1e-9) / 1e9, 6)}}
+
     def metrics_text(self) -> str:
         s = self.core.stats()
         labels = f'model_name="{self.config.model}"'
@@ -297,12 +773,58 @@ class EngineServer:
              s["structured_mask_states_total"]),
             ("tpu:structured_violations_total", "counter",
              s["structured_violations_total"]),
+            # Disaggregated-prefill handoff (both rungs) and /kv/pull
+            # admission.
+            ("tpu:kv_transfer_tx_bytes_total", "counter",
+             self.kv_transfer_tx_bytes),
+            ("tpu:kv_transfer_rx_bytes_total", "counter",
+             self.kv_transfer_rx_bytes),
+            ("tpu:kv_transfer_rx_seconds_total", "counter",
+             f"{self.kv_transfer_rx_seconds:.6f}"),
+            ("tpu:kv_transfer_pulls_total", "counter", self.kv_transfer_pulls),
+            ("tpu:kv_transfer_device_pulls_total", "counter",
+             self.kv_transfer_device_pulls),
+            ("tpu:kv_transfer_device_bytes_total", "counter",
+             self.kv_transfer_device_bytes),
+            ("tpu:kv_transfer_device_seconds_total", "counter",
+             f"{self.kv_transfer_device_seconds:.6f}"),
+            ("tpu:kv_pull_inflight", "gauge", self._pull_inflight),
+            ("tpu:kv_pull_rejected_total", "counter",
+             self.kv_pull_rejected_total),
+            # Evictions dispatched without an offload tier, and listener
+            # calls that raised (reports the resync has to heal).
+            ("tpu:prefix_evicts_total", "counter", s["prefix_evicts_total"]),
+            ("tpu:evict_listener_errors_total", "counter",
+             s["evict_listener_errors_total"]),
         ]
+        off = s["offload"]
+        if off:
+            rows += [("tpu:kv_offload_blocks", "gauge", off["blocks"]),
+                     ("tpu:kv_offload_bytes", "gauge", off["bytes"]),
+                     ("tpu:kv_offload_hits_total", "counter", off["hits"]),
+                     ("tpu:kv_offload_misses_total", "counter",
+                      off["misses"])]
+            if off["remote"]:
+                rows += [("tpu:l3_spill_blocks_total", "counter",
+                          off["remote_put_blocks"]),
+                         ("tpu:l3_spill_bytes_total", "counter",
+                          off["remote_put_bytes"]),
+                         ("tpu:l3_hit_blocks_total", "counter",
+                          off["remote_get_blocks"]),
+                         ("tpu:l3_hit_bytes_total", "counter",
+                          off["remote_get_bytes"]),
+                         ("tpu:l3_pull_hits_total", "counter",
+                          self.l3_pull_hits)]
         lines = []
         for name, kind, value, *extra in rows:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
             lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
+        # Pages allocated on the card and blocks in the offload tier.
+        lines.append("# TYPE tpu:kv_page_occupancy gauge")
+        for tier, n in s["kv_page_occupancy"].items():
+            lines.append(f'tpu:kv_page_occupancy{{{labels},tier="{tier}"}} '
+                         f"{n}")
         # Speculative decoding, as the JAX server exports it: proposed and
         # accepted draft tokens by proposer (both label values always
         # present), the acceptance rate, latched-off requests, verify
@@ -367,9 +889,7 @@ class EngineServer:
             return 400, {"error": f"unknown kind {kind!r} "
                                   f"(one of: {', '.join(STEP_KINDS)})"}
         out = rec.summary()
-        alloc = self.core.kv_mgr.allocator
-        out["kv_page_occupancy"] = {
-            "resident": self.core.num_blocks - alloc.num_free, "offload": 0}
+        out["kv_page_occupancy"] = self.core.stats()["kv_page_occupancy"]
         out["steps"] = rec.snapshot(limit=limit, kind=kind)
         return 200, out
 
@@ -421,6 +941,17 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802 - http.server API
         path = self.path.split("?", 1)[0]
+        kv_routes = {"/kv/extract": self._kv_extract,
+                     "/kv/inject": self._kv_inject,
+                     "/kv/pull": self._kv_pull,
+                     "/kv/prepare_pull": self._kv_prepare_pull,
+                     "/kv/release": self._kv_release}
+        if path in kv_routes:
+            try:
+                kv_routes[path]()
+            except BadRequest as exc:
+                self._send_error(exc)
+            return
         kinds = {"/v1/completions": "completion",
                  "/v1/chat/completions": "chat"}
         if path not in kinds:
@@ -447,6 +978,71 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond_stream(*args)
         else:
             self._respond_full(*args)
+
+    # -- KV transfer routes ----------------------------------------------
+    def _kv_extract(self) -> None:
+        """The cached prefix pages of the body's prompt as one TKV2
+        payload, each buffer written as it is (no payload-sized join)."""
+        eng = self.engine
+        body = self._read_json()
+        payload = eng.core.extract_kv(eng.tokens_from_body(body))
+        if payload is None:
+            self._send_json({"error": "no cached prefix for these tokens"},
+                            404)
+            return
+        buffers = pack_transfer_buffers(payload["hashes"],
+                                        payload["num_tokens"],
+                                        payload["k"], payload["v"])
+        total = sum(len(b) for b in buffers)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(total))
+        self.send_header("X-KV-Tokens", str(payload["num_tokens"]))
+        self.end_headers()
+        for buf in buffers:
+            self.wfile.write(buf)
+        with eng._kv_lock:
+            eng.kv_transfer_tx_bytes += total
+
+    def _kv_inject(self) -> None:
+        """Install a TKV2 payload's blocks as cached prefix pages."""
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_KV_BODY_BYTES:
+            raise BadRequest("payload too large", 413)
+        data = bytearray(length)
+        view, got = memoryview(data), 0
+        while got < length:
+            n = self.rfile.readinto(view[got:])
+            if not n:
+                raise BadRequest("payload cut short")
+            got += n
+        try:
+            payload = unpack_transfer(data)
+            injected = self.engine.core.inject_kv(
+                payload["hashes"], payload["k"], payload["v"])
+        except (ValueError, KeyError, TypeError, struct.error) as e:
+            self._send_json({"error": f"bad payload: {e}"}, 400)
+            return
+        self._send_json({"status": "ok", "injected_blocks": injected,
+                         "num_tokens": payload["num_tokens"]})
+
+    def _kv_pull(self) -> None:
+        status, out, headers = self.engine.kv_pull(self._read_json())
+        data = json.dumps(out).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for key, value in headers.items():
+            self.send_header(key, value)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _kv_prepare_pull(self) -> None:
+        self._send_json({"error": "device pipe unavailable on this "
+                                  "backend"}, 501)
+
+    def _kv_release(self) -> None:
+        self._send_json({"status": "ok"})
 
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
@@ -821,6 +1417,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="step records kept in the flight-recorder ring")
     p.add_argument("--chat-template", default=None,
                    help="custom jinja chat-template file (HF checkpoints)")
+    p.add_argument("--kv-offload-gb", type=float, default=0.0,
+                   help="host-RAM KV offload tier size in GiB (0 = off): "
+                        "evicted prefix pages spill here and are restored "
+                        "instead of recomputed")
+    p.add_argument("--kv-remote-url", default=None,
+                   help="remote KV cache server URL (the L3 tier behind "
+                        "host RAM)")
+    p.add_argument("--kv-controller-url", default=None,
+                   help="router URL hosting the KV controller: the engine "
+                        "registers there and reports its prefix admissions "
+                        "and evictions (kvaware routing)")
+    p.add_argument("--advertise-url", default=None,
+                   help="this engine's URL as the router reaches it "
+                        "(default: http://<host>:<port>)")
+    p.add_argument("--instance-id", default=None,
+                   help="KV-controller instance id (default: random)")
+    p.add_argument("--kv-heartbeat-interval", type=float, default=10.0,
+                   help="seconds between KV-controller lease heartbeats "
+                        "(0 disables)")
+    p.add_argument("--kv-resync-interval", type=float, default=30.0,
+                   help="seconds between KV-controller claim-digest "
+                        "comparisons (0 disables)")
+    p.add_argument("--kv-pull-max-concurrency", type=int, default=8,
+                   help="/kv/pull transfers served at once; past it a pull "
+                        "gets 503 + Retry-After")
     return p
 
 
@@ -854,24 +1475,44 @@ def config_from_args(args) -> EngineConfig:
         step_recorder=args.step_recorder,
         step_record_capacity=args.step_record_capacity,
         chat_template=args.chat_template,
+        kv_offload_bytes=int(args.kv_offload_gb * (1 << 30)),
+        kv_remote_url=args.kv_remote_url,
     )
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    engine: EngineServer
+
+    def server_close(self) -> None:
+        """Close the socket, then stop the KV reporting threads and drop
+        the local-peer entry."""
+        super().server_close()
+        self.engine.close()
 
 
 def build_server(argv: Optional[List[str]] = None,
                  core: Optional[EngineCore] = None):
     """Parse ``argv``, build (or take) the engine, start its thread and
-    bind the HTTP server. Returns (httpd, core); the caller runs
-    ``httpd.serve_forever()`` and, to stop, ``httpd.shutdown()``,
-    ``httpd.server_close()`` and ``core.stop()``."""
+    bind the HTTP server (registered as a local peer for ``/kv/pull``,
+    and with the KV controller when one is configured). Returns (httpd,
+    core); the caller runs ``httpd.serve_forever()`` and, to stop,
+    ``httpd.shutdown()``, ``httpd.server_close()`` and ``core.stop()``."""
     args = build_arg_parser().parse_args(argv)
     if core is None:
         core = EngineCore(config_from_args(args))
     core.start()
     served = args.served_model_name or [core.config.model]
-    handler = type("Handler", (_Handler,), {
-        "engine": EngineServer(core, served)})
-    httpd = ThreadingHTTPServer((args.host, args.port), handler)
-    httpd.daemon_threads = True
+    engine = EngineServer(
+        core, served, kv_controller_url=args.kv_controller_url,
+        advertise_url=args.advertise_url, instance_id=args.instance_id,
+        kv_heartbeat_interval=args.kv_heartbeat_interval,
+        kv_resync_interval=args.kv_resync_interval,
+        kv_pull_max_concurrency=args.kv_pull_max_concurrency)
+    handler = type("Handler", (_Handler,), {"engine": engine})
+    httpd = _HTTPServer((args.host, args.port), handler)
+    httpd.engine = engine
+    engine.start_kv_reporting(args.host, httpd.server_address[1])
     return httpd, core
 
 

@@ -219,7 +219,7 @@ def test_cuda_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("over", [
-    dict(kv_offload_bytes=1 << 20), dict(data_parallel_size=2),
+    dict(data_parallel_size=2),
     dict(pipeline_parallel_size=2), dict(tensor_parallel_size=2),
     dict(fused_step=True)])
 def test_unported_features_are_refused(over):

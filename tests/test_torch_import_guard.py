@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_jax():
                 "engine.prng", "engine.draft", "engine.tools", "obs.steps",
                 "structured", "structured.api", "structured.corpus",
                 "structured.regex_dfa", "structured.schema",
-                "structured.tokenfsm",
+                "structured.tokenfsm", "kv", "kv.offload", "kv.controller",
+                "utils.xxh64",
                 "models.llama", "models.convert", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build"):
         assert f"{PKG}.{mod}" in out["names"], mod
@@ -81,3 +82,23 @@ def test_forbidden_pattern_catches_jax_imports():
     assert _FORBIDDEN.search("import production_stack_tpu\n")
     assert not _FORBIDDEN.search(
         "from production_stack_tpu_torch.ops import x\n")
+
+
+_IMPORT_WITHOUT_LIBS = r"""
+import importlib, pkgutil, sys
+# The KV modules stand on the standard library, torch and numpy alone.
+for name in ("xxhash", "ml_dtypes", "aiohttp", "jax"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import production_stack_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+print("ok")
+"""
+
+
+def test_port_imports_without_xxhash_ml_dtypes_or_aiohttp():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_WITHOUT_LIBS], cwd=REPO,
+        capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

@@ -492,3 +492,83 @@ def test_probes_raise_not_fall_back(cuda):
         dma_only(k, v, bt, cl, 0, pages_per_block=3)
     assert (dma_only.launches_f32,
             probe_strided.launches_dots_f32) == before
+
+
+# -- KV movement on the card --------------------------------------------------
+
+def _kv_core(int8: bool, **over):
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.core import EngineCore
+
+    cfg = EngineConfig(**dict(dict(
+        model="tiny-llama", device="cuda", dtype="bfloat16", max_loras=0,
+        max_model_len=256, block_size=16, num_blocks=24,
+        kv_cache_dtype="int8" if int8 else "bf16"), **over))
+    return EngineCore(cfg)
+
+
+def _bits(x):
+    leaves = x if isinstance(x, tuple) else (x,)
+    return [t.cpu().contiguous().view(torch.uint8) for t in leaves]
+
+
+def _same_bits(a, b):
+    for x, y in zip(_bits(a), _bits(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_bf16",
+                                                     "pages_int8"])
+def test_kv_extract_inject_round_trip_is_bit_equal(cuda, int8):
+    """Pinned asynchronous copies both ways: random pages injected into
+    one pool, extracted, injected into another (host relay and card to
+    card), extracted again: every bit survives; a spill drained to the
+    host store and restored into fresh blocks does too."""
+    a, b, c = (_kv_core(int8), _kv_core(int8),
+               _kv_core(int8, kv_offload_bytes=1 << 30))
+    bs, n = 16, 5
+    tokens = list(range(1, n * bs + 2))
+    g = torch.Generator().manual_seed(0)
+    mc = a.model_config
+    shape = (n, mc.num_layers, bs, mc.num_kv_heads, mc.head_dim)
+
+    def side():
+        if not int8:
+            return torch.randn(shape, generator=g).to(torch.bfloat16)
+        return (torch.randint(-127, 128, shape, generator=g,
+                              dtype=torch.int8),
+                torch.rand(shape[:2] + (bs * mc.num_kv_heads,),
+                           generator=g))
+
+    k0, v0 = side(), side()
+    hashes, parent = [], a.kv_mgr.chain_root("")
+    for i in range(n):
+        parent = a.kv_mgr.allocator.chain_hash(
+            parent, tuple(tokens[i * bs:(i + 1) * bs]))
+        hashes.append(parent)
+    assert a.inject_kv(hashes, k0, v0) == n
+    first = a.extract_kv(tokens)
+    assert first["hashes"] == hashes
+    _same_bits(first["k"], k0)
+    _same_bits(first["v"], v0)
+    assert b.inject_kv(first["hashes"], first["k"], first["v"]) == n
+    again = b.extract_kv(tokens)
+    _same_bits(again["k"], k0)
+    _same_bits(again["v"], v0)
+    assert c.inject_from_core(a, tokens) == n
+    moved = c.extract_kv(tokens)
+    _same_bits(moved["k"], k0)
+    # Spill c's blocks to its host store (asynchronous, pinned) and
+    # restore them into other blocks right away.
+    alloc = c.kv_mgr.allocator
+    c._pending_offload = [(h, alloc.prefix_map[h]) for h in hashes]
+    c._drain_offload()
+    fresh = [alloc.allocate() for _ in hashes]
+    assert c._restore_blocks(list(zip(fresh, hashes)))
+    k_r, v_r, ready = c._pages_to_host(fresh)
+    assert ready is not None  # an asynchronous copy on the card
+    ready()
+    _same_bits(k_r, k0)
+    _same_bits(v_r, v0)
+    for core in (a, b, c):
+        core.stop()
