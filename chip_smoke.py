@@ -115,11 +115,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    restored from it by the other, ``/kv/prepare_pull`` answering 501;
    spill, restore and card-to-card times and the prefix hashes' host
    cost (a ``{"kv": ...}`` line each).
+12. facebook/opt-125m at full width and depth (12 layers, hidden 768,
+   12 heads of 64: a head group of one, vocab 50,272, 2,048-token
+   contexts) through the port's server, in bf16 pages and with
+   ``--kv-cache-dtype int8``, driven as phase 5 drives Llama-3-8B (a
+   1,900-token prompt in 1,024-token chunks); both kernels must launch
+   in the configured page mode; the decode step's host and device time
+   (an ``{"opt": ...}`` line each). The kernel phase holds both kernels
+   to their plain versions at OPT-125m's shapes (decode 8 x 2,048 and
+   ragged, cached prefill 1,024 over 1,024, the second chunk of a
+   1,901-token prompt, a storm's batched prefill), in both page
+   encodings, and times decode and cached prefill beside their bounds
+   and SDPA (their rows join the kernels line as ``*_opt``);
+13. Mixtral-8x7B at full width, bf16, cut to ``MIXTRAL_LAYERS`` = 24 of
+   its 32 layers (70.2 GB of weights; all 32 are 92.9 GB), named by a
+   local directory holding its config.json, driven as phase 5; the
+   decode step's host and device time, the dense MoE's share of the
+   device time, weight bytes and peak ``memory_allocated`` (a
+   ``{"mixtral": ...}`` line);
+14. Llama-3-8B bf16: LoRA adapters loaded by name (the JAX engine's:
+   zero B, the base stream) and with explicit weights (another stream),
+   listed, metered, unloaded; ``/v1/embeddings``, ``/v1/score`` and
+   ``/v1/rerank``; ``/sleep`` (device memory falls by the weights plus
+   the pool) and ``/wake_up`` (the stream before equals the stream
+   after), timed; ``/drain`` (a ``{"lifecycle": ...}`` line);
+15. tiny-opt and tiny-mixtral at float32 on the card, token-identical
+   to the same engines on the CPU through chunks, preemption and a
+   prefix hit (an ``{"arch_parity": ...}`` line).
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
-FSM-constrained draft step's shapes, each probe in each mode and page
-dtype), the card's
+FSM-constrained draft step's shapes, both attention kernels also at
+OPT-125m's shapes, each probe in each mode and page dtype), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a CUDA device or outside a checkout of the repo.
@@ -403,13 +430,14 @@ BATCHED_PREFIX = [0, 0, 1024, 0]
 BATCHED_TAKE = [1024, 700, 1024, 0]
 
 
-def batched_prefill_case(int8: bool, seed: int):
-    """Inputs of one batched cached-prefill launch at the Llama-3-8B heads,
-    the last row padding as the engine builds it: positions 0, total
-    length 1, an all-zero table, no page writes."""
+def batched_prefill_case(int8: bool, seed: int, H=32, KVH=8, D=128):
+    """Inputs of one batched cached-prefill launch at the Llama-3-8B heads
+    (or ``H``/``KVH``/``D``), the last row padding as the engine builds
+    it: positions 0, total length 1, an all-zero table, no page
+    writes."""
     import torch
 
-    c = prefill_case(torch.bfloat16, 4, 1024, 32, 8, 128, 2, 64, 32,
+    c = prefill_case(torch.bfloat16, 4, 1024, H, KVH, D, 2, 64, 32,
                      BATCHED_PREFIX, BATCHED_TAKE, seed=seed, int8=int8)
     c["positions"][3] = 0
     c["total_lens"][3] = 1
@@ -468,7 +496,16 @@ KERNELS = {"paged_attention": (run_decode, plain_decode),
            "cached_prefill_attention_draft_step": (run_prefill,
                                                    plain_prefill),
            "cached_prefill_attention_draft_step_int8": (run_prefill,
-                                                        plain_prefill)}
+                                                        plain_prefill),
+           "paged_attention_opt": (run_decode, plain_decode),
+           "paged_attention_opt_int8": (run_decode, plain_decode),
+           "cached_prefill_attention_opt": (run_prefill, plain_prefill),
+           "cached_prefill_attention_opt_int8": (run_prefill,
+                                                 plain_prefill)}
+
+# facebook/opt-125m's attention: 12 heads of 64, multi-head (a head group
+# of one), 2,048-token contexts.
+OPT_HEADS = dict(H=12, KVH=12, D=64)
 
 # The speculative verify (``core.py::_launch_verify``) at
 # --speculative-num-tokens 4: every slot's last token and three drafts,
@@ -535,6 +572,36 @@ def main_path_cases():
                           2 * ctx_len // bs, [ctx_len - 1] * B, [1] * B,
                           seed=seed + 34, int8=int8),
              (slice(None), slice(0, 1))),
+        ]
+    # OPT-125m (G = 1, D = 64): decode of 8 x 2,048 and ragged, the
+    # second chunk of a 1,901-token prompt, a 1,024-token chunk over a
+    # 1,024-token prefix, and a storm's batched prefill.
+    oh, okv, od = OPT_HEADS["H"], OPT_HEADS["KVH"], OPT_HEADS["D"]
+    for enc, seed in (("bf16", 200), ("int8", 300)):
+        int8 = enc == "int8"
+        suffix = "_int8" if int8 else ""
+        cases += [
+            (f"paged_attention opt {enc} 8x2048",
+             "paged_attention_opt" + suffix,
+             decode_case(bf16, B, oh, okv, od, 2, bs, ctx_len // bs,
+                         [ctx_len] * B, seed=seed + 11, int8=int8), None),
+            (f"paged_attention opt {enc} ragged",
+             "paged_attention_opt" + suffix,
+             decode_case(bf16, B, oh, okv, od, 2, bs, ctx_len // bs, ragged,
+                         seed=seed + 10, int8=int8), None),
+            (f"cached_prefill opt {enc} ragged chunk",
+             "cached_prefill_attention_opt" + suffix,
+             prefill_case(bf16, 1, 1024, oh, okv, od, 2, bs, 32, [1024],
+                          [877], seed=seed + 30, int8=int8),
+             (slice(None), slice(0, 877))),
+            (f"cached_prefill opt {enc} 1024/1024",
+             "cached_prefill_attention_opt" + suffix,
+             prefill_case(bf16, 1, 1024, oh, okv, od, 2, bs, 32, [1024],
+                          [1024], seed=seed + 31, int8=int8), None),
+            (f"cached_prefill opt {enc} batched 4x1024",
+             "cached_prefill_attention_opt" + suffix,
+             batched_prefill_case(int8, seed + 32, **OPT_HEADS),
+             [(b, slice(0, n)) for b, n in enumerate(BATCHED_TAKE) if n]),
         ]
     return cases
 
@@ -791,6 +858,14 @@ def kernel_phase():
             f"paged_attention {enc}", cases[f"paged_attention {enc} 8x2048"])
         results["cached_prefill_attention" + suffix] = _time_prefill(
             f"cached_prefill {enc}", cases[f"cached_prefill {enc} 1024/1024"])
+    for enc in ("bf16", "int8"):
+        suffix = "_int8" if enc == "int8" else ""
+        results["paged_attention_opt" + suffix] = _time_decode(
+            f"paged_attention opt {enc}",
+            cases[f"paged_attention opt {enc} 8x2048"])
+        results["cached_prefill_attention_opt" + suffix] = _time_prefill(
+            f"cached_prefill opt {enc}",
+            cases[f"cached_prefill opt {enc} 1024/1024"])
     for name, r in results.items():
         byte_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         op_ms = r["ops"] / BF16_FLOPS * 1e3
@@ -798,8 +873,9 @@ def kernel_phase():
                  bound_by="bytes" if byte_ms >= op_ms else "operations")
         print(f"[bound] {name}: {r['bytes'] / 1e6:.2f} MB -> {byte_ms:.4f} ms "
               f"at 3.35 TB/s; {r['ops'] / 1e9:.1f} GFLOP -> {op_ms:.4f} ms at "
-              f"989 TFLOP/s bf16; one launch per layer, 32 per decode step "
-              f"or cached chunk", flush=True)
+              f"989 TFLOP/s bf16; one launch per layer (32 a Llama-3-8B "
+              f"decode step or cached chunk, 12 an OPT-125m one)",
+              flush=True)
     for name, r in results.items():
         log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1363,12 +1439,18 @@ def _weight_bytes(params):
     return stored, moved
 
 
-def serve_phase(label: str, extra_args, entries):
-    """Serve Llama-3-8B through the port's server (``SERVE_ARGS`` plus
-    ``extra_args``) and drive it over HTTP; every launch counter is set
-    to 0 just before the drive and read just after. Returns (launch counts
-    of the served run by kernel entry, summary); raises unless each of
-    ``entries`` launched and no other entry did."""
+def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
+                long_chars=2500, hit_chars=2000, after=None):
+    """Serve Llama-3-8B (or ``base_args``'s model) through the port's
+    server (``base_args`` plus ``extra_args``) and drive it over HTTP:
+    the long prompt has ``long_chars`` tokens, the prefix hit shares its
+    first ``hit_chars``. Every launch counter is set to 0 just before the
+    drive and read just after, and each kind of work must launch its
+    kernel: decode the decode kernel, a chunk continuation, a prefix hit
+    and a storm the cached-prefill kernel. ``after(core)``, when given,
+    runs on the stopped engine and its result joins the summary. Returns
+    (launch counts of the served run by kernel entry, summary); raises
+    unless each of ``entries`` launched and no other entry did."""
     import threading
 
     from production_stack_tpu_torch.engine.server import build_server
@@ -1377,7 +1459,7 @@ def serve_phase(label: str, extra_args, entries):
     import torch
 
     t0 = time.time()
-    httpd, core = build_server(SERVE_ARGS + list(extra_args))
+    httpd, core = build_server(list(base_args) + list(extra_args))
     torch.cuda.synchronize()
     init_s = time.time() - t0
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1408,6 +1490,19 @@ def serve_phase(label: str, extra_args, entries):
         counters = _counters()
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
+        decode_fn, prefill_fn = (counters[entries[0]], counters[entries[1]])
+        by_kind = {}
+
+        def launched(kind, fn_attr, since):
+            """The launches of one kernel since ``since`` by the kind of
+            work just driven; a kind that launched nothing fails."""
+            n = getattr(*fn_attr) - since
+            if n <= 0:
+                raise AssertionError(f"{label}: {kind} launched no "
+                                     f"{fn_attr[1]} of {fn_attr[0].__name__}")
+            by_kind[kind] = n
+            return getattr(*fn_attr)
+
         t_run = time.time()
         # Four concurrent greedy completions: a decode batch of 4. The
         # first prompt is shorter than one 64-token page, so its repeat
@@ -1430,17 +1525,21 @@ def serve_phase(label: str, extra_args, entries):
             if out is None:
                 raise AssertionError(f"concurrent request {i} got no reply")
             _finish(f"concurrent {i}", out)
+        launched("decode", decode_fn, 0)
+        mark = getattr(*prefill_fn)
         # A ~2,500-token prompt: chunks of 1024 + 1024 + the rest, the
-        # later two through the cached-prefill kernel.
-        long_prompt = _text(10, 2500)
+        # later ones through the cached-prefill kernel.
+        long_prompt = _text(10, long_chars)
         long_out = client.post("/v1/completions", {
             "prompt": long_prompt, "max_tokens": 16, "temperature": 0})
         _finish("long prompt", long_out)
+        mark = launched("chunk continuation", prefill_fn, mark)
         # Shares its first 2,000 characters: a prefix-cache hit.
         hit_out = client.post("/v1/completions", {
-            "prompt": long_prompt[:2000] + _text(11, 500), "max_tokens": 16,
-            "temperature": 0})
+            "prompt": long_prompt[:hit_chars] + _text(11, 500),
+            "max_tokens": 16, "temperature": 0})
         _finish("prefix hit", hit_out)
+        mark = launched("prefix hit", prefill_fn, mark)
         chat_out = client.post("/v1/chat/completions", {
             "messages": [{"role": "user", "content": _text(12, 200)}],
             "max_tokens": 24, "temperature": 0.8, "seed": 7,
@@ -1480,6 +1579,7 @@ def serve_phase(label: str, extra_args, entries):
             if out is None:
                 raise AssertionError(f"storm request {i} got no reply")
             _finish(f"storm {i}", out)
+        launched("storm", prefill_fn, mark)
         # A seeded sampled request, sent twice, alone each time and shorter
         # than a page (no prefix hit): the same keyed draws, the same text.
         seeded = [client.post("/v1/completions", {
@@ -1539,11 +1639,14 @@ def serve_phase(label: str, extra_args, entries):
             seeded_text=seeded[0]["choices"][0]["text"][:40],
             recorder=recorder,
             launches=launches,
+            launches_by_kind=by_kind,
             sample_text=results[0]["choices"][0]["text"][:40])
     finally:
         httpd.shutdown()
         httpd.server_close()
         core.stop()
+    if after is not None:
+        summary.update(after(core))
     for name, n in launches.items():
         if name in entries and n <= 0:
             raise AssertionError(f"{name} never launched on the {label} "
@@ -2813,6 +2916,507 @@ def kv_phase(label: str, extra_args, entries, smi):
     return {name: launches[name] for name in entries}, summary
 
 
+# -- other architectures, LoRA, embeddings and the lifecycle -----------------
+
+OPT_ARGS = ["facebook/opt-125m", "--device", "cuda", "--host", "127.0.0.1",
+            "--port", "0", "--max-model-len", "2048", "--max-num-seqs", "8",
+            "--seed", "0", "--prefill-batch", "4"]
+# Mixtral-8x7B's published config.json, cut to 24 of its 32 layers: all 32
+# are 92.9 GB of bf16 weights, beyond an 80 GB card; 24 are 70.2 GB.
+MIXTRAL_LAYERS = 24
+MIXTRAL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_hidden_layers": MIXTRAL_LAYERS,
+    "num_local_experts": 8, "num_experts_per_tok": 2,
+    "rms_norm_eps": 1e-05, "rope_theta": 1000000.0,
+    "tie_word_embeddings": False, "vocab_size": 32000,
+    "torch_dtype": "bfloat16", "hidden_act": "silu"}
+# 8 sequences of 4,096 tokens in 64-token pages: 3.2 GB of bf16 pages at
+# 24 layers (the pool is fixed, not sized from the memory left over).
+MIXTRAL_BLOCKS = 8 * 4096 // 64
+ARCH_PARITY_CFG = dict(device="cuda", dtype="float32", max_model_len=256,
+                       max_num_seqs=4, block_size=8, num_blocks=48,
+                       min_prefill_bucket=16, prefill_chunk_size=32,
+                       max_loras=0)
+
+
+def mixtral_memory_plan(rows: int = 4, chunk: int = 1024) -> dict:
+    """Device bytes the Mixtral phase needs, reckoned from
+    ``MIXTRAL_CONFIG`` before anything is allocated: the bf16 weights
+    (embedding and head, per layer the attention projections, router,
+    the experts' three matrices and two norms), the pool of
+    ``MIXTRAL_BLOCKS`` 64-token pages, and the dense MoE's transients at
+    a ``[rows, chunk]`` batched prefill (gate, up and their product in
+    bf16, SiLU's float32 input, the expert outputs in bf16 and float32,
+    for every token and expert)."""
+    c = MIXTRAL_CONFIG
+    Hd, I, E, V = (c["hidden_size"], c["intermediate_size"],
+                   c["num_local_experts"], c["vocab_size"])
+    H, KVH, L = (c["num_attention_heads"], c["num_key_value_heads"],
+                 c["num_hidden_layers"])
+    D = Hd // H
+    layer = 2 * Hd * H * D + 2 * Hd * KVH * D + Hd * E + 3 * E * Hd * I \
+        + 2 * Hd
+    weights = 2 * (2 * V * Hd + L * layer + Hd)
+    pool = MIXTRAL_BLOCKS * 64 * L * 2 * KVH * D * 2
+    tokens = rows * chunk
+    moe = tokens * E * (3 * I * 2 + I * 4 + Hd * 2 + Hd * 4)
+    return {"weights": weights, "layer": 2 * layer, "pool": pool,
+            "moe_transients": moe, "total": weights + pool + moe}
+
+
+def mixtral_dir(here: str) -> str:
+    """A local model directory holding Mixtral-8x7B's config.json at
+    ``MIXTRAL_LAYERS`` layers (no weights: the server draws them from its
+    seed), under the kernels' git-ignored build directory."""
+    path = os.path.join(here, "production_stack_tpu_torch", "_build",
+                        "models", f"Mixtral-8x7B-{MIXTRAL_LAYERS}L")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(MIXTRAL_CONFIG, f, indent=1)
+    return path
+
+
+def decode_profile(core, rows: int = 8, ctx_chars: int = 1000) -> dict:
+    """A decode step of a stopped engine (its thread ended), driven on this
+    thread as :func:`profile_phase` drives it: ``rows`` sequences at
+    ~``ctx_chars`` tokens of context, pipelined bursts timed on the host
+    clock three times over three bursts (the least is the step), then two
+    bursts under torch.profiler for the device's busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    for i in range(rows):
+        core.add_request(
+            f"prof{i}", core.tokenizer.encode(_text(100 + i, ctx_chars)),
+            SamplingParams(temperature=0, max_tokens=400, ignore_eos=True),
+            lambda t, f: None)
+    K = core.config.decode_steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    with torch.inference_mode():
+        while True:
+            action, req = core.scheduler.next_action()
+            if action != "prefill":
+                break
+            core._do_prefill(req)
+        core._do_decode()
+        core._flush_pending_burst()
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                core._do_decode()
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0) / 3 / K)
+        core._flush_pending_burst()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                core._do_decode()
+            torch.cuda.synchronize()
+        core._flush_pending_burst()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
+    step_ms = min(runs)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    with core._lock:
+        for seq in core.scheduler.running():
+            core.scheduler.finish(seq, "abort")
+    return {"decode_rows": rows,
+            "decode_host_ms_per_step": step_ms,
+            "decode_host_ms_per_step_runs": runs,
+            "decode_device_busy_ms_per_step": busy_ms,
+            "decode_device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+            "decode_top_device_ops": [
+                {"name": e.key[:70], "calls": e.count,
+                 "device_ms_per_step": dev_us(e) / 1e3 / K / 2}
+                for e in top]}
+
+
+def opt_phase(label: str, extra_args, smi):
+    """facebook/opt-125m at full width and depth (12 layers, hidden 768,
+    12 heads of 64, vocab 50,272, 2,048-token contexts) through the
+    port's server, in bf16 pages or ``extra_args`` (int8 pages), driven
+    as :func:`serve_phase` drives Llama-3-8B: concurrent greedy
+    completions, a 1,900-token prompt in 1,024-token chunks, a prefix
+    hit, a storm of six ~2,000-token prompts, a seeded sampled pair; then
+    the decode step's host and device time. Both kernels must launch in
+    the configured page mode (at G = 1, D = 64), and no other entry.
+    Returns (launch counts under the ``_opt`` kernel names, summary)."""
+    int8 = bool(extra_args)
+    entries = (("paged_attention_int8", "cached_prefill_attention_int8")
+               if int8 else ("paged_attention", "cached_prefill_attention"))
+    counts, summary = serve_phase(
+        label, extra_args, entries, base_args=OPT_ARGS, long_chars=1900,
+        hit_chars=1500, after=decode_profile)
+    suffix = "_int8" if int8 else ""
+    summary["card"] = smi
+    return ({"paged_attention_opt" + suffix: counts[entries[0]],
+             "cached_prefill_attention_opt" + suffix: counts[entries[1]]},
+            summary)
+
+
+def mixtral_phase(here: str, smi):
+    """Mixtral-8x7B at full width (hidden 4,096, 32/8 heads of 128, 8
+    experts with top 2, intermediate 14,336, vocab 32,000, rope_theta 1e6)
+    and ``MIXTRAL_LAYERS`` layers, bf16, named by a local directory with
+    its config.json (the way users name a model that has no preset),
+    served and driven as :func:`serve_phase` drives Llama-3-8B; then the
+    decode step's host and device time, the dense MoE's device time over
+    the step's layers (``moe_mlp`` on the step's ``[8, 1, 4096]`` rows
+    behind a spin kernel) and its share of the step's busy time, the
+    weight bytes and the peak ``memory_allocated``."""
+    import torch
+
+    from production_stack_tpu_torch.models.mixtral import moe_mlp
+    from production_stack_tpu_torch.probes.timing import cuda_time_ms
+
+    plan = mixtral_memory_plan()
+    card = torch.cuda.get_device_properties(0).total_memory
+    all_layers = plan["weights"] + (32 - MIXTRAL_LAYERS) * plan["layer"]
+    print(f"[memory] Mixtral-8x7B at {MIXTRAL_LAYERS} layers: weights "
+          f"{plan['weights'] / 1e9:.2f} GB ({plan['layer'] / 1e9:.3f} GB a "
+          f"layer; 32 layers would be {all_layers / 1e9:.1f} GB), pool "
+          f"{plan['pool'] / 1e9:.2f} GB, MoE transients at a [4, 1024] "
+          f"prefill {plan['moe_transients'] / 1e9:.2f} GB: "
+          f"{plan['total'] / 1e9:.2f} GB of the card's {card / 1e9:.2f} GB",
+          flush=True)
+    if plan["total"] > card:
+        raise AssertionError(f"Mixtral at {MIXTRAL_LAYERS} layers needs "
+                             f"{plan['total']} bytes, the card has {card}")
+    path = mixtral_dir(here)
+    args = [path] + OPT_ARGS[1:7] + [
+        "--max-model-len", "4096", "--max-num-seqs", "8", "--seed", "0",
+        "--prefill-batch", "4", "--num-blocks", str(MIXTRAL_BLOCKS)]
+    torch.cuda.reset_peak_memory_stats()
+
+    def after(core):
+        out = decode_profile(core)
+        cfg, layers = core.model_config, core.params["layers"]
+        h = torch.randn((8, 1, cfg.hidden_size), device="cuda",
+                        dtype=cfg.torch_dtype)
+
+        def moe_step():
+            for layer in range(cfg.num_layers):
+                moe_mlp(cfg, {k: v[layer] for k, v in layers.items()}, h)
+
+        with torch.inference_mode():
+            moe_ms = cuda_time_ms(moe_step, iters=3)
+        out.update(
+            moe_device_ms_per_step=moe_ms,
+            moe_share_of_busy=moe_ms / out["decode_device_busy_ms_per_step"],
+            peak_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            memory_plan_gb={k: v / 1e9 for k, v in plan.items()},
+            layers=cfg.num_layers, kv_pool_gb=(
+                core.num_blocks * core._kv_bytes_per_block() / 1e9))
+        return out
+
+    counts, summary = serve_phase(
+        f"Mixtral-8x7B ({MIXTRAL_LAYERS} layers) bf16", (),
+        ("paged_attention", "cached_prefill_attention"), base_args=args,
+        after=after)
+    if summary["weight_bytes"] != plan["weights"]:
+        raise AssertionError(f"Mixtral weights {summary['weight_bytes']} "
+                             f"bytes, reckoned {plan['weights']}")
+    summary["card"] = smi
+    return counts, summary
+
+
+def _status(client, path, body=None):
+    """(HTTP status, JSON body) of a request that may answer an error."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        client.base + path, data=data,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode() or "{}")
+
+
+def lifecycle_phase(smi):
+    """Llama-3-8B bf16 behind the port's server, one engine:
+
+    - LoRA: an adapter loaded by name only (``/v1/load_lora_adapter``,
+      timed) is the JAX engine's, whose B matrices stay zero, so its
+      greedy stream must equal the base model's; an adapter loaded with
+      explicit non-zero weights must change it; both are listed by
+      ``/v1/lora_adapters`` and ``/v1/models`` and metered by
+      ``tpu:lora_requests_total``; after unloading, the base stream
+      returns and the adapter's name is a 404;
+    - ``/v1/embeddings`` (a unit vector of 4,096, equal for the same text
+      twice), ``/v1/score`` (1 within 1e-3 for a text against itself),
+      ``/v1/rerank`` (documents in the order of their scores);
+    - ``/sleep`` (``memory_allocated`` falls by the weights plus the pool
+      at least; generation answers 503), ``/wake_up`` (a sub-page greedy
+      prompt's stream equals its stream before; a 1,100-token prompt
+      runs a cached chunk and then hits the prefix cache), both timed;
+    - ``/drain`` answers ``drained`` and ``/health`` 503.
+
+    The launch counters are set to 0 just before the drive and read
+    after it. Returns (launch counts, summary)."""
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    httpd, core = build_server(SERVE_ARGS + ["--max-loras", "4"])
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    summary = {"card": smi}
+    # Shorter than a 64-token page: no prefix hit, so every repeat takes
+    # the path of the first run (bf16 near-ties, ROADMAP Queue 3).
+    prompt = _text(60, 40)
+
+    def greedy(model=None):
+        body = {"prompt": prompt, "max_tokens": 24, "temperature": 0}
+        if model:
+            body["model"] = model
+        status, out = _status(client, "/v1/completions", body)
+        if status != 200:
+            raise AssertionError(f"lifecycle: completion {status} {out}")
+        _finish("lifecycle", out)
+        return out["choices"][0]["text"]
+
+    try:
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": _text(99, 1100), "max_tokens": 9, "temperature": 0}))
+        counters = _counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        base = greedy()
+        t0 = time.perf_counter()
+        status, out = _status(client, "/v1/load_lora_adapter",
+                              {"lora_name": "smoke-named"})
+        summary["lora_load_by_name_s"] = time.perf_counter() - t0
+        if status != 200:
+            raise AssertionError(f"lifecycle: load by name {status} {out}")
+        if greedy("smoke-named") != base:
+            raise AssertionError("lifecycle: a name-only adapter (zero B, "
+                                 "as in JAX) changed the greedy stream")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        weights = {k: 0.05 * torch.randn(
+            (v.shape[0],) + tuple(v.shape[2:]), generator=g, device="cuda")
+            for k, v in core.params["lora"].items() if k != "scaling"}
+        t0 = time.perf_counter()
+        if not core.load_lora_adapter("smoke-explicit", weights=weights):
+            raise AssertionError("lifecycle: explicit adapter not loaded")
+        summary["lora_load_explicit_s"] = time.perf_counter() - t0
+        adapted = greedy("smoke-explicit")
+        if adapted == base:
+            raise AssertionError("lifecycle: an adapter with non-zero "
+                                 "weights left the greedy stream as is")
+        listed = json.loads(client.get("/v1/lora_adapters"))
+        models = [m["id"] for m in json.loads(client.get("/v1/models"))
+                  ["data"]]
+        for name in ("smoke-named", "smoke-explicit"):
+            if name not in [a["lora_name"] for a in listed["adapters"]] \
+                    or name not in models:
+                raise AssertionError(f"lifecycle: {name} not listed")
+        if 'adapter="smoke-explicit"} 1' not in client.get("/metrics"):
+            raise AssertionError("lifecycle: tpu:lora_requests_total")
+        status, _ = _status(client, "/v1/unload_lora_adapter",
+                            {"lora_name": "smoke-explicit"})
+        if status != 200 or greedy() != base:
+            raise AssertionError("lifecycle: unload did not restore the "
+                                 "base stream")
+        if _status(client, "/v1/completions", {
+                "model": "smoke-explicit", "prompt": prompt})[0] != 404:
+            raise AssertionError("lifecycle: an unloaded adapter's name "
+                                 "is not a 404")
+
+        text, other = _text(61, 300), _text(62, 300)
+        emb = client.post("/v1/embeddings", {"input": [text, text]})
+        vecs = [torch.tensor(d["embedding"]) for d in emb["data"]]
+        norms = [float(v.norm()) for v in vecs]
+        if len(vecs[0]) != 4096 or any(abs(n - 1) > 1e-3 for n in norms) \
+                or not torch.equal(vecs[0], vecs[1]):
+            raise AssertionError(f"lifecycle: embeddings {len(vecs[0])} "
+                                 f"dims, norms {norms}")
+        sc = client.post("/v1/score", {"text_1": text,
+                                       "text_2": [text, other]})
+        scores = [d["score"] for d in sc["data"]]
+        if abs(scores[0] - 1.0) > 1e-3:
+            raise AssertionError(f"lifecycle: self-score {scores[0]}")
+        rr = client.post("/v1/rerank", {"query": text,
+                                        "documents": [other, text]})
+        ranked = [r["index"] for r in rr["results"]]
+        rel = [r["relevance_score"] for r in rr["results"]]
+        if ranked != [1, 0] or rel != sorted(rel, reverse=True):
+            raise AssertionError(f"lifecycle: rerank {rr['results']}")
+        summary.update(embedding_dims=len(vecs[0]), embedding_norms=norms,
+                       self_score=scores[0], other_score=scores[1],
+                       rerank_order=ranked)
+
+        weight_bytes = _weight_bytes(core.params)[0]
+        pool_bytes = core.num_blocks * core._kv_bytes_per_block()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        status, out = _status(client, "/sleep?level=1", {})
+        sleep_s = time.perf_counter() - t0
+        asleep = torch.cuda.memory_allocated()
+        if status != 200 or not json.loads(
+                client.get("/is_sleeping"))["is_sleeping"]:
+            raise AssertionError(f"lifecycle: /sleep {status} {out}")
+        if before - asleep < weight_bytes + pool_bytes:
+            raise AssertionError(
+                f"lifecycle: sleep freed {before - asleep} bytes, under the "
+                f"weights {weight_bytes} plus the pool {pool_bytes}")
+        if _status(client, "/v1/completions", {"prompt": prompt})[0] != 503:
+            raise AssertionError("lifecycle: generation while asleep is "
+                                 "not a 503")
+        t0 = time.perf_counter()
+        status, _ = _status(client, "/wake_up", {})
+        wake_s = time.perf_counter() - t0
+        if status != 200 or greedy() != base:
+            raise AssertionError("lifecycle: the stream after /wake_up "
+                                 "differs from the stream before /sleep")
+        # The pool is fresh: a 1,100-token prompt runs its second chunk
+        # through the cached-prefill kernel, and its repeat hits.
+        for _ in range(2):
+            _finish("after wake", client.post("/v1/completions", {
+                "prompt": _text(99, 1100), "max_tokens": 4,
+                "temperature": 0}))
+        summary.update(
+            weight_bytes=weight_bytes, pool_bytes=pool_bytes,
+            memory_allocated_before_gb=before / 1e9,
+            memory_allocated_asleep_gb=asleep / 1e9,
+            freed_gb=(before - asleep) / 1e9, sleep_s=sleep_s,
+            wake_s=wake_s, wake_gb_per_s=weight_bytes / wake_s / 1e9,
+            host_copy="pinned")
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        status, out = _status(client, "/drain?timeout_s=10", {})
+        if status != 200 or out.get("status") != "drained":
+            raise AssertionError(f"lifecycle: /drain {status} {out}")
+        if _status(client, "/health")[0] != 503:
+            raise AssertionError("lifecycle: /health is not 503 drained")
+        summary["drain"] = out
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    for name in ("paged_attention", "cached_prefill_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"lifecycle: {name} never launched")
+    summary["launches"] = launches
+    return {k: launches[k] for k in ("paged_attention",
+                                     "cached_prefill_attention")}, summary
+
+
+def arch_parity_phase(smi):
+    """tiny-opt and tiny-mixtral at float32 on the card (the kernels' f32
+    mode), each engine driven twice on the same parameters: on the card
+    and on the CPU (the plain versions). Greedy and seeded sampled rows
+    arrive together into a 48-block pool of 8-token pages and 32-token
+    chunks (so longer prompts run chunk continuations and a tight
+    request set preempts), then a prompt over the first's prefix hits
+    the cache. Every stream must be equal token for token, and on the
+    card both kernels must have launched. Prints an ``{"arch_parity":
+    ...}`` line."""
+    import queue
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.core import EngineCore, _tree_map
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    def greedy(n):
+        return SamplingParams(max_tokens=n, temperature=0.0,
+                              ignore_eos=True)
+
+    def sampled(seed):
+        return SamplingParams(max_tokens=40, temperature=0.8, top_p=0.9,
+                              seed=seed, ignore_eos=True)
+
+    first = [(list(range(300, 370)), greedy(60)),
+             (list(range(20, 61)), sampled(11)),
+             (list(range(100, 190)), greedy(80)),
+             (list(range(400, 450)), sampled(12))]
+    second = [(list(range(300, 340)) + [5, 6, 7], greedy(24))]
+
+    def run(eng, reqs):
+        queues = []
+        with eng._lock:
+            for i, (prompt, sp) in enumerate(reqs):
+                q = queue.Queue()
+                eng.add_request(f"a{time.time_ns()}-{i}", prompt, sp,
+                                lambda t, f, q=q: q.put((t, f)))
+                queues.append(q)
+        out = []
+        for q in queues:
+            tokens = []
+            while True:
+                t, f = q.get(timeout=300)
+                if t is not None:
+                    tokens.append(t)
+                if f is not None:
+                    out.append((tokens, f))
+                    break
+        return out
+
+    counters = _counters()
+    report = {"card": smi, "dtype": "float32"}
+    for model in ("tiny-opt", "tiny-mixtral"):
+        streams, stats = {}, {}
+        for device in ("cuda", "cpu"):
+            cfg = EngineConfig(model=model, **dict(ARCH_PARITY_CFG,
+                                                   device=device))
+            params = None
+            if device == "cpu":
+                params = _tree_map(lambda t: t.cpu(), card_params)
+            eng = EngineCore(cfg, params=params)
+            if device == "cuda":
+                card_params = eng.params
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
+            eng.start()
+            try:
+                streams[device] = run(eng, first) + run(eng, second)
+            finally:
+                eng.stop()
+            stats[device] = {k: eng.stats()[k] for k in (
+                "num_preempted_total", "cached_tokens_total",
+                "prefill_chunks_total")}
+            if device == "cuda":
+                launches = {name: getattr(fn, attr)
+                            for name, (fn, attr) in counters.items()}
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"arch parity {model}: card streams differ "
+                                 f"from the CPU's: {streams}")
+        if stats["cuda"]["num_preempted_total"] <= 0 or \
+                stats["cuda"]["cached_tokens_total"] <= 0:
+            raise AssertionError(f"arch parity {model}: no preemption or "
+                                 f"no prefix hit: {stats}")
+        for name in ("paged_attention", "cached_prefill_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"arch parity {model}: {name} never "
+                                     f"launched on the card")
+        report[model] = dict(stats["cuda"], streams_equal_cpu=True,
+                             tokens=sum(len(t) for t, _ in streams["cuda"]),
+                             launches={k: launches[k] for k in (
+                                 "paged_attention",
+                                 "cached_prefill_attention")})
+    print(json.dumps({"arch_parity": report}), flush=True)
+
+
 def _free_device_memory() -> None:
     """Drop what a finished engine left (its server's handler class holds
     it in a reference cycle) and return the cached blocks to the card."""
@@ -3180,6 +3784,24 @@ def main(argv=None) -> int:
             launches[name] += n
         print(json.dumps({"kv": summary}), flush=True)
         log(f"[time] {time.time() - t0:.0f} s through the kv {label} phase")
+    for label, extra in (("OPT-125m bf16", ()),
+                         ("OPT-125m int8 KV", ("--kv-cache-dtype", "int8"))):
+        _free_device_memory()
+        counts, summary = opt_phase(label, extra, smi)
+        launches.update(counts)
+        print(json.dumps({"opt": summary}), flush=True)
+        log(f"[time] {time.time() - t0:.0f} s through the {label} phase")
+    for key, phase in (("mixtral", lambda: mixtral_phase(here, smi)),
+                       ("lifecycle", lambda: lifecycle_phase(smi))):
+        _free_device_memory()
+        counts, summary = phase()
+        for name, n in counts.items():
+            launches[name] += n
+        print(json.dumps({key: summary}), flush=True)
+        log(f"[time] {time.time() - t0:.0f} s through the {key} phase")
+    _free_device_memory()
+    arch_parity_phase(smi)
+    log(f"[time] {time.time() - t0:.0f} s through the arch parity phase")
     results.update(probe_results)
     replaces = {
         "paged_attention":

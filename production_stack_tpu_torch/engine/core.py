@@ -70,15 +70,40 @@ stream (:meth:`EngineCore._pages_to_host`); a restore or an inject is
 copied in and scattered before the next forward reads it. HTTP threads
 that extract or inject take ``_step_lock``, which each step holds.
 
+The model is any architecture of ``models/registry.py`` (Llama, OPT,
+Mixtral), gated as the JAX engine gates them: LoRA slots and int8
+weights go to the Llama family only (``quantization`` on another arch
+raises the JAX engine's ValueError); the int8 KV pool, prefix caching,
+chunked prefill, storm batching, speculation, structured output and the
+offload tier serve every arch.
+
+The engine surfaces of the stack's control plane are the JAX engine's:
+
+- LoRA hot-swap (:meth:`EngineCore.load_lora_adapter`,
+  :meth:`EngineCore.unload_lora_adapter`, ``lora_slots``): an adapter
+  takes a free slot of the parameter tree's LoRA leaves, written in
+  place on the device between forwards (under ``_step_lock``); a
+  name-only adapter draws its A matrices from ``crc32(name)`` with the
+  JAX engine's threefry, so it is the JAX engine's adapter;
+- :meth:`EngineCore.embed`: the mean-pooled, L2-normalised final hidden
+  state of one prefill on a throwaway one-page pool, off the scheduler
+  path;
+- :meth:`EngineCore.sleep` / :meth:`EngineCore.wake_up`: sleep preempts
+  every sequence, spills every cached prefix block to the offload tier
+  (when there is one, so prefix hits survive through the restore path),
+  clears the prefix state, copies the parameters to pinned host memory
+  and drops them and the pool from the device; wake copies them back and
+  allocates a fresh pool.
+
 Not here yet, and refused at construction when configured: the fused
-step, tensor/pipeline/data parallelism, multihost, sleep, LoRA
-load/unload and embeddings.
+step, tensor/pipeline/data parallelism and multihost.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import zlib
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -179,9 +204,14 @@ class EngineCore:
             config.model, self.model_config.vocab_size,
             chat_template_path=config.chat_template)
         init_fn, self._apply = build_model(self.model_config)
+        if config.quantization and self.model_config.arch != "llama":
+            raise ValueError(
+                "int8 quantization is supported for the llama family "
+                f"(model arch {self.model_config.arch!r})")
         if params is None:
             lora_kwargs = {}
-            if config.max_loras > 0:
+            # LoRA slots are a Llama-family feature, as in the JAX engine.
+            if self.model_config.arch == "llama" and config.max_loras > 0:
                 lora_kwargs = {"lora_slots": config.max_loras,
                                "lora_rank": config.max_lora_rank}
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
@@ -250,9 +280,12 @@ class EngineCore:
                 config.prefill_batch if config.prefill_batch > 1 else 1),
             fused_step=config.fused_step)
 
-        # Adapter name -> slot. Loading adapters is a later slice, so only
-        # slot 0 (the zero adapter) is ever selected.
+        # Adapter name -> LoRA slot (1 .. max_loras - 1; slot 0 is the base
+        # model's zero adapter).
         self.lora_slots: Dict[str, int] = {}
+        # Sleep mode: the parameters on the host while asleep.
+        self._sleeping = False
+        self._host_params: Optional[Dict] = None
         _eos = getattr(self.tokenizer, "eos_token_id", None)
         self._eos_id = int(_eos) if _eos is not None else -1
 
@@ -337,6 +370,8 @@ class EngineCore:
         # threads take it so no step rewrites the pool meanwhile. Lock
         # order: _step_lock before _lock.
         self._step_lock = threading.Lock()
+        # Serializes sleep() and wake_up() (taken before _step_lock).
+        self._lifecycle_lock = threading.Lock()
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="engine-core")
@@ -571,7 +606,7 @@ class EngineCore:
         blocks back and re-raises. Returns the blocks cached and
         installed. Callers hold _step_lock."""
         alloc = self.kv_mgr.allocator
-        if not alloc.enable_prefix_caching:
+        if not alloc.enable_prefix_caching or self._sleeping:
             return 0
         take, dst, already = [], [], 0
         with self._lock:
@@ -732,6 +767,202 @@ class EngineCore:
         if self.offload is not None:
             self.offload.close()
 
+    # ------------------------------------------------------------------ #
+    # sleep mode, LoRA hot-swap, embeddings
+    # ------------------------------------------------------------------ #
+    def sleep(self, level: int = 1) -> None:
+        """Free the device: preempt every sequence, spill every cached
+        prefix block to the offload tier (when one is configured, so a
+        prefix hit after the wake-up is restored instead of recomputed),
+        clear all prefix state, then copy the parameters to pinned host
+        memory and drop them and the KV pool from the device (a speculative
+        drafter's weights and pages stay, as in the JAX engine). Every
+        ``level`` does the same, as in the JAX engine. A no-op when
+        asleep."""
+        with self._lifecycle_lock:
+            with self._lock:
+                if self._sleeping:
+                    return
+                # From here the loop takes no step (it waits, or flushes
+                # the burst in flight), so the step lock comes free.
+                self._sleeping = True
+            self._sleep_device()
+        logger.info("Engine asleep (level %d): device memory released", level)
+
+    def _sleep_device(self) -> None:
+        with self._step_lock:  # wait out the step in flight
+            self._flush_pending_prefills()
+            self._flush_pending_burst()
+            with self._lock:
+                # Preempt everything (mid-prefill chunked prompts too: their
+                # pages go with the pool), so the wake-up re-prefills.
+                while self.scheduler.running() or self.scheduler.prefilling:
+                    self.scheduler.preempt_victim()
+                alloc = self.kv_mgr.allocator
+                if self.offload is not None:
+                    self._pending_offload.extend(alloc.prefix_map.items())
+            self._drain_offload()
+            with self._lock:
+                # Then drop every prefix registration: a cached hash left
+                # behind would hit the zeroed pages of the wake-up's pool.
+                alloc.prefix_map.clear()
+                for blk in alloc.blocks:
+                    blk.prefix_hash = None
+                    blk.token_count = 0
+                    blk.ref_count = 0
+                alloc.free_ids = list(range(alloc.num_blocks))
+            self._last_burst_tokens = None
+            if self._copy_stream is not None:
+                # The spills' copies read pages that are about to go.
+                self._copy_stream.synchronize()
+            host = _tree_map(self._to_host, self.params)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            with self._lock:
+                self._host_params = host
+                self.params = None
+                self.kv = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A device tensor's copy in pinned host memory, enqueued on the
+        engine's stream (the caller synchronizes); a CPU tensor as is."""
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def wake_up(self) -> None:
+        """Copy the parameters back from pinned host memory and allocate a
+        fresh (zero) KV pool. A no-op when awake."""
+        with self._lifecycle_lock, self._step_lock:
+            with self._lock:
+                if not self._sleeping:
+                    return
+                host = self._host_params
+            params = _tree_map(
+                lambda t: t.to(self.device, non_blocking=True), host)
+            kv = (self._alloc_pages(), self._alloc_pages())
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            with self._lock:
+                self.params = params
+                self.kv = kv
+                self._host_params = None
+                self._sleeping = False
+                self._lock.notify()
+        logger.info("Engine awake: weights restored, KV reallocated")
+
+    @property
+    def is_sleeping(self) -> bool:
+        return self._sleeping
+
+    def load_lora_adapter(self, name: str, rank: Optional[int] = None,
+                          weights: Optional[dict] = None,
+                          alpha: float = 16.0) -> bool:
+        """Install an adapter into a free LoRA slot. ``weights`` may carry
+        ``wq_a``/``wq_b``/``wv_a``/``wv_b`` (each ``[L, ...]`` of the slot,
+        arrays or tensors); without weights the A matrices are drawn as
+        ``0.01 * normal(key(crc32(name) % 2^31), [L, Hd, R])`` with the
+        JAX engine's threefry (one key for both). The rank is clamped to
+        ``max_lora_rank``; the slot's scaling becomes ``alpha / rank``.
+        The slot is written in place on the device between forwards.
+        False when the engine has no LoRA slots, sleeps, or has no free
+        slot; True when the name is loaded already."""
+        rank = min(rank or self.config.max_lora_rank,
+                   self.config.max_lora_rank)
+        with self._step_lock, self._lock:
+            if self.params is None or "lora" not in self.params:
+                return False
+            if name in self.lora_slots:
+                return True
+            used = set(self.lora_slots.values())
+            free = [s for s in range(1, self.config.max_loras)
+                    if s not in used]
+            if not free:
+                return False
+            slot = free[0]
+            lora = self.params["lora"]
+            with torch.inference_mode():
+                if weights is not None:
+                    for key in ("wq_a", "wq_b", "wv_a", "wv_b"):
+                        if key in weights:
+                            w = weights[key]
+                            if not isinstance(w, torch.Tensor):
+                                w = torch.from_numpy(np.asarray(w))
+                            lora[key][:, slot].copy_(w)
+                else:
+                    seed = zlib.crc32(name.encode()) % (2 ** 31)
+                    for key in ("wq_a", "wv_a"):
+                        L, _, Hd, R = lora[key].shape
+                        draw = prng.normal(
+                            prng.key(seed, device=self.device), (L, Hd, R))
+                        lora[key][:, slot].copy_(
+                            (0.01 * draw).to(lora[key].dtype))
+                lora["scaling"][slot] = alpha / rank
+            self.lora_slots[name] = slot
+        logger.info("Loaded LoRA adapter %s into slot %d", name, slot)
+        return True
+
+    def unload_lora_adapter(self, name: str) -> bool:
+        """Free an adapter's slot (its scaling set to 0). False when the
+        name is not loaded, or while asleep (the weights are on the
+        host)."""
+        with self._step_lock, self._lock:
+            if name not in self.lora_slots:
+                return False
+            if self.params is None:
+                return False
+            slot = self.lora_slots.pop(name)
+            self.params["lora"]["scaling"][slot] = 0.0
+        logger.info("Unloaded LoRA adapter %s (slot %d)", name, slot)
+        return True
+
+    def embed(self, prompt_token_ids: List[int]) -> List[float]:
+        """Mean-pooled, L2-normalised final hidden states of one prefill
+        over the (clamped, bucket-capped) ids: what ``/v1/embeddings``
+        serves. Runs off the scheduler path on a throwaway one-page pool
+        whose writes are dropped (every slot -1); the serving pool is
+        untouched. Raises RuntimeError while asleep."""
+        cfg, mc = self.config, self.model_config
+        ids = np.clip(np.asarray(prompt_token_ids, np.int64), 0,
+                      mc.vocab_size - 1)[: cfg.max_model_len - 1]
+        n = max(len(ids), 1)
+        bucket = cfg.bucket_for(min(n, cfg.prefill_chunk_size or n))
+        n = min(n, bucket)
+        with self._lock:  # a consistent snapshot against sleep()
+            params = self.params
+        if params is None:
+            raise RuntimeError("engine is sleeping")
+        token_ids = np.zeros((1, bucket), np.int64)
+        token_ids[0, :n] = ids[:n]
+        dev = self.device
+
+        def t(x):
+            return to_device(torch.from_numpy(x), dev)
+
+        shape = (mc.num_layers, 1, cfg.block_size, mc.num_kv_heads,
+                 mc.head_dim)
+        kv = (torch.zeros(shape, dtype=mc.torch_dtype, device=dev),
+              torch.zeros(shape, dtype=mc.torch_dtype, device=dev))
+        seq_lens = t(np.asarray([n], np.int32))
+        with torch.inference_mode():
+            hidden, _ = self._apply(
+                params, mc, t(token_ids),
+                t(np.arange(bucket, dtype=np.int64)[None, :]), kv,
+                torch.full((1, bucket), -1, dtype=torch.long),
+                t(np.zeros((1, 4), np.int32)), seq_lens, seq_lens,
+                mode="prefill", output_hidden=True)
+            mask = (torch.arange(bucket, device=dev)[None, :]
+                    < seq_lens[:, None]).float()
+            pooled = (hidden * mask[..., None]).sum(dim=1) / torch.clamp(
+                seq_lens.float(), min=1.0)[:, None]
+            norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+            out = pooled / torch.clamp(norm, min=1e-12)
+        return out[0].cpu().tolist()
+
     def kv_never_fits(self, n_tokens: int) -> bool:
         """True when a prompt (+1-token decode headroom) needs more pages
         than the whole pool holds."""
@@ -771,6 +1002,7 @@ class EngineCore:
             "kv_cache_dtype": self.config.kv_cache_dtype,
             "kv_cache_bytes_per_token": (
                 self._kv_bytes_per_block() // self.config.block_size),
+            "is_sleeping": self._sleeping,
             "prefill_time_total": round(self.prefill_time_total, 3),
             "decode_time_total": round(self.decode_time_total, 3),
             "flush_time_total": round(self.flush_time_total, 3),
@@ -816,7 +1048,8 @@ class EngineCore:
         while True:
             with self._lock:
                 while (self._running and self._pending_burst is None
-                       and not self.scheduler.has_work()):
+                       and (self._sleeping
+                            or not self.scheduler.has_work())):
                     self._lock.wait(timeout=0.1)
                 if not self._running:
                     return
@@ -825,6 +1058,14 @@ class EngineCore:
             self._step_reqs = []
             try:
                 with self._step_lock, torch.inference_mode():
+                    if self._sleeping or self.params is None:
+                        # sleep() won the race after next_action took a
+                        # request: it waits for the wake-up.
+                        self._flush_pending_burst()
+                        if action == "prefill" and req is not None:
+                            with self._lock:
+                                self.scheduler.requeue(req)
+                        continue
                     if action in ("prefill", "prefill_step"):
                         t0 = time.perf_counter()
                         if action == "prefill":
@@ -2419,3 +2660,10 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a parameter dict (nested dicts)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)

@@ -25,7 +25,14 @@ What is reproduced:
   [1, 2), minus 1, scaled into [minval, maxval) and floored at minval;
 - ``gumbel`` in the default ``"low"`` mode,
   ``-log(-log(uniform(minval=tiny, maxval=1)))``;
-- ``categorical``: ``argmax(gumbel + logits)`` over the last axis.
+- ``categorical``: ``argmax(gumbel + logits)`` over the last axis;
+- ``normal`` in float32: ``sqrt(2) * erf_inv(u)`` of a uniform draw on
+  ``(-1, 1)``, with XLA's ``erf_inv`` (Giles' single-precision
+  polynomials, each step rounded once as a fused multiply-add rounds it)
+  and XLA's two branches of ``log1p``. It agrees with
+  ``jax.random.normal`` to a few float32 ulps, not bit for bit: XLA's
+  CPU ``log`` is an approximation of its own, one ulp off the
+  correctly rounded one for some inputs.
 
 The draw is a few hundred elementwise launches on a card; a threefry
 kernel would make it one (no Pallas kernel computes it in the JAX
@@ -129,6 +136,50 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     """float32 ``jax.random.gumbel(key, (n,))`` ("low" mode) of every key:
     ``[..., n]``."""
     return -torch.log(-torch.log(uniform(keys, n, minval=_F32_TINY)))
+
+
+# XLA's ErfInv32 (Giles, "Approximating the erfinv function"): the
+# polynomial coefficients, highest power first, for w < 5 and w >= 5.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+# XLA's log1p switches from its small-argument rational form to
+# log(1 + y) at |y| >= sqrt(2) - 1.
+_LOG1P_SMALL = 0.41421356237309504880
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` as XLA computes it: ``w = -log1p(-x^2)``, then
+    one of two degree-8 polynomials in ``w - 2.5`` or ``sqrt(w) - 3``
+    (each Horner step evaluated in float64 and rounded once, as a fused
+    multiply-add rounds it), times ``x``; ``x`` times the largest float32
+    at +-1, as XLA returns it."""
+    y = -x * x
+    w = -torch.where(y.abs() >= _LOG1P_SMALL, torch.log(1 + y),
+                     torch.log1p(y))
+    small = w < 5.0
+    t = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0]).double()
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        c = torch.where(small, a, b).double()
+        p = (c + p * t).float().double()
+    out = p.float() * x
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
+                       out)
+
+
+def normal(keys: torch.Tensor, shape) -> torch.Tensor:
+    """float32 ``jax.random.normal(key, shape)`` of every key ``[..., 2]``:
+    ``[..., *shape]`` (see the module docstring for how close)."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape)) if shape else 1
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, n, minval=lo, maxval=1.0)
+    z = erf_inv(u) * float(np.float32(np.sqrt(2.0)))
+    return z.reshape(keys.shape[:-1] + shape)
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -13,12 +13,31 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``index``, interleaved from a merged queue fed by a thread a choice)
   and, on chat, ``tools`` (a system preamble, and tool calls parsed from
   the whole text: a streamed response with tools is buffered);
-- ``GET /v1/models`` and ``GET /health``;
+- ``GET /v1/models`` (the served names and every loaded LoRA adapter,
+  with its ``parent``) and ``GET /health`` (503 while draining);
+- ``POST /v1/embeddings`` (a string, strings, one id list or id lists),
+  ``POST /v1/score`` and ``/score`` (cosine of pooled embeddings,
+  ``text_1`` broadcast, one embed call per distinct text), ``POST
+  /v1/rerank`` and ``/rerank``, ``POST /tokenize``, ``POST /detokenize``
+  and ``GET /version``, with the JAX server's bodies;
+- the lifecycle of the stack's control plane: ``POST /sleep?level=N``,
+  ``POST /wake_up``, ``GET /is_sleeping`` (generation and embeddings
+  answer 503 while the engine sleeps) and ``POST /drain?timeout_s=N``
+  (admission to the inference surface stops with 503 + ``Retry-After``,
+  ``/health`` turns 503, the KV-controller heartbeat and resync stop and
+  then ``/kv/deregister`` goes out; ``drained`` once nothing is in
+  flight, else 202 ``draining``);
+- LoRA hot-swap: ``POST /v1/load_lora_adapter``, ``POST
+  /v1/unload_lora_adapter``, ``GET /v1/lora_adapters``; a request whose
+  ``model`` names a loaded adapter runs in its slot (an unknown model is
+  a 404);
 - ``GET /metrics`` with the series the router's scraper parses
   (``vllm:num_requests_running``/``_waiting``,
   ``vllm:gpu_cache_usage_perc``, ``vllm:gpu_prefix_cache_hits_total``/
   ``_queries_total``), their ``tpu:`` twins, ``tpu:hbm_headroom_bytes``,
-  ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype`` and,
+  ``tpu:kv_cache_bytes_per_token`` labelled with ``kv_cache_dtype``,
+  ``tpu:engine_sleeping``, ``tpu:engine_draining``,
+  ``tpu:lora_requests_total{adapter}`` once an adapter has served, and
   the JAX server's ``tpu:spec_*`` series (speculative decoding), its
   ``tpu:structured_*`` series and, with the step recorder on, its
   ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``;
@@ -74,6 +93,7 @@ from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
+from production_stack_tpu_torch import __version__
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.core import EngineCore
 from production_stack_tpu_torch.engine.sampling import (
@@ -108,6 +128,14 @@ MAX_BODY_BYTES = 32 << 20
 MAX_KV_BODY_BYTES = 16 << 30
 # How long a handler waits for the engine's next token before giving up.
 TOKEN_TIMEOUT_S = 600.0
+# Non-/v1 aliases of the inference surface (the JAX stack's auth rule):
+# with /v1/*, what a drain stops admitting and counts in flight.
+_GATED_EXACT = frozenset({"/score", "/rerank", "/tokenize", "/detokenize"})
+
+
+def is_gated(path: str) -> bool:
+    """True when the path belongs to the inference surface."""
+    return path.startswith("/v1/") or path in _GATED_EXACT
 
 
 class BadRequest(Exception):
@@ -177,12 +205,31 @@ class EngineServer:
         # prefix is in host RAM or the L3): prefill restores it.
         self.l3_pull_hits = 0
         self.l3_pull_blocks = 0
+        # Per-adapter request metering (tpu:lora_requests_total{adapter}).
+        self.lora_request_counts: "dict[str, int]" = {}
+        # Graceful drain: once draining, the inference surface answers
+        # 503 and /health 503; requests of that surface in flight are
+        # counted so /drain knows when the replica is quiescent.
+        self.draining = False
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
 
     # -- helpers -------------------------------------------------------------
     def check_model(self, model: str) -> None:
-        if model not in self.served_models and model != self.config.model:
+        """404 unless ``model`` is served here: a served name, the
+        configured model, or a loaded LoRA adapter."""
+        if (model not in self.served_models and model != self.config.model
+                and model not in self.core.lora_slots):
             raise BadRequest(f"model {model!r} not found", 404,
                              "NotFoundError")
+
+    def resolve_adapter(self, model: str) -> str:
+        """The LoRA adapter a request's ``model`` names ("" for none)."""
+        return model if model in self.core.lora_slots else ""
+
+    def check_awake(self) -> None:
+        if self.core.is_sleeping:
+            raise BadRequest("engine is sleeping", 503, "ServiceUnavailable")
 
     def parse_sampling(self, body: dict, default_max_tokens: int):
         """The request's SamplingParams; a malformed field or a structured
@@ -258,6 +305,8 @@ class EngineServer:
         the engine draws choice 0 under."""
         model = body.get("model", self.config.model)
         self.check_model(model)
+        self.check_awake()
+        adapter = self.resolve_adapter(model)
         tok = self.core.tokenizer
         text, offsets = None, None  # the admission report's prompt text
         if kind == "chat":
@@ -290,22 +339,28 @@ class EngineServer:
             sampling = self.parse_sampling(body, default_max_tokens=16)
         self.check_prompt(prompt_ids)
         if text is not None:
-            self._report_kv_admission(text, prompt_ids, offsets)
+            self._report_kv_admission(text, prompt_ids, offsets, adapter)
+        if adapter:
+            self.lora_request_counts[adapter] = (
+                self.lora_request_counts.get(adapter, 0) + 1)
         rid = f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-{uuid.uuid4().hex[:16]}"
-        streams = [self._admit(rid, prompt_ids, sampling)]
+        streams = [self._admit(rid, prompt_ids, sampling, adapter)]
         base_seed = (sampling.seed if sampling.seed is not None
                      else hash(rid) % (2**31))
         for i in range(1, sampling.n):
             streams.append(self._admit(
                 f"{rid}-c{i}", prompt_ids,
-                dataclasses.replace(sampling, seed=base_seed + i, n=1)))
+                dataclasses.replace(sampling, seed=base_seed + i, n=1),
+                adapter))
         return rid, model, prompt_ids, sampling, streams
 
-    def _admit(self, rid: str, prompt_ids: List[int], sampling):
+    def _admit(self, rid: str, prompt_ids: List[int], sampling,
+               adapter: str = ""):
         """Queue one engine request; returns its token stream."""
         tokens: "queue.Queue" = queue.Queue()
         self.core.add_request(rid, prompt_ids, sampling,
-                              lambda t, f: tokens.put((t, f)))
+                              lambda t, f: tokens.put((t, f)),
+                              adapter_name=adapter or None)
         return self._stream(rid, tokens, sampling)
 
     def _stream(self, rid, tokens: "queue.Queue", sampling):
@@ -491,19 +546,23 @@ class EngineServer:
         return tok.encode(text), None
 
     def _report_kv_admission(self, text: str, ids: List[int],
-                             offsets: Optional[List[int]]) -> None:
+                             offsets: Optional[List[int]],
+                             adapter: str = "") -> None:
         """Queue the admission of a prompt: its registry entry, then
-        ``/kv/admit`` with the prompt text (registering first if the
-        controller has not accepted this instance yet)."""
+        ``/kv/admit`` with the prompt text, salted with the adapter's name
+        for an adapter request (registering first if the controller has
+        not accepted this instance yet)."""
         if self.kv_controller_url is None or not text:
             return
 
         def job():
-            self._track_admission(text, list(ids), offsets)
+            self._track_admission(text, list(ids), offsets, adapter)
             if not self._kv_registered and not self._kv_register():
                 return
-            self._post_json("/kv/admit", {"instance_id": self.instance_id,
-                                          "text": text})
+            body = {"instance_id": self.instance_id, "text": text}
+            if adapter:
+                body["salt"] = adapter
+            self._post_json("/kv/admit", body)
 
         self._reports.put(job)
 
@@ -665,7 +724,9 @@ class EngineServer:
         if peer is not None:
             t0 = time.monotonic()
             try:
-                injected = self.core.inject_from_core(peer.core, token_ids)
+                injected = self.core.inject_from_core(
+                    peer.core, token_ids,
+                    self.resolve_adapter(req_body.get("model", "")))
             except Exception as e:  # noqa: BLE001 - fall to the next rung
                 logger.warning("local-device pull failed, falling back: %s",
                                e)
@@ -730,6 +791,203 @@ class EngineServer:
                 "gigabytes_per_second": round(
                     len(data) / max(fetch_seconds, 1e-9) / 1e9, 6)}}
 
+    # -- embeddings, score, rerank, tokenizer ------------------------------
+    def embeddings(self, body: dict) -> dict:
+        """``POST /v1/embeddings``: ``input`` is a string, strings, one id
+        list or id lists."""
+        self.check_awake()
+        inputs = body.get("input", [])
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        elif isinstance(inputs, list) and inputs and all(
+                isinstance(t, int) for t in inputs):
+            inputs = [inputs]
+        data, total_tokens = [], 0
+        for i, text in enumerate(inputs):
+            if isinstance(text, list):
+                ids = [int(t) for t in text]  # pre-tokenized
+            else:
+                ids = self.core.tokenizer.encode(str(text))
+            total_tokens += len(ids)
+            data.append({"object": "embedding", "index": i,
+                         "embedding": self._embed(ids)})
+        return {"object": "list",
+                "model": body.get("model", self.config.model), "data": data,
+                "usage": {"prompt_tokens": total_tokens,
+                          "total_tokens": total_tokens}}
+
+    def _embed(self, ids: List[int]) -> List[float]:
+        try:
+            return self.core.embed(ids)
+        except RuntimeError as exc:  # fell asleep meanwhile
+            raise BadRequest(str(exc), 503, "ServiceUnavailable")
+
+    def _embed_texts(self, texts: List[str]):
+        """Embeddings of ``texts`` (one forward a distinct text) and the
+        token count over every occurrence."""
+        cache: dict = {}
+        total, out = 0, []
+        for text in texts:
+            if text not in cache:
+                ids = self.core.tokenizer.encode(text)
+                cache[text] = (self._embed(ids), len(ids))
+            emb, n_tokens = cache[text]
+            total += n_tokens
+            out.append(emb)
+        return out, total
+
+    @staticmethod
+    def _as_text_list(value) -> Optional[List[str]]:
+        if isinstance(value, str):
+            return [value]
+        if isinstance(value, list) and all(isinstance(t, str) for t in value):
+            return list(value)
+        return None
+
+    @staticmethod
+    def _dot(a: List[float], b: List[float]) -> float:
+        # Embeddings are L2-normalised: the dot product is the cosine.
+        return float(sum(x * y for x, y in zip(a, b)))
+
+    def score(self, body: dict) -> dict:
+        """``POST /v1/score``: cosine similarity of pooled embeddings of
+        ``text_1`` (one text broadcast, or a list pairing element-wise)
+        and ``text_2``."""
+        self.check_awake()
+        list_1 = self._as_text_list(body.get("text_1"))
+        list_2 = self._as_text_list(body.get("text_2"))
+        if list_1 is None or list_2 is None:
+            raise BadRequest("text_1 and text_2 are required and must each "
+                             "be a string or a list of strings")
+        if len(list_1) == 1:
+            list_1 = list_1 * len(list_2)
+        if len(list_1) != len(list_2):
+            raise BadRequest(
+                f"text_1 ({len(list_1)}) and text_2 ({len(list_2)}) must "
+                "pair up (or text_1 must be a single text)")
+        embs, total = self._embed_texts(list_1 + list_2)
+        emb_1, emb_2 = embs[:len(list_1)], embs[len(list_1):]
+        return {
+            "id": f"score-{uuid.uuid4().hex[:16]}", "object": "list",
+            "created": int(time.time()),
+            "model": body.get("model", self.config.model),
+            "data": [{"index": i, "object": "score", "score": self._dot(a, b)}
+                     for i, (a, b) in enumerate(zip(emb_1, emb_2))],
+            "usage": {"prompt_tokens": total, "total_tokens": total}}
+
+    def rerank(self, body: dict) -> dict:
+        """``POST /v1/rerank``: ``documents`` scored against ``query``,
+        the ``top_n`` best first."""
+        self.check_awake()
+        query, documents = body.get("query"), body.get("documents")
+        if not query or not isinstance(documents, list) or not documents:
+            raise BadRequest(
+                "query and a non-empty documents list are required")
+        documents = [d.get("text", "") if isinstance(d, dict) else str(d)
+                     for d in documents]
+        try:
+            top_n = int(body.get("top_n", len(documents)))
+        except (TypeError, ValueError):
+            raise BadRequest("top_n must be an integer")
+        embs, total = self._embed_texts([str(query)] + documents)
+        q_emb = embs[0]
+        ranked = sorted(
+            ({"index": i, "document": {"text": doc},
+              "relevance_score": self._dot(q_emb, emb)}
+             for i, (doc, emb) in enumerate(zip(documents, embs[1:]))),
+            key=lambda r: r["relevance_score"], reverse=True)[:max(top_n, 0)]
+        return {"id": f"rerank-{uuid.uuid4().hex[:16]}",
+                "model": body.get("model", self.config.model),
+                "usage": {"total_tokens": total}, "results": ranked}
+
+    def tokenize(self, body: dict) -> dict:
+        tok = self.core.tokenizer
+        text = body.get("prompt")
+        if text is None and "messages" in body:
+            text = tok.apply_chat_template(body["messages"])
+        ids = tok.encode(text or "")
+        return {"tokens": ids, "count": len(ids),
+                "max_model_len": self.config.max_model_len}
+
+    def detokenize(self, body: dict) -> dict:
+        return {"prompt": self.core.tokenizer.decode(body.get("tokens", []))}
+
+    # -- LoRA adapters -----------------------------------------------------
+    def load_lora(self, body: dict):
+        name = body.get("lora_name")
+        if not name:
+            return 400, {"error": "lora_name required"}
+        if not self.core.load_lora_adapter(name, rank=body.get("lora_rank")):
+            return 400, {"error": f"could not load adapter {name!r} "
+                                  "(no free slots or LoRA disabled)"}
+        return 200, {"status": "ok", "lora_name": name}
+
+    def unload_lora(self, body: dict):
+        name = body.get("lora_name")
+        if not self.core.unload_lora_adapter(name or ""):
+            return 400, {"error": f"adapter {name!r} not loaded"}
+        return 200, {"status": "ok", "lora_name": name}
+
+    def lora_adapters(self) -> dict:
+        """The residency surface the router's adapter registry scrapes
+        (slot 0 is the base model: ``max_loras - 1`` slots load)."""
+        max_loras = int(self.config.max_loras)
+        return {"adapters": [{"lora_name": n, "slot": s}
+                             for n, s in self.core.lora_slots.items()],
+                "max_loras": max_loras,
+                "capacity": max(max_loras - 1, 0),
+                "base_model": self.config.model}
+
+    def models(self) -> dict:
+        now = int(self.start_time)
+        owner = "production-stack-tpu-torch"
+        return {"object": "list", "data": [
+            {"id": m, "object": "model", "created": now, "owned_by": owner}
+            for m in self.served_models] + [
+            {"id": name, "object": "model", "created": now,
+             "owned_by": owner, "parent": self.config.model}
+            for name in self.core.lora_slots]}
+
+    # -- lifecycle ---------------------------------------------------------
+    def drain(self, query: dict):
+        """(status, body) of ``POST /drain?timeout_s=``: stop admitting
+        the inference surface, stop the KV-controller heartbeat and
+        resync (a beat after the deregistration would register again),
+        post ``/kv/deregister``, then wait until nothing is in flight,
+        at most ``timeout_s`` (30 by default). Repeat calls only wait."""
+        try:
+            timeout_s = float(query.get("timeout_s", "30"))
+        except ValueError:
+            return 400, {"error": {"message": "timeout_s must be a number",
+                                   "type": "BadRequestError"}}
+        first_drain = not self.draining
+        self.draining = True
+        if first_drain:
+            logger.info("Drain requested: admission stopped, %d in flight",
+                        self._inflight)
+            self._stop_kv_leases()
+            if self.kv_controller_url is not None:
+                self._post_json("/kv/deregister",
+                                {"instance_id": self.instance_id})
+                self._kv_registered = False
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        while self._inflight > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        drained = self._inflight == 0
+        return (200 if drained else 202,
+                {"status": "drained" if drained else "draining",
+                 "in_flight": self._inflight})
+
+    def _stop_kv_leases(self) -> None:
+        """Stop the heartbeat and resync threads (the report thread keeps
+        draining its queue)."""
+        self._kv_stop.set()
+        leases = [th for th in self._kv_threads if th.name != "kv-report"]
+        for th in leases:
+            th.join(timeout=10)
+        self._kv_threads = [th for th in self._kv_threads
+                            if th not in leases]
+
     def metrics_text(self) -> str:
         s = self.core.stats()
         labels = f'model_name="{self.config.model}"'
@@ -759,6 +1017,8 @@ class EngineServer:
             ("tpu:kv_cache_bytes_per_token", "gauge",
              s["kv_cache_bytes_per_token"],
              f',kv_cache_dtype="{s["kv_cache_dtype"]}"'),
+            ("tpu:engine_sleeping", "gauge", int(s["is_sleeping"])),
+            ("tpu:engine_draining", "gauge", int(self.draining)),
             ("tpu:cached_prompt_tokens_total", "counter",
              s["cached_tokens_total"]),
             ("tpu:decode_forward_steps_total", "counter",
@@ -820,6 +1080,12 @@ class EngineServer:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
             lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
+        # Per-adapter request metering: present once an adapter has served.
+        if self.lora_request_counts:
+            lines.append("# TYPE tpu:lora_requests counter")
+            lines += [f'tpu:lora_requests_total{{{labels},adapter="{name}"}} '
+                      f"{count}" for name, count
+                      in sorted(self.lora_request_counts.items())]
         # Pages allocated on the card and blocks in the offload tier.
         lines.append("# TYPE tpu:kv_page_occupancy gauge")
         for tier, n in s["kv_page_occupancy"].items():
@@ -901,11 +1167,13 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route access logs to our logger
         logger.debug("%s - %s", self.address_string(), fmt % args)
 
-    def _send_json(self, obj, status: int = 200) -> None:
+    def _send_json(self, obj, status: int = 200, headers=None) -> None:
         data = json.dumps(obj).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
 
@@ -913,21 +1181,52 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json({"error": {"message": str(exc), "type": exc.kind}},
                         exc.status)
 
+    def _gated(self, path: str, handle) -> None:
+        """Run ``handle()``; on the inference surface refuse it with 503
+        while draining, else count it in flight."""
+        eng = self.engine
+        if not is_gated(path):
+            handle()
+            return
+        if eng.draining:
+            self._send_json({"error": {"message": "engine is draining",
+                                       "type": "ServiceUnavailable"}}, 503,
+                            {"Retry-After": "1"})
+            return
+        with eng._inflight_lock:
+            eng._inflight += 1
+        try:
+            handle()
+        finally:
+            with eng._inflight_lock:
+                eng._inflight -= 1
+
     def do_GET(self):  # noqa: N802 - http.server API
-        path, _, qs = self.path.partition("?")
-        if path == "/debug/steps" and \
-                self.engine.core.step_recorder is not None:
+        path = self.path.partition("?")[0]
+        self._gated(path, lambda: self._get(path))
+
+    def _get(self, path: str) -> None:
+        qs = self.path.partition("?")[2]
+        eng = self.engine
+        if path == "/debug/steps" and eng.core.step_recorder is not None:
             query = dict(urllib.parse.parse_qsl(qs))
-            status, body = self.engine.debug_steps(query)
+            status, body = eng.debug_steps(query)
             self._send_json(body, status)
         elif path == "/health":
-            self._send_json({"status": "ok"})
+            if eng.draining:
+                self._send_json({"status": "draining",
+                                 "in_flight": eng._inflight}, 503,
+                                {"Retry-After": "1"})
+            else:
+                self._send_json({"status": "ok"})
         elif path == "/v1/models":
-            now = int(self.engine.start_time)
-            self._send_json({"object": "list", "data": [
-                {"id": m, "object": "model", "created": now,
-                 "owned_by": "production-stack-tpu-torch"}
-                for m in self.engine.served_models]})
+            self._send_json(eng.models())
+        elif path == "/v1/lora_adapters":
+            self._send_json(eng.lora_adapters())
+        elif path == "/version":
+            self._send_json({"version": __version__})
+        elif path == "/is_sleeping":
+            self._send_json({"is_sleeping": eng.core.is_sleeping})
         elif path == "/metrics":
             data = self.engine.metrics_text().encode()
             self.send_response(200)
@@ -941,6 +1240,38 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802 - http.server API
         path = self.path.split("?", 1)[0]
+        self._gated(path, lambda: self._post(path))
+
+    def _post(self, path: str) -> None:
+        eng = self.engine
+        query = dict(urllib.parse.parse_qsl(self.path.partition("?")[2]))
+        # Routes answered with one JSON body; a BadRequest is the error.
+        plain = {"/v1/embeddings": lambda: eng.embeddings(self._read_json()),
+                 "/v1/score": lambda: eng.score(self._read_json()),
+                 "/score": lambda: eng.score(self._read_json()),
+                 "/v1/rerank": lambda: eng.rerank(self._read_json()),
+                 "/rerank": lambda: eng.rerank(self._read_json()),
+                 "/tokenize": lambda: eng.tokenize(self._read_json()),
+                 "/detokenize": lambda: eng.detokenize(self._read_json()),
+                 "/sleep": lambda: self._sleep(query),
+                 "/wake_up": self._wake}
+        # Routes that answer (status, body).
+        status_routes = {
+            "/drain": lambda: eng.drain(query),
+            "/v1/load_lora_adapter": lambda: eng.load_lora(
+                self._read_json()),
+            "/v1/unload_lora_adapter": lambda: eng.unload_lora(
+                self._read_json())}
+        if path in plain or path in status_routes:
+            try:
+                if path in plain:
+                    self._send_json(plain[path]())
+                else:
+                    status, body = status_routes[path]()
+                    self._send_json(body, status)
+            except BadRequest as exc:
+                self._send_error(exc)
+            return
         kv_routes = {"/kv/extract": self._kv_extract,
                      "/kv/inject": self._kv_inject,
                      "/kv/pull": self._kv_pull,
@@ -985,7 +1316,9 @@ class _Handler(BaseHTTPRequestHandler):
         payload, each buffer written as it is (no payload-sized join)."""
         eng = self.engine
         body = self._read_json()
-        payload = eng.core.extract_kv(eng.tokens_from_body(body))
+        payload = eng.core.extract_kv(
+            eng.tokens_from_body(body),
+            eng.resolve_adapter(body.get("model", "")))
         if payload is None:
             self._send_json({"error": "no cached prefix for these tokens"},
                             404)
@@ -1036,6 +1369,18 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
+
+    def _sleep(self, query: dict) -> dict:
+        try:
+            level = int(query.get("level", "1"))
+        except ValueError:
+            raise BadRequest("level must be an integer")
+        self.engine.core.sleep(level)
+        return {"status": "sleeping", "level": level}
+
+    def _wake(self) -> dict:
+        self.engine.core.wake_up()
+        return {"status": "awake"}
 
     def _kv_prepare_pull(self) -> None:
         self._send_json({"error": "device pipe unavailable on this "

@@ -3,8 +3,9 @@
 ``params_from_numpy`` takes the JAX package's parameter pytree after
 ``jax.tree.map(np.asarray, params)`` (nested dicts of numpy arrays) and
 returns the same dict structure of torch tensors on ``device``, with the
-same leaf names, shapes and dtypes. Both models keep the ``[in, out]``
-weight orientation, so no leaf is transposed. ``draft_params_from_numpy``
+same leaf names, shapes and dtypes, for each architecture the port runs
+(Llama, OPT, Mixtral). Both packages keep the ``[in, out]`` weight
+orientation, so no leaf is transposed. ``draft_params_from_numpy``
 does the same for a JAX ``DraftModel``'s tree, at the drafter's model
 configuration. The parity tests use them to make both packages compute
 with the same weights; this module imports nothing of JAX.
@@ -22,6 +23,8 @@ from production_stack_tpu_torch.models.config import (
     get_model_config,
 )
 
+ARCHS = ("llama", "opt", "mixtral")
+
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """A numpy array (bfloat16 arrays included: numpy has no bf16 of its
@@ -36,9 +39,8 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
     """The JAX parameter tree (as numpy) as the torch parameter dict."""
-    if cfg.arch != "llama":
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported to the torch engine yet")
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"Unknown arch {cfg.arch!r}")
 
     def convert(node):
         if isinstance(node, dict):

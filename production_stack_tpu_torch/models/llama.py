@@ -165,6 +165,30 @@ def _lora_delta(h, a, b, scaling, adapter_ids):
     return out * s_sel[:, None, None].to(out.dtype)
 
 
+def attend(mode: str, q, k, v, kv: tuple, valid: tuple, layer: int,
+           positions, block_tables, context_lens, seq_lens,
+           scale: float) -> torch.Tensor:
+    """One layer's attention of every model: write the fresh K/V ``[B,
+    T, KVH, D]`` into the stacked pages ``kv`` (in place), then attend
+    causally within the chunk (prefill), over the cached prefix plus the
+    chunk read back from the pages (prefill_cached: after a prefix-cache
+    hit or an earlier chunk) or over the pages (decode). Returns ``[B,
+    T, H, D]``."""
+    k_pages, v_pages = kv
+    scatter_kv_pages(k_pages, v_pages, k, v, valid, layer)
+    if mode == "prefill":
+        return prefill_attention(q, k, v, scale=scale, seq_lens=seq_lens)
+    if mode == "prefill_cached":
+        return context_prefill_attention(
+            q, k_pages, v_pages, block_tables, positions, context_lens,
+            layer, scale=scale)
+    if mode == "decode":
+        return paged_decode_attention(
+            q[:, 0], k_pages, v_pages, block_tables, context_lens, layer,
+            scale=scale)[:, None]
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def _layer(
     cfg: ModelConfig,
     mode: str,
@@ -185,7 +209,6 @@ def _layer(
     B, T, Hd = x.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / (D ** 0.5)
-    k_pages, v_pages = kv
 
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
     q_flat = _proj(h, p, "wq")
@@ -200,24 +223,8 @@ def _layer(
     v = v_flat.reshape(B, T, KVH, D)
     q = apply_rope(q, *rotary)
     k = apply_rope(k, *rotary)
-
-    scatter_kv_pages(k_pages, v_pages, k, v, valid, layer)
-
-    if mode == "prefill":
-        attn = prefill_attention(q, k, v, scale=scale, seq_lens=seq_lens)
-    elif mode == "prefill_cached":
-        # Chunk after a prefix-cache hit or an earlier chunk: the cached
-        # prefix and the chunk's own K/V (just scattered) come from the
-        # pages.
-        attn = context_prefill_attention(
-            q, k_pages, v_pages, block_tables, positions, context_lens,
-            layer, scale=scale)
-    elif mode == "decode":
-        attn = paged_decode_attention(
-            q[:, 0], k_pages, v_pages, block_tables, context_lens, layer,
-            scale=scale)[:, None]
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
+    attn = attend(mode, q, k, v, kv, valid, layer, positions, block_tables,
+                  context_lens, seq_lens, scale)
     x = x + _proj(attn.reshape(B, T, H * D), p, "wo")
 
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)

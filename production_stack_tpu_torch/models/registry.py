@@ -11,10 +11,10 @@ def build_model(cfg: ModelConfig) -> Tuple[Callable, Callable]:
     """Return (init_params, apply) for ``cfg.arch``."""
     if cfg.arch == "llama":
         from production_stack_tpu_torch.models import llama as mod
-
-        return mod.init_params, mod.apply
-    if cfg.arch in ("opt", "mixtral"):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported to the torch engine yet "
-            f"(the other-architectures slice)")
-    raise ValueError(f"Unknown arch {cfg.arch!r}")
+    elif cfg.arch == "opt":
+        from production_stack_tpu_torch.models import opt as mod
+    elif cfg.arch == "mixtral":
+        from production_stack_tpu_torch.models import mixtral as mod
+    else:
+        raise ValueError(f"Unknown arch {cfg.arch!r}")
+    return mod.init_params, mod.apply

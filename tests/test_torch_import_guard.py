@@ -51,7 +51,8 @@ def test_every_port_module_imports_without_jax():
                 "structured.regex_dfa", "structured.schema",
                 "structured.tokenfsm", "kv", "kv.offload", "kv.controller",
                 "utils.xxh64",
-                "models.llama", "models.convert", "ops.attention",
+                "models.llama", "models.opt", "models.mixtral",
+                "models.registry", "models.convert", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build"):
         assert f"{PKG}.{mod}" in out["names"], mod
     # First dotted component exactly "production_stack_tpu": the port's

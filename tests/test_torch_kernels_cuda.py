@@ -572,3 +572,122 @@ def test_kv_extract_inject_round_trip_is_bit_equal(cuda, int8):
     _same_bits(v_r, v0)
     for core in (a, b, c):
         core.stop()
+
+
+# -- OPT-125m shapes and the other architectures on the card ----------------
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("ctx", [[2048] * 8, [2048, 1, 37, 2000, 1500, 64,
+                                             65, 1024]],
+                         ids=["8x2048", "ragged"])
+def test_opt125m_decode_matches_plain(cuda, ctx, int8):
+    """facebook/opt-125m's decode: 12 heads of 64 over 12 kv heads (a head
+    group of one: one live row of the 16-row MMA tile), 64-token pages,
+    tables of 32 pages, the split plan's 96 blocks a wave."""
+    H = KVH = 12
+    D, bs, MAXB, B = 64, 64, 32, len(ctx)
+    rng = np.random.default_rng(sum(ctx) + int8)
+    NB = B * MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=64 + int8,
+                 int8=int8)
+    q = torch.randn((B, H, D), device=cuda, dtype=torch.bfloat16)
+    tables = _tables(rng, B, MAXB, NB, ctx, bs, cuda)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    before = _launches(paged_attention, int8)
+    got = paged_attention(q, k, v, tables, cl, 1, scale=D ** -0.5)
+    want = att.paged_attention_reference(q, k, v, tables, cl, 1,
+                                         scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(paged_attention, int8) == before + 1
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["pages_q", "pages_int8"])
+@pytest.mark.parametrize("prefix,take", [(1024, 1024), (1024, 877), (0, 1024),
+                                         (37, 300)])
+def test_opt125m_cached_prefill_matches_plain(cuda, prefix, take, int8):
+    """facebook/opt-125m's cached prefill at the 1,024 chunk bucket: a
+    chunk over a 1,024-token prefix, the second chunk of a 1,901-token
+    prompt (padded columns discarded), a first chunk, and a diagonal
+    crossing a key tile; 12/12 heads of 64 (query tiles of one head)."""
+    H = KVH = 12
+    D, bs, MAXB, T = 64, 64, 32, 1024
+    rng = np.random.default_rng(prefix + take + int8)
+    NB = MAXB + 1
+    k, v = _pool(cuda, torch.bfloat16, 2, NB, bs, KVH, D, seed=65 + int8,
+                 int8=int8)
+    q = torch.randn((1, T, H, D), device=cuda, dtype=torch.bfloat16)
+    k_new = torch.randn((1, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    v_new = torch.randn((1, T, KVH, D), device=cuda, dtype=torch.bfloat16)
+    tables = rng.permutation(NB)[:MAXB].reshape(1, MAXB)
+    positions = prefix + np.arange(T)[None]
+    slots = np.full((1, T), -1, np.int64)
+    pos = positions[0, :take]
+    slots[0, :take] = tables[0, pos // bs] * bs + pos % bs
+    att.write_kv_pages(k, v, k_new, v_new, torch.from_numpy(slots), 1)
+    args = (q, k, v, torch.from_numpy(tables.astype(np.int32)).to(cuda),
+            torch.from_numpy(positions).to(cuda),
+            torch.tensor([prefix + take], dtype=torch.int32, device=cuda), 1)
+    before = _launches(cached_prefill_attention, int8)
+    got = cached_prefill_attention(*args, scale=D ** -0.5)
+    want = att._context_prefill_reference(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert _launches(cached_prefill_attention, int8) == before + 1
+    assert_close(got[0, :take], want[0, :take])
+
+
+@pytest.mark.parametrize("model", ["tiny-mixtral", "tiny-opt"])
+def test_float32_forward_on_the_card_matches_the_cpu(cuda, model):
+    """One model's prefill, cached prefill and decode forwards at float32
+    on the card (the kernels' f32 mode) against the same forwards on the
+    CPU (the plain versions), on the same parameters: logits at 1e-4."""
+    from production_stack_tpu_torch.models import build_model
+    from production_stack_tpu_torch.models import get_model_config
+
+    cfg = get_model_config(model).replace(dtype="float32")
+    init, apply = build_model(cfg)
+    params = init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    cpu_params = _to(params, "cpu")
+    bs, NB = 8, 16
+    shape = (cfg.num_layers, NB, bs, cfg.num_kv_heads, cfg.head_dim)
+    pools = {d: (torch.zeros(shape, device=d), torch.zeros(shape, device=d))
+             for d in (cuda, "cpu")}
+    tables = np.stack([np.arange(8), np.arange(8, 16)]).astype(np.int32)
+    rng = np.random.default_rng(0)
+
+    def forward(tokens, positions, take, context, mode, last=None):
+        slots = np.full(positions.shape, -1, np.int64)
+        for b, n in enumerate(take):
+            p = positions[b, :n]
+            slots[b, :n] = tables[b, p // bs] * bs + p % bs
+        out = {}
+        for dev, prm in ((cuda, params), ("cpu", cpu_params)):
+            def t(x):
+                return torch.from_numpy(np.asarray(x)).to(dev)
+            logits, _ = apply(
+                prm, cfg, t(tokens), t(positions), pools[dev],
+                torch.from_numpy(slots), t(tables), t(context),
+                t(np.asarray(take, np.int32)), mode=mode,
+                last_token=None if last is None else t(last))
+            out[dev] = logits.cpu()
+        torch.testing.assert_close(out[cuda], out["cpu"], rtol=1e-4,
+                                   atol=1e-4)
+
+    T = 32
+    take = np.asarray([32, 21], np.int32)
+    pos = np.tile(np.arange(T, dtype=np.int32), (2, 1))
+    forward(rng.integers(0, cfg.vocab_size, (2, T)), pos, take, take,
+            "prefill")
+    pos2 = (take[:, None] + np.arange(16)[None]).astype(np.int32)
+    take2 = np.asarray([16, 9], np.int32)
+    forward(rng.integers(0, cfg.vocab_size, (2, 16)), pos2, take2,
+            take + take2, "prefill_cached", last=take2 - 1)
+    pos3 = (take + take2)[:, None].astype(np.int32)
+    forward(rng.integers(0, cfg.vocab_size, (2, 1)), pos3, [1, 1],
+            pos3[:, 0] + 1, "decode")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
