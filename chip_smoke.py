@@ -139,7 +139,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``/v1/rerank``; ``/sleep`` (device memory falls by the weights plus
    the pool) and ``/wake_up`` (the stream before equals the stream
    after), timed; ``/drain`` (a ``{"lifecycle": ...}`` line);
-15. tiny-opt and tiny-mixtral at float32 on the card, token-identical
+15. local checkpoints (before phase 16; :func:`checkpoint_phase`):
+   Llama-3-8B at full width cut to ``CKPT_LAYERS`` = 8 of its 32 layers
+   (5.59 GB of bf16 weights drawn from a seed), written with the port's
+   standard-library safetensors writer under HF names with a config.json
+   and served from the directory behind an API key, in bf16 and with
+   ``--kv-cache-dtype int8 --quantization int8``: every leaf on the card
+   bit for bit (under int8, ``quantize_loaded`` of the written tree), a
+   bare request 401, both kernels launched, greedy texts equal to an
+   engine handed the same tensors, a 1 s ``/debug/profile`` artifact,
+   ``/debug/traces`` with stage times that add up, an echoed
+   ``X-Request-Id``; OPT-125m from a ``pytorch_model.bin``, bit for bit;
+   a tiny draft directory whose speculative streams equal plain decode's
+   (a ``{"checkpoint": ...}`` line: write, read and load times, the read
+   rate, device bytes);
+16. tiny-opt and tiny-mixtral at float32 on the card, token-identical
    to the same engines on the CPU through chunks, preemption and a
    prefix hit (an ``{"arch_parity": ...}`` line).
 
@@ -1351,15 +1365,16 @@ def _text(seed: int, n_chars: int) -> str:
 
 
 class Client:
-    def __init__(self, port: int):
+    def __init__(self, port: int, headers=None):
         self.base = f"http://127.0.0.1:{port}"
+        self.headers = dict(headers or {})  # e.g. the deployment key
 
     def post(self, path: str, body: dict, stream: bool = False):
         import urllib.request
 
         req = urllib.request.Request(
             self.base + path, data=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
+            headers={"Content-Type": "application/json", **self.headers})
         t0 = time.perf_counter()
         with urllib.request.urlopen(req, timeout=600) as resp:
             if not stream:
@@ -1385,7 +1400,8 @@ class Client:
     def get(self, path: str) -> str:
         import urllib.request
 
-        with urllib.request.urlopen(self.base + path, timeout=60) as resp:
+        req = urllib.request.Request(self.base + path, headers=self.headers)
+        with urllib.request.urlopen(req, timeout=60) as resp:
             return resp.read().decode()
 
 
@@ -3141,7 +3157,7 @@ def _status(client, path, body=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         client.base + path, data=data,
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **client.headers})
     try:
         with urllib.request.urlopen(req, timeout=600) as resp:
             return resp.status, json.loads(resp.read().decode())
@@ -3415,6 +3431,430 @@ def arch_parity_phase(smi):
                                  "paged_attention",
                                  "cached_prefill_attention")})
     print(json.dumps({"arch_parity": report}), flush=True)
+
+
+CKPT_MODEL = "meta-llama/Llama-3-8B"
+CKPT_LAYERS = 8  # of Llama-3-8B's 32: 5.6 GB of bf16 on disk
+CKPT_OPT = "facebook/opt-125m"
+CKPT_DEVICE = "cuda"
+CKPT_KEY = "sk-chip-smoke"
+CKPT_MAX_TOKENS = 24
+# A drafter for the tiny-llama-width target directory: its vocabulary,
+# one layer.
+CKPT_DRAFT = dict(name="ckpt-draft", hidden_size=64, num_layers=1,
+                  num_heads=2, num_kv_heads=1, head_dim=32,
+                  intermediate_size=128)
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: (_tree_to(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in tree.items()}
+
+
+def _same_tree(label: str, got: dict, want: dict) -> dict:
+    """Every leaf of ``want`` in ``got`` (LoRA slots aside), equal bit for
+    bit: (leaves compared, their bytes, the largest absolute difference,
+    which must be 0)."""
+    import torch
+
+    got = {k: v for k, v in _flat_leaves(got) if not k.startswith("lora.")}
+    want = dict(_flat_leaves(want))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: loaded leaves "
+                             f"{sorted(set(got) ^ set(want))} differ")
+    def bits(t):
+        return t.contiguous().view(-1).view(torch.uint8)
+
+    worst, nbytes = 0.0, 0
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {name} is {g.dtype} "
+                                 f"{tuple(g.shape)}, not {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        w = w.to(g.device)
+        diff = (g.float() - w.float()).abs().max().item()
+        worst = max(worst, diff)
+        if not torch.equal(bits(g), bits(w)):
+            raise AssertionError(f"{label}: {name} differs from the written "
+                                 f"tensor (max abs {diff})")
+        nbytes += g.numel() * g.element_size()
+    return {"leaves": len(want), "bytes": nbytes, "max_abs_diff": worst}
+
+
+def _ckpt_ids(seed: int, n: int):
+    """A prompt of ``n`` token ids from a seed: the directory's tokenizer
+    (bytes, or whatever tokenizer the host's ``transformers`` builds for
+    a directory without tokenizer files) then never decides how many
+    tokens a prompt has."""
+    import numpy as np
+
+    return [int(t) for t in
+            np.random.default_rng(seed).integers(1, 32000, size=n)]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _checkpoint_serve(label, llama_dir, want, extra, entries, smi):
+    """Serve the Llama checkpoint directory behind the deployment key and
+    drive it: a bare request gets 401; with the key greedy prompts shorter
+    than a page (each alone: their streams are compared with the
+    ``params_from_numpy`` engine's), four concurrent completions, a
+    2,500-token prompt in chunks and a prefix hit, an ``X-Request-Id``
+    echoed, a 1 s ``/debug/profile`` capture beside a request, and
+    ``/debug/traces`` listing the served requests with stage times that
+    add up. Returns (launches of ``entries``, summary, greedy texts)."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    args = [llama_dir, "--device", CKPT_DEVICE, "--host", "127.0.0.1",
+            "--port", "0", "--max-model-len", "4096", "--max-num-seqs", "8",
+            "--seed", "0", "--prefill-batch", "4", "--api-key", CKPT_KEY,
+            *extra]
+    t0 = time.time()
+    httpd, core = build_server(args)
+    summary = {"config": label, "engine_init_s": time.time() - t0,
+               "engine_load_s": core.checkpoint_load_s,
+               "tokenizer": type(core.tokenizer).__name__}
+    summary["weights"] = _same_tree(label, core.params, want)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    client = Client(port, {"Authorization": f"Bearer {CKPT_KEY}"})
+    try:
+        status, body = _status(Client(port), "/v1/completions", {
+            "prompt": "no key", "max_tokens": 2})
+        if status != 401 or body["error"]["type"] != "AuthenticationError":
+            raise AssertionError(f"{label}: a request without the key got "
+                                 f"{status} {body}")
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": _ckpt_ids(99, 1100), "max_tokens": 9,
+            "temperature": 0}))
+        counters = _counters()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        greedy = []
+        for i in range(3):  # shorter than a page: never a prefix hit
+            out = client.post("/v1/completions", {
+                "prompt": _ckpt_ids(60 + i, 40),
+                "max_tokens": CKPT_MAX_TOKENS, "temperature": 0})
+            _finish(f"greedy {i}", out)
+            greedy.append(out["choices"][0]["text"])
+        results = [None] * 4
+
+        def run(i):
+            results[i] = client.post("/v1/completions", {
+                "prompt": _ckpt_ids(70 + i, 300), "max_tokens": 16,
+                "temperature": 0})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        # A 1 s profile capture while the four decode.
+        prof = client.post("/debug/profile", {"duration_s": 1.0})
+        for th in threads:
+            th.join(timeout=600)
+        for i, out in enumerate(results):
+            if out is None:
+                raise AssertionError(f"{label}: concurrent {i} got no reply")
+            _finish(f"concurrent {i}", out)
+        if not prof.get("ok") or not prof.get("files"):
+            raise AssertionError(f"{label}: /debug/profile left no "
+                                 f"artifact: {prof}")
+        listing = json.loads(client.get("/debug/profile/artifacts"))
+        if not set(prof["files"]) <= set(listing["files"]):
+            raise AssertionError(f"{label}: artifacts not listed")
+        long_prompt = _ckpt_ids(80, 2500)  # chunks of 1,024, 1,024, 452
+        long_out = client.post("/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 16, "temperature": 0})
+        _finish("long prompt", long_out)
+        hit_out = client.post("/v1/completions", {
+            "prompt": long_prompt[:2000] + _ckpt_ids(81, 300),
+            "max_tokens": 16, "temperature": 0})
+        _finish("prefix hit", hit_out)
+        import urllib.request
+
+        rid = f"ckpt-router-rid-{len(extra)}"
+        req = urllib.request.Request(
+            client.base + "/v1/completions", data=json.dumps({
+                "prompt": _ckpt_ids(82, 40), "max_tokens": 4}).encode(),
+            headers={"Content-Type": "application/json", "X-Request-Id": rid,
+                     **client.headers})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            echoed = resp.headers.get("X-Request-Id")
+            body = json.loads(resp.read().decode())
+        if echoed != rid or body["id"] != rid:
+            raise AssertionError(f"{label}: X-Request-Id {rid!r} came back "
+                                 f"as {echoed!r} / {body['id']!r}")
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+        traces = json.loads(client.get("/debug/traces?limit=500"))["traces"]
+        if rid not in {t["request_id"] for t in traces} or len(traces) < 11:
+            raise AssertionError(f"{label}: /debug/traces lists "
+                                 f"{len(traces)} requests, not the served")
+        doc = json.loads(client.get(f"/debug/traces/{rid}"))
+        spans = {s["name"]: s["duration_s"] for s in doc["spans"]}
+        stages = sum(spans.get(n, 0.0) for n in (
+            "engine.queue", "engine.prefill", "engine.decode"))
+        if not 0 < stages <= spans["engine.request"] + 1e-5:
+            raise AssertionError(f"{label}: stage times {spans} do not add "
+                                 f"up")
+        hits = core.stats()["prefix_cache_hits"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    for name, n in launches.items():
+        if name in entries and n <= 0:
+            raise AssertionError(f"{name} never launched on the {label} "
+                                 f"checkpoint path")
+        if name not in entries and n != 0:
+            raise AssertionError(f"{name} launched {n} times on the {label} "
+                                 f"checkpoint path, which does not use it")
+    if hits <= 0:
+        raise AssertionError(f"{label}: no prefix-cache hit was served")
+    summary.update(launches={n: launches[n] for n in entries},
+                   traces_listed=len(traces), stage_spans_s=spans,
+                   profile_files=prof["files"],
+                   long_latency_s=long_out["_latency_s"],
+                   hit_latency_s=hit_out["_latency_s"], card=smi)
+    return {n: launches[n] for n in entries}, summary, greedy
+
+
+def _reference_greedy(llama_dir, want, extra) -> list:
+    """The greedy texts of :func:`_checkpoint_serve`'s short prompts from
+    an engine on the same configuration whose weights are the written
+    tensors, carried across by ``params_from_numpy``, not read from the
+    directory."""
+    import threading
+
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.engine.server import (
+        build_arg_parser,
+        build_server,
+        config_from_args,
+    )
+    from production_stack_tpu_torch.models import get_model_config
+    from production_stack_tpu_torch.models.convert import params_from_numpy
+
+    args = [llama_dir, "--device", CKPT_DEVICE, "--host", "127.0.0.1",
+            "--port", "0", "--max-model-len", "4096", "--max-num-seqs", "8",
+            "--seed", "0", "--prefill-batch", "4", *extra]
+    config = config_from_args(build_arg_parser().parse_args(args))
+    core = EngineCore(config, params=params_from_numpy(
+        want, get_model_config(llama_dir), CKPT_DEVICE))
+    if core.checkpoint_load_s is not None:
+        raise AssertionError("the reference engine read the directory")
+    httpd, core = build_server(args, core=core)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    client = Client(httpd.server_address[1])
+    try:
+        _finish("warm-up", client.post("/v1/completions", {
+            "prompt": _ckpt_ids(99, 1100), "max_tokens": 9,
+            "temperature": 0}))
+        texts = []
+        for i in range(3):
+            out = client.post("/v1/completions", {
+                "prompt": _ckpt_ids(60 + i, 40),
+                "max_tokens": CKPT_MAX_TOKENS, "temperature": 0})
+            texts.append(out["choices"][0]["text"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+    return texts
+
+
+def _engine_streams(core, prompts, max_tokens):
+    """Greedy token streams of ``prompts``, queued at once under the
+    engine's lock."""
+    import queue
+
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    core.start()
+    queues = []
+    try:
+        with core._lock:
+            for i, prompt in enumerate(prompts):
+                q = queue.Queue()
+                core.add_request(f"c{i}", list(prompt), SamplingParams(
+                    max_tokens=max_tokens, temperature=0.0,
+                    ignore_eos=True), lambda t, f, q=q: q.put((t, f)))
+                queues.append(q)
+        out = []
+        for q in queues:
+            tokens = []
+            while True:
+                t, f = q.get(timeout=300)
+                if t is not None:
+                    tokens.append(t)
+                if f is not None:
+                    out.append((tokens, f))
+                    break
+    finally:
+        core.stop()
+    return out
+
+
+def checkpoint_phase(here: str, smi):
+    """Local checkpoints on the card. Writes, into a temporary directory
+    under ``production_stack_tpu_torch/_build/`` that it deletes
+    afterwards, with the port's standard-library safetensors writer
+    (HF tensor names and a config.json; no ``safetensors`` or
+    ``transformers`` needed):
+
+    - Llama-3-8B at full width cut to ``CKPT_LAYERS`` of its 32 layers,
+      bf16 weights drawn from a seed on the card, in two shards;
+    - facebook/opt-125m at full size as one ``pytorch_model.bin``;
+    - a tiny-llama-width target and a one-layer drafter of its
+      vocabulary, float32.
+
+    The Llama directory is read back (host rate), then served twice
+    behind the deployment key (:func:`_checkpoint_serve`): bf16, and
+    ``--kv-cache-dtype int8 --quantization int8``, where the loaded
+    tree must equal ``quantize_loaded`` of the written one. Every leaf
+    must land bit for bit, both kernels must launch, and the greedy texts
+    must equal those of an engine whose weights are the written tensors
+    (:func:`_reference_greedy`). OPT must load bit for bit from the
+    ``.bin`` and serve; the drafter directory must load bit for bit and
+    its speculative streams equal plain decode's. Returns (launches of
+    the served runs, summary)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.models import build_model
+    from production_stack_tpu_torch.models import get_model_config
+    from production_stack_tpu_torch.models.quantize import quantize_loaded
+    from production_stack_tpu_torch.models.weights import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    def drawn(cfg, seed, device=CKPT_DEVICE):
+        init, _ = build_model(cfg)
+        with torch.no_grad():
+            return init(cfg, torch.Generator(device=device).manual_seed(seed),
+                        device)
+
+    build = os.path.join(here, "production_stack_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    launches = {}
+    try:
+        cfg = get_model_config(CKPT_MODEL).replace(num_layers=CKPT_LAYERS)
+        llama_dir = os.path.join(tmp, "llama-3-8b-8l")
+        tree = drawn(cfg, 11)
+        t0 = time.time()
+        tensor_bytes = save_checkpoint(tree, cfg, llama_dir, shards=2)
+        write_s = time.time() - t0
+        disk = _dir_bytes(llama_dir)
+        log(f"[checkpoint] wrote {disk / 1e9:.2f} GB in {write_s:.1f} s")
+        t0 = time.time()
+        host = load_checkpoint(cfg, llama_dir)
+        read_s = time.time() - t0
+        host_check = _same_tree("host read", host, tree)
+        del host
+        summary = {"model": CKPT_MODEL, "layers": CKPT_LAYERS,
+                   "of_layers": get_model_config(CKPT_MODEL).num_layers, "dtype": "bfloat16", "shards": 2,
+                   "file_bytes": disk, "tensor_bytes": tensor_bytes,
+                   "write_s": write_s, "host_read_s": read_s,
+                   "host_read_gb_per_s": disk / read_s / 1e9,
+                   "host_read_leaves": host_check["leaves"], "card": smi,
+                   "runs": []}
+        for label, extra, entries in (
+                ("bf16", (), ("paged_attention", "cached_prefill_attention")),
+                ("int8 KV + int8 weights", INT8_ARGS,
+                 ("paged_attention_int8", "cached_prefill_attention_int8"))):
+            _free_device_memory()
+            # The engine quantizes on the host; so does the check (on the
+            # card a float32 quotient by a scalar is a product by its
+            # reciprocal, which can land one ulp away).
+            want = tree if not extra else quantize_loaded(
+                _tree_to(tree, "cpu"), "llama")
+            counts, run, greedy = _checkpoint_serve(
+                label, llama_dir, want, extra, entries, smi)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            _free_device_memory()
+            reference = _reference_greedy(llama_dir, want, extra)
+            if greedy != reference:
+                raise AssertionError(
+                    f"checkpoint {label}: greedy texts {greedy} differ from "
+                    f"the params_from_numpy engine's {reference}")
+            run["greedy_equal_to_params_from_numpy"] = len(greedy)
+            run["load_gb_per_s"] = disk / run["engine_load_s"] / 1e9
+            run["device_weight_bytes"] = run["weights"]["bytes"]
+            summary["runs"].append(run)
+            del want
+            log(f"[checkpoint] {json.dumps(run)}")
+        del tree
+        _free_device_memory()
+        # OPT-125m at full size from a pytorch_model.bin.
+        opt_cfg = get_model_config(CKPT_OPT)
+        opt_dir = os.path.join(tmp, "opt-125m")
+        opt_tree = drawn(opt_cfg, 12)
+        save_checkpoint(opt_tree, opt_cfg, opt_dir, torch_bin=True)
+        core = EngineCore(EngineConfig(
+            model=opt_dir, device=CKPT_DEVICE, max_model_len=2048,
+            max_num_seqs=4, num_blocks=256))
+        summary["opt_bin"] = dict(_same_tree("opt-125m", core.params,
+                                             opt_tree),
+                                  load_s=core.checkpoint_load_s)
+        (tokens, finish), = _engine_streams(core, [list(range(1, 1500))], 8)
+        if finish != "length" or len(tokens) != 8:
+            raise AssertionError(f"opt-125m checkpoint: {finish} {tokens}")
+        del core, opt_tree
+        _free_device_memory()
+        # A draft directory for --speculative-draft-model.
+        t_cfg = get_model_config("tiny-llama").replace(dtype="float32")
+        d_cfg = t_cfg.replace(**CKPT_DRAFT)
+        target_dir = os.path.join(tmp, "tiny-target")
+        draft_dir = os.path.join(tmp, "tiny-draft")
+        save_checkpoint(drawn(t_cfg, 13), t_cfg, target_dir)
+        d_tree = drawn(d_cfg, 14)
+        save_checkpoint(d_tree, d_cfg, draft_dir)
+        plain_cfg = dict(SPEC_PARITY_CFG, model=target_dir,
+                         device=CKPT_DEVICE)
+        prompts = [[5, 6, 7, 8] * 6, [31, 7, 2, 19, 44, 3, 28, 11]]
+        want = _engine_streams(EngineCore(EngineConfig(**plain_cfg)),
+                               prompts, 24)
+        spec = EngineCore(EngineConfig(
+            **plain_cfg, speculative_num_tokens=4,
+            speculative_draft_model=draft_dir))
+        draft_check = _same_tree("draft", spec._draft.params, d_tree)
+        got = _engine_streams(spec, prompts, 24)
+        stats = spec.stats()
+        if got != want:
+            raise AssertionError(f"draft checkpoint: speculative streams "
+                                 f"{got} differ from plain {want}")
+        if stats["spec_verify_bursts_total"] <= 0:
+            raise AssertionError("draft checkpoint: no verify burst ran")
+        summary["draft"] = dict(
+            draft_check, streams_equal=len(got),
+            proposed=stats["spec_proposed_by_source"]["draft_model"],
+            accepted=stats["spec_accepted_by_source"]["draft_model"])
+        del spec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_device_memory()
+    return launches, summary
 
 
 def _free_device_memory() -> None:
@@ -3799,6 +4239,12 @@ def main(argv=None) -> int:
             launches[name] += n
         print(json.dumps({key: summary}), flush=True)
         log(f"[time] {time.time() - t0:.0f} s through the {key} phase")
+    _free_device_memory()
+    counts, summary = checkpoint_phase(here, smi)
+    for name, n in counts.items():
+        launches[name] += n
+    print(json.dumps({"checkpoint": summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the checkpoint phase")
     _free_device_memory()
     arch_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the arch parity phase")

@@ -95,6 +95,13 @@ The engine surfaces of the stack's control plane are the JAX engine's:
   and drops them and the pool from the device; wake copies them back and
   allocates a fresh pool.
 
+A model named by a local HF checkpoint directory serves that
+directory's weights (``models/weights.py``; int8-quantized on the host
+under ``quantization="int8"``), unless the caller passes ``params``. The
+KV pool's allocation runs the JAX engine's shrink ladder
+(``pool_shrink_retries``, ``pool_shrink_step``) on an out-of-memory
+error.
+
 Not here yet, and refused at construction when configured: the fused
 step, tensor/pipeline/data parallelism and multihost.
 """
@@ -185,8 +192,10 @@ class EngineCore:
                  draft_params: Optional[Dict] = None):
         """``params``: a parameter dict for the configured model (e.g. a
         JAX tree carried over by ``models/convert.py``); None draws the
-        random init from ``config.seed`` on the device. ``draft_params``
-        likewise for ``config.speculative_draft_model``."""
+        random init from ``config.seed`` on the device and, when
+        ``config.model`` is a checkpoint directory, loads its weights over
+        it. ``draft_params`` likewise for
+        ``config.speculative_draft_model``."""
         missing = _unsupported(config)
         if missing:
             raise NotImplementedError(
@@ -208,6 +217,7 @@ class EngineCore:
             raise ValueError(
                 "int8 quantization is supported for the llama family "
                 f"(model arch {self.model_config.arch!r})")
+        load_ckpt = params is None
         if params is None:
             lora_kwargs = {}
             # LoRA slots are a Llama-family feature, as in the JAX engine.
@@ -224,6 +234,11 @@ class EngineCore:
                     quantize_embeddings=config.quantize_embeddings,
                     **lora_kwargs)
         self.params = params
+        # Wall seconds of the checkpoint load (read, quantize, copy to the
+        # device), when the model is a checkpoint directory.
+        self.checkpoint_load_s: Optional[float] = None
+        if load_ckpt:
+            self._maybe_load_checkpoint()
 
         # -- draft model (speculative decoding proposer) -------------------
         # Built BEFORE the target's pool is sized: its weights and its
@@ -240,7 +255,8 @@ class EngineCore:
         free_before = self._free_device_bytes()
         self.num_blocks = config.num_blocks or self._auto_num_blocks()
         mc = self.model_config
-        self.kv = (self._alloc_pages(), self._alloc_pages())
+        self.pool_shrink_retries_total = 0
+        self.kv = self._alloc_kv_with_shrink()
         # Device memory left after the pool (tpu:hbm_headroom_bytes).
         self.hbm_headroom_bytes: Optional[int] = None
         if free_before is not None:
@@ -310,6 +326,10 @@ class EngineCore:
         # of a step plan), prompt tokens a step plan deferred, and the
         # last step plan's token count.
         self.prefill_chunks_total = 0
+        # Cached-prefill dispatches by attention route, under the JAX
+        # engine's labels: "pallas" is the hand-written kernel (the only
+        # route here); "xla", the JAX gather fallback, stays 0.
+        self.prefill_attention_dispatch_total = {"pallas": 0, "xla": 0}
         self.deferred_prefill_tokens_total = 0
         self.last_step_batched_tokens = 0
         self.decode_burst_count = 0
@@ -379,6 +399,91 @@ class EngineCore:
     # ------------------------------------------------------------------ #
     # setup helpers
     # ------------------------------------------------------------------ #
+    def _maybe_load_checkpoint(self) -> None:
+        """When the model names a local HF checkpoint directory, replace
+        the drawn leaves with its weights (quantized on the host first
+        under ``quantization="int8"``, so int8 crosses to the device).
+        Leaves the checkpoint does not carry (the LoRA slots) keep their
+        init values; a tied-embedding Llama checkpoint drops the drawn
+        head, so the model reads ``embed.T``. A checkpoint that cannot be
+        read raises."""
+        from production_stack_tpu_torch.models.convert import (
+            tensor_from_numpy,
+        )
+        from production_stack_tpu_torch.models.weights import (
+            has_checkpoint,
+            load_checkpoint,
+        )
+
+        if not has_checkpoint(self.config.model):
+            return
+        t0 = time.perf_counter()
+        loaded = load_checkpoint(self.model_config, self.config.model)
+        if self.config.quantization == "int8":
+            from production_stack_tpu_torch.models.quantize import (
+                quantize_loaded,
+            )
+
+            loaded = quantize_loaded(
+                loaded, self.model_config.arch,
+                quantize_embeddings=self.config.quantize_embeddings)
+
+        def merge(dst: dict, src: dict) -> None:
+            for key, val in src.items():
+                if isinstance(val, dict):
+                    merge(dst.setdefault(key, {}), val)
+                else:
+                    # The drawn leaf goes before its replacement lands.
+                    dst.pop(key, None)
+                    dst[key] = tensor_from_numpy(val, self.device)
+
+        merge(self.params, loaded)
+        if self.model_config.arch == "llama" and "lm_head" not in loaded:
+            self.params.pop("lm_head", None)
+            self.params.pop("lm_head_scale", None)
+        del loaded
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.checkpoint_load_s = time.perf_counter() - t0
+        logger.info("Loaded checkpoint weights from %s in %.2f s",
+                    self.config.model, self.checkpoint_load_s)
+
+    def _alloc_kv_with_shrink(self):
+        """The KV pool, with the JAX engine's shrink ladder: free memory
+        read before allocation can miss what is still held, so an
+        out-of-memory error at the pool's allocation shrinks
+        ``num_blocks`` by ``pool_shrink_step`` and retries, up to
+        ``pool_shrink_retries`` rungs, never below two sequences' worth of
+        blocks. Only ``torch.cuda.OutOfMemoryError`` is caught."""
+        cfg = self.config
+        rungs = cfg.pool_shrink_retries
+        min_blocks = cfg.max_blocks_per_seq * 2
+        for rung in range(rungs + 1):
+            k = v = None
+            try:
+                k = self._alloc_pages()
+                v = self._alloc_pages()
+                return k, v
+            except torch.cuda.OutOfMemoryError:
+                k = v = None  # the side that did fit goes first
+                if rung >= rungs or self.num_blocks <= min_blocks:
+                    logger.error(
+                        "KV pool allocation out of memory with no shrink "
+                        "rungs left (num_blocks=%d, floor=%d)",
+                        self.num_blocks, min_blocks)
+                    raise
+                shrunk = max(
+                    int(self.num_blocks * (1.0 - cfg.pool_shrink_step)),
+                    min_blocks)
+                logger.warning(
+                    "KV pool allocation out of memory at %d blocks; "
+                    "shrinking to %d (rung %d/%d)",
+                    self.num_blocks, shrunk, rung + 1, rungs)
+                self.num_blocks = shrunk
+                self.pool_shrink_retries_total += 1
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+
     def _kv_bytes_per_block(self) -> int:
         return kv_bytes_per_block(self.model_config, self.config.block_size,
                                   self.config.kv_cache_dtype)
@@ -1018,6 +1123,11 @@ class EngineCore:
                 min(self.last_step_batched_tokens / budget, 1.0)
                 if budget > 0 else 0.0),
             "rejected_requests": dict(self.scheduler.rejected_total),
+            "preempted_by_priority":
+                dict(self.scheduler.preempted_by_priority),
+            "pool_shrink_retries_total": self.pool_shrink_retries_total,
+            "prefill_attention_dispatch_total":
+                dict(self.prefill_attention_dispatch_total),
             "decode_burst_count": self.decode_burst_count,
             "decode_forward_steps_total": self.decode_forward_steps_total,
             "spec_proposed_tokens_total": self.spec_proposed_tokens_total,
@@ -1692,6 +1802,8 @@ class EngineCore:
         def t(x):
             return to_device(torch.from_numpy(x), dev)
 
+        if cached:
+            self.prefill_attention_dispatch_total["pallas"] += 1
         seq_lens = t(a["seq_lens"])
         logits, _ = self._apply(
             self.params, self.model_config, t(a["tokens"]),

@@ -22,10 +22,12 @@ stay those of plain decode.
 Both run through the port's attention kernels on a card (the catch-up
 through the cached-prefill kernel, the scan through the decode kernel).
 
-The parameters come from ``config.seed`` through the port's own
-``init_params`` (no LoRA slots: the drafter proposes for every adapter
-and the verify applies them; never quantized, whatever
-``--quantization`` says), or from a ``params=`` dict. The pool holds
+The parameters come from a ``params=`` dict, from the checkpoint when
+the drafter is named by a local checkpoint directory
+(``models/weights.py``), or else from ``config.seed`` through the port's
+own ``init_params`` (no LoRA slots: the drafter proposes for every
+adapter and the verify applies them; never quantized, whatever
+``--quantization`` says). The pool holds
 ``max_blocks_per_seq * max_num_seqs + 1`` blocks in the model dtype
 (never int8), enough for every slot's worst case, with prefix caching
 off (draft pages are scratch owned by their request); it is carved out
@@ -43,6 +45,11 @@ import torch
 from production_stack_tpu_torch.engine.kvcache import KVCacheManager
 from production_stack_tpu_torch.engine.sampling import apply_fsm_mask
 from production_stack_tpu_torch.models import build_model, get_model_config
+from production_stack_tpu_torch.models.convert import draft_params_from_numpy
+from production_stack_tpu_torch.models.weights import (
+    has_checkpoint,
+    load_checkpoint,
+)
 from production_stack_tpu_torch.ops.attention import to_device
 
 
@@ -65,6 +72,11 @@ class DraftModel:
                 " — draft tokens must be target tokens")
         self.model_config = mc
         init_fn, self._apply = build_model(mc)
+        if params is None and has_checkpoint(self.name):
+            # A checkpoint directory: its weights, the whole tree (a
+            # drafter has no LoRA slots to keep).
+            params = draft_params_from_numpy(
+                load_checkpoint(mc, self.name), config, self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             with torch.no_grad():

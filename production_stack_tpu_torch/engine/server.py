@@ -14,7 +14,8 @@ per connection, server-sent events written by hand for ``stream: true``,
   and, on chat, ``tools`` (a system preamble, and tool calls parsed from
   the whole text: a streamed response with tools is buffered);
 - ``GET /v1/models`` (the served names and every loaded LoRA adapter,
-  with its ``parent``) and ``GET /health`` (503 while draining);
+  with its ``parent``), ``GET /health`` and ``GET /healthz`` (503 while
+  draining);
 - ``POST /v1/embeddings`` (a string, strings, one id list or id lists),
   ``POST /v1/score`` and ``/score`` (cosine of pooled embeddings,
   ``text_1`` broadcast, one embed call per distinct text), ``POST
@@ -40,10 +41,28 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``tpu:lora_requests_total{adapter}`` once an adapter has served, and
   the JAX server's ``tpu:spec_*`` series (speculative decoding), its
   ``tpu:structured_*`` series and, with the step recorder on, its
-  ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``;
+  ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``; its
+  scheduler series (``tpu:preempted_requests_total{priority}``,
+  ``tpu:rejected_requests_total{reason}``, ``tpu:prefill_chunks_total``,
+  ``tpu:deferred_prefill_tokens_total``,
+  ``tpu:batched_token_utilization``,
+  ``tpu:prefill_attention_dispatch_total{path}``,
+  ``tpu:pool_shrink_retries_total``) and its tracing series
+  (``tpu:{queue,prefill,decode}_time_seconds``,
+  ``tpu:slow_requests_total``, ``tpu:trace_sampled_out_total``,
+  ``tpu:slow_trace_logs_suppressed_total``);
 - ``GET /debug/steps`` (step recorder on): newest-first step records
   under the recorder's summary; filters ``?limit=50`` and
   ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it;
+- ``GET /debug/traces`` (``?min_duration_s=``, ``?limit=``) and ``GET
+  /debug/traces/{request_id}`` (``?format=otlp``): each served request's
+  stage timeline (queue, prefill, decode), joined to the caller's W3C
+  ``traceparent``; ``--trace-sample-rate``, ``--trace-buffer``,
+  ``--trace-export``, ``--slow-trace-threshold-s``,
+  ``--slow-trace-log-interval-s``;
+- ``POST /debug/profile`` (``{"duration_s": 2}``: a ``torch.profiler``
+  capture into ``--profile-dir``; 409 while one runs), ``GET
+  /debug/profile/artifacts`` and ``GET /debug/profile/artifacts/{name}``;
 - KV movement, as the JAX server answers it: ``POST /kv/extract`` (a
   prompt's cached prefix pages as one TKV2 payload, written buffer by
   buffer under one ``Content-Length``; 404 without a cached block),
@@ -61,8 +80,23 @@ per connection, server-sent events written by hand for ``stream: true``,
   reports every admitted prompt's text chunks and every eviction (on
   threads of their own: the engine thread only enqueues).
 
+With a deployment key (``--api-key``, ``VLLM_API_KEY``, ...) the
+inference surface, every ``/kv/*`` route and the ``/debug`` routes answer
+401 without ``Authorization: Bearer <key>``; ``/health``, ``/healthz``,
+``/metrics``, ``/version`` and the lifecycle routes stay open, as on the
+JAX server. The server's own calls (a peer's ``/kv/extract``, the KV
+controller) carry the key.
+
+The router's headers: ``X-Request-Id`` becomes the request id and comes
+back on the response; ``X-Priority`` (``interactive`` / ``batch``) sets
+the scheduling class that preemption picks its victims by. A prompt that
+can never fit the KV pool gets 503 with ``Retry-After: 1``, and so does
+one the scheduler refuses for KV capacity before its first token.
+
 A request that fails inside the engine finishes with ``finish_reason:
-"error"``.
+"error"``. The JAX server's event-loop monitor (``--loop-monitor``,
+``/debug/loop``) is not here: this server runs a thread a connection and
+has no event loop to watch.
 
     python -m production_stack_tpu_torch.engine.server <model> --port N \\
         [--device cuda|cpu] [--kv-cache-dtype int8] [--quantization int8] \\
@@ -72,7 +106,12 @@ A request that fails inside the engine finishes with ``finish_reason:
         [--kv-offload-gb 4] [--kv-remote-url URL] \\
         [--kv-controller-url ROUTER --advertise-url URL] \\
         [--speculative-num-tokens 4 [--speculative-ngram-size 3] \\
-         [--speculative-draft-model M --speculative-draft-probation 64]]
+         [--speculative-draft-model M --speculative-draft-probation 64]] \\
+        [--api-key KEY] [--trace-sample-rate 1.0] [--profile-dir DIR]
+
+``<model>`` is a preset name or a local HF checkpoint directory
+(``config.json`` with ``*.safetensors`` or ``pytorch_model*.bin``), whose
+weights are then served.
 """
 
 from __future__ import annotations
@@ -81,8 +120,10 @@ import argparse
 import dataclasses
 import itertools
 import json
+import os
 import queue
 import struct
+import tempfile
 import threading
 import time
 import urllib.error
@@ -100,6 +141,7 @@ from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGIT_BIAS,
     SamplingParams,
 )
+from production_stack_tpu_torch.engine.scheduler import parse_priority
 from production_stack_tpu_torch.engine.tokenizer import IncrementalDetokenizer
 from production_stack_tpu_torch.engine.tools import (
     parse_tool_calls,
@@ -117,7 +159,9 @@ from production_stack_tpu_torch.kv.offload import (
     unpack_transfer,
 )
 from production_stack_tpu_torch.obs.steps import STEP_KINDS
+from production_stack_tpu_torch.obs.trace import StageClock, TraceRecorder
 from production_stack_tpu_torch.structured.api import compile_char_dfa
+from production_stack_tpu_torch.utils import auth
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -128,22 +172,36 @@ MAX_BODY_BYTES = 32 << 20
 MAX_KV_BODY_BYTES = 16 << 30
 # How long a handler waits for the engine's next token before giving up.
 TOKEN_TIMEOUT_S = 600.0
-# Non-/v1 aliases of the inference surface (the JAX stack's auth rule):
-# with /v1/*, what a drain stops admitting and counts in flight.
-_GATED_EXACT = frozenset({"/score", "/rerank", "/tokenize", "/detokenize"})
+# The debug routes this server serves; all of them are privileged
+# (``utils/auth.py``), so with a key configured each needs it.
+DEBUG_ROUTES = (("GET", "/debug/steps"), ("GET", "/debug/traces"),
+                ("GET", "/debug/traces/{request_id}"),
+                ("POST", "/debug/profile"),
+                ("GET", "/debug/profile/artifacts"),
+                ("GET", "/debug/profile/artifacts/{name}"))
 
 
-def is_gated(path: str) -> bool:
-    """True when the path belongs to the inference surface."""
-    return path.startswith("/v1/") or path in _GATED_EXACT
+def needs_key(path: str) -> bool:
+    """The paths that take the deployment key when one is set, as the JAX
+    engine gates them: the inference surface, the privileged control
+    plane and every ``/kv/*`` route (raw cache pages)."""
+    return (auth.is_gated(path) or auth.is_privileged(path)
+            or path.startswith("/kv/"))
 
 
 class BadRequest(Exception):
+    """An error answer. ``headers`` ride the response; ``traced`` marks a
+    refusal after admission began, which the JAX server records as a
+    trace (the KV-capacity pre-check)."""
+
     def __init__(self, message: str, status: int = 400,
-                 kind: str = "BadRequestError"):
+                 kind: str = "BadRequestError", headers=None,
+                 traced: bool = False):
         super().__init__(message)
         self.status = status
         self.kind = kind
+        self.headers = headers or {}
+        self.traced = traced
 
 
 class EngineServer:
@@ -160,11 +218,36 @@ class EngineServer:
                  instance_id: Optional[str] = None,
                  kv_heartbeat_interval: float = 10.0,
                  kv_resync_interval: float = 30.0,
-                 kv_pull_max_concurrency: int = 8):
+                 kv_pull_max_concurrency: int = 8,
+                 api_key: Optional[str] = None,
+                 trace_buffer: int = 512,
+                 trace_sample_rate: float = 1.0,
+                 trace_export: Optional[str] = None,
+                 slow_trace_threshold_s: float = 0.0,
+                 slow_trace_log_interval_s: float = 0.0,
+                 profile_dir: Optional[str] = None):
         self.core = core
         self.config = core.config
         self.served_models = served_models
         self.start_time = time.time()
+        # Deployment keys (--api-key, VLLM_API_KEY, TPU_STACK_API_KEY or a
+        # keyfile); the first one rides this server's own outbound calls.
+        self.api_keys = auth.resolve_api_keys(api_key)
+        self.api_key = self.api_keys[0] if self.api_keys else None
+        # Per-request stage traces (queue, prefill, decode), served at
+        # /debug/traces and rolled up into tpu:*_time_seconds.
+        self.trace_recorder = TraceRecorder(
+            "tpu-stack-engine", capacity=trace_buffer,
+            slow_threshold_s=slow_trace_threshold_s, export=trace_export,
+            sample_rate=trace_sample_rate,
+            slow_log_interval_s=slow_trace_log_interval_s)
+        # POST /debug/profile: one torch.profiler capture at a time, its
+        # artifacts under profile_dir, served back under
+        # /debug/profile/artifacts/.
+        self.profile_dir = profile_dir or os.path.join(
+            tempfile.gettempdir(), f"tpu-stack-profiles-{os.getpid()}")
+        self._profile_lock = threading.Lock()
+        self._profile_runs = 0
         # -- the KV controller's engine side ------------------------------
         self.kv_controller_url = (kv_controller_url.rstrip("/")
                                   if kv_controller_url else None)
@@ -215,6 +298,18 @@ class EngineServer:
         self._inflight_lock = threading.Lock()
 
     # -- helpers -------------------------------------------------------------
+    def authorized(self, path: str, authorization: Optional[str]) -> bool:
+        """False when ``path`` takes the deployment key and the request's
+        ``Authorization`` header does not carry one of the keys."""
+        return (not self.api_keys or not needs_key(path)
+                or auth.check_bearer(authorization, self.api_keys))
+
+    def _auth_headers(self) -> dict:
+        """Headers of this server's own outbound calls (the KV controller,
+        a peer's /kv/extract): every tier of a keyed deployment presents
+        the shared key."""
+        return auth.auth_headers(self.api_key)
+
     def check_model(self, model: str) -> None:
         """404 unless ``model`` is served here: a served name, the
         configured model, or a loaded LoRA adapter."""
@@ -250,14 +345,24 @@ class EngineServer:
         return sampling
 
     def check_prompt(self, prompt_ids: List[int]) -> None:
+        """400 for a prompt past ``max_model_len``, 503 with ``Retry-After``
+        for one that can never fit the KV pool; each counted under its
+        reason in ``rejected_total``, as the JAX engine counts them."""
+        reason = None
         if len(prompt_ids) >= self.config.max_model_len:
-            raise BadRequest(
+            reason, exc = "length", BadRequest(
                 f"prompt ({len(prompt_ids)} tokens) exceeds max_model_len "
                 f"{self.config.max_model_len}")
-        if self.core.kv_never_fits(len(prompt_ids)):
-            raise BadRequest(
+        elif self.core.kv_never_fits(len(prompt_ids)):
+            reason, exc = "kv_capacity", BadRequest(
                 f"prompt ({len(prompt_ids)} tokens) exceeds this engine's "
-                f"KV cache capacity", 503, "ServiceUnavailable")
+                f"KV cache capacity", 503, "ServiceUnavailable",
+                headers={"Retry-After": "1"}, traced=True)
+        if reason is not None:
+            with self.core._lock:
+                rejected = self.core.scheduler.rejected_total
+                rejected[reason] = rejected.get(reason, 0) + 1
+            raise exc
 
     def lp_entry(self, token_id: int, lp: dict) -> dict:
         """One OpenAI chat-logprobs content entry."""
@@ -296,13 +401,18 @@ class EngineServer:
                 return combined[len(text_so_far):idx], True
         return delta, False
 
-    def generate(self, body: dict, kind: str):
+    def generate(self, body: dict, kind: str,
+                 request_id: Optional[str] = None, priority: int = 0,
+                 clock: Optional[StageClock] = None):
         """Admit a request's ``n`` choices. Returns (request id, model,
         prompt ids, sampling, a token stream of :meth:`_stream` a choice);
         parsing errors raise BadRequest before anything reaches the
-        engine. Choice ``i > 0`` runs as ``"{rid}-c{i}"`` under seed
-        ``base + i``, ``base`` the request's seed or, unseeded, the seed
-        the engine draws choice 0 under."""
+        engine. The request id is ``request_id`` (the router's
+        ``X-Request-Id``) or a fresh one; every choice runs at
+        ``priority`` (``X-Priority``), choice 0 stamping ``clock``. Choice
+        ``i > 0`` runs as ``"{rid}-c{i}"`` under seed ``base + i``,
+        ``base`` the request's seed or, unseeded, the seed the engine
+        draws choice 0 under."""
         model = body.get("model", self.config.model)
         self.check_model(model)
         self.check_awake()
@@ -337,31 +447,72 @@ class EngineServer:
                 text = str(prompt)
                 prompt_ids, offsets = self._encode_prompt(text)
             sampling = self.parse_sampling(body, default_max_tokens=16)
+        if clock is not None:
+            clock.prompt_tokens = len(prompt_ids)
         self.check_prompt(prompt_ids)
         if text is not None:
             self._report_kv_admission(text, prompt_ids, offsets, adapter)
         if adapter:
             self.lora_request_counts[adapter] = (
                 self.lora_request_counts.get(adapter, 0) + 1)
-        rid = f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-{uuid.uuid4().hex[:16]}"
-        streams = [self._admit(rid, prompt_ids, sampling, adapter)]
+        rid = request_id or (f"{'chatcmpl' if kind == 'chat' else 'cmpl'}-"
+                             f"{uuid.uuid4().hex[:16]}")
+        streams = [self._admit(rid, prompt_ids, sampling, adapter,
+                               priority=priority, clock=clock)]
         base_seed = (sampling.seed if sampling.seed is not None
                      else hash(rid) % (2**31))
         for i in range(1, sampling.n):
             streams.append(self._admit(
                 f"{rid}-c{i}", prompt_ids,
                 dataclasses.replace(sampling, seed=base_seed + i, n=1),
-                adapter))
+                adapter, priority=priority))
         return rid, model, prompt_ids, sampling, streams
 
     def _admit(self, rid: str, prompt_ids: List[int], sampling,
-               adapter: str = ""):
+               adapter: str = "", priority: int = 0,
+               clock: Optional[StageClock] = None):
         """Queue one engine request; returns its token stream."""
         tokens: "queue.Queue" = queue.Queue()
         self.core.add_request(rid, prompt_ids, sampling,
                               lambda t, f: tokens.put((t, f)),
-                              adapter_name=adapter or None)
+                              adapter_name=adapter or None, trace=clock,
+                              priority=priority)
         return self._stream(rid, tokens, sampling)
+
+    def record_trace(self, rid: str, model: str, clock: StageClock,
+                     traceparent: Optional[str]) -> None:
+        """Record a served request's stage timeline (the JAX server's
+        spans: ``engine.request`` over ``engine.queue``, and
+        ``engine.prefill`` and ``engine.decode`` once they started),
+        joined to the caller's trace through ``traceparent``."""
+        rec = self.trace_recorder
+        now = time.time()
+        trace = rec.begin(rid, traceparent)
+        root = trace.start_span(
+            "engine.request", start=clock.arrival, model=model,
+            prompt_tokens=clock.prompt_tokens, tokens=clock.tokens)
+        trace.add_span("engine.queue", clock.arrival,
+                       clock.prefill_start or now, parent=root)
+        if clock.prefill_start:
+            trace.add_span(
+                "engine.prefill", clock.prefill_start,
+                clock.prefill_end or clock.prefill_start, parent=root,
+                prompt_tokens=clock.prompt_tokens,
+                cached_tokens=clock.cached_tokens,
+                uncached_tokens=max(
+                    0, clock.prompt_tokens - clock.cached_tokens),
+                preemptions=clock.preemptions,
+                prefill_chunks=clock.prefill_chunks)
+        if clock.first_token:
+            decode_start = clock.prefill_end or clock.first_token
+            trace.add_span(
+                "engine.decode", decode_start,
+                max(clock.last_token, decode_start), parent=root,
+                steps=clock.tokens, tokens=clock.tokens,
+                time_to_first_token_s=round(
+                    clock.first_token - clock.arrival, 6))
+        root.finish(end=now, tokens=clock.tokens)
+        rec.record(trace)
 
     def _stream(self, rid, tokens: "queue.Queue", sampling):
         """Yields (text_delta, logprob_entry | None, finish | None,
@@ -440,7 +591,8 @@ class EngineServer:
         {}) when it cannot be reached."""
         req = urllib.request.Request(
             self.kv_controller_url + path, data=json.dumps(body).encode(),
-            headers={"Content-Type": "application/json"})
+            headers={"Content-Type": "application/json",
+                     **self._auth_headers()})
         try:
             with urllib.request.urlopen(req, timeout=timeout) as resp:
                 raw = resp.read()
@@ -685,9 +837,11 @@ class EngineServer:
         return {"status": "l3", "injected_blocks": 0, "l3_blocks": blocks,
                 "num_tokens": blocks * self.config.block_size}
 
-    def kv_pull(self, body: dict):
+    def kv_pull(self, body: dict, request_id: Optional[str] = None,
+                traceparent: Optional[str] = None):
         """(status, body, headers) of ``POST /kv/pull``, admission-gated
-        at ``kv_pull_max_concurrency`` transfers in flight."""
+        at ``kv_pull_max_concurrency`` transfers in flight; an admitted
+        pull is recorded as an ``engine.kv_transfer`` trace."""
         with self._kv_lock:
             if self._pull_inflight >= self.kv_pull_max_concurrency:
                 self.kv_pull_rejected_total += 1
@@ -697,11 +851,22 @@ class EngineServer:
                              f"({self.kv_pull_max_concurrency} in flight)"}, {
                     "Retry-After": "1"}
             self._pull_inflight += 1
+        t0 = time.time()
         try:
             status, out = self._kv_pull(body)
         finally:
             with self._kv_lock:
                 self._pull_inflight -= 1
+        trace = self.trace_recorder.begin(
+            request_id or f"kvpull-{uuid.uuid4().hex[:12]}", traceparent)
+        attrs = {"status": status, "result": out.get("status", "error"),
+                 "injected_blocks": out.get("injected_blocks", 0)}
+        transfer = out.get("transfer") or {}
+        attrs.update({k: transfer[k] for k in ("path", "bytes",
+                                               "total_seconds")
+                      if k in transfer})
+        trace.add_span("engine.kv_transfer", t0, time.time(), **attrs)
+        self.trace_recorder.record(trace)
         return status, out, {}
 
     def _kv_pull(self, body: dict):
@@ -752,7 +917,8 @@ class EngineServer:
             source.rstrip("/") + "/kv/extract",
             data=json.dumps({"token_ids": token_ids,
                              "model": req_body.get("model", "")}).encode(),
-            headers={"Content-Type": "application/json"})
+            headers={"Content-Type": "application/json",
+                     **self._auth_headers()})
         try:
             with urllib.request.urlopen(req, timeout=60) as resp:
                 data = resp.read()
@@ -1056,6 +1222,24 @@ class EngineServer:
             ("tpu:prefix_evicts_total", "counter", s["prefix_evicts_total"]),
             ("tpu:evict_listener_errors_total", "counter",
              s["evict_listener_errors_total"]),
+            # Pool-shrink ladder rungs taken at the KV pool's allocation.
+            ("tpu:pool_shrink_retries_total", "counter",
+             s["pool_shrink_retries_total"]),
+            # Chunked prefill: chunks dispatched, prompt tokens a step plan
+            # deferred, the last plan's share of the token budget.
+            ("tpu:prefill_chunks_total", "counter", s["prefill_chunks_total"]),
+            ("tpu:deferred_prefill_tokens_total", "counter",
+             s["deferred_prefill_tokens_total"]),
+            ("tpu:batched_token_utilization", "gauge",
+             f"{s['batched_token_utilization']:.6f}"),
+            # Request tracing: slow requests, traces head sampling dropped
+            # and slow-trace log lines the interval suppressed.
+            ("tpu:slow_requests_total", "counter",
+             self.trace_recorder.slow_requests),
+            ("tpu:trace_sampled_out_total", "counter",
+             self.trace_recorder.sampled_out_total),
+            ("tpu:slow_trace_logs_suppressed_total", "counter",
+             self.trace_recorder.slow_logs_suppressed_total),
         ]
         off = s["offload"]
         if off:
@@ -1080,6 +1264,34 @@ class EngineServer:
             family = name[:-len("_total")] if kind == "counter" else name
             lines.append(f"# TYPE {family} {kind}")
             lines.append(f"{name}{{{labels}{''.join(extra)}}} {value}")
+        # Every label value always present, so rate() never sees a series
+        # vanish: preemptions by the victim's class, admission rejections
+        # by reason, cached-prefill dispatches by attention route ("pallas"
+        # is the kernel route here; the JAX engine's "xla" fallback has no
+        # counterpart and stays 0).
+        rejected = s["rejected_requests"]
+        for family, label, values in (
+                ("tpu:preempted_requests", "priority",
+                 {k: s["preempted_by_priority"].get(k, 0)
+                  for k in ("interactive", "batch")}),
+                ("tpu:rejected_requests", "reason",
+                 {k: rejected.get(k, 0) for k in sorted(
+                     set(rejected) | {"length", "kv_capacity"})}),
+                ("tpu:prefill_attention_dispatch", "path",
+                 {k: s["prefill_attention_dispatch_total"].get(k, 0)
+                  for k in ("pallas", "xla")})):
+            lines.append(f"# TYPE {family} counter")
+            lines += [f'{family}_total{{{labels},{label}="{k}"}} {n}'
+                      for k, n in values.items()]
+        # Request stage times from the trace recorder (sum/count pairs).
+        stage = self.trace_recorder.stage_stats()
+        for family, span in (("tpu:queue_time_seconds", "engine.queue"),
+                             ("tpu:prefill_time_seconds", "engine.prefill"),
+                             ("tpu:decode_time_seconds", "engine.decode")):
+            total, count = stage.get(span, (0.0, 0))
+            lines += [f"# TYPE {family} summary",
+                      f"{family}_sum{{{labels}}} {total:.6f}",
+                      f"{family}_count{{{labels}}} {count}"]
         # Per-adapter request metering: present once an adapter has served.
         if self.lora_request_counts:
             lines.append("# TYPE tpu:lora_requests counter")
@@ -1139,6 +1351,99 @@ class EngineServer:
                       f"{rec.bandwidth_utilization():.6f}"]
         return "\n".join(lines) + "\n"
 
+    def debug_traces(self, query: dict):
+        """(status, body) of ``GET /debug/traces``: newest-first trace
+        summaries, filtered by ``min_duration_s`` and ``limit``."""
+        rec = self.trace_recorder
+        try:
+            min_duration = float(query.get("min_duration_s", 0) or 0)
+        except ValueError:
+            return 400, {"error": "min_duration_s must be a number"}
+        try:
+            limit = int(query.get("limit", 100) or 100)
+        except ValueError:
+            return 400, {"error": "limit must be an integer"}
+        return 200, {"service": rec.service, "capacity": rec.capacity,
+                     "recorded_total": rec.recorded_total,
+                     "slow_requests": rec.slow_requests,
+                     "traces": rec.list(min_duration_s=min_duration,
+                                        limit=limit)}
+
+    def debug_trace(self, request_id: str, query: dict):
+        """(status, body) of ``GET /debug/traces/{request_id}``: the span
+        timeline, or its OTLP-JSON form with ``?format=otlp``."""
+        trace = self.trace_recorder.get(request_id)
+        if trace is None:
+            return 404, {"error": "trace not found"}
+        if query.get("format") == "otlp":
+            return 200, {"resourceSpans": [trace.to_otlp()]}
+        return 200, trace.to_dict()
+
+    def profile(self, body: dict):
+        """(status, body) of ``POST /debug/profile``: a ``torch.profiler``
+        capture of ``duration_s`` seconds (default 2, at most 60) of
+        whatever the engine runs meanwhile (CPU ops and, on a card, its
+        kernels), exported as a Chrome trace under ``profile_dir``. One
+        capture at a time: a second one meanwhile gets 409."""
+        try:
+            duration_s = float(body.get("duration_s", 2.0))
+        except (TypeError, ValueError):
+            raise BadRequest("duration_s must be a number")
+        if not duration_s > 0:
+            raise BadRequest("duration_s must be > 0")
+        duration_s = min(duration_s, 60.0)
+        if not self._profile_lock.acquire(blocking=False):
+            return 409, {"error": {
+                "message": "a profile capture is already running",
+                "type": "Conflict"}}
+        try:
+            self._profile_runs += 1
+            run = (f"run-{self._profile_runs:04d}-"
+                   f"{time.strftime('%Y%m%d-%H%M%S')}")
+            out_dir = os.path.join(self.profile_dir, run)
+            result = self._capture_profile(out_dir, duration_s)
+        finally:
+            self._profile_lock.release()
+        return (200 if result.get("ok") else 503), {
+            "duration_s": duration_s, "run": run, "artifact_dir": out_dir,
+            "artifacts_url": "/debug/profile/artifacts", **result}
+
+    def _capture_profile(self, out_dir: str, duration_s: float) -> dict:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.core.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(out_dir, exist_ok=True)
+        try:
+            with profile(activities=activities) as prof:
+                time.sleep(duration_s)
+                if self.core.device.type == "cuda":
+                    torch.cuda.synchronize(self.core.device)
+            prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        except Exception as e:  # noqa: BLE001 - reported, not raised
+            return {"ok": False, "error": f"profiler failed: {e}"}
+        return {"ok": True, "files": self.profile_files(out_dir)}
+
+    def profile_files(self, root: Optional[str] = None) -> List[str]:
+        """Artifact paths under ``root`` (default: every capture),
+        relative to the profile directory."""
+        files = []
+        for base, _dirs, names in os.walk(root or self.profile_dir):
+            files += [os.path.relpath(os.path.join(base, name),
+                                      self.profile_dir) for name in names]
+        return sorted(files)
+
+    def profile_artifact(self, name: str) -> Optional[str]:
+        """The file path of artifact ``name``, which must resolve inside
+        the profile directory (400 otherwise); None when absent."""
+        base = os.path.realpath(self.profile_dir)
+        full = os.path.realpath(os.path.join(base, name))
+        if not (full == base or full.startswith(base + os.sep)):
+            raise BadRequest("invalid artifact path")
+        return full if os.path.isfile(full) else None
+
     def debug_steps(self, query: dict):
         """(status, body) of ``GET /debug/steps``: the recorder's summary,
         the pool's page occupancy and the newest-first records, filtered
@@ -1179,13 +1484,32 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send_error(self, exc: BadRequest) -> None:
         self._send_json({"error": {"message": str(exc), "type": exc.kind}},
-                        exc.status)
+                        exc.status, exc.headers)
+
+    def _send_file(self, path: str) -> None:
+        with open(path, "rb") as f:
+            data = f.read()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
 
     def _gated(self, path: str, handle) -> None:
-        """Run ``handle()``; on the inference surface refuse it with 503
-        while draining, else count it in flight."""
+        """Run ``handle()`` behind the deployment key (401 without it,
+        its body read and dropped, so the close does not reset the
+        connection under the answer); on the inference surface refuse
+        it with 503 while draining, else count it in flight."""
         eng = self.engine
-        if not is_gated(path):
+        if not eng.authorized(path, self.headers.get("Authorization")):
+            length = int(self.headers.get("Content-Length") or 0)
+            if 0 < length <= MAX_BODY_BYTES:
+                self.rfile.read(length)
+            self._send_json({"error": {
+                "message": "invalid or missing API key",
+                "type": "AuthenticationError"}}, 401)
+            return
+        if not auth.is_gated(path):
             handle()
             return
         if eng.draining:
@@ -1207,12 +1531,34 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _get(self, path: str) -> None:
         qs = self.path.partition("?")[2]
+        query = dict(urllib.parse.parse_qsl(qs))
         eng = self.engine
         if path == "/debug/steps" and eng.core.step_recorder is not None:
-            query = dict(urllib.parse.parse_qsl(qs))
             status, body = eng.debug_steps(query)
             self._send_json(body, status)
-        elif path == "/health":
+        elif path == "/debug/traces":
+            status, body = eng.debug_traces(query)
+            self._send_json(body, status)
+        elif path.startswith("/debug/traces/"):
+            status, body = eng.debug_trace(
+                urllib.parse.unquote(path[len("/debug/traces/"):]), query)
+            self._send_json(body, status)
+        elif path == "/debug/profile/artifacts":
+            self._send_json({"profile_dir": eng.profile_dir,
+                             "files": eng.profile_files()})
+        elif path.startswith("/debug/profile/artifacts/"):
+            try:
+                full = eng.profile_artifact(urllib.parse.unquote(
+                    path[len("/debug/profile/artifacts/"):]))
+            except BadRequest as exc:
+                self._send_error(exc)
+                return
+            if full is None:
+                self._send_json({"error": {"message": "artifact not found",
+                                           "type": "NotFoundError"}}, 404)
+            else:
+                self._send_file(full)
+        elif path in ("/health", "/healthz"):
             if eng.draining:
                 self._send_json({"status": "draining",
                                  "in_flight": eng._inflight}, 503,
@@ -1258,6 +1604,7 @@ class _Handler(BaseHTTPRequestHandler):
         # Routes that answer (status, body).
         status_routes = {
             "/drain": lambda: eng.drain(query),
+            "/debug/profile": lambda: eng.profile(self._read_json()),
             "/v1/load_lora_adapter": lambda: eng.load_lora(
                 self._read_json()),
             "/v1/unload_lora_adapter": lambda: eng.unload_lora(
@@ -1290,11 +1637,24 @@ class _Handler(BaseHTTPRequestHandler):
                                        "type": "NotFoundError"}}, 404)
             return
         kind = kinds[path]
+        # The router's headers: its request id is adopted (and echoed),
+        # X-Priority sets the request's scheduling class, traceparent
+        # joins this request's trace to the caller's.
+        request_id = self.headers.get("X-Request-Id") or None
+        traceparent = self.headers.get("traceparent")
+        clock = StageClock()
+        body: dict = {}
         try:
             body = self._read_json()
             rid, model, prompt_ids, sampling, streams = self.engine.generate(
-                body, kind)
+                body, kind, request_id=request_id,
+                priority=parse_priority(self.headers.get("X-Priority")),
+                clock=clock)
         except BadRequest as exc:
+            if exc.traced:
+                eng.record_trace(
+                    request_id or f"rejected-{uuid.uuid4().hex[:16]}",
+                    body.get("model", eng.config.model), clock, traceparent)
             self._send_error(exc)
             return
         # Tool calls are parsed from a choice's whole text, so a chat with
@@ -1303,12 +1663,16 @@ class _Handler(BaseHTTPRequestHandler):
         declared = (tool_names(tools)
                     if tools and body.get("tool_choice") != "none" else None)
         args = (kind, rid, model, prompt_ids, sampling, streams, declared)
-        if len(streams) > 1:
-            self._respond_n(bool(body.get("stream")), *args)
-        elif body.get("stream"):
-            self._respond_stream(*args)
-        else:
-            self._respond_full(*args)
+        try:
+            if len(streams) > 1:
+                self._respond_n(bool(body.get("stream")), *args)
+            elif body.get("stream"):
+                self._respond_stream(*args)
+            else:
+                self._respond_full(*args)
+        finally:
+            # Finished, refused or disconnected: the timeline is kept.
+            eng.record_trace(rid, model, clock, traceparent)
 
     # -- KV transfer routes ----------------------------------------------
     def _kv_extract(self) -> None:
@@ -1360,7 +1724,9 @@ class _Handler(BaseHTTPRequestHandler):
                          "num_tokens": payload["num_tokens"]})
 
     def _kv_pull(self) -> None:
-        status, out, headers = self.engine.kv_pull(self._read_json())
+        status, out, headers = self.engine.kv_pull(
+            self._read_json(), self.headers.get("X-Request-Id"),
+            self.headers.get("traceparent"))
         data = json.dumps(out).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
@@ -1441,11 +1807,30 @@ class _Handler(BaseHTTPRequestHandler):
             choice["logprobs"] = {"content": entries}
         return choice, bool(calls)
 
+    def _kv_capacity_refusal(self, stream, prompt_ids) -> Optional[tuple]:
+        """The stream's first event, or None after answering 503 with
+        ``Retry-After: 1`` when that event is a scheduler rejection for
+        KV capacity before any token (the pool is pinned below the
+        prompt's footprint for now: retryable, as the JAX server
+        answers it)."""
+        first = next(stream)
+        if first[2] != "kv_capacity" or first[3]:
+            return first
+        self._send_json({"error": {
+            "message": (f"prompt ({len(prompt_ids)} tokens) exceeds "
+                        f"currently available KV cache capacity"),
+            "type": "ServiceUnavailable"}}, 503, {"Retry-After": "1"})
+        return None
+
     def _respond_full(self, kind, rid, model, prompt_ids, sampling, streams,
                       declared):
         pieces, entries, finish = [], [], "stop"
         n_generated = 0
-        for delta, entry, reason, is_token in streams[0]:
+        first = self._kv_capacity_refusal(streams[0], prompt_ids)
+        if first is None:
+            return
+        for delta, entry, reason, is_token in itertools.chain(
+                [first], streams[0]):
             pieces.append(delta)
             n_generated += is_token
             if entry is not None:
@@ -1473,11 +1858,14 @@ class _Handler(BaseHTTPRequestHandler):
             obj = "text_completion"
         self._send_json({"id": rid, "object": obj, "created": created,
                          "model": model, "choices": [choice],
-                         "usage": usage})
+                         "usage": usage}, headers={"X-Request-Id": rid})
 
     def _respond_stream(self, kind, rid, model, prompt_ids, sampling,
                         streams, declared):
-        stream = streams[0]
+        first_event = self._kv_capacity_refusal(streams[0], prompt_ids)
+        if first_event is None:
+            return
+        stream = itertools.chain([first_event], streams[0])
         created = int(time.time())
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -1537,7 +1925,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError):
-            stream.close()  # aborts the request in the engine
+            streams[0].close()  # aborts the request in the engine
 
     def _respond_n(self, stream_mode: bool, kind, rid, model, prompt_ids,
                    sampling, streams, declared):
@@ -1670,7 +2058,8 @@ class _Handler(BaseHTTPRequestHandler):
             "created": created, "model": model, "choices": choices,
             "usage": {"prompt_tokens": len(prompt_ids),
                       "completion_tokens": total,
-                      "total_tokens": len(prompt_ids) + total}})
+                      "total_tokens": len(prompt_ids) + total}},
+            headers={"X-Request-Id": rid})
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -1787,6 +2176,31 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-pull-max-concurrency", type=int, default=8,
                    help="/kv/pull transfers served at once; past it a pull "
                         "gets 503 + Retry-After")
+    p.add_argument("--api-key", default=None,
+                   help="deployment key(s), comma-separated: the inference "
+                        "surface, /kv/* and /debug/* then require "
+                        "'Authorization: Bearer <key>' (default: "
+                        "VLLM_API_KEY, TPU_STACK_API_KEY or a keyfile from "
+                        "VLLM_API_KEY_FILE / TPU_STACK_API_KEY_FILE)")
+    p.add_argument("--trace-export", default=None,
+                   help="export completed traces as OTLP-JSON: "
+                        "'file:/path/traces.jsonl' (one line per trace) or "
+                        "an 'http(s)://collector:4318/v1/traces' endpoint")
+    p.add_argument("--slow-trace-threshold-s", type=float, default=0.0,
+                   help="log one JSON line (the span timeline) for any "
+                        "request slower than this many seconds; 0 disables")
+    p.add_argument("--trace-buffer", type=int, default=512,
+                   help="completed traces kept for /debug/traces")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of traces kept and exported "
+                        "(deterministic by trace id); the stage metrics "
+                        "still count every request")
+    p.add_argument("--slow-trace-log-interval-s", type=float, default=0.0,
+                   help="at most one slow-trace log line per this many "
+                        "seconds (the rest are counted); 0 logs each")
+    p.add_argument("--profile-dir", default=None,
+                   help="directory of POST /debug/profile torch.profiler "
+                        "artifacts (default: a per-process temp dir)")
     return p
 
 
@@ -1830,10 +2244,11 @@ class _HTTPServer(ThreadingHTTPServer):
     engine: EngineServer
 
     def server_close(self) -> None:
-        """Close the socket, then stop the KV reporting threads and drop
-        the local-peer entry."""
+        """Close the socket, then stop the KV reporting threads, drop the
+        local-peer entry and close the trace exporter."""
         super().server_close()
         self.engine.close()
+        self.engine.trace_recorder.close()
 
 
 def build_server(argv: Optional[List[str]] = None,
@@ -1853,7 +2268,13 @@ def build_server(argv: Optional[List[str]] = None,
         advertise_url=args.advertise_url, instance_id=args.instance_id,
         kv_heartbeat_interval=args.kv_heartbeat_interval,
         kv_resync_interval=args.kv_resync_interval,
-        kv_pull_max_concurrency=args.kv_pull_max_concurrency)
+        kv_pull_max_concurrency=args.kv_pull_max_concurrency,
+        api_key=args.api_key, trace_buffer=args.trace_buffer,
+        trace_sample_rate=args.trace_sample_rate,
+        trace_export=args.trace_export,
+        slow_trace_threshold_s=args.slow_trace_threshold_s,
+        slow_trace_log_interval_s=args.slow_trace_log_interval_s,
+        profile_dir=args.profile_dir)
     handler = type("Handler", (_Handler,), {"engine": engine})
     httpd = _HTTPServer((args.host, args.port), handler)
     httpd.engine = engine

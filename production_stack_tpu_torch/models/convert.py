@@ -1,9 +1,11 @@
 """Carry a JAX parameter tree across to the torch engine.
 
 ``params_from_numpy`` takes the JAX package's parameter pytree after
-``jax.tree.map(np.asarray, params)`` (nested dicts of numpy arrays) and
-returns the same dict structure of torch tensors on ``device``, with the
-same leaf names, shapes and dtypes, for each architecture the port runs
+``jax.tree.map(np.asarray, params)`` (nested dicts of numpy arrays), or
+the tree of CPU tensors that ``models/weights.py::load_checkpoint`` reads
+from a checkpoint directory, and returns the same dict structure of
+torch tensors on ``device``, with the same leaf names, shapes and dtypes,
+for each architecture the port runs
 (Llama, OPT, Mixtral). Both packages keep the ``[in, out]`` weight
 orientation, so no leaf is transposed. ``draft_params_from_numpy``
 does the same for a JAX ``DraftModel``'s tree, at the drafter's model
@@ -28,8 +30,11 @@ ARCHS = ("llama", "opt", "mixtral")
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
     """A numpy array (bfloat16 arrays included: numpy has no bf16 of its
-    own, so they arrive as the ``ml_dtypes`` extension type) as a torch
-    tensor of the same dtype on ``device``."""
+    own, so they arrive as the ``ml_dtypes`` extension type) or a CPU
+    tensor (the checkpoint loader's leaves) as a torch tensor of the same
+    dtype on ``device``."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))

@@ -9,8 +9,10 @@ embedding table and ``lm_head`` only with ``quantize_embeddings``.
 
 Two entry points with the JAX package's semantics:
 
-- :func:`quantize_loaded`: numpy, for host-loaded checkpoints, a copy of
-  the JAX function;
+- :func:`quantize_loaded`: for host-loaded checkpoints, a copy of the JAX
+  function; numpy leaves go through numpy, CPU tensor leaves (the
+  port's checkpoint loader, ``models/weights.py``) through
+  :func:`quantize_tensor`, which gives the same codes and scales;
 - :func:`quantize_tensor`: torch, the twin of the JAX ``quantize_tree``
   leaf rule, used by ``models/llama.py::init_params`` to quantize each
   leaf as it is drawn, so a random-init 8B model never exists whole in
@@ -40,10 +42,16 @@ def _quantize_np(w: np.ndarray, reduce_axis: int):
     return q, scale.astype(np.float32)
 
 
+def _quantize_leaf(w, reduce_axis: int):
+    if isinstance(w, torch.Tensor):
+        return quantize_tensor(w, reduce_axis)
+    return _quantize_np(w, reduce_axis)
+
+
 def quantize_loaded(loaded: Dict, arch: str, *,
                     quantize_embeddings: bool = False) -> Dict:
-    """Int8-quantize a host-loaded (numpy) parameter tree. Only quantizes
-    the leaves the tree actually carries."""
+    """Int8-quantize a host-loaded parameter tree (numpy arrays or CPU
+    tensors). Only quantizes the leaves the tree actually carries."""
     if arch != "llama":
         raise ValueError(
             f"int8 quantization is supported for the llama family "
@@ -53,17 +61,17 @@ def quantize_loaded(loaded: Dict, arch: str, *,
         layers = dict(loaded["layers"])
         for name in LLAMA_LAYER_KEYS:
             if name in layers:
-                q, s = _quantize_np(layers[name], -2)
+                q, s = _quantize_leaf(layers[name], -2)
                 layers[name] = q
                 layers[name + "_scale"] = s
         out["layers"] = layers
     if quantize_embeddings:
         if "embed" in loaded:
-            q, s = _quantize_np(loaded["embed"], -1)
+            q, s = _quantize_leaf(loaded["embed"], -1)
             out["embed"] = q
             out["embed_scale"] = s
         if "lm_head" in loaded:
-            q, s = _quantize_np(loaded["lm_head"], -2)
+            q, s = _quantize_leaf(loaded["lm_head"], -2)
             out["lm_head"] = q
             out["lm_head_scale"] = s
     return out

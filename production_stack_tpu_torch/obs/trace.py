@@ -1,0 +1,556 @@
+"""Request tracing: W3C trace context and an in-process flight recorder.
+
+The port's own copy of ``production_stack_tpu/obs/trace.py`` (the port
+imports nothing of the JAX package; that module needs only the standard
+library), less the router's federation views. What it provides:
+
+- :func:`parse_traceparent` / :func:`format_traceparent`: the W3C
+  ``traceparent`` header (``00-<32hex trace>-<16hex span>-<2hex flags>``),
+  the propagation contract between router and engine;
+- :func:`trace_id_from_request_id`: without a ``traceparent``, router and
+  engine derive the same trace id from the ``X-Request-Id`` they share;
+- :class:`Span` / :class:`RequestTrace`: one request's stage timeline;
+- :class:`TraceRecorder`: a bounded ring of completed traces, per-stage
+  sum/count rollups behind the ``tpu:*_time_seconds`` series, slow-request
+  detection (one JSON log line per offender), head sampling, and optional
+  OTLP-JSON export to a file or an HTTP collector;
+- :class:`StageClock`: the mark sheet the server hands to
+  ``EngineCore.add_request``; the engine thread stamps the queue, prefill
+  and decode boundaries on it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import re
+import threading
+import time
+import urllib.error
+import urllib.request
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional, Tuple
+
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
+
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+
+def new_trace_id() -> str:
+    return os.urandom(16).hex()
+
+
+def new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[Tuple[str, str, int]]:
+    """Parse a W3C ``traceparent`` header into (trace_id, span_id, flags).
+
+    Returns ``None`` for anything malformed — a bad header from a client
+    must never break the request path, it just starts a fresh trace.
+    """
+    if not header:
+        return None
+    m = _TRACEPARENT_RE.match(header.strip().lower())
+    if not m:
+        return None
+    version, trace_id, span_id, flags = m.groups()
+    if version == "ff" or trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return trace_id, span_id, int(flags, 16)
+
+
+def format_traceparent(trace_id: str, span_id: str, flags: int = 1) -> str:
+    return f"00-{trace_id}-{span_id}-{flags:02x}"
+
+
+def trace_id_from_request_id(request_id: str) -> str:
+    """Stable 32-hex trace id derived from an ``X-Request-Id``.
+
+    Router and engine share the request id even when the ``traceparent``
+    header is absent or stripped by a middlebox; hashing it means both
+    sides land on the same trace id independently.
+    """
+    digest = hashlib.sha256(request_id.encode()).hexdigest()[:32]
+    if digest == "0" * 32:  # all-zero trace ids are invalid per W3C
+        digest = "1" * 32
+    return digest
+
+
+class Span:
+    """One timed stage. ``end`` is None while open; ``finish()`` closes it."""
+
+    __slots__ = ("name", "span_id", "parent_span_id", "start", "end",
+                 "attributes", "events")
+
+    def __init__(
+        self,
+        name: str,
+        start: Optional[float] = None,
+        parent_span_id: Optional[str] = None,
+        attributes: Optional[Dict[str, Any]] = None,
+        span_id: Optional[str] = None,
+    ):
+        self.name = name
+        self.span_id = span_id or new_span_id()
+        self.parent_span_id = parent_span_id
+        self.start = time.time() if start is None else start
+        self.end: Optional[float] = None
+        self.attributes: Dict[str, Any] = dict(attributes or {})
+        # Point-in-time span events (OTel semantics): retry, failover...
+        # Serialized only when non-empty, so eventless traces keep their
+        # historical JSON shape byte-for-byte.
+        self.events: List[dict] = []
+
+    @property
+    def duration_s(self) -> float:
+        end = self.end if self.end is not None else time.time()
+        return max(0.0, end - self.start)
+
+    def finish(self, end: Optional[float] = None, **attributes) -> "Span":
+        if self.end is None:
+            self.end = time.time() if end is None else end
+        if attributes:
+            self.attributes.update(attributes)
+        return self
+
+    def add_event(self, name: str, timestamp: Optional[float] = None,
+                  **attributes) -> dict:
+        event = {
+            "name": name,
+            "time_unix": time.time() if timestamp is None else timestamp,
+            "attributes": dict(attributes),
+        }
+        self.events.append(event)
+        return event
+
+    def to_dict(self) -> dict:
+        out = {
+            "name": self.name,
+            "span_id": self.span_id,
+            "parent_span_id": self.parent_span_id,
+            "start_unix": self.start,
+            "end_unix": self.end,
+            "duration_s": round(self.duration_s, 6),
+            "attributes": self.attributes,
+        }
+        if self.events:
+            out["events"] = [dict(e) for e in self.events]
+        return out
+
+
+class RequestTrace:
+    """All spans recorded for one request on one service.
+
+    The first span started is the root by convention; child spans default
+    their parent to it unless an explicit ``parent`` is given.
+    """
+
+    def __init__(
+        self,
+        request_id: str,
+        trace_id: Optional[str] = None,
+        parent_span_id: Optional[str] = None,
+        service: str = "",
+    ):
+        self.request_id = request_id
+        self.trace_id = trace_id or trace_id_from_request_id(request_id)
+        # Span id of the remote parent (e.g. the router's upstream span,
+        # arriving at the engine via traceparent). The local root span
+        # links under it.
+        self.remote_parent_span_id = parent_span_id
+        self.service = service
+        self.spans: List[Span] = []
+
+    @property
+    def root(self) -> Optional[Span]:
+        return self.spans[0] if self.spans else None
+
+    def start_span(
+        self,
+        name: str,
+        start: Optional[float] = None,
+        parent: Optional[Span] = None,
+        **attributes,
+    ) -> Span:
+        if parent is not None:
+            parent_id = parent.span_id
+        elif self.spans:
+            parent_id = self.spans[0].span_id
+        else:
+            parent_id = self.remote_parent_span_id
+        span = Span(name, start=start, parent_span_id=parent_id,
+                    attributes=attributes)
+        self.spans.append(span)
+        return span
+
+    def add_span(
+        self,
+        name: str,
+        start: float,
+        end: float,
+        parent: Optional[Span] = None,
+        **attributes,
+    ) -> Span:
+        span = self.start_span(name, start=start, parent=parent, **attributes)
+        span.finish(end=end)
+        return span
+
+    @property
+    def start(self) -> float:
+        return min((s.start for s in self.spans), default=0.0)
+
+    @property
+    def duration_s(self) -> float:
+        if self.root is not None and self.root.end is not None:
+            return self.root.duration_s
+        ends = [s.end for s in self.spans if s.end is not None]
+        if not ends:
+            return 0.0
+        return max(0.0, max(ends) - self.start)
+
+    def close(self, end: Optional[float] = None) -> None:
+        for span in self.spans:
+            if span.end is None:
+                span.finish(end=end)
+
+    def summary(self) -> dict:
+        return {
+            "request_id": self.request_id,
+            "trace_id": self.trace_id,
+            "service": self.service,
+            "root": self.root.name if self.root else None,
+            "start_unix": self.start,
+            "duration_s": round(self.duration_s, 6),
+            "num_spans": len(self.spans),
+        }
+
+    def to_dict(self) -> dict:
+        out = self.summary()
+        out["remote_parent_span_id"] = self.remote_parent_span_id
+        out["spans"] = [s.to_dict() for s in self.spans]
+        return out
+
+    def to_otlp(self) -> dict:
+        """One ``resourceSpans`` entry in OTLP-JSON shape — the format an
+        OTel collector's ``otlp`` HTTP receiver (or ``filelog`` + a
+        translator) ingests, so the observability/otel-example stack can
+        consume our export without an SDK on this side."""
+        spans = []
+        for s in self.spans:
+            end = s.end if s.end is not None else s.start
+            entry = {
+                "traceId": self.trace_id,
+                "spanId": s.span_id,
+                "name": s.name,
+                "kind": 1,  # SPAN_KIND_INTERNAL
+                "startTimeUnixNano": str(int(s.start * 1e9)),
+                "endTimeUnixNano": str(int(end * 1e9)),
+                "attributes": [_otlp_attr(k, v)
+                               for k, v in s.attributes.items()],
+            }
+            if s.events:
+                entry["events"] = [{
+                    "timeUnixNano": str(int(e["time_unix"] * 1e9)),
+                    "name": e["name"],
+                    "attributes": [_otlp_attr(k, v)
+                                   for k, v in e["attributes"].items()],
+                } for e in s.events]
+            if s.parent_span_id:
+                entry["parentSpanId"] = s.parent_span_id
+            spans.append(entry)
+        return {
+            "resource": {"attributes": [
+                _otlp_attr("service.name", self.service or "tpu-stack"),
+                _otlp_attr("request.id", self.request_id),
+            ]},
+            "scopeSpans": [{
+                "scope": {"name": "production_stack_tpu_torch.obs"},
+                "spans": spans,
+            }],
+        }
+
+
+def _otlp_attr(key: str, value: Any) -> dict:
+    if isinstance(value, bool):
+        v: dict = {"boolValue": value}
+    elif isinstance(value, int):
+        v = {"intValue": str(value)}
+    elif isinstance(value, float):
+        v = {"doubleValue": value}
+    else:
+        v = {"stringValue": str(value)}
+    return {"key": key, "value": v}
+
+
+class StageClock:
+    """Per-request stage marks stamped by the engine thread.
+
+    The server creates one per request and threads it through
+    ``EngineCore.add_request``; the core only ever sets attributes on it
+    (no imports, no locking — single writer per field, reader runs after
+    the request finishes).
+    """
+
+    __slots__ = ("arrival", "prefill_start", "prefill_end", "first_token",
+                 "last_token", "tokens", "prompt_tokens", "cached_tokens",
+                 "preemptions", "prefill_chunks")
+
+    def __init__(self, arrival: Optional[float] = None):
+        self.arrival = time.time() if arrival is None else arrival
+        self.prefill_start = 0.0
+        self.prefill_end = 0.0
+        self.first_token = 0.0
+        self.last_token = 0.0
+        self.tokens = 0
+        self.prompt_tokens = 0
+        self.cached_tokens = 0
+        self.preemptions = 0
+        # Chunked prefill: scheduler chunks dispatched for this prompt.
+        self.prefill_chunks = 0
+
+
+# ---------------------------------------------------------------------------
+# Exporters (--trace-export toggle)
+# ---------------------------------------------------------------------------
+
+
+class _FileExporter:
+    """Append one OTLP-JSON line per trace to a file."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+
+    def export(self, payload: dict) -> None:
+        line = json.dumps(payload, separators=(",", ":"))
+        with self._lock:
+            with open(self.path, "a") as f:
+                f.write(line + "\n")
+
+    def close(self) -> None:
+        pass
+
+
+class _HttpExporter:
+    """POST OTLP-JSON to a collector endpoint from a background thread.
+
+    Export must never slow the request path: traces are queued (bounded)
+    and shipped by a daemon worker; failures are logged and dropped.
+    """
+
+    def __init__(self, url: str, max_queue: int = 1024):
+        self.url = url
+        self._queue: deque = deque(maxlen=max_queue)
+        self._event = threading.Event()
+        self._closed = False
+        self._errors = 0
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="trace-export")
+        self._thread.start()
+
+    def export(self, payload: dict) -> None:
+        self._queue.append(payload)
+        self._event.set()
+
+    def _run(self) -> None:
+        while not self._closed:
+            self._event.wait(timeout=1.0)
+            self._event.clear()
+            while self._queue:
+                payload = self._queue.popleft()
+                try:
+                    req = urllib.request.Request(
+                        self.url,
+                        data=json.dumps(payload).encode(),
+                        headers={"Content-Type": "application/json"},
+                    )
+                    urllib.request.urlopen(req, timeout=5.0).close()
+                except (urllib.error.URLError, OSError, ValueError) as e:
+                    self._errors += 1
+                    if self._errors <= 3 or self._errors % 100 == 0:
+                        logger.warning(
+                            "trace export to %s failed (%d so far): %s",
+                            self.url, self._errors, e)
+
+    def close(self) -> None:
+        self._closed = True
+        self._event.set()
+
+
+def make_exporter(spec: Optional[str]):
+    """``--trace-export`` spec: ``file:/path`` or ``http(s)://host/v1/traces``.
+
+    Anything else non-empty is treated as a file path.
+    """
+    if not spec:
+        return None
+    if spec.startswith(("http://", "https://")):
+        return _HttpExporter(spec)
+    if spec.startswith("file:"):
+        spec = spec[len("file:"):]
+    return _FileExporter(spec)
+
+
+# ---------------------------------------------------------------------------
+# Flight recorder
+# ---------------------------------------------------------------------------
+
+
+class TraceRecorder:
+    """Bounded ring buffer of completed request traces plus stage rollups.
+
+    Thread-safe: the router records from the event loop, the engine from
+    the event loop after the engine thread filled the StageClock, and
+    ``/metrics`` reads the rollups concurrently.
+    """
+
+    def __init__(
+        self,
+        service: str,
+        capacity: int = 512,
+        slow_threshold_s: float = 0.0,
+        export: Optional[str] = None,
+        log: Optional[logging.Logger] = None,
+        sample_rate: float = 1.0,
+        slow_log_interval_s: float = 0.0,
+    ):
+        self.service = service
+        self.capacity = max(1, int(capacity))
+        self.slow_threshold_s = float(slow_threshold_s or 0.0)
+        # Head sampling for always-on production tracing: traces whose id
+        # hashes above the rate skip the ring buffer, slow-trace logging,
+        # and export — but their stage rollups still feed /metrics, so
+        # the tpu:*_time_seconds series stay exact. Deterministic by
+        # trace id: router and engine keep/drop the SAME requests, so
+        # sampled traces still stitch across services.
+        self.sample_rate = min(1.0, max(0.0, float(sample_rate)))
+        # Minimum seconds between slow_trace log lines (0 = unlimited,
+        # the historical behavior). Slow requests are always COUNTED.
+        self.slow_log_interval_s = float(slow_log_interval_s or 0.0)
+        self._last_slow_log = 0.0
+        self._traces: "OrderedDict[str, RequestTrace]" = OrderedDict()
+        self._lock = threading.Lock()
+        self._stage: Dict[str, List[float]] = {}  # name -> [sum_s, count]
+        self.slow_requests = 0
+        self.recorded_total = 0
+        self.sampled_out_total = 0
+        self.slow_logs_suppressed_total = 0
+        self._exporter = make_exporter(export)
+        self._log = log or logger
+
+    # -- recording --------------------------------------------------------
+
+    def begin(
+        self,
+        request_id: str,
+        traceparent: Optional[str] = None,
+    ) -> RequestTrace:
+        """Create (but do not yet store) a trace for one request,
+        continuing the incoming W3C context when one is present."""
+        ctx = parse_traceparent(traceparent)
+        if ctx is not None:
+            trace_id, parent_span_id, _flags = ctx
+        else:
+            trace_id = trace_id_from_request_id(request_id)
+            parent_span_id = None
+        return RequestTrace(
+            request_id,
+            trace_id=trace_id,
+            parent_span_id=parent_span_id,
+            service=self.service,
+        )
+
+    def sampled(self, trace_id: str) -> bool:
+        """Deterministic keep/drop decision for a trace id. At the default
+        rate of 1.0 everything is kept (the flag-off path stays
+        byte-identical: ``record`` never even consults this)."""
+        if self.sample_rate >= 1.0:
+            return True
+        if self.sample_rate <= 0.0:
+            return False
+        try:
+            bucket = int(trace_id[:8], 16) / float(0xFFFFFFFF)
+        except (ValueError, TypeError):
+            return True  # malformed ids must never break the request path
+        return bucket < self.sample_rate
+
+    def record(self, trace: RequestTrace) -> None:
+        """Store a completed trace: ring-buffer it, roll up stage sums,
+        flag slow requests, export if configured."""
+        trace.close()
+        keep = self.sample_rate >= 1.0 or self.sampled(trace.trace_id)
+        with self._lock:
+            if keep:
+                self._traces.pop(trace.request_id, None)
+                self._traces[trace.request_id] = trace
+                while len(self._traces) > self.capacity:
+                    self._traces.popitem(last=False)
+            else:
+                self.sampled_out_total += 1
+            for span in trace.spans:
+                agg = self._stage.setdefault(span.name, [0.0, 0])
+                agg[0] += span.duration_s
+                agg[1] += 1
+            self.recorded_total += 1
+            is_slow = (self.slow_threshold_s > 0
+                       and trace.duration_s >= self.slow_threshold_s)
+            log_slow = is_slow and keep
+            if is_slow:
+                self.slow_requests += 1
+                if log_slow and self.slow_log_interval_s > 0:
+                    now = time.time()
+                    if now - self._last_slow_log < self.slow_log_interval_s:
+                        self.slow_logs_suppressed_total += 1
+                        log_slow = False  # still counted above
+                    else:
+                        self._last_slow_log = now
+        if log_slow:
+            self._log.warning(
+                "slow_trace %s",
+                json.dumps({
+                    "event": "slow_trace",
+                    "service": self.service,
+                    "threshold_s": self.slow_threshold_s,
+                    **trace.to_dict(),
+                }, separators=(",", ":")),
+            )
+        if keep and self._exporter is not None:
+            try:
+                self._exporter.export({"resourceSpans": [trace.to_otlp()]})
+            except OSError as e:
+                logger.warning("trace export failed: %s", e)
+
+    # -- retrieval --------------------------------------------------------
+
+    def get(self, request_id: str) -> Optional[RequestTrace]:
+        with self._lock:
+            return self._traces.get(request_id)
+
+    def list(self, min_duration_s: float = 0.0, limit: int = 100) -> List[dict]:
+        with self._lock:
+            traces = list(self._traces.values())
+        out = []
+        for tr in reversed(traces):  # newest first
+            if tr.duration_s >= min_duration_s:
+                out.append(tr.summary())
+            if len(out) >= limit:
+                break
+        return out
+
+    def stage_stats(self) -> Dict[str, Tuple[float, int]]:
+        """{span name: (total_seconds, count)} across recorded traces —
+        the source for the tpu:*_time_seconds sum/count exposition."""
+        with self._lock:
+            return {k: (v[0], v[1]) for k, v in self._stage.items()}
+
+    def close(self) -> None:
+        if self._exporter is not None:
+            self._exporter.close()

@@ -50,7 +50,7 @@ def test_every_port_module_imports_without_jax():
                 "structured", "structured.api", "structured.corpus",
                 "structured.regex_dfa", "structured.schema",
                 "structured.tokenfsm", "kv", "kv.offload", "kv.controller",
-                "utils.xxh64",
+                "utils.xxh64", "utils.auth", "obs.trace", "models.weights",
                 "models.llama", "models.opt", "models.mixtral",
                 "models.registry", "models.convert", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build"):

@@ -691,3 +691,54 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.parametrize("quantization", [None, "int8"],
+                         ids=["weights_bf16", "weights_int8"])
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, quantization):
+    """A bf16 tree drawn on the card, written as a two-shard safetensors
+    checkpoint by the standard-library writer and served from the
+    directory: every leaf lands on the card bit for bit (under int8 the
+    loaded tree is ``quantize_loaded`` of the written one, codes and
+    scales), and a drawn leaf the file carries is gone."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.models import build_model
+    from production_stack_tpu_torch.models import get_model_config
+    from production_stack_tpu_torch.models.quantize import quantize_loaded
+    from production_stack_tpu_torch.models.weights import (
+        read_safetensors,
+        save_checkpoint,
+    )
+
+    cfg = get_model_config("tiny-llama")
+    init, _ = build_model(cfg)
+    tree = init(cfg, torch.Generator(device=cuda).manual_seed(3), cuda)
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(tree, cfg, path, shards=2)
+    shard = sorted((tmp_path / "ckpt").glob("*.safetensors"))[0]
+    for name, t in read_safetensors(str(shard)):
+        assert t.dtype == torch.bfloat16, name
+    # The engine quantizes on the host, so the check does too.
+    want = tree if quantization is None else quantize_loaded(
+        _to(tree, "cpu"), "llama")
+    core = EngineCore(EngineConfig(
+        model=path, device="cuda", dtype="bfloat16", max_loras=2,
+        max_model_len=256, block_size=16, num_blocks=24,
+        quantization=quantization))
+    assert core.params["lora"]["wq_a"].device.type == "cuda"
+
+    def flat(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from flat(v, prefix + k + ".")
+            else:
+                yield prefix + k, v
+
+    got = {k: v for k, v in flat(core.params) if not k.startswith("lora.")}
+    want = dict(flat(want))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        assert got[name].device.type == "cuda", name
+        assert got[name].dtype == w.dtype, name
+        _same_bits(got[name], w.to(cuda))
