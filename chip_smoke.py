@@ -7,6 +7,9 @@
                                      # bursts read back serially and
                                      # pipelined; then 8 structured rows:
                                      # the mask term's device time
+    python3 chip_smoke.py --tp-cards # on a host of 2-4 cards: tensor
+                                     # parallelism with a card a rank
+                                     # (NCCL), see tp_cards_phase
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -156,6 +159,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 16. tiny-opt and tiny-mixtral at float32 on the card, token-identical
    to the same engines on the CPU through chunks, preemption and a
    prefix hit (an ``{"arch_parity": ...}`` line).
+17. tensor parallelism (:func:`tp_phase`), every rank a process of its
+   own on the one card under gloo, each started by the port's server
+   entry (``--tensor-parallel-size``): Llama-3-8B at full width and
+   depth, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
+   prefix hit, a seeded pair; then a decode step's host time, the
+   leader's device time and the collectives' share); tpu-llama-1b in
+   float32 at tp 1, 2 and 4, token-identical streams; Mixtral-8x7B at
+   full width and 4 layers at tp 2 (4 experts a rank); OPT-125m at tp 2
+   and 4. Both kernels must launch on every rank at its heads, and no
+   rank may run on the CPU (a ``{"tp": ...}`` line: each rank's device,
+   weight bytes, pool blocks and launches by shape). The kernel phase
+   holds both kernels at each rank's heads (Llama-3-8B at tp 2, 4 and 8:
+   KVH 4, 2 and 1; OPT-125m at 6 and 3 heads) to their plain versions
+   and times them (``*_tp*`` rows of the kernels line, launches counted
+   by shape over the ranks of the tp phase).
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
@@ -169,6 +187,7 @@ non-zero without a CUDA device or outside a checkout of the repo.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import re
@@ -4097,11 +4116,539 @@ def profile_structured_phase() -> dict:
         "structured_mask_states_total": stats["structured_mask_states_total"]}
 
 
+# -- tensor parallelism -------------------------------------------------------
+
+# A tensor-parallel rank's heads (the kernels see only these): Llama-3-8B
+# (32/8 heads of 128) at tp 2, 4 and 8, OPT-125m (12 heads of 64, G 1) at
+# tp 2 and 4. name suffix -> (model, H, KVH, D).
+TP_SHAPES = {"tp2": ("llama", 16, 4, 128), "tp4": ("llama", 8, 2, 128),
+             "tp8": ("llama", 4, 1, 128), "opt_tp2": ("opt", 6, 6, 64),
+             "opt_tp4": ("opt", 3, 3, 64)}
+for _suffix in TP_SHAPES:
+    KERNELS["paged_attention_" + _suffix] = (run_decode, plain_decode)
+    KERNELS["cached_prefill_attention_" + _suffix] = (run_prefill,
+                                                      plain_prefill)
+
+
+def tp_shape_key(H: int, KVH: int, D: int) -> str:
+    """The wrappers' ``launches_by_shape`` key of a bf16 launch."""
+    from production_stack_tpu_torch.ops.paged_attention import launch_shape
+
+    import torch
+
+    return launch_shape(H, KVH, D, torch.bfloat16, False)
+
+
+def tp_kernel_phase() -> dict:
+    """Both kernels at every per-rank shape of ``TP_SHAPES`` in bf16:
+    decode 8 x 2,048 and ragged, cached prefill 1,024 over 1,024 and the
+    ragged third chunk of a 2,500-token prompt (OPT: the second chunk of a
+    1,901-token one); each held to its plain version at the row bar, the
+    8 x 2,048 decode and the 1,024/1,024 prefill also at 2e-3 absolute
+    and timed beside their bounds and SDPA. Returns the kernels-line
+    entries (``launches`` filled in by the caller)."""
+    import torch
+
+    from production_stack_tpu_torch.probes.common import (
+        BF16_FLOPS,
+        HBM_BYTES_PER_S,
+    )
+
+    bf16 = torch.bfloat16
+    B, bs, ctx_len = 8, 64, 2048
+    ragged = [2048, 1, 37, 2000, 1500, 64, 65, 1024]
+    results = {}
+    for i, (suffix, (model, H, KVH, D)) in enumerate(TP_SHAPES.items()):
+        seed = 500 + 10 * i
+        chunk_prefix, chunk_take, maxb = ((2048, 452, 64) if model == "llama"
+                                          else (1024, 877, 32))
+        cases = [
+            ("paged_attention", "8x2048", decode_case(
+                bf16, B, H, KVH, D, 2, bs, ctx_len // bs, [ctx_len] * B,
+                seed=seed), None),
+            ("paged_attention", "ragged", decode_case(
+                bf16, B, H, KVH, D, 2, bs, ctx_len // bs, ragged,
+                seed=seed + 1), None),
+            ("cached_prefill_attention", "1024/1024", prefill_case(
+                bf16, 1, 1024, H, KVH, D, 2, bs, 32, [1024], [1024],
+                seed=seed + 2), None),
+            ("cached_prefill_attention", "ragged chunk", prefill_case(
+                bf16, 1, 1024, H, KVH, D, 2, bs, maxb, [chunk_prefix],
+                [chunk_take], seed=seed + 3),
+             (slice(None), slice(0, chunk_take))),
+        ]
+        errs = {}
+        for j, (base, label, c, rows) in enumerate(cases):
+            name = f"{base}_{suffix}"
+            run, plain = KERNELS[name]
+            err, _ = check_close(f"{name} {label} (H {H}, KVH {KVH})",
+                                 run(c), plain(c), rows)
+            # Over long contexts |o| is small and 2e-3 absolute holds too;
+            # a ragged row of one token returns its V row (|o| ~ 1), where
+            # a bf16 ulp alone is ~8e-3: the row bar holds it.
+            if j in (0, 2) and not err <= F32_BAR:
+                raise AssertionError(f"{name} {label}: max_abs_err "
+                                     f"{err:.3e} above {F32_BAR}")
+            errs[name] = max(errs.get(name, 0.0), err)
+        timed = {f"paged_attention_{suffix}": _time_decode(
+                     f"paged_attention {suffix}", cases[0][2]),
+                 f"cached_prefill_attention_{suffix}": _time_prefill(
+                     f"cached_prefill {suffix}", cases[2][2])}
+        for name, r in timed.items():
+            byte_ms = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+            op_ms = r.pop("ops") / BF16_FLOPS * 1e3
+            r.update(max_abs_err=errs[name], bound_ms=max(byte_ms, op_ms),
+                     bound_by="bytes" if byte_ms >= op_ms else "operations",
+                     shape=tp_shape_key(H, KVH, D))
+            log(f"[kernel] {name}: {json.dumps(r)}")
+            results[name] = r
+    return results
+
+
+TP_LLAMA_ARGS = SERVE_ARGS + ["--tensor-parallel-size", "2"]
+TP_PARITY_MODEL = "tpu-llama-1b"
+TP_PARITY_ARGS = [TP_PARITY_MODEL, "--device", "cuda", "--dtype", "float32",
+                  "--host", "127.0.0.1", "--port", "0", "--max-model-len",
+                  "2048", "--max-num-seqs", "4", "--seed", "0",
+                  "--num-blocks", "256", "--prefill-chunk-size", "256",
+                  "--max-loras", "0"]
+# Mixtral-8x7B at full width cut to this many of its 32 layers: the tp
+# phase's check of split experts (each rank holds 4 of the 8).
+TP_MIXTRAL_LAYERS = 4
+
+
+def _rank_summary(ranks: list) -> list:
+    """Each rank's device, weight bytes, pool blocks, KV heads and
+    kernel launches by shape (the kernels' wrappers' own counts)."""
+    return [{k: r[k] for k in ("rank", "device", "device_name",
+                               "weight_bytes", "num_blocks", "kv_heads",
+                               "launches_by_shape", "collectives_total")}
+            for r in ranks]
+
+
+def _check_ranks(label: str, ranks: list, tp: int, shapes) -> None:
+    """Every rank on the card, and each of ``shapes`` (wrapper name ->
+    launch-shape key) launched on every rank."""
+    if len(ranks) != tp:
+        raise AssertionError(f"{label}: {len(ranks)} ranks answered")
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"{label}: rank {r['rank']} on "
+                                 f"{r['device']}")
+        for fn, key in shapes.items():
+            if r["launches_by_shape"].get(fn, {}).get(key, 0) <= 0:
+                raise AssertionError(
+                    f"{label}: rank {r['rank']} launched no {fn} at {key}: "
+                    f"{r['launches_by_shape']}")
+
+
+def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
+    """A decode step of a tensor-parallel leader whose engine thread is
+    paused (its followers still replaying), driven on this thread as
+    :func:`decode_profile` drives one: ``rows`` sequences at ~``ctx_chars``
+    tokens, host time of pipelined bursts (two runs of two bursts, the
+    least is the step), the leader's device busy time under torch.profiler
+    (two bursts), then two bursts with every collective synchronized and
+    timed on each rank: the collectives' share of that step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    with core._lock:
+        core._running = False
+        core._lock.notify()
+    core._thread.join(timeout=60)
+    for i in range(rows):
+        core.add_request(
+            f"tprof{i}", core.tokenizer.encode(_text(100 + i, ctx_chars)),
+            SamplingParams(temperature=0, max_tokens=400, ignore_eos=True),
+            lambda t, f: None)
+    K = core.config.decode_steps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    def bursts(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            core._do_decode()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n / K
+
+    with torch.inference_mode():
+        while True:
+            action, req = core.scheduler.next_action()
+            if action != "prefill":
+                break
+            core._do_prefill(req)
+        core._do_decode()
+        core._flush_pending_burst()
+        runs = [bursts(2) for _ in range(2)]
+        core._flush_pending_burst()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                core._do_decode()
+            torch.cuda.synchronize()
+        core._flush_pending_burst()
+        core.rank_stats(reset=True, timing=True)
+        timed_ms = bursts(2)
+        core._flush_pending_burst()
+        ranks = core.rank_stats(reset=True, timing=False)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
+    step_ms = min(runs)
+    coll_ms = [r["collective_s"] * 1e3 / (2 * K) for r in ranks]
+    with core._lock:
+        for seq in core.scheduler.running():
+            core.scheduler.finish(seq, "abort")
+    return {"decode_rows": rows,
+            "decode_host_ms_per_step": step_ms,
+            "decode_host_ms_per_step_runs": runs,
+            "leader_device_busy_ms_per_step": busy_ms,
+            "leader_device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+            "collectives_per_step": ranks[0]["collectives_total"] / (2 * K),
+            "timed_step_ms": timed_ms,
+            "collective_ms_per_step_by_rank": coll_ms,
+            "collective_share_of_step": max(coll_ms) / timed_ms}
+
+
+def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
+    """Serve ``args`` (with ``--tensor-parallel-size``) through the port's
+    server entry, which starts the follower ranks as processes on this
+    card; zero every rank's launch counts, ``drive(client)`` it over
+    HTTP, read every rank's counts, and check each of ``shapes`` launched
+    on every rank. Returns (drive's result, rank summaries, the decode
+    profile or None, init seconds)."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    import torch
+
+    t0 = time.time()
+    httpd, core = build_server(list(args))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    tp = core.config.tensor_parallel_size
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    prof = None
+    try:
+        # Rank r runs on cuda:(r % cards): ranks share a card, and must
+        # use gloo, only when there are fewer cards than ranks.
+        want = "gloo" if tp > torch.cuda.device_count() else "nccl"
+        if core.stats()["tensor_parallel"]["backend"] != want:
+            raise AssertionError(f"{label}: {tp} ranks on "
+                                 f"{torch.cuda.device_count()} card(s) "
+                                 f"must use {want}")
+        core.rank_stats(reset=True)
+        out = drive(client)
+        ranks = core.rank_stats()
+        _check_ranks(label, ranks, tp, shapes)
+        if core.fatal_error is not None:
+            raise AssertionError(f"{label}: {core.fatal_error}")
+        httpd.shutdown()
+        if profile_decode:
+            prof = tp_decode_profile(core)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()  # stops the engine and ends the job
+        core.stop()
+    if core.fatal_error is not None:
+        raise AssertionError(f"{label}: {core.fatal_error}")
+    log(f"[tp] {label}: {tp} ranks up in {init_s:.1f} s")
+    return out, _rank_summary(ranks), prof, init_s
+
+
+def _tp_llama_drive(client):
+    """Llama-3-8B at tp 2, as :func:`serve_phase` drives it: four
+    concurrent greedy completions (decode bursts), a ~2,500-token prompt
+    (1,024-token chunks through the cached prefill), a prefix hit over
+    its first 2,000 characters, and a seeded sampled request sent twice
+    (one text)."""
+    import threading
+
+    results = [None] * 4
+
+    def run(i):
+        results[i] = client.post("/v1/completions", {
+            "prompt": _text(i, 50 + 80 * i), "max_tokens": 16,
+            "temperature": 0})
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for i, out in enumerate(results):
+        if out is None:
+            raise AssertionError(f"tp concurrent request {i}: no reply")
+        _finish(f"tp concurrent {i}", out)
+    long_prompt = _text(10, 2500)
+    long_out = client.post("/v1/completions", {
+        "prompt": long_prompt, "max_tokens": 16, "temperature": 0})
+    _finish("tp long prompt", long_out)
+    hit_out = client.post("/v1/completions", {
+        "prompt": long_prompt[:2000] + _text(11, 500), "max_tokens": 16,
+        "temperature": 0})
+    _finish("tp prefix hit", hit_out)
+    seeded = [client.post("/v1/completions", {
+        "prompt": _text(50, 40), "max_tokens": 16, "temperature": 0.8,
+        "top_p": 0.95, "seed": 1234}) for _ in range(2)]
+    for out in seeded:
+        _finish("tp seeded", out)
+    if seeded[0]["choices"][0]["text"] != seeded[1]["choices"][0]["text"]:
+        raise AssertionError("tp: a seeded sampled request gave two texts")
+    metrics = client.get("/metrics")
+    hits = [ln for ln in metrics.splitlines()
+            if ln.startswith("tpu:prefix_cache_hits_total")]
+    if not hits or float(hits[0].split()[-1]) <= 0:
+        raise AssertionError(f"tp: no prefix-cache hit ({hits})")
+    return {"concurrent_latency_s": [r["_latency_s"] for r in results],
+            "long_latency_s": long_out["_latency_s"],
+            "hit_latency_s": hit_out["_latency_s"],
+            "sample_text": results[0]["choices"][0]["text"][:40]}
+
+
+def _parity_requests():
+    """The float32 streams compared across tp sizes, one request at a
+    time: greedy completions (one of 600 tokens: three 256-token chunks),
+    its prefix hit, and a seeded sampled request."""
+    ids = [[(7 * i + 13 * j) % 31000 + 100 for j in range(n)]
+           for i, n in enumerate((24, 600, 90))]
+    greedy = dict(max_tokens=24, temperature=0)
+    return [dict(greedy, prompt=ids[0]), dict(greedy, prompt=ids[1]),
+            dict(greedy, prompt=ids[1][:512] + ids[2]),
+            dict(max_tokens=24, temperature=0.8, top_p=0.9, seed=77,
+                 prompt=ids[2])]
+
+
+def _parity_drive(client):
+    texts = []
+    for i, body in enumerate(_parity_requests()):
+        out = client.post("/v1/completions", dict(body, logprobs=1))
+        _finish(f"tp parity {i}", out)
+        texts.append(out["choices"][0]["logprobs"]["tokens"])
+    return texts
+
+
+def _mixtral_tp_dir(here: str) -> str:
+    """Mixtral-8x7B's config.json at ``TP_MIXTRAL_LAYERS`` layers in the
+    build directory (the server draws the weights from its seed)."""
+    path = os.path.join(here, "production_stack_tpu_torch", "_build",
+                        "models", f"Mixtral-8x7B-{TP_MIXTRAL_LAYERS}L")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(MIXTRAL_CONFIG,
+                       num_hidden_layers=TP_MIXTRAL_LAYERS), f, indent=1)
+    return path
+
+
+def _short_drive(client):
+    """Two concurrent greedy completions and a ~1,900-token prompt in
+    chunks (decode and cached prefill on every rank)."""
+    import threading
+
+    results = [None] * 2
+
+    def run(i):
+        results[i] = client.post("/v1/completions", {
+            "prompt": _text(60 + i, 120), "max_tokens": 24,
+            "temperature": 0})
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    for i, out in enumerate(results):
+        if out is None:
+            raise AssertionError(f"tp short request {i}: no reply")
+        _finish(f"tp short {i}", out)
+    out = client.post("/v1/completions", {
+        "prompt": _text(70, 1900), "max_tokens": 8, "temperature": 0})
+    _finish("tp short long prompt", out)
+    return {"sample_text": results[0]["choices"][0]["text"][:40]}
+
+
+def tp_phase(here: str, smi):
+    """Tensor parallelism on the card, every rank a process on the one
+    H100 under gloo (NCCL refuses two ranks on one device):
+
+    - Llama-3-8B at full width and depth, bf16, random weights from seed
+      0, at ``--tensor-parallel-size 2`` through the server entry, driven
+      as :func:`_tp_llama_drive` says; both kernels launched on both
+      ranks at H 16 / KVH 4; then the decode step's host and device time
+      and the collectives' share (:func:`tp_decode_profile`);
+    - tpu-llama-1b in float32 at tp 1, 2 and 4: the same token streams
+      (greedy, chunked, a prefix hit, seeded sampled);
+    - Mixtral-8x7B at full width, ``TP_MIXTRAL_LAYERS`` layers, tp 2:
+      each rank holds 4 of the 8 experts;
+    - OPT-125m bf16 at tp 2 and 4 (6 and 3 heads a rank, G 1).
+
+    Returns (bf16 launches summed over ranks by shape, the ``tp``
+    summary)."""
+    import torch
+
+    summary = {"card": smi, "card_count": torch.cuda.device_count()}
+    launches: dict = {}
+
+    def add(ranks):
+        for r in ranks:
+            for fn, by in r["launches_by_shape"].items():
+                for key, n in by.items():
+                    launches[(fn, key)] = launches.get((fn, key), 0) + n
+
+    both = ("paged_attention", "cached_prefill_attention")
+    _free_device_memory()
+    out, ranks, prof, init_s = _tp_serve(
+        "Llama-3-8B bf16 tp 2", TP_LLAMA_ARGS, _tp_llama_drive,
+        {fn: tp_shape_key(16, 4, 128) for fn in both}, profile_decode=True)
+    add(ranks)
+    summary["llama_8b_tp2"] = dict(out, init_s=init_s, ranks=ranks,
+                                   decode=prof)
+    log(f"[tp] Llama-3-8B tp 2: {json.dumps(summary['llama_8b_tp2'])}")
+
+    streams = {}
+    for tp in (1, 2, 4):
+        _free_device_memory()
+        args = TP_PARITY_ARGS + ["--tensor-parallel-size", str(tp)]
+        if tp == 1:
+            streams[tp] = _serve_once(args, _parity_drive)
+            continue
+        H, KVH = 16 // tp, 8 // tp
+        f32_key = tp_shape_key(H, KVH, 128).replace("bfloat16", "float32")
+        streams[tp], ranks, _, init_s = _tp_serve(
+            f"{TP_PARITY_MODEL} float32 tp {tp}", args, _parity_drive,
+            {fn: f32_key for fn in both})
+        summary[f"parity_tp{tp}"] = {"init_s": init_s, "ranks": ranks}
+        if streams[tp] != streams[1]:
+            raise AssertionError(
+                f"{TP_PARITY_MODEL} float32 streams at tp {tp} differ from "
+                f"tp 1: {streams[tp]} vs {streams[1]}")
+    summary["parity"] = {"model": TP_PARITY_MODEL, "dtype": "float32",
+                         "tp": [1, 2, 4], "requests": len(streams[1]),
+                         "tokens": sum(len(s) for s in streams[1]),
+                         "equal": True}
+
+    _free_device_memory()
+    path = _mixtral_tp_dir(here)
+    margs = [path] + SERVE_ARGS[1:] + ["--tensor-parallel-size", "2"]
+    out, ranks, _, init_s = _tp_serve(
+        f"Mixtral-8x7B {TP_MIXTRAL_LAYERS} layers bf16 tp 2", margs,
+        _short_drive, {fn: tp_shape_key(16, 4, 128) for fn in both})
+    add(ranks)
+    summary["mixtral_tp2"] = dict(out, init_s=init_s, ranks=ranks,
+                                  layers=TP_MIXTRAL_LAYERS,
+                                  experts_per_rank=4)
+
+    for tp in (2, 4):
+        _free_device_memory()
+        oargs = OPT_ARGS + ["--tensor-parallel-size", str(tp)]
+        out, ranks, _, init_s = _tp_serve(
+            f"OPT-125m bf16 tp {tp}", oargs, _short_drive,
+            {fn: tp_shape_key(12 // tp, 12 // tp, 64) for fn in both})
+        add(ranks)
+        summary[f"opt_tp{tp}"] = dict(out, init_s=init_s, ranks=ranks)
+    return launches, summary
+
+
+def tp_cards_phase(here: str, smi) -> dict:
+    """Tensor parallelism with a card a rank (``--tp-cards``, on a host of
+    several cards; NCCL carries the collectives): Llama-3-8B bf16 at tp 2
+    and 4 driven as :func:`_tp_llama_drive` says with the decode profile
+    (host and device time, the collectives' share); tpu-llama-1b float32
+    streams at tp 2 and 4 equal to tp 1's; Mixtral-8x7B at full width and
+    all 32 layers at tp 4 (92.9 GB of layers, which no one card holds),
+    served and profiled. Returns the ``tp_cards`` summary."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    sizes = [tp for tp in (2, 4) if tp <= cards]
+    if not sizes:
+        raise AssertionError(f"--tp-cards needs 2 cards at least, not "
+                             f"{cards}")
+    both = ("paged_attention", "cached_prefill_attention")
+    summary = {"card": smi, "card_count": cards}
+    for tp in sizes:
+        _free_device_memory()
+        out, ranks, prof, init_s = _tp_serve(
+            f"Llama-3-8B bf16 tp {tp} on {tp} cards",
+            SERVE_ARGS + ["--tensor-parallel-size", str(tp)],
+            _tp_llama_drive,
+            {fn: tp_shape_key(32 // tp, 8 // tp, 128) for fn in both},
+            profile_decode=True)
+        summary[f"llama_8b_tp{tp}"] = dict(out, init_s=init_s, ranks=ranks,
+                                           decode=prof)
+        log(f"[tp] Llama-3-8B tp {tp} on {tp} cards: "
+            f"{json.dumps(summary[f'llama_8b_tp{tp}'])}")
+    _free_device_memory()
+    streams = {1: _serve_once(TP_PARITY_ARGS, _parity_drive)}
+    for tp in sizes:
+        _free_device_memory()
+        f32_key = tp_shape_key(16 // tp, 8 // tp, 128).replace(
+            "bfloat16", "float32")
+        streams[tp], _, _, _ = _tp_serve(
+            f"{TP_PARITY_MODEL} float32 tp {tp} on {tp} cards",
+            TP_PARITY_ARGS + ["--tensor-parallel-size", str(tp)],
+            _parity_drive, {fn: f32_key for fn in both})
+        if streams[tp] != streams[1]:
+            raise AssertionError(f"{TP_PARITY_MODEL} float32 streams at tp "
+                                 f"{tp} differ from tp 1")
+    summary["parity"] = {"model": TP_PARITY_MODEL, "dtype": "float32",
+                         "tp": [1] + sizes, "equal": True}
+    if 4 in sizes:
+        _free_device_memory()
+        path = os.path.join(here, "production_stack_tpu_torch", "_build",
+                            "models", "Mixtral-8x7B-32L")
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(dict(MIXTRAL_CONFIG, num_hidden_layers=32), f)
+        out, ranks, prof, init_s = _tp_serve(
+            "Mixtral-8x7B 32 layers bf16 tp 4 on 4 cards",
+            [path] + SERVE_ARGS[1:] + ["--tensor-parallel-size", "4"],
+            _short_drive, {fn: tp_shape_key(8, 2, 128) for fn in both},
+            profile_decode=True)
+        summary["mixtral_32l_tp4"] = dict(out, init_s=init_s, ranks=ranks,
+                                          decode=prof)
+    return summary
+
+
+def _serve_once(args, drive):
+    """``drive(client)`` of one single-rank server of ``args``."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    httpd, core = build_server(list(args))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        return drive(Client(httpd.server_address[1]))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        core.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="only profile the decode step (no result line)")
+    ap.add_argument("--tp-cards", action="store_true",
+                    help="only tensor parallelism with a card a rank, on a "
+                         "host of 2 or more cards (no result line)")
     args = ap.parse_args(argv)
+    # A crash in native code (a segfault) prints every thread's Python
+    # stack to standard error before the process dies.
+    faulthandler.enable()
 
     os.environ.setdefault("TPU_STACK_LOG_LEVEL", "WARNING")
     import torch
@@ -4132,6 +4679,12 @@ def main(argv=None) -> int:
         _free_device_memory()
         print(f"card: {smi}", flush=True)
         return 0
+    if args.tp_cards:
+        _build.build(["paged_attention", "prefill_attention"])
+        print(json.dumps({"tp_cards": tp_cards_phase(here, smi)}),
+              flush=True)
+        print(f"card: {smi}", flush=True)
+        return 0
     t0 = time.time()
     paths = _build.build(["paged_attention", "prefill_attention",
                           "page_probes"], verbose=True)
@@ -4151,6 +4704,7 @@ def main(argv=None) -> int:
                                    "bit_equal": True}}), flush=True)
 
     results = kernel_phase()
+    tp_results = tp_kernel_phase()
     log(f"[time] {time.time() - t0:.0f} s through the kernel phase")
     probe_results, probes = probe_phase()
     print(json.dumps({"probes": probes}), flush=True)
@@ -4248,6 +4802,14 @@ def main(argv=None) -> int:
     _free_device_memory()
     arch_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the arch parity phase")
+    tp_launches, tp_summary = tp_phase(here, smi)
+    print(json.dumps({"tp": tp_summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the tp phase")
+    for name, r in tp_results.items():
+        fn = ("paged_attention" if name.startswith("paged_attention")
+              else "cached_prefill_attention")
+        launches[name] = tp_launches.get((fn, r["shape"]), 0)
+    results.update(tp_results)
     results.update(probe_results)
     replaces = {
         "paged_attention":

@@ -102,12 +102,30 @@ KV pool's allocation runs the JAX engine's shrink ladder
 (``pool_shrink_retries``, ``pool_shrink_step``) on an out-of-memory
 error.
 
+Tensor parallelism (``tensor_parallel_size = N``) runs the engine as N
+ranks, one process each, on one host or spread over hosts
+(``parallel/multihost.py``). Each rank holds its slice of the weights
+(``parallel/sharding.py``) and a pool of its KV heads, and runs the
+kernels on its own heads; the model adds the ranks' partial sums and
+gathers the logits (``parallel/tp.py``), so sampling runs replicated on
+the same logits everywhere. Rank 0, the leader, owns the scheduler, the
+block accounting and HTTP; every device op it issues goes through one
+chokepoint, :meth:`EngineCore._dispatch`, which sends the op's host
+arguments to the followers before running it, and the followers replay
+them (:meth:`EngineCore.run_follower`) through the same
+:meth:`EngineCore._exec_op`. At N = 1 the chokepoint only calls
+``_exec_op``. Under N > 1 the KV offload tier, KV extract/inject and
+sleep/wake are refused (``NotImplementedError``). A speculative drafter
+runs on the leader alone (its tokens reach the followers inside the
+verify op).
+
 Not here yet, and refused at construction when configured: the fused
-step, tensor/pipeline/data parallelism and multihost.
+step, pipeline and data parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import zlib
@@ -145,8 +163,20 @@ from production_stack_tpu_torch.engine.scheduler import (
 from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
 from production_stack_tpu_torch.kv.offload import HostKVStore
 from production_stack_tpu_torch.models import build_model, get_model_config
+from production_stack_tpu_torch.models.convert import params_from_numpy
 from production_stack_tpu_torch.obs.steps import StepRecorder
 from production_stack_tpu_torch.ops.attention import to_device
+from production_stack_tpu_torch.parallel import multihost as mh
+from production_stack_tpu_torch.parallel.mesh import build_mesh, default_devices
+from production_stack_tpu_torch.parallel.sharding import (
+    ROW_PARALLEL,
+    check_tp,
+    is_row_parallel,
+    kv_heads_local,
+    shard_params,
+    slice_leaf,
+)
+from production_stack_tpu_torch.parallel.tp import TPGroup
 from production_stack_tpu_torch.structured.api import compile_char_dfa
 from production_stack_tpu_torch.structured.tokenfsm import (
     FSMState,
@@ -161,13 +191,22 @@ logger = init_logger(__name__)
 def _unsupported(config: EngineConfig) -> List[str]:
     """Configured features this engine does not run yet."""
     c = config
+    tp = c.tensor_parallel_size > 1
     checks = [
-        (c.tensor_parallel_size > 1, "tensor_parallel_size > 1"),
         (c.data_parallel_size > 1, "data_parallel_size > 1"),
         (c.pipeline_parallel_size > 1, "pipeline_parallel_size > 1"),
         (c.fused_step, "fused_step"),
+        (tp and (c.kv_offload_bytes > 0 or bool(c.kv_remote_url)),
+         "the KV offload tier under tensor_parallel_size > 1"),
     ]
     return [name for bad, name in checks if bad]
+
+
+def refused_under_tp(what: str) -> NotImplementedError:
+    """The error of a feature that tensor parallelism does not carry."""
+    return NotImplementedError(
+        f"{what} is not supported by the torch engine under "
+        f"tensor_parallel_size > 1 yet")
 
 
 def kv_bytes_per_block(model_config, block_size: int,
@@ -189,34 +228,73 @@ def kv_bytes_per_block(model_config, block_size: int,
 class EngineCore:
     def __init__(self, config: EngineConfig,
                  params: Optional[Dict] = None,
-                 draft_params: Optional[Dict] = None):
+                 draft_params: Optional[Dict] = None,
+                 devices: Optional[List] = None,
+                 multihost: Optional[mh.MultihostContext] = None):
         """``params``: a parameter dict for the configured model (e.g. a
         JAX tree carried over by ``models/convert.py``); None draws the
         random init from ``config.seed`` on the device and, when
         ``config.model`` is a checkpoint directory, loads its weights over
         it. ``draft_params`` likewise for
-        ``config.speculative_draft_model``."""
+        ``config.speculative_draft_model``.
+
+        With ``tensor_parallel_size = N > 1`` this process is one rank of
+        an N-process job (``multihost``, by default the context of the
+        ``TPU_STACK_*`` environment, ``parallel/multihost.py``), and
+        ``params``, when given, is the WHOLE host tree (numpy leaves or
+        CPU tensors), of which the rank keeps its slice. ``devices``: a
+        device a rank (default: ``config.device``, rank r on
+        ``cuda:(r % cards)``); this rank runs on its entry."""
         missing = _unsupported(config)
         if missing:
             raise NotImplementedError(
                 "not supported by the torch engine yet: " + ", ".join(missing))
         self.config = config
-        self.device = torch.device(config.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {config.device!r} requested but no CUDA device is "
-                f"available (pass device='cpu' to run on the CPU)")
         self.model_config = get_model_config(config.model)
         if config.dtype:
             self.model_config = self.model_config.replace(dtype=config.dtype)
-        self.tokenizer = build_tokenizer(
-            config.model, self.model_config.vocab_size,
-            chat_template_path=config.chat_template)
-        init_fn, self._apply = build_model(self.model_config)
+        tp = config.tensor_parallel_size
+        check_tp(self.model_config, tp)
         if config.quantization and self.model_config.arch != "llama":
             raise ValueError(
                 "int8 quantization is supported for the llama family "
                 f"(model arch {self.model_config.arch!r})")
+        # Latched by an unrecoverable fault (a lost tensor-parallel rank):
+        # every request fails, the loop stops and /health answers 503.
+        self.fatal_error: Optional[str] = None
+        self._mh: Optional[mh.MultihostContext] = None
+        self._tp: Optional[TPGroup] = None
+        self.rank = 0
+        if tp > 1:
+            self._mh = multihost if multihost is not None else (
+                mh.maybe_context())
+            if self._mh is None or self._mh.num_processes != tp:
+                raise ValueError(
+                    f"tensor_parallel_size {tp} runs as {tp} processes of "
+                    f"one job: start it through the server entry, or join "
+                    f"every rank with multihost.initialize_from_env()")
+            self.rank = self._mh.process_id
+        self.layout = build_mesh(
+            tp, 1, 1, devices if devices is not None
+            else default_devices(config.device, tp))
+        self.device = self.layout.device_of(self.rank)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {config.device!r} requested but no CUDA device is "
+                f"available (pass device='cpu' to run on the CPU)")
+        if tp > 1:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self._agree_on_config()
+            self._tp = TPGroup.create(self.rank, tp, self.device)
+            logger.info(
+                "Tensor-parallel rank %d/%d on %s: %s collectives (%d "
+                "rank(s) on this device)", self.rank, tp, self.device,
+                self._tp.backend, self._tp.sharing)
+        self.tokenizer = build_tokenizer(
+            config.model, self.model_config.vocab_size,
+            chat_template_path=config.chat_template)
+        init_fn, self._apply = build_model(self.model_config)
         load_ckpt = params is None
         if params is None:
             lora_kwargs = {}
@@ -227,12 +305,16 @@ class EngineCore:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             with torch.no_grad():
                 # int8 weights quantize leaf by leaf inside the init, so
-                # an 8B model never exists whole in bf16 on the card.
+                # an 8B model never exists whole in bf16 on the card; a
+                # rank keeps its slice of each leaf.
                 params = init_fn(
                     self.model_config, gen, self.device,
                     quantization=config.quantization,
                     quantize_embeddings=config.quantize_embeddings,
-                    **lora_kwargs)
+                    rank=self.rank, tp=tp, **lora_kwargs)
+        elif tp > 1:
+            params = params_from_numpy(params, self.model_config,
+                                       self.device, self.rank, tp)
         self.params = params
         # Wall seconds of the checkpoint load (read, quantize, copy to the
         # device), when the model is a checkpoint directory.
@@ -243,17 +325,27 @@ class EngineCore:
         # -- draft model (speculative decoding proposer) -------------------
         # Built BEFORE the target's pool is sized: its weights and its
         # worst-case pool come out of free memory first, so the target's
-        # pool never shrinks for drafts mid-flight.
+        # pool never shrinks for drafts mid-flight. The leader alone
+        # drafts: its drafts reach the followers inside the verify op.
         self._draft = None
-        if config.speculative_draft_model:
+        if config.speculative_draft_model and self.rank == 0:
             from production_stack_tpu_torch.engine.draft import DraftModel
 
             self._draft = DraftModel(config, self.model_config, self.device,
                                      params=draft_params)
 
         # -- KV pages ------------------------------------------------------
+        # A rank's pool holds its KV heads; every rank takes the least of
+        # the ranks' pool sizes (the block accounting is the leader's).
+        self.kv_heads = kv_heads_local(self.model_config, tp)
+        # Ranks placed on this rank's card split its free memory.
+        self._card_share = self._tp.sharing if self._tp is not None else 1
+        if self._tp is not None:
+            self._tp.barrier()  # every rank's weights are in memory
         free_before = self._free_device_bytes()
         self.num_blocks = config.num_blocks or self._auto_num_blocks()
+        if self._tp is not None:
+            self.num_blocks = self._tp.min_int(self.num_blocks)
         mc = self.model_config
         self.pool_shrink_retries_total = 0
         self.kv = self._alloc_kv_with_shrink()
@@ -359,6 +451,7 @@ class EngineCore:
 
         # Step flight recorder: the step functions stash ``_step_info``
         # only when it is on; _loop completes it with the step's wall time.
+        # The recorder reads the leader's own card: its bytes a token.
         self.step_recorder: Optional[StepRecorder] = (
             StepRecorder(capacity=config.step_record_capacity,
                          kv_token_bytes=(self._kv_bytes_per_block()
@@ -383,6 +476,9 @@ class EngineCore:
             (config.max_num_seqs, mc.vocab_size), dtype=torch.int32,
             device=self.device)
         self._counts_reset: "set[int]" = set()
+        # The sampled tokens of every op this rank executed, on the host,
+        # when a caller sets it to a list (the ranks' streams compared).
+        self.sampled_log: Optional[list] = None
 
         # -- engine thread -------------------------------------------------
         self._lock = threading.Condition()
@@ -393,12 +489,33 @@ class EngineCore:
         # Serializes sleep() and wake_up() (taken before _step_lock).
         self._lifecycle_lock = threading.Lock()
         self._running = True
+        self._stopped = False
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="engine-core")
+        if self._mh is not None and self._mh.is_leader:
+            self._mh.on_lost = self._rank_lost
 
     # ------------------------------------------------------------------ #
     # setup helpers
     # ------------------------------------------------------------------ #
+    def _agree_on_config(self) -> None:
+        """Tensor parallelism: the leader sends its configuration, and a
+        follower started with another one raises (every rank must build
+        the same engine, or their ops and collectives disagree)."""
+        mine = dataclasses.asdict(self.config)
+        if self._mh.is_leader:
+            self._mh.channel.send(("config", {"config": mine}, []))
+            return
+        op = self._mh.channel.recv()
+        if op[0] != "config":
+            raise RuntimeError(f"expected the leader's config, got {op[0]!r}")
+        theirs = op[1]["config"]
+        diff = sorted(k for k in mine if mine[k] != theirs.get(k))
+        if diff:
+            raise ValueError(
+                f"rank {self.rank}: engine config differs from the "
+                f"leader's in {diff}")
+
     def _maybe_load_checkpoint(self) -> None:
         """When the model names a local HF checkpoint directory, replace
         the drawn leaves with its weights (quantized on the host first
@@ -418,8 +535,15 @@ class EngineCore:
         if not has_checkpoint(self.config.model):
             return
         t0 = time.perf_counter()
-        loaded = load_checkpoint(self.model_config, self.config.model)
-        if self.config.quantization == "int8":
+        tp, int8 = self.config.tensor_parallel_size, (
+            self.config.quantization == "int8")
+        # A rank copies its slice out of the mapped files; an int8
+        # row-parallel leaf is read whole, quantized, then sliced, so its
+        # scale is the whole leaf's.
+        loaded = load_checkpoint(self.model_config, self.config.model,
+                                 self.rank, tp,
+                                 whole=ROW_PARALLEL if int8 else ())
+        if int8:
             from production_stack_tpu_torch.models.quantize import (
                 quantize_loaded,
             )
@@ -427,6 +551,13 @@ class EngineCore:
             loaded = quantize_loaded(
                 loaded, self.model_config.arch,
                 quantize_embeddings=self.config.quantize_embeddings)
+            if tp > 1:
+                sliced = shard_params(
+                    {"layers": loaded["layers"]}, self.model_config,
+                    self.rank, tp)["layers"]
+                loaded["layers"] = {
+                    k: (sliced[k] if is_row_parallel(("layers", k)) else v)
+                    for k, v in loaded["layers"].items()}
 
         def merge(dst: dict, src: dict) -> None:
             for key, val in src.items():
@@ -456,7 +587,9 @@ class EngineCore:
         ``pool_shrink_retries`` rungs, never below two sequences' worth of
         blocks. Only ``torch.cuda.OutOfMemoryError`` is caught."""
         cfg = self.config
-        rungs = cfg.pool_shrink_retries
+        # Ranks must agree on the pool's size: under tensor parallelism an
+        # out-of-memory error is fatal, as on a multi-host JAX engine.
+        rungs = cfg.pool_shrink_retries if self._tp is None else 0
         min_blocks = cfg.max_blocks_per_seq * 2
         for rung in range(rungs + 1):
             k = v = None
@@ -485,29 +618,34 @@ class EngineCore:
                     torch.cuda.empty_cache()
 
     def _kv_bytes_per_block(self) -> int:
-        return kv_bytes_per_block(self.model_config, self.config.block_size,
-                                  self.config.kv_cache_dtype)
+        """Bytes of one block of THIS rank's pool (its KV heads)."""
+        return kv_bytes_per_block(
+            self.model_config.replace(num_kv_heads=self.kv_heads),
+            self.config.block_size, self.config.kv_cache_dtype)
 
     def _alloc_pages(self):
         """One side (K or V) of the pool: zeros ``[L, NB, bs, KVH, D]`` in
         the model dtype, or for an int8 cache zero int8 data with float32
         scales ``[L, NB, bs*KVH]`` set to ONE, as the JAX engine sets them
-        (a never-written slot dequantizes to exact zeros)."""
+        (a never-written slot dequantizes to exact zeros). KVH is this
+        rank's KV heads."""
         mc, bs = self.model_config, self.config.block_size
-        shape = (mc.num_layers, self.num_blocks, bs, mc.num_kv_heads,
+        shape = (mc.num_layers, self.num_blocks, bs, self.kv_heads,
                  mc.head_dim)
         if self.config.kv_cache_dtype == "int8":
             return (torch.zeros(shape, dtype=torch.int8, device=self.device),
                     torch.ones((mc.num_layers, self.num_blocks,
-                                bs * mc.num_kv_heads), dtype=torch.float32,
+                                bs * self.kv_heads), dtype=torch.float32,
                                device=self.device))
         return torch.zeros(shape, dtype=mc.torch_dtype, device=self.device)
 
     def _free_device_bytes(self) -> Optional[int]:
+        """Free memory of this rank's card; ranks that share the card each
+        get their share of it."""
         if self.device.type != "cuda":
             return None
         free, _total = torch.cuda.mem_get_info(self.device)
-        return int(free)
+        return int(free) // self._card_share
 
     def _auto_num_blocks(self) -> int:
         """Size the KV pool from free device memory (hbm_utilization),
@@ -515,7 +653,9 @@ class EngineCore:
         free = self._free_device_bytes()
         num = 0
         if free is not None:
-            free = max(free - self.config.hbm_headroom_reserve, 0)
+            # The reserve is per card, shared like the free memory.
+            free = max(free - self.config.hbm_headroom_reserve
+                       // self._card_share, 0)
             num = int(free * self.config.hbm_utilization
                       // self._kv_bytes_per_block())
         num = max(num, self.config.max_blocks_per_seq * 2)
@@ -607,6 +747,9 @@ class EngineCore:
         scatter a leaf on the engine's stream. A payload whose layout or
         encoding differs from the pool's raises before any page is
         written."""
+        self._dispatch("write_pages", {}, [bids, k, v])
+
+    def _write_pages_op(self, bids: List[int], k, v) -> None:
         kv = (k, v)
         for pages, new in zip(self.kv, kv):
             if isinstance(pages, tuple) != isinstance(new, (tuple, list)):
@@ -692,6 +835,8 @@ class EngineCore:
         full block is cached. The gather is enqueued under _step_lock
         (after the work already queued, before any later step); the copy
         is waited for outside it."""
+        if self._tp is not None:
+            raise refused_under_tp("KV extract")
         with self._step_lock:
             with self._lock:
                 hashes, bids = self._cached_chain(token_ids, adapter)
@@ -746,6 +891,9 @@ class EngineCore:
         a leaf. Returns the blocks cached here afterwards (already cached
         ones count). A payload that does not fit the pool raises, and its
         blocks go back to the pool."""
+        if self._tp is not None:
+            raise refused_under_tp("KV inject")
+
         def write(take, dst):
             sel = torch.tensor(take, dtype=torch.long, device=self.device)
             self._write_pages(dst, *(
@@ -771,6 +919,8 @@ class EngineCore:
         gather and one scatter a leaf). 0 when the two pools' page
         encodings or devices differ (the host relay re-encodes). Takes
         both cores' step locks in ``id()`` order."""
+        if self._tp is not None or src._tp is not None:
+            raise refused_under_tp("KV inject")
         if (src.config.kv_cache_dtype != self.config.kv_cache_dtype
                 or src.device != self.device):
             return 0
@@ -831,6 +981,9 @@ class EngineCore:
             structured=structured,
         )
         with self._lock:
+            if self.fatal_error is not None:
+                on_token(None, "error")
+                return
             self.scheduler.add(req)
             self._lock.notify()
 
@@ -864,13 +1017,24 @@ class EngineCore:
             return self.scheduler.abort(request_id)
 
     def stop(self) -> None:
+        """Stop the engine thread; a tensor-parallel leader then stops its
+        followers' replay (the job's op channel stays open). A second call
+        does nothing."""
         with self._lock:
+            if self._stopped:
+                return
+            self._stopped = True
             self._running = False
             self._lock.notify()
         if self._thread.ident is not None:  # started
             self._thread.join(timeout=30)
         if self.offload is not None:
             self.offload.close()
+        if self._mh is not None and self._mh.is_leader:
+            self._mh.on_lost = None
+            if self.fatal_error is None:
+                with self._mh.lock:
+                    self._mh.channel.send(("stop", {}, []))
 
     # ------------------------------------------------------------------ #
     # sleep mode, LoRA hot-swap, embeddings
@@ -884,6 +1048,8 @@ class EngineCore:
         drafter's weights and pages stay, as in the JAX engine). Every
         ``level`` does the same, as in the JAX engine. A no-op when
         asleep."""
+        if self._tp is not None:
+            raise refused_under_tp("sleep")
         with self._lifecycle_lock:
             with self._lock:
                 if self._sleeping:
@@ -942,6 +1108,8 @@ class EngineCore:
     def wake_up(self) -> None:
         """Copy the parameters back from pinned host memory and allocate a
         fresh (zero) KV pool. A no-op when awake."""
+        if self._tp is not None:
+            raise refused_under_tp("wake_up")
         with self._lifecycle_lock, self._step_lock:
             with self._lock:
                 if not self._sleeping:
@@ -989,27 +1157,42 @@ class EngineCore:
             if not free:
                 return False
             slot = free[0]
-            lora = self.params["lora"]
-            with torch.inference_mode():
-                if weights is not None:
-                    for key in ("wq_a", "wq_b", "wv_a", "wv_b"):
-                        if key in weights:
-                            w = weights[key]
-                            if not isinstance(w, torch.Tensor):
-                                w = torch.from_numpy(np.asarray(w))
-                            lora[key][:, slot].copy_(w)
-                else:
-                    seed = zlib.crc32(name.encode()) % (2 ** 31)
-                    for key in ("wq_a", "wv_a"):
-                        L, _, Hd, R = lora[key].shape
-                        draw = prng.normal(
-                            prng.key(seed, device=self.device), (L, Hd, R))
-                        lora[key][:, slot].copy_(
-                            (0.01 * draw).to(lora[key].dtype))
-                lora["scaling"][slot] = alpha / rank
+            if weights is not None:
+                weights = {k: (w if isinstance(w, torch.Tensor)
+                               else torch.from_numpy(np.asarray(w)))
+                           for k, w in weights.items()}
+            self._dispatch("lora_load", {"slot": slot, "name": name,
+                                         "scaling": alpha / rank},
+                           [weights])
             self.lora_slots[name] = slot
         logger.info("Loaded LoRA adapter %s into slot %d", name, slot)
         return True
+
+    def _lora_load_op(self, slot: int, name: str, scaling: float,
+                      weights: Optional[dict]) -> None:
+        """Write LoRA slot ``slot`` in place: the given (whole) matrices,
+        of which a rank keeps its slice of the B matrices, or the
+        name-drawn A matrices (the same draw on every rank)."""
+        lora = self.params["lora"]
+        tp = self.config.tensor_parallel_size
+        with torch.inference_mode():
+            if weights is not None:
+                for key in ("wq_a", "wq_b", "wv_a", "wv_b"):
+                    if key in weights:
+                        # [L, ...] of the slot: the rule of the [L, S, ...]
+                        # leaf counts its axes from the end.
+                        w = slice_leaf(("lora", key), weights[key],
+                                       self.model_config, self.rank, tp)
+                        lora[key][:, slot].copy_(w)
+            else:
+                seed = zlib.crc32(name.encode()) % (2 ** 31)
+                for key in ("wq_a", "wv_a"):
+                    L, _, Hd, R = lora[key].shape
+                    draw = prng.normal(
+                        prng.key(seed, device=self.device), (L, Hd, R))
+                    lora[key][:, slot].copy_(
+                        (0.01 * draw).to(lora[key].dtype))
+            lora["scaling"][slot] = scaling
 
     def unload_lora_adapter(self, name: str) -> bool:
         """Free an adapter's slot (its scaling set to 0). False when the
@@ -1021,7 +1204,7 @@ class EngineCore:
             if self.params is None:
                 return False
             slot = self.lora_slots.pop(name)
-            self.params["lora"]["scaling"][slot] = 0.0
+            self._dispatch("lora_unload", {"slot": slot}, [])
         logger.info("Unloaded LoRA adapter %s (slot %d)", name, slot)
         return True
 
@@ -1037,36 +1220,41 @@ class EngineCore:
         n = max(len(ids), 1)
         bucket = cfg.bucket_for(min(n, cfg.prefill_chunk_size or n))
         n = min(n, bucket)
-        with self._lock:  # a consistent snapshot against sleep()
-            params = self.params
-        if params is None:
-            raise RuntimeError("engine is sleeping")
         token_ids = np.zeros((1, bucket), np.int64)
         token_ids[0, :n] = ids[:n]
+        with self._lifecycle_lock:  # no sleep() while the forward runs
+            if self.params is None:
+                raise RuntimeError("engine is sleeping")
+            out = self._dispatch("embed", {"n": n}, [token_ids])
+        return out[0].cpu().tolist()
+
+    def _embed_op(self, n: int, token_ids: np.ndarray) -> torch.Tensor:
+        """The pooled, normalised ``[1, Hd]`` float32 hidden states of one
+        prefill of ``token_ids [1, bucket]`` (``n`` real tokens)."""
+        mc, bs = self.model_config, self.config.block_size
         dev = self.device
+        bucket = token_ids.shape[1]
 
         def t(x):
             return to_device(torch.from_numpy(x), dev)
 
-        shape = (mc.num_layers, 1, cfg.block_size, mc.num_kv_heads,
-                 mc.head_dim)
+        shape = (mc.num_layers, 1, bs, self.kv_heads, mc.head_dim)
         kv = (torch.zeros(shape, dtype=mc.torch_dtype, device=dev),
               torch.zeros(shape, dtype=mc.torch_dtype, device=dev))
         seq_lens = t(np.asarray([n], np.int32))
         with torch.inference_mode():
             hidden, _ = self._apply(
-                params, mc, t(token_ids),
+                self.params, mc, t(token_ids),
                 t(np.arange(bucket, dtype=np.int64)[None, :]), kv,
                 torch.full((1, bucket), -1, dtype=torch.long),
                 t(np.zeros((1, 4), np.int32)), seq_lens, seq_lens,
-                mode="prefill", output_hidden=True)
+                mode="prefill", output_hidden=True, tp=self._tp)
             mask = (torch.arange(bucket, device=dev)[None, :]
                     < seq_lens[:, None]).float()
             pooled = (hidden * mask[..., None]).sum(dim=1) / torch.clamp(
                 seq_lens.float(), min=1.0)[:, None]
             norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-            out = pooled / torch.clamp(norm, min=1e-12)
-        return out[0].cpu().tolist()
+            return pooled / torch.clamp(norm, min=1e-12)
 
     def kv_never_fits(self, n_tokens: int) -> bool:
         """True when a prompt (+1-token decode headroom) needs more pages
@@ -1105,8 +1293,18 @@ class EngineCore:
             "num_blocks": self.num_blocks,
             "hbm_headroom_bytes": self.hbm_headroom_bytes,
             "kv_cache_dtype": self.config.kv_cache_dtype,
+            # The model's KV bytes a token over all ranks, the JAX
+            # engine's figure (a rank holds its heads' share).
             "kv_cache_bytes_per_token": (
-                self._kv_bytes_per_block() // self.config.block_size),
+                kv_bytes_per_block(self.model_config, self.config.block_size,
+                                   self.config.kv_cache_dtype)
+                // self.config.block_size),
+            "tensor_parallel": {
+                "size": self.config.tensor_parallel_size,
+                "backend": self._tp.backend if self._tp else None,
+                "devices": [str(d) for d in self.layout.devices],
+                "kv_heads_per_rank": self.kv_heads},
+            "fatal_error": self.fatal_error,
             "is_sleeping": self._sleeping,
             "prefill_time_total": round(self.prefill_time_total, 3),
             "decode_time_total": round(self.decode_time_total, 3),
@@ -1202,6 +1400,10 @@ class EngineCore:
                 # sees finish_reason "error" instead of hanging.
                 logger.exception("Engine step failed: %s", e)
                 self._fail_step(action, req)
+                if self._tp is not None:
+                    # The ranks may have run different parts of the step:
+                    # their pools and counts can no longer be trusted.
+                    self._fatal(f"a tensor-parallel step failed: {e!r}")
 
     def _fail_step(self, action: str, req) -> None:
         """Finish the requests of a step that raised with "error": a
@@ -1249,6 +1451,153 @@ class EngineCore:
             rec.param_bytes = sum(t.numel() * t.element_size()
                                   for t in _leaves(self.params))
         rec.record(info.pop("kind"), wall_s, **info)
+
+    # ------------------------------------------------------------------ #
+    # the device-op chokepoint (tensor-parallel lockstep)
+    # ------------------------------------------------------------------ #
+    # Every serving-time op that launches work on the device or writes
+    # device state goes through _dispatch: on one rank it just executes;
+    # a tensor-parallel leader first sends the op (name, static values,
+    # host arrays) to the followers, and every rank then runs the same
+    # _exec_op, so the ranks launch the same kernels and collectives in
+    # the same order. Device state (weights, pages, counts, the burst's
+    # feedback tokens) stays on each rank.
+
+    def _dispatch(self, name: str, static: dict, arrays: list):
+        mhc = self._mh
+        if mhc is None:
+            return self._exec_op(name, static, arrays)
+        with mhc.lock:  # (send, launch) atomic: one op order on every rank
+            if self.fatal_error is not None:
+                raise RuntimeError(self.fatal_error)
+            try:
+                mhc.channel.send((name, static, arrays))
+            except OSError as e:
+                # A partial fan-out (one follower's socket dead, others
+                # fed) cannot be resumed: the ranks' op streams differ.
+                self._fatal(f"op-channel send failed ({e!r}); the "
+                            f"tensor-parallel lockstep is broken")
+                raise RuntimeError(self.fatal_error) from e
+            return self._exec_op(name, static, arrays)
+
+    def _exec_op(self, name: str, static: dict, arrays: list):
+        """What each op does on the device; the leader and the followers
+        both run exactly this. Returns the op's device outputs."""
+        if name == "prefill":
+            out = self._prefill_op(static["cached"], arrays[0])
+        elif name == "decode":
+            out = self._decode_op(static["K"], static["use_prev"], *arrays)
+        elif name == "spec_verify":
+            out = self._verify_op(static["K"], *arrays)
+        elif name == "embed":
+            return self._embed_op(static["n"], arrays[0])
+        elif name == "set_counts_row":
+            self._token_counts[static["slot"]] = to_device(arrays[0],
+                                                           self.device)
+            return None
+        elif name == "lora_load":
+            return self._lora_load_op(static["slot"], static["name"],
+                                      static["scaling"], arrays[0])
+        elif name == "lora_unload":
+            self.params["lora"]["scaling"][static["slot"]] = 0.0
+            return None
+        elif name == "write_pages":
+            return self._write_pages_op(*arrays)
+        elif name == "rank_stats":
+            return self._rank_stats_op(**static)
+        else:
+            raise ValueError(f"unknown device op {name!r}")
+        if self.sampled_log is not None:
+            self.sampled_log.append((name, out[0].cpu().numpy()))
+        return out
+
+    def run_follower(self) -> None:
+        """The loop of a follower rank (rank > 0): replay the leader's op
+        stream until it stops. A follower runs no scheduler and serves no
+        HTTP. An op that fails cannot be resumed (this rank's pages or
+        counts may differ from the leader's), so the error propagates and
+        the process exits; the leader's next collective or send fails."""
+        if self._mh is None or self._mh.is_leader:
+            raise RuntimeError("run_follower is for follower ranks")
+        logger.info("Follower rank %d/%d: replaying the leader's ops",
+                    self.rank, self._mh.num_processes)
+        with torch.inference_mode():
+            while True:
+                name, static, arrays = self._mh.channel.recv()
+                if name == "stop":
+                    logger.info("Follower rank %d: leader stopped",
+                                self.rank)
+                    return
+                self._exec_op(name, static, arrays)
+
+    def rank_stats(self, reset: bool = False,
+                   timing: Optional[bool] = None) -> List[dict]:
+        """Every rank's device, weight bytes, pool blocks, kernel launches
+        by shape and collective counters, gathered on the leader (an op
+        like any other, ordered with the steps). ``reset`` zeroes the
+        launch and collective counters afterwards; ``timing`` switches
+        the collectives' synchronized timing on or off."""
+        with self._step_lock:
+            return self._dispatch("rank_stats",
+                                  {"reset": reset, "timing": timing}, [])
+
+    def _rank_stats_op(self, reset: bool, timing: Optional[bool]):
+        from production_stack_tpu_torch.ops.paged_attention import (
+            paged_attention,
+        )
+        from production_stack_tpu_torch.ops.prefill_attention import (
+            cached_prefill_attention,
+        )
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        kernels = (paged_attention, cached_prefill_attention)
+        tpg = self._tp
+        mine = {
+            "rank": self.rank, "device": str(self.device),
+            "device_name": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu"),
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in _leaves(self.params)),
+            "num_blocks": self.num_blocks, "kv_heads": self.kv_heads,
+            "launches_by_shape": {k.__name__: dict(k.launches_by_shape)
+                                  for k in kernels},
+            "collectives_total": tpg.collectives_total if tpg else 0,
+            "collective_s": tpg.collective_s if tpg else 0.0,
+        }
+        if reset:
+            for k in kernels:
+                k.launches_by_shape.clear()
+            if tpg is not None:
+                tpg.collectives_total, tpg.collective_s = 0, 0.0
+        if timing is not None and tpg is not None:
+            tpg.timing = timing
+        if tpg is None:
+            return [mine]
+        out: List = [None] * tpg.size
+        torch.distributed.all_gather_object(out, mine)
+        return out
+
+    def _rank_lost(self, pid: int) -> None:
+        """The op channel's watcher: follower ``pid`` is gone."""
+        self._fatal(f"tensor-parallel rank {pid} is gone")
+
+    def _fatal(self, why: str) -> None:
+        """Latch an unrecoverable fault: every request fails with
+        "error", the loop stops, and new requests fail at once."""
+        if self.fatal_error is not None:
+            return
+        self.fatal_error = why
+        logger.error("Engine stopped: %s", why)
+        with self._lock:
+            self._running = False
+            for seq in list(self.scheduler.running()):
+                self.scheduler.finish(seq, "error")
+            # Waiting, mid-prefill and in-flight requests alike.
+            for req in list(self.scheduler._requests.values()):
+                self.scheduler._requests.pop(req.request_id, None)
+                req.on_token(None, "error")
+            self._lock.notify()
 
     # -- prefill -----------------------------------------------------------
     def _allocate_for_prefill(self, req: EngineRequest, limit=None):
@@ -1535,7 +1884,7 @@ class EngineCore:
                 row = torch.zeros((self.model_config.vocab_size,),
                                   dtype=torch.int32)
                 row.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-                self._token_counts[slot] = to_device(row, self.device)
+                self._dispatch("set_counts_row", {"slot": slot}, [row])
                 with self._lock:
                     self._counts_reset.discard(slot)
             else:
@@ -1791,19 +2140,24 @@ class EngineCore:
         self._fill_mask_row(a["mask_bits"], a["mask_on"], i, req)
 
     def _prefill_forward(self, a: dict, cached: bool) -> "_Readback":
+        """Launch the prefill program (:meth:`_prefill_op`) of the host
+        arrays ``a``; returns the readback of (sampled, logprob, top
+        logprobs, top ids)."""
+        if cached:
+            self.prefill_attention_dispatch_total["pallas"] += 1
+        return _Readback(self._dispatch("prefill", {"cached": cached}, [a]))
+
+    def _prefill_op(self, cached: bool, a: dict) -> tuple:
         """The prefill program: forward, logit shaping and sampling of each
         row's last real token under the key ``make_rng_keys(seed,
         steps.max(), seeds + steps)`` over the WHOLE dispatched batch,
         padding rows included (as the JAX engine keys it, so a row's draw
-        depends on its batch-mates' steps). Returns the readback of
-        (sampled, logprob, top logprobs, top ids)."""
+        depends on its batch-mates' steps)."""
         dev = self.device
 
         def t(x):
             return to_device(torch.from_numpy(x), dev)
 
-        if cached:
-            self.prefill_attention_dispatch_total["pallas"] += 1
         seq_lens = t(a["seq_lens"])
         logits, _ = self._apply(
             self.params, self.model_config, t(a["tokens"]),
@@ -1811,7 +2165,7 @@ class EngineCore:
             t(a["table"]), t(a["context"]), seq_lens,
             mode="prefill_cached" if cached else "prefill",
             adapter_ids=t(a["adapter"]),
-            last_token=torch.clamp(seq_lens - 1, min=0))
+            last_token=torch.clamp(seq_lens - 1, min=0), tp=self._tp)
         bias_ids, bias_vals = self._bias_rows(a["bias"])
         stop_ids, stop_valid = self._stop_rows(a["stops"])
         shaped = shape_logits(
@@ -1827,7 +2181,7 @@ class EngineCore:
         sampled = sample_tokens(
             shaped, keys, t(a["temp"]), t(a["top_k"]), t(a["top_p"]),
             max_top_k=self.config.max_top_k)
-        return _Readback((sampled,) + logprob_outputs(shaped, sampled))
+        return (sampled,) + logprob_outputs(shaped, sampled)
 
     # -- decode ------------------------------------------------------------
     def _do_decode(self) -> None:
@@ -2008,18 +2362,25 @@ class EngineCore:
         self._pending_burst = {"out": outs, "active": active,
                                "allows": allows}
 
-    def _launch_burst(self, K, use_prev, reset_counts, tok_idx, host_tokens,
-                      use_host, positions0, slot_mat, block_table, context0,
-                      adapter_ids, temperature, top_k, top_p, seed_base,
-                      presence, frequency, min_tok, out_len0, biases,
-                      stops, mask_bits, mask_on) -> "_Readback":
+    def _launch_burst(self, K: int, use_prev: bool, *arrays) -> "_Readback":
+        """Launch the K-step decode program (:meth:`_decode_op`) of the
+        host arrays; returns the readback of (sampled, logprob, top
+        logprobs, top ids), each [B, K, ...]."""
+        return _Readback(self._dispatch(
+            "decode", {"K": K, "use_prev": use_prev}, list(arrays)))
+
+    def _decode_op(self, K, use_prev, reset_counts, tok_idx, host_tokens,
+                   use_host, positions0, slot_mat, block_table, context0,
+                   adapter_ids, temperature, top_k, top_p, seed_base,
+                   presence, frequency, min_tok, out_len0, biases,
+                   stops, mask_bits, mask_on) -> tuple:
         """The K-step decode program: each step's forward, logit shaping
         (penalties, bias, min_tokens EOS/stop masking, then the FSM mask
         rows ``mask_bits [B, MB]`` / ``mask_on [B]``, the same at every
         step) and keyed sample, the sampled tokens fed back on the
         device. Its [B, decode_steps] tokens (padded past K) stay on the
-        device as the next burst's feedback. Returns the readback of
-        (sampled, logprob, top logprobs, top ids), each [B, K, ...]."""
+        device as the next burst's feedback (on every rank: each samples
+        the same tokens from the same gathered logits)."""
         cfg = self.config
         dev = self.device
         B = cfg.max_num_seqs
@@ -2068,7 +2429,7 @@ class EngineCore:
                 self.params, self.model_config, tokens[:, None],
                 (positions0_t + s)[:, None], self.kv, step_slots,
                 block_table_t, context0_t + s, ones, mode="decode",
-                adapter_ids=adapter_t)
+                adapter_ids=adapter_t, tp=self._tp)
             shaped = shape_logits(
                 logits[:, 0], bias_ids=bias_ids, bias_vals=bias_vals,
                 suppress=(out_len0_t + s) < min_tok_t, stop_ids=stop_ids,
@@ -2090,7 +2451,7 @@ class EngineCore:
             fb = torch.cat([sampled, torch.zeros(
                 (B, K_max - K), dtype=sampled.dtype, device=dev)], dim=1)
         self._last_burst_tokens = fb
-        return _Readback((sampled, lps, top_lps, top_ids))
+        return sampled, lps, top_lps, top_ids
 
     def _flush_pending_burst(self) -> None:
         """Read back and emit the burst in flight, if any."""
@@ -2488,10 +2849,17 @@ class EngineCore:
                                "allows": allows, "spec": True,
                                "drafts": drafts}
 
-    def _launch_verify(self, K, tokens, positions0, slot_mat, block_table,
-                       context0, adapter_ids, temperature, top_k, top_p,
-                       seed_base, min_tok, out_len0, biases, stops,
-                       mask_bits, mask_on) -> "_Readback":
+    def _launch_verify(self, K: int, *arrays) -> "_Readback":
+        """Launch the verify program (:meth:`_verify_op`) of the host
+        arrays; returns the readback of (sampled, logprob, top logprobs,
+        top ids), each [B, K, ...]."""
+        return _Readback(self._dispatch("spec_verify", {"K": K},
+                                        list(arrays)))
+
+    def _verify_op(self, K, tokens, positions0, slot_mat, block_table,
+                   context0, adapter_ids, temperature, top_k, top_p,
+                   seed_base, min_tok, out_len0, biases, stops,
+                   mask_bits, mask_on) -> tuple:
         """The verify program: one cached-prefill forward of ``[B, K]``
         rows (row b: its last emitted token and drafts at positions
         positions0[b]..+K-1, context context0[b] + K - 1, each token's
@@ -2500,8 +2868,7 @@ class EngineCore:
         bias, min_tokens EOS/stop masking, the mask term, and the key
         ``make_rng_keys(seed, 0, seed_base + s)``. Penalty rows never get
         here, so no token counts. A padding row is token 0 at positions
-        0.., context K, slots -1, an all-zero table. Returns the readback
-        of (sampled, logprob, top logprobs, top ids), each [B, K, ...]."""
+        0.., context K, slots -1, an all-zero table."""
         cfg = self.config
         dev = self.device
         B = cfg.max_num_seqs
@@ -2514,7 +2881,7 @@ class EngineCore:
             self.params, self.model_config, t(tokens), t(positions),
             self.kv, torch.from_numpy(slot_mat), t(block_table),
             t(context0 + K - 1), t(np.full((B,), K, np.int64)),
-            mode="prefill_cached", adapter_ids=t(adapter_ids))
+            mode="prefill_cached", adapter_ids=t(adapter_ids), tp=self._tp)
         temp_t, top_k_t, top_p_t = t(temperature), t(top_k), t(top_p)
         min_tok_t, out_len0_t = t(min_tok), t(out_len0)
         mask_bits_t, mask_on_t = t(mask_bits), t(mask_on)
@@ -2536,7 +2903,7 @@ class EngineCore:
                                          top_k_t, top_p_t,
                                          max_top_k=cfg.max_top_k)
             outs.append((sampled,) + logprob_outputs(shaped, sampled))
-        return _Readback(tuple(torch.stack(x, dim=1) for x in zip(*outs)))
+        return tuple(torch.stack(x, dim=1) for x in zip(*outs))
 
     def _flush_spec_burst(self, pending, sampled, lps, top_lps,
                           top_ids) -> None:

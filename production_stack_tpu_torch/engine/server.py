@@ -123,6 +123,7 @@ import json
 import os
 import queue
 import struct
+import sys
 import tempfile
 import threading
 import time
@@ -136,7 +137,7 @@ from typing import Callable, List, Optional
 
 from production_stack_tpu_torch import __version__
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.core import EngineCore
+from production_stack_tpu_torch.engine.core import EngineCore, refused_under_tp
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGIT_BIAS,
     SamplingParams,
@@ -160,6 +161,7 @@ from production_stack_tpu_torch.kv.offload import (
 )
 from production_stack_tpu_torch.obs.steps import STEP_KINDS
 from production_stack_tpu_torch.obs.trace import StageClock, TraceRecorder
+from production_stack_tpu_torch.parallel import multihost
 from production_stack_tpu_torch.structured.api import compile_char_dfa
 from production_stack_tpu_torch.utils import auth
 from production_stack_tpu_torch.utils.log import init_logger
@@ -870,6 +872,8 @@ class EngineServer:
         return status, out, {}
 
     def _kv_pull(self, body: dict):
+        if self.core.config.tensor_parallel_size > 1:
+            raise refused_under_tp("KV pull")
         source = body.get("source_url")
         if not source:
             return 400, {"error": "source_url required"}
@@ -1559,7 +1563,10 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._send_file(full)
         elif path in ("/health", "/healthz"):
-            if eng.draining:
+            if eng.core.fatal_error is not None:
+                self._send_json({"status": "failed",
+                                 "error": eng.core.fatal_error}, 503)
+            elif eng.draining:
                 self._send_json({"status": "draining",
                                  "in_flight": eng._inflight}, 503,
                                 {"Retry-After": "1"})
@@ -1618,6 +1625,10 @@ class _Handler(BaseHTTPRequestHandler):
                     self._send_json(body, status)
             except BadRequest as exc:
                 self._send_error(exc)
+            except NotImplementedError as exc:
+                self._send_json({"error": {"message": str(exc),
+                                           "type": "NotImplementedError"}},
+                                501)
             return
         kv_routes = {"/kv/extract": self._kv_extract,
                      "/kv/inject": self._kv_inject,
@@ -1629,6 +1640,10 @@ class _Handler(BaseHTTPRequestHandler):
                 kv_routes[path]()
             except BadRequest as exc:
                 self._send_error(exc)
+            except NotImplementedError as exc:
+                self._send_json({"error": {"message": str(exc),
+                                           "type": "NotImplementedError"}},
+                                501)
             return
         kinds = {"/v1/completions": "completion",
                  "/v1/chat/completions": "chat"}
@@ -2085,6 +2100,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "capacity at equal memory")
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="run the model as N ranks, one process each, every "
+                        "rank holding its slice of the weights and its KV "
+                        "heads; without TPU_STACK_* in the environment the "
+                        "server starts ranks 1..N-1 on this host (rank r "
+                        "on cuda:(r %% cards)), with it this process joins "
+                        "as TPU_STACK_PROCESS_ID says")
     p.add_argument("--block-size", type=int, default=64)
     p.add_argument("--num-blocks", type=int, default=None)
     p.add_argument("--hbm-utilization", type=float, default=0.7)
@@ -2213,6 +2235,7 @@ def config_from_args(args) -> EngineConfig:
         kv_cache_dtype=args.kv_cache_dtype,
         max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
+        tensor_parallel_size=args.tensor_parallel_size,
         block_size=args.block_size,
         num_blocks=args.num_blocks,
         hbm_utilization=args.hbm_utilization,
@@ -2242,13 +2265,49 @@ def config_from_args(args) -> EngineConfig:
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     engine: EngineServer
+    # A tensor-parallel leader's job: (multihost context, spawned ranks).
+    ranks: Optional[tuple] = None
+
+    def service_actions(self) -> None:
+        """A latched engine fault (a lost tensor-parallel rank) ends
+        ``serve_forever`` with exit status 1."""
+        if self.engine.core.fatal_error is not None:
+            raise SystemExit(1)
 
     def server_close(self) -> None:
         """Close the socket, then stop the KV reporting threads, drop the
-        local-peer entry and close the trace exporter."""
+        local-peer entry and close the trace exporter; a tensor-parallel
+        leader then stops the engine and its followers and leaves the
+        job."""
         super().server_close()
         self.engine.close()
         self.engine.trace_recorder.close()
+        if self.ranks is not None:
+            ctx, procs = self.ranks
+            self.ranks = None
+            self.engine.core.stop()
+            codes = multihost.shutdown(ctx, procs)
+            if any(codes):
+                logger.error("tensor-parallel ranks exited with %s", codes)
+
+
+def _tp_job(args, argv):
+    """The multihost context of a tensor-parallel engine, and the ranks
+    this process started: none when the ``TPU_STACK_*`` environment names
+    the job, ranks 1..N-1 on this host otherwise."""
+    procs = []
+    if multihost.distributed_env() is None:
+        procs = multihost.spawn_local_ranks(
+            args.tensor_parallel_size,
+            sys.argv[1:] if argv is None else argv,
+            "production_stack_tpu_torch.engine.server")
+    try:
+        multihost.initialize_from_env()
+        return multihost.maybe_context(), procs
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
 
 
 def build_server(argv: Optional[List[str]] = None,
@@ -2257,10 +2316,24 @@ def build_server(argv: Optional[List[str]] = None,
     bind the HTTP server (registered as a local peer for ``/kv/pull``,
     and with the KV controller when one is configured). Returns (httpd,
     core); the caller runs ``httpd.serve_forever()`` and, to stop,
-    ``httpd.shutdown()``, ``httpd.server_close()`` and ``core.stop()``."""
+    ``httpd.shutdown()``, ``httpd.server_close()`` and ``core.stop()``.
+    With ``--tensor-parallel-size N`` this process is the leader (rank
+    0) of an N-process job (:func:`_tp_job`); ``server_close`` ends the
+    job."""
     args = build_arg_parser().parse_args(argv)
+    ranks = None
     if core is None:
-        core = EngineCore(config_from_args(args))
+        config = config_from_args(args)
+        if config.tensor_parallel_size > 1:
+            ranks = _tp_job(args, argv)
+        try:
+            core = EngineCore(config, multihost=ranks[0] if ranks else None)
+        except BaseException:
+            if ranks is not None:
+                for p in ranks[1]:
+                    p.kill()
+                multihost.shutdown(*ranks)
+            raise
     core.start()
     served = args.served_model_name or [core.config.model]
     engine = EngineServer(
@@ -2278,11 +2351,36 @@ def build_server(argv: Optional[List[str]] = None,
     handler = type("Handler", (_Handler,), {"engine": engine})
     httpd = _HTTPServer((args.host, args.port), handler)
     httpd.engine = engine
+    httpd.ranks = ranks
     engine.start_kv_reporting(args.host, httpd.server_address[1])
     return httpd, core
 
 
+def run_follower(argv: Optional[List[str]] = None) -> int:
+    """A follower rank (``TPU_STACK_PROCESS_ID`` > 0) of a
+    tensor-parallel engine: build the same engine from the same
+    arguments and replay the leader's ops until it stops. Serves no
+    HTTP. Returns the exit status (1 when the replay failed or the
+    leader vanished)."""
+    args = build_arg_parser().parse_args(argv)
+    ctx = multihost.maybe_context()
+    status = 0
+    try:
+        core = EngineCore(config_from_args(args), multihost=ctx)
+        core.run_follower()
+    except Exception:  # noqa: BLE001 - the process ends on it
+        logger.exception("Follower rank %d failed", ctx.process_id)
+        status = 1
+    multihost.shutdown(ctx)
+    return status
+
+
 def main(argv: Optional[List[str]] = None) -> None:
+    # Multi-host: join the torch.distributed job before any device use;
+    # follower ranks replay the leader's ops instead of serving HTTP.
+    env = multihost.initialize_from_env()
+    if env is not None and env["process_id"] != 0:
+        sys.exit(run_follower(argv))
     httpd, core = build_server(argv)
     host, port = httpd.server_address[:2]
     logger.info("Serving %s on http://%s:%d (device %s)",
@@ -2294,6 +2392,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         httpd.server_close()
         core.stop()
+    if core.fatal_error is not None:
+        sys.exit(1)
 
 
 if __name__ == "__main__":

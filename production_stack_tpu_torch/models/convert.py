@@ -6,8 +6,9 @@ the tree of CPU tensors that ``models/weights.py::load_checkpoint`` reads
 from a checkpoint directory, and returns the same dict structure of
 torch tensors on ``device``, with the same leaf names, shapes and dtypes,
 for each architecture the port runs
-(Llama, OPT, Mixtral). Both packages keep the ``[in, out]`` weight
-orientation, so no leaf is transposed. ``draft_params_from_numpy``
+(Llama, OPT, Mixtral), or a tensor-parallel rank's slice of it. Both
+packages keep the ``[in, out]`` weight orientation, so no leaf is
+transposed. ``draft_params_from_numpy``
 does the same for a JAX ``DraftModel``'s tree, at the drafter's model
 configuration. The parity tests use them to make both packages compute
 with the same weights; this module imports nothing of JAX.
@@ -24,6 +25,7 @@ from production_stack_tpu_torch.models.config import (
     ModelConfig,
     get_model_config,
 )
+from production_stack_tpu_torch.parallel.sharding import check_tp, shard_params
 
 ARCHS = ("llama", "opt", "mixtral")
 
@@ -42,17 +44,23 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
-    """The JAX parameter tree (as numpy) as the torch parameter dict."""
+def params_from_numpy(tree: Dict, cfg: ModelConfig, device, rank: int = 0,
+                      tp: int = 1) -> Dict:
+    """The JAX parameter tree (as numpy) as the torch parameter dict; with
+    ``tp > 1``, rank ``rank``'s slice of it (``parallel/sharding.py``),
+    only that slice copied to ``device``."""
     if cfg.arch not in ARCHS:
         raise ValueError(f"Unknown arch {cfg.arch!r}")
+    check_tp(cfg, tp)
 
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
-        return tensor_from_numpy(node, device)
+        t = tensor_from_numpy(node, device)
+        # A slice must not keep (or write through to) the whole leaf.
+        return t.clone() if tp > 1 and t.device.type == "cpu" else t
 
-    return convert(tree)
+    return convert(shard_params(tree, cfg, rank, tp))
 
 
 def draft_params_from_numpy(tree: Dict, engine_config, device) -> Dict:

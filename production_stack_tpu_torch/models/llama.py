@@ -18,7 +18,11 @@ The port of ``production_stack_tpu/models/llama.py``:
   (``models/quantize.py``): the product runs over a copy of the weight
   in the activation dtype and the scale applies to its result, as the
   JAX model leaves it to XLA; the KV pool may be int8 ``(data, scales)``
-  pairs, which the page ops quantize and dequantize.
+  pairs, which the page ops quantize and dequantize;
+- under tensor parallelism a rank holds its slice of every weight
+  (``parallel/sharding.py``) and its KV heads' pages, and the forward
+  adds the ranks' partial sums after ``wo`` and the MLP's down
+  projection and gathers the logits' vocab shards (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from production_stack_tpu_torch.ops.attention import (
     scatter_kv_pages,
     valid_slots,
 )
+from production_stack_tpu_torch.parallel.sharding import local_shape, slice_leaf
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -82,6 +87,8 @@ def init_params(
     lora_rank: int = 16,
     quantization: Optional[str] = None,
     quantize_embeddings: bool = False,
+    rank: int = 0,
+    tp: int = 1,
 ) -> Dict:
     """Random-init parameter dict with layer-stacked leaves: the shapes
     and scales of the JAX ``init_params`` (normal / sqrt(fan_in), 0.02 for
@@ -94,7 +101,12 @@ def init_params(
     and ``lm_head`` too with ``quantize_embeddings``) is quantized as soon
     as it is drawn and its working-dtype copy dropped, giving the leaves
     of the JAX ``quantize_tree`` (``<name>`` int8 plus ``<name>_scale``)
-    from the same draws as the unquantized init."""
+    from the same draws as the unquantized init.
+
+    With ``tp > 1`` every rank draws every leaf whole, in the same order
+    as the ``tp = 1`` init, and keeps rank ``rank``'s slice
+    (``parallel/sharding.py``), after the quantization: ``tp`` ranks hold
+    the weights of one ``tp = 1`` init."""
     if quantization not in (None, "int8"):
         raise ValueError(f"unsupported quantization {quantization!r}")
     dtype = cfg.torch_dtype
@@ -102,19 +114,10 @@ def init_params(
     I, L, V = cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     quantize = quantization == "int8"
     quantize_emb = quantize and quantize_embeddings
-
-    def normal(shape, std):
-        t = torch.randn(shape, generator=generator, device=device,
-                        dtype=dtype)
-        return t.mul_(std)
-
-    def put(tree, name, w, reduce_axis, on):
-        if on:
-            w, tree[name + "_scale"] = quantize_tensor(w, reduce_axis)
-        tree[name] = w
+    draw = LeafDrawer(cfg, generator, device, rank, tp)
 
     params = {}
-    put(params, "embed", normal((V, Hd), 0.02), -1, quantize_emb)
+    draw.whole(params, ("embed",), (V, Hd), 0.02, -1 if quantize_emb else None)
     layers = {"attn_norm": torch.ones((L, Hd), dtype=dtype, device=device),
               "mlp_norm": torch.ones((L, Hd), dtype=dtype, device=device)}
     for name, shape, fan_in in (
@@ -122,25 +125,75 @@ def init_params(
             ("wv", (Hd, KVH * D), Hd), ("wo", (H * D, Hd), H * D),
             ("w_gate", (Hd, I), Hd), ("w_up", (Hd, I), Hd),
             ("w_down", (I, Hd), I)):
-        put(layers, name, normal((L,) + shape, fan_in ** -0.5), -2, quantize)
+        draw.whole(layers, ("layers", name), (L,) + shape, fan_in ** -0.5,
+                   -2 if quantize else None)
     params["layers"] = layers
     params["final_norm"] = torch.ones((Hd,), dtype=dtype, device=device)
     if not cfg.tie_word_embeddings:
-        put(params, "lm_head", normal((Hd, V), Hd ** -0.5), -2, quantize_emb)
+        draw.whole(params, ("lm_head",), (Hd, V), Hd ** -0.5,
+                   -2 if quantize_emb else None)
     if lora_slots > 0:
         S, R = lora_slots, lora_rank
-
-        def zeros(shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=device)
-
-        params["lora"] = {
-            "wq_a": zeros((L, S, Hd, R)),
-            "wq_b": zeros((L, S, R, H * D)),
-            "wv_a": zeros((L, S, Hd, R)),
-            "wv_b": zeros((L, S, R, KVH * D)),
-            "scaling": zeros((S,), torch.float32),
-        }
+        lora = {}
+        for name, shape in (("wq_a", (L, S, Hd, R)), ("wq_b", (L, S, R, H * D)),
+                            ("wv_a", (L, S, Hd, R)),
+                            ("wv_b", (L, S, R, KVH * D))):
+            lora[name] = torch.zeros(
+                local_shape(("lora", name), shape, cfg, rank, tp),
+                dtype=dtype, device=device)
+        lora["scaling"] = torch.zeros((S,), dtype=torch.float32, device=device)
+        params["lora"] = lora
     return params
+
+
+class LeafDrawer:
+    """Draws weight leaves for the models' ``init_params``: each leaf
+    whole from ``generator`` in the working dtype, scaled in place,
+    quantized when asked (int8 codes and float32 scales reduced over
+    ``reduce_axis``), then cut to rank ``rank``'s slice of ``tp``. Every
+    rank draws the same leaves in the same order, so its slice is the
+    slice of the ``tp = 1`` init."""
+
+    def __init__(self, cfg: ModelConfig, generator, device, rank: int = 0,
+                 tp: int = 1):
+        self.cfg, self.generator, self.device = cfg, generator, device
+        self.rank, self.tp = rank, tp
+
+    def _cut(self, key, t):
+        return slice_leaf(key, t, self.cfg, self.rank, self.tp)
+
+    def _normal(self, out: torch.Tensor, std: float) -> torch.Tensor:
+        return out.normal_(generator=self.generator).mul_(std)
+
+    def whole(self, tree: dict, key, shape, std: float,
+              reduce_axis: Optional[int]) -> None:
+        """One leaf ``tree[key[-1]]`` (and its scale), drawn in one call
+        (a layer stack of Llama and OPT too, as their ``tp = 1`` init
+        draws it)."""
+        w = self._normal(torch.empty(shape, dtype=self.cfg.torch_dtype,
+                                     device=self.device), std)
+        name = key[-1]
+        if reduce_axis is not None:
+            w, s = quantize_tensor(w, reduce_axis)
+            tree[name + "_scale"] = self._cut(key[:-1] + (name + "_scale",),
+                                              s).contiguous()
+        tree[name] = self._cut(key, w).contiguous()
+
+    def layered(self, tree: dict, key, layer_shape, std: float) -> None:
+        """A ``[L, ...]`` stacked leaf ``tree[key[-1]]`` drawn a layer at a
+        time (Mixtral's: a rank's temporary is one layer's whole leaf)."""
+        cfg, L = self.cfg, self.cfg.num_layers
+        local = local_shape(key, layer_shape, cfg, self.rank, self.tp)
+        out = torch.empty((L,) + local, dtype=cfg.torch_dtype,
+                          device=self.device)
+        for layer in range(L):
+            if self.tp == 1:
+                self._normal(out[layer], std)
+                continue
+            w = self._normal(torch.empty(layer_shape, dtype=cfg.torch_dtype,
+                                         device=self.device), std)
+            out[layer] = self._cut(key, w)
+        tree[key[-1]] = out
 
 
 def _proj(h: torch.Tensor, p: Dict, name: str) -> torch.Tensor:
@@ -205,9 +258,10 @@ def _layer(
     seq_lens: torch.Tensor,
     lora_scaling: Optional[torch.Tensor],
     adapter_ids: Optional[torch.Tensor],
+    tp=None,  # parallel/tp.py TPGroup of a sharded forward, or None
 ) -> torch.Tensor:
     B, T, Hd = x.shape
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    D = cfg.head_dim
     scale = 1.0 / (D ** 0.5)
 
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
@@ -218,18 +272,26 @@ def _layer(
             h, lora["wq_a"], lora["wq_b"], lora_scaling, adapter_ids)
         v_flat = v_flat + _lora_delta(
             h, lora["wv_a"], lora["wv_b"], lora_scaling, adapter_ids)
-    q = q_flat.reshape(B, T, H, D)
-    k = _proj(h, p, "wk").reshape(B, T, KVH, D)
-    v = v_flat.reshape(B, T, KVH, D)
+    # A rank's heads: the widths of its weight slices.
+    q = q_flat.reshape(B, T, -1, D)
+    k = _proj(h, p, "wk").reshape(B, T, -1, D)
+    v = v_flat.reshape(B, T, -1, D)
     q = apply_rope(q, *rotary)
     k = apply_rope(k, *rotary)
     attn = attend(mode, q, k, v, kv, valid, layer, positions, block_tables,
                   context_lens, seq_lens, scale)
-    x = x + _proj(attn.reshape(B, T, H * D), p, "wo")
+    x = x + row_parallel(_proj(attn.reshape(B, T, -1), p, "wo"), tp)
 
     h = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     gate = F.silu(_proj(h, p, "w_gate").float()).to(h.dtype)
-    return x + _proj(gate * _proj(h, p, "w_up"), p, "w_down")
+    return x + row_parallel(_proj(gate * _proj(h, p, "w_up"), p, "w_down"),
+                            tp)
+
+
+def row_parallel(partial: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel product: the ranks' partial sums added (float32)
+    under tensor parallelism, else the product itself."""
+    return partial if tp is None else tp.all_reduce(partial)
 
 
 def embed_tokens(params: Dict, cfg: ModelConfig, token_ids: torch.Tensor,
@@ -257,8 +319,10 @@ def embed_tokens(params: Dict, cfg: ModelConfig, token_ids: torch.Tensor,
 
 
 def project_out(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                output_hidden: bool) -> torch.Tensor:
-    """Shared forward tail: final norm, then hidden states or logits."""
+                output_hidden: bool, tp=None) -> torch.Tensor:
+    """Shared forward tail: final norm, then hidden states or logits. A
+    vocab-sharded ``lm_head`` (tensor parallelism) gives each rank its
+    shard of the logits, gathered on every rank."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if output_hidden:
         return x.float()
@@ -267,8 +331,10 @@ def project_out(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         if head.dtype == torch.int8:
             # [Hd, V] int8 with scale [1, V]: scale per vocab channel.
             logits = (x @ head.to(x.dtype)).float()
-            return logits * params["lm_head_scale"][0]
-        return (x @ head).float()
+            logits = logits * params["lm_head_scale"][0]
+        else:
+            logits = (x @ head).float()
+        return logits if tp is None else tp.gather_last(logits)
     emb = params["embed"]
     if emb.dtype == torch.int8:
         # Tied head: the embedding's row scales [V, 1] are per-vocab
@@ -293,12 +359,19 @@ def apply(
     adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA slot per row
     output_hidden: bool = False,
     last_token: Optional[torch.Tensor] = None,  # [B] position to keep
+    tp=None,  # parallel/tp.py TPGroup: a rank's slice of a sharded model
 ) -> Tuple[torch.Tensor, tuple]:
     """Full forward. Returns (logits [B, T, V] float32, kv_pages), the
     pages updated in place. With ``last_token`` the hidden states are
     sliced to that position before the norm and the vocab projection
     (prefill samples one position only). ``slot_mapping`` may live on the
-    host: its live entries are found there once per forward."""
+    host: its live entries are found there once per forward.
+
+    Under tensor parallelism (``tp``) ``params`` and the pages are rank
+    ``tp.rank``'s slices (its q and KV heads, its intermediate columns,
+    its vocab rows of the head): the row-parallel products are summed
+    over the ranks, and the logits' vocab shards gathered, so every rank
+    returns the whole logits."""
     x, lora_layers, lora_scaling, adapter_ids = embed_tokens(
         params, cfg, token_ids, adapter_ids)
     k_all, v_all = kv_pages
@@ -313,7 +386,7 @@ def apply(
                   else {k: v[layer] for k, v in lora_layers.items()})
         x = _layer(cfg, mode, x, p, lora_p, (k_all, v_all), layer,
                    positions, rotary, valid, block_tables, context_lens,
-                   seq_lens, lora_scaling, adapter_ids)
+                   seq_lens, lora_scaling, adapter_ids, tp)
     if last_token is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_token][:, None]
-    return project_out(params, cfg, x, output_hidden), (k_all, v_all)
+    return project_out(params, cfg, x, output_hidden, tp), (k_all, v_all)

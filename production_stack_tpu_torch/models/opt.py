@@ -28,8 +28,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.llama import attend
+from production_stack_tpu_torch.models.llama import (
+    LeafDrawer,
+    attend,
+    row_parallel,
+)
 from production_stack_tpu_torch.ops.attention import kv_page_data, valid_slots
+from production_stack_tpu_torch.parallel.sharding import local_shape
 
 POS_OFFSET = 2  # OPT's learned-position quirk
 
@@ -46,61 +51,65 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (out * weight.float() + bias.float()).to(dtype)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device,
-                **_unused) -> Dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, *,
+                rank: int = 0, tp: int = 1, **_unused) -> Dict:
     """Random-init parameter dict with the shapes and scales of the JAX
     ``init_params`` (normal / sqrt(fan_in), 0.02 for both embeddings,
     unit norm weights, zero biases), drawn from ``generator`` in the
-    working dtype. The values differ from the JAX init's."""
+    working dtype. The values differ from the JAX init's. With ``tp > 1``
+    each leaf is drawn whole and rank ``rank``'s slice kept, as
+    ``models/llama.py::init_params`` does."""
     dtype = cfg.torch_dtype
     H, D, Hd = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     I, L, V = cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    draw = LeafDrawer(cfg, generator, device, rank, tp)
 
-    def normal(shape, std):
-        t = torch.randn(shape, generator=generator, device=device,
-                        dtype=dtype)
-        return t.mul_(std)
-
-    def const(shape, value):
-        return torch.full(shape, value, dtype=dtype, device=device)
+    def const(key, shape, value):
+        return torch.full(local_shape(key, shape, cfg, rank, tp), value,
+                          dtype=dtype, device=device)
 
     layers = {}
     for name, shape, fan_in in (
             ("wq", (Hd, H * D), Hd), ("wk", (Hd, H * D), Hd),
             ("wv", (Hd, H * D), Hd), ("wo", (H * D, Hd), H * D),
             ("fc1", (Hd, I), Hd), ("fc2", (I, Hd), I)):
-        layers[name] = normal((L,) + shape, fan_in ** -0.5)
-        layers[name + "_b"] = const((L, shape[1]), 0.0)
+        draw.whole(layers, ("layers", name), (L,) + shape, fan_in ** -0.5,
+                   None)
+        layers[name + "_b"] = const(("layers", name + "_b"), (L, shape[1]),
+                                    0.0)
     for name in ("ln1", "ln2"):
-        layers[name + "_w"] = const((L, Hd), 1.0)
-        layers[name + "_b"] = const((L, Hd), 0.0)
-    return {
-        "embed": normal((V, Hd), 0.02),
-        "pos_embed": normal((cfg.max_position + POS_OFFSET, Hd), 0.02),
-        "layers": layers,
-        "final_ln_w": const((Hd,), 1.0),
-        "final_ln_b": const((Hd,), 0.0),
-    }
+        layers[name + "_w"] = const(("layers", name + "_w"), (L, Hd), 1.0)
+        layers[name + "_b"] = const(("layers", name + "_b"), (L, Hd), 0.0)
+    params = {}
+    draw.whole(params, ("embed",), (V, Hd), 0.02, None)
+    draw.whole(params, ("pos_embed",), (cfg.max_position + POS_OFFSET, Hd),
+               0.02, None)
+    params.update(layers=layers,
+                  final_ln_w=torch.ones((Hd,), dtype=dtype, device=device),
+                  final_ln_b=torch.zeros((Hd,), dtype=dtype, device=device))
+    return params
 
 
 def _layer(cfg: ModelConfig, mode: str, x: torch.Tensor, p: Dict, kv: tuple,
            layer: int, positions, valid, block_tables, context_lens,
-           seq_lens) -> torch.Tensor:
+           seq_lens, tp) -> torch.Tensor:
     B, T, Hd = x.shape
-    H, D = cfg.num_heads, cfg.head_dim
+    D = cfg.head_dim
     scale = 1.0 / (D ** 0.5)
 
+    # A rank's heads: the widths of its weight slices. The row-parallel
+    # biases are added once, after the ranks' partial sums.
     h = layer_norm(x, p["ln1_w"], p["ln1_b"])
-    q = (h @ p["wq"] + p["wq_b"]).reshape(B, T, H, D)
-    k = (h @ p["wk"] + p["wk_b"]).reshape(B, T, H, D)
-    v = (h @ p["wv"] + p["wv_b"]).reshape(B, T, H, D)
+    q = (h @ p["wq"] + p["wq_b"]).reshape(B, T, -1, D)
+    k = (h @ p["wk"] + p["wk_b"]).reshape(B, T, -1, D)
+    v = (h @ p["wv"] + p["wv_b"]).reshape(B, T, -1, D)
     attn = attend(mode, q, k, v, kv, valid, layer, positions, block_tables,
                   context_lens, seq_lens, scale)
-    x = x + attn.reshape(B, T, H * D) @ p["wo"] + p["wo_b"]
+    x = x + row_parallel(attn.reshape(B, T, -1) @ p["wo"], tp) + p["wo_b"]
 
     h = layer_norm(x, p["ln2_w"], p["ln2_b"])
     h = torch.relu(h @ p["fc1"] + p["fc1_b"])
-    return x + h @ p["fc2"] + p["fc2_b"]
+    return x + row_parallel(h @ p["fc2"], tp) + p["fc2_b"]
 
 
 def apply(
@@ -118,9 +127,12 @@ def apply(
     adapter_ids: Optional[torch.Tensor] = None,
     output_hidden: bool = False,
     last_token: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, tuple]:
     """Full forward, with ``models/llama.py::apply``'s signature and
-    returns. ``adapter_ids`` is ignored (no LoRA slots)."""
+    returns (``tp``: a rank's slice of a sharded model; the tied head
+    is replicated, so every rank computes the whole logits).
+    ``adapter_ids`` is ignored (no LoRA slots)."""
     del adapter_ids
     dtype = cfg.torch_dtype
     emb, pos_emb = params["embed"], params["pos_embed"]
@@ -137,7 +149,7 @@ def apply(
     for layer in range(k_data.shape[0]):
         p = {k: v[layer] for k, v in layers.items()}
         x = _layer(cfg, mode, x, p, (k_all, v_all), layer, positions, valid,
-                   block_tables, context_lens, seq_lens)
+                   block_tables, context_lens, seq_lens, tp)
     if last_token is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_token][:, None]
     x = layer_norm(x, params["final_ln_w"], params["final_ln_b"])

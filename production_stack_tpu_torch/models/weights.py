@@ -33,6 +33,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.parallel.sharding import slice_leaf
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -126,18 +127,19 @@ def _iter_checkpoint_tensors(path: str) -> Iterator[Tuple[str, torch.Tensor]]:
         yield from state.items()
 
 
-def _owned(t: torch.Tensor, dtype, transpose: bool = False) -> torch.Tensor:
-    """A contiguous copy of ``t`` (transposed) in ``dtype``, owning its
-    memory (never a view of a file's map)."""
-    src = t.T if transpose else t
-    out = torch.empty(src.shape, dtype=dtype)
-    out.copy_(src)
+def _owned(t: torch.Tensor, dtype) -> torch.Tensor:
+    """A contiguous copy of ``t`` in ``dtype``, owning its memory (never a
+    view of a file's map)."""
+    out = torch.empty(t.shape, dtype=dtype)
+    out.copy_(t)
     return out
 
 
-def _stacked(views: List, dtype) -> torch.Tensor:
+def _stacked(views: List, dtype, cut, key) -> torch.Tensor:
     """The per-layer leaves (or per-layer lists of per-expert leaves)
-    stacked on new leading axes, cast in the one copy."""
+    stacked on new leading axes, cast in the one copy; ``cut(key, x)``
+    gives the part of a layer's leaf (or list of experts) to keep."""
+    views = [cut(key, v) for v in views]
     nested = isinstance(views[0], list)
     inner = views[0][0] if nested else views[0]
     shape = ((len(views),) + ((len(views[0]),) if nested else ())
@@ -184,7 +186,7 @@ _LLAMA_LAYER_MAP = {
 }
 
 
-def _load_llama(cfg: ModelConfig, path: str) -> Dict:
+def _load_llama(cfg: ModelConfig, path: str, cut) -> Dict:
     L, dtype = cfg.num_layers, cfg.torch_dtype
     per_layer: Dict[str, List] = {
         key: [None] * L for key, _ in _LLAMA_LAYER_MAP.values()}
@@ -196,7 +198,7 @@ def _load_llama(cfg: ModelConfig, path: str) -> Dict:
         elif name == "model.norm.weight":
             top["final_norm"] = _owned(t, dtype)
         elif name == "lm_head.weight":
-            top["lm_head"] = _owned(t, dtype, transpose=True)
+            top["lm_head"] = _owned(cut(("lm_head",), t.T), dtype)
         elif name.startswith("model.layers."):
             idx, leaf = name[len("model.layers."):].split(".", 1)
             entry = _LLAMA_LAYER_MAP.get(leaf)
@@ -215,7 +217,8 @@ def _load_llama(cfg: ModelConfig, path: str) -> Dict:
     params: Dict = {
         "embed": top["embed"],
         "final_norm": top["final_norm"],
-        "layers": {k: _stacked(v, dtype) for k, v in per_layer.items()},
+        "layers": {k: _stacked(v, dtype, cut, ("layers", k))
+                   for k, v in per_layer.items()},
     }
     if not cfg.tie_word_embeddings and "lm_head" in top:
         params["lm_head"] = top["lm_head"]  # else the model uses embed.T
@@ -250,7 +253,7 @@ _OPT_TOP = {"embed_tokens.weight": "embed",
             "final_layer_norm.bias": "final_ln_b"}
 
 
-def _load_opt(cfg: ModelConfig, path: str) -> Dict:
+def _load_opt(cfg: ModelConfig, path: str, cut) -> Dict:
     L, dtype = cfg.num_layers, cfg.torch_dtype
     per_layer: Dict[str, List] = {
         key: [None] * L for key, _ in _OPT_LAYER_MAP.values()}
@@ -281,7 +284,8 @@ def _load_opt(cfg: ModelConfig, path: str) -> Dict:
         "pos_embed": top["pos_embed"],
         "final_ln_w": top["final_ln_w"],
         "final_ln_b": top["final_ln_b"],
-        "layers": {k: _stacked(v, dtype) for k, v in per_layer.items()},
+        "layers": {k: _stacked(v, dtype, cut, ("layers", k))
+                   for k, v in per_layer.items()},
     }
 
 
@@ -301,7 +305,7 @@ _MIXTRAL_LAYER_MAP = {
 _EXPERT_MAP = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}
 
 
-def _load_mixtral(cfg: ModelConfig, path: str) -> Dict:
+def _load_mixtral(cfg: ModelConfig, path: str, cut) -> Dict:
     L, E, dtype = cfg.num_layers, cfg.num_experts, cfg.torch_dtype
     per_layer: Dict[str, List] = {
         key: [None] * L for key, _ in _MIXTRAL_LAYER_MAP.values()}
@@ -315,7 +319,7 @@ def _load_mixtral(cfg: ModelConfig, path: str) -> Dict:
         elif name == "model.norm.weight":
             top["final_norm"] = _owned(t, dtype)
         elif name == "lm_head.weight":
-            top["lm_head"] = _owned(t, dtype, transpose=True)
+            top["lm_head"] = _owned(cut(("lm_head",), t.T), dtype)
         elif name.startswith("model.layers."):
             idx, leaf = name[len("model.layers."):].split(".", 1)
             i = int(idx)
@@ -341,20 +345,35 @@ def _load_mixtral(cfg: ModelConfig, path: str) -> Dict:
         if leaf is None] + [
         k for k in ("embed", "final_norm", "lm_head") if k not in top]
     _check_missing(path, missing, unmapped)
-    layers = {k: _stacked(v, dtype) for k, v in per_layer.items()}
+    layers = {k: _stacked(v, dtype, cut, ("layers", k))
+              for k, v in per_layer.items()}
     for k, rows in experts.items():  # [L, E, in, out]
-        layers[k] = _stacked(rows, dtype)
+        layers[k] = _stacked(rows, dtype, cut, ("layers", k))
     return {"embed": top["embed"], "final_norm": top["final_norm"],
             "layers": layers, "lm_head": top["lm_head"]}
 
 
-def load_checkpoint(cfg: ModelConfig, path: str) -> Dict:
+def load_checkpoint(cfg: ModelConfig, path: str, rank: int = 0, tp: int = 1,
+                    whole: Tuple[str, ...] = ()) -> Dict:
     """Load the HF weights at ``path`` into the architecture's parameter
-    tree (CPU tensors in ``cfg``'s dtype)."""
+    tree (CPU tensors in ``cfg``'s dtype). With ``tp > 1`` only rank
+    ``rank``'s slice of each leaf (``parallel/sharding.py``) is copied
+    out of the mapped files, except the layer leaves named in ``whole``,
+    which are read whole (an int8 row-parallel leaf is quantized whole
+    before it is sliced)."""
     loader = {"llama": _load_llama, "opt": _load_opt,
               "mixtral": _load_mixtral}[cfg.arch]
     logger.info("Loading %s checkpoint from %s", cfg.arch, path)
-    return loader(cfg, path)
+
+    def cut(key, view):
+        if tp == 1 or key[-1] in whole:
+            return view
+        if isinstance(view, list):  # one layer's experts
+            n = len(view) // tp
+            return view[rank * n:(rank + 1) * n]
+        return slice_leaf(key, view, cfg, rank, tp)
+
+    return loader(cfg, path, cut)
 
 
 def hf_tensors(params: Dict, cfg: ModelConfig

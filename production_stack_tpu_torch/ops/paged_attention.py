@@ -138,6 +138,12 @@ def merge_split_partials(acc, m, l, dtype):
     return out.to(dtype)
 
 
+def launch_shape(H: int, KVH: int, D: int, q_dtype, quantized: bool) -> str:
+    """The key of a launch in ``launches_by_shape``."""
+    q = str(q_dtype).replace("torch.", "")
+    return f"H{H}/KVH{KVH}/D{D}/{q}/{'int8' if quantized else q}"
+
+
 def _sm_count(device) -> int:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
@@ -281,8 +287,14 @@ def paged_attention(
         paged_attention.launches_int8 += 1
     else:
         paged_attention.launches += 1
+    shape = launch_shape(H, KVH, D, q.dtype, quantized)
+    paged_attention.launches_by_shape[shape] = (
+        paged_attention.launches_by_shape.get(shape, 0) + 1)
     return out
 
 
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+# Launches by "H{H}/KVH{KVH}/D{D}/<q dtype>/<page dtype>": a
+# tensor-parallel rank's heads.
+paged_attention.launches_by_shape = {}

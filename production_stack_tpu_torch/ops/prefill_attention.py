@@ -38,6 +38,7 @@ from production_stack_tpu_torch.ops.paged_attention import (
     HEAD_DIMS,
     _DTYPES,
     _ptr,
+    launch_shape,
     page_operands,
 )
 
@@ -131,8 +132,14 @@ def cached_prefill_attention(
         cached_prefill_attention.launches_int8 += 1
     else:
         cached_prefill_attention.launches += 1
+    shape = launch_shape(H, KVH, D, q.dtype, quantized)
+    cached_prefill_attention.launches_by_shape[shape] = (
+        cached_prefill_attention.launches_by_shape.get(shape, 0) + 1)
     return out
 
 
 cached_prefill_attention.launches = 0
 cached_prefill_attention.launches_int8 = 0
+# Launches by "H{H}/KVH{KVH}/D{D}/<q dtype>/<page dtype>": a
+# tensor-parallel rank's heads.
+cached_prefill_attention.launches_by_shape = {}

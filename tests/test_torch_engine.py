@@ -220,7 +220,10 @@ def test_cuda_device_without_a_card_raises():
 
 @pytest.mark.parametrize("over", [
     dict(data_parallel_size=2),
-    dict(pipeline_parallel_size=2), dict(tensor_parallel_size=2),
+    dict(pipeline_parallel_size=2),
+    # Tensor parallelism constructs (tests/test_torch_tp.py); the KV
+    # offload tier is refused under it.
+    dict(tensor_parallel_size=2, kv_offload_bytes=1 << 20),
     dict(fused_step=True)])
 def test_unported_features_are_refused(over):
     cfg = EngineConfig(device="cpu", **dict(MAKE_ENGINE, **over))

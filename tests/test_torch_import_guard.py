@@ -53,7 +53,9 @@ def test_every_port_module_imports_without_jax():
                 "utils.xxh64", "utils.auth", "obs.trace", "models.weights",
                 "models.llama", "models.opt", "models.mixtral",
                 "models.registry", "models.convert", "ops.attention",
-                "ops.paged_attention", "ops.prefill_attention", "ops._build"):
+                "ops.paged_attention", "ops.prefill_attention", "ops._build",
+                "parallel", "parallel.sharding", "parallel.mesh",
+                "parallel.multihost", "parallel.tp"):
         assert f"{PKG}.{mod}" in out["names"], mod
     # First dotted component exactly "production_stack_tpu": the port's
     # own "production_stack_tpu_torch" shares that prefix and is fine.

@@ -34,6 +34,7 @@ from production_stack_tpu_torch.models import get_model_config
 from production_stack_tpu_torch.models import weights as tweights
 
 from test_torch_engine import _collect
+from test_torch_engine_step import _run
 
 torch.set_num_threads(1)
 
@@ -339,7 +340,13 @@ def test_draft_checkpoint_spec_streams_match_jax(ckpts):
             ckpts["draft"])
         _assert_trees_equal(drafter.params, loaded)
         prompts = [[5, 6, 7, 5, 6, 7, 5, 6], list(range(40, 58))]
-        want, got = pair.run(prompts, **dict(GREEDY, max_tokens=16))
+        # Both requests go in under each engine's lock, so the two
+        # engines batch them alike and their spec counters compare.
+        sampling = dict(GREEDY, max_tokens=16)
+        want = _run(pair.jax, prompts,
+                    [JaxSamplingParams(**sampling)] * len(prompts))
+        got = _run(pair.torch, prompts,
+                   [SamplingParams(**sampling)] * len(prompts))
         assert got == want
         ts, js = pair.torch.stats(), pair.jax.stats()
         for key in ("spec_proposed_tokens_total",
