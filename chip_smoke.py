@@ -9,7 +9,10 @@
                                      # the mask term's device time
     python3 chip_smoke.py --tp-cards # on a host of 2-4 cards: tensor
                                      # parallelism with a card a rank
-                                     # (NCCL), see tp_cards_phase
+                                     # (NCCL), see tp_cards_phase, then
+                                     # the --pp-cards runs
+    python3 chip_smoke.py --pp-cards # a card a stage: pp_cards_phase
+    python3 chip_smoke.py --pp-70b   # only its Llama-3-70B pp 4 run
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -68,11 +71,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    slots): two ~2,000-token prompts arrive while eight sequences decode
    and prefill in 512-token steps between decode bursts (a
    ``{"chunked": ...}`` line);
-8. speculative decoding at full width: the same eight greedy 128-token
-   requests (four prompts repeating a phrase, four of ``_text``) and a
-   seeded sampled pair served by Llama-3-8B in bf16 plain, with
-   ``--speculative-num-tokens 4`` (prompt lookup), and drafting for
-   itself (``--speculative-draft-model meta-llama/Llama-3-8B``), a
+8. speculative decoding at full width and ``SPEC_LAYERS`` = 8 of 32
+   layers (a local directory holding the config.json): the same eight
+   greedy 128-token requests (four prompts repeating a phrase, four of
+   ``_text``) and a seeded sampled pair served by Llama-3-8B in bf16
+   plain, with ``--speculative-num-tokens 4`` (prompt lookup), and
+   drafting for itself (``--speculative-draft-model`` that directory), a
    ``{"spec": ...}`` line a run (verify bursts, acceptance, tokens per
    target forward against the plain run, launches, the recorder's
    ``spec_verify`` steps, the ``tpu:spec_*`` scrape); a speculative run
@@ -162,7 +166,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. tensor parallelism (:func:`tp_phase`), every rank a process of its
    own on the one card under gloo, each started by the port's server
    entry (``--tensor-parallel-size``): Llama-3-8B at full width and
-   depth, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
+   ``TP_LLAMA_LAYERS`` = 8 of its 32 layers, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
    prefix hit, a seeded pair; then a decode step's host time, the
    leader's device time and the collectives' share); tpu-llama-1b in
    float32 at tp 1, 2 and 4, token-identical streams; Mixtral-8x7B at
@@ -174,6 +178,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    KVH 4, 2 and 1; OPT-125m at 6 and 3 heads) to their plain versions
    and times them (``*_tp*`` rows of the kernels line, launches counted
    by shape over the ranks of the tp phase).
+18. pipeline and data parallelism (:func:`pp_phase`), every rank a
+   process on the one card under gloo (activations staged through
+   pinned host memory): Llama-3-8B at full width and depth, bf16, at
+   ``--pipeline-parallel-size 2`` (16 layers and 9,135,464,480 bytes of
+   weights a stage, both kernels on both stages at 32/8 heads, 16
+   decode launches a stage a microbatch; then the decode profile: host
+   ms a step, each stage's device busy, the transfers a step and their
+   share); tpu-llama-1b in float32 at pp 2, pp 4 (one microbatch and
+   the default), pp 2 x tp 2 and dp 2, each token-identical to phase
+   17's tp 1 streams; ``pipeline_forward`` and ring attention on 2 ranks
+   against their plain versions, and what one transfer costs alone (a
+   ``{"pp": ...}`` line). The pp stages' launches join the main rows of
+   the kernels line (the same 32/8-head shape). The spec phases (8) run
+   Llama-3-8B's widths at ``SPEC_LAYERS`` = 8 of its 32 layers.
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
@@ -2168,8 +2186,10 @@ def structured_phase(label: str, extra_args, entries, surface: bool):
 # Llama-3-8B drafting for itself (the same seed gives the same weights).
 SPEC_ARGS = ["--speculative-num-tokens", "4"]
 SPEC_RUNS = (("ngram", SPEC_ARGS),
-             ("self-drafter", SPEC_ARGS + ["--speculative-draft-model",
-                                           "meta-llama/Llama-3-8B"]))
+             ("self-drafter", SPEC_ARGS + ["--speculative-draft-model"]))
+# The spec phases serve Llama-3-8B's widths at this many of its 32 layers
+# (the pp phase serves all 32): four engines' draws and drives.
+SPEC_LAYERS = 8
 SPEC_PHRASES = ("the pages of every layer stay resident on the card. ",
                 "a verify burst scores four tokens in one forward. ",
                 "drafts that match the samples are accepted in order. ",
@@ -2277,8 +2297,34 @@ def _spec_grammar_drive(client, core):
             core.stats(), constrained[0])
 
 
-def spec_phase(smi):
-    """Serve Llama-3-8B in bf16 three times on the same requests
+def llama_8b_dir(here: str, layers: int) -> str:
+    """A local model directory holding Llama-3-8B's config.json at
+    ``layers`` of its 32 layers (full width; no weights: the server draws
+    them from its seed), under the kernels' git-ignored build directory.
+    Its ``tokenizer_config.json`` names a tokenizer class that
+    ``transformers`` does not have, so the engine falls back to its byte
+    tokenizer, as it does for the registry name (a ``transformers`` that
+    builds a Llama tokenizer with no vocabulary files from a bare
+    config.json would otherwise serve an empty vocabulary, and grammars
+    would allow no token)."""
+    from production_stack_tpu_torch.models import get_model_config
+    from production_stack_tpu_torch.models.weights import hf_config
+
+    path = os.path.join(here, "production_stack_tpu_torch", "_build",
+                        "models", f"Llama-3-8B-{layers}L")
+    os.makedirs(path, exist_ok=True)
+    cfg = get_model_config("meta-llama/Llama-3-8B").replace(
+        num_layers=layers, dtype="bfloat16")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f, indent=1)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "NoTokenizerFilesHere"}, f)
+    return path
+
+
+def spec_phase(smi, here):
+    """Serve Llama-3-8B (``SPEC_LAYERS`` of its layers) in bf16 four
+    times on the same requests
     (:func:`_spec_drive`): plain, then with prompt-lookup speculation,
     then drafting for itself. Counters as in :func:`serve_phase`, around
     each speculative drive, which ends with the two grammar requests of
@@ -2299,16 +2345,24 @@ def spec_phase(smi):
     prompts = _spec_prompts()
     plain_tpf = plain_greedy_tpf = plain_texts = None
     total, drafter = {}, {}
+    model = llama_8b_dir(here, SPEC_LAYERS)
+    args = [model] + SERVE_ARGS[1:]
     # The plain run twice: greedy bf16 texts of random weights may part
     # between two runs of one engine (arrival order changes which prompts
     # share a batched prefill), which is what the speculative runs' text
     # comparisons are read against.
     for label, extra in (("plain", []), ("plain again", [])) + SPEC_RUNS:
         _free_device_memory()
+        if label == "self-drafter":
+            extra = list(extra) + [model]  # the same seed: its own weights
         t0 = time.time()
-        httpd, core = build_server(SERVE_ARGS + list(extra))
+        httpd, core = build_server(args + list(extra))
         torch.cuda.synchronize()
         init_s = time.time() - t0
+        if type(core.tokenizer).__name__ != "ByteTokenizer":
+            raise AssertionError(f"spec {label}: {model} serves "
+                                 f"{type(core.tokenizer).__name__}, not "
+                                 f"the byte tokenizer")
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
         thread.start()
         client = Client(httpd.server_address[1])
@@ -2376,7 +2430,8 @@ def spec_phase(smi):
                         if g["spec_proposed_tokens_total"] else None),
             constrained_draft_forwards=g_constrained)
         summary = dict(
-            config=f"bf16, {label}", card=smi, init_s=init_s, run_s=run_s,
+            config=f"bf16, {label}", layers=layers, card=smi,
+            init_s=init_s, run_s=run_s,
             requests=len(prompts) + 2 + len(SPEC_GRAMMARS), **d, **by_source,
             grammar=grammar,
             tokens_per_target_forward=tpf,
@@ -4205,7 +4260,10 @@ def tp_kernel_phase() -> dict:
     return results
 
 
-TP_LLAMA_ARGS = SERVE_ARGS + ["--tensor-parallel-size", "2"]
+# The tp phase serves Llama-3-8B's widths at this many of its 32 layers
+# at tp 2 (the pp phase serves all 32 at pp 2; --tp-cards all 32 at tp 2
+# and 4).
+TP_LLAMA_LAYERS = 8
 TP_PARITY_MODEL = "tpu-llama-1b"
 TP_PARITY_ARGS = [TP_PARITY_MODEL, "--device", "cuda", "--dtype", "float32",
                   "--host", "127.0.0.1", "--port", "0", "--max-model-len",
@@ -4218,18 +4276,22 @@ TP_MIXTRAL_LAYERS = 4
 
 
 def _rank_summary(ranks: list) -> list:
-    """Each rank's device, weight bytes, pool blocks, KV heads and
-    kernel launches by shape (the kernels' wrappers' own counts)."""
-    return [{k: r[k] for k in ("rank", "device", "device_name",
-                               "weight_bytes", "num_blocks", "kv_heads",
-                               "launches_by_shape", "collectives_total")}
+    """Each rank's coordinates, layers, device, weight and pool bytes,
+    pool blocks, KV heads, kernel launches by shape (the kernels'
+    wrappers' own counts) and collective and point-to-point counts."""
+    return [{k: r[k] for k in ("rank", "dp", "pp", "tp", "layers", "device",
+                               "device_name", "weight_bytes",
+                               "kv_pool_bytes", "num_blocks", "kv_heads",
+                               "launches_by_shape", "collectives_total",
+                               "p2p")}
             for r in ranks]
 
 
-def _check_ranks(label: str, ranks: list, tp: int, shapes) -> None:
-    """Every rank on the card, and each of ``shapes`` (wrapper name ->
-    launch-shape key) launched on every rank."""
-    if len(ranks) != tp:
+def _check_ranks(label: str, ranks: list, n: int, shapes) -> None:
+    """Every one of the job's ``n`` ranks on the card, and each of
+    ``shapes`` (wrapper name -> launch-shape key) launched on every
+    rank."""
+    if len(ranks) != n:
         raise AssertionError(f"{label}: {len(ranks)} ranks answered")
     for r in ranks:
         if not r["device"].startswith("cuda"):
@@ -4243,16 +4305,16 @@ def _check_ranks(label: str, ranks: list, tp: int, shapes) -> None:
 
 
 def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
-    """A decode step of a tensor-parallel leader whose engine thread is
+    """A decode step of a sharded engine's leader whose engine thread is
     paused (its followers still replaying), driven on this thread as
     :func:`decode_profile` drives one: ``rows`` sequences at ~``ctx_chars``
     tokens, host time of pipelined bursts (two runs of two bursts, the
-    least is the step), the leader's device busy time under torch.profiler
-    (two bursts), then two bursts with every collective synchronized and
-    timed on each rank: the collectives' share of that step."""
+    least is the step), every rank's device busy time under its own
+    torch.profiler (two bursts; ``rank_stats(profile=...)``), then two
+    bursts with every collective and point-to-point transfer synchronized
+    and timed on each rank: their share of that step, and each rank's
+    kernel launches a step."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from production_stack_tpu_torch.engine.sampling import SamplingParams
 
@@ -4266,10 +4328,6 @@ def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
             SamplingParams(temperature=0, max_tokens=400, ignore_eos=True),
             lambda t, f: None)
     K = core.config.decode_steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
 
     def bursts(n):
         torch.cuda.synchronize()
@@ -4289,39 +4347,57 @@ def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
         core._flush_pending_burst()
         runs = [bursts(2) for _ in range(2)]
         core._flush_pending_burst()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                core._do_decode()
-            torch.cuda.synchronize()
+        core.rank_stats(profile=True)
+        for _ in range(2):
+            core._do_decode()
         core._flush_pending_burst()
+        busy = core.rank_stats(profile=False)
         core.rank_stats(reset=True, timing=True)
         timed_ms = bursts(2)
         core._flush_pending_burst()
         ranks = core.rank_stats(reset=True, timing=False)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
+    # Two bursts profiled; the flush reads back, launching nothing more.
+    busy_ms = [r["device_busy_s"] * 1e3 / (2 * K) for r in busy]
     step_ms = min(runs)
     coll_ms = [r["collective_s"] * 1e3 / (2 * K) for r in ranks]
     with core._lock:
         for seq in core.scheduler.running():
             core.scheduler.finish(seq, "abort")
-    return {"decode_rows": rows,
-            "decode_host_ms_per_step": step_ms,
-            "decode_host_ms_per_step_runs": runs,
-            "leader_device_busy_ms_per_step": busy_ms,
-            "leader_device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-            "collectives_per_step": ranks[0]["collectives_total"] / (2 * K),
-            "timed_step_ms": timed_ms,
-            "collective_ms_per_step_by_rank": coll_ms,
-            "collective_share_of_step": max(coll_ms) / timed_ms}
+    out = {"decode_rows": rows,
+           "decode_host_ms_per_step": step_ms,
+           "decode_host_ms_per_step_runs": runs,
+           "leader_device_busy_ms_per_step": busy_ms[0],
+           "leader_device_idle_share": max(0.0, 1.0 - busy_ms[0] / step_ms),
+           "device_busy_ms_per_step_by_rank": busy_ms,
+           "collectives_per_step": ranks[0]["collectives_total"] / (2 * K),
+           "timed_step_ms": timed_ms,
+           "collective_ms_per_step_by_rank": coll_ms,
+           "collective_share_of_step": max(coll_ms) / timed_ms,
+           "decode_launches_per_step_by_rank": [
+               sum(r["launches_by_shape"]["paged_attention"].values())
+               / (2 * K) for r in ranks]}
+    if ranks[0]["p2p"] is not None:
+        # One pipeline's sends (tp index 0 of replica 0) and the leader's
+        # shares, a step; each rank's transfer time and its share of it.
+        first = [r for r in ranks if r["dp"] == 0 and r["tp"] == 0]
+        p2p_ms = [(r["p2p"]["p2p_s"] + r["p2p"]["share_s"]) * 1e3 / (2 * K)
+                  for r in ranks]
+        out.update(
+            sends_per_step=sum(r["p2p"]["sends_total"]
+                               for r in first) / (2 * K),
+            shares_per_step=ranks[0]["p2p"]["shares_total"] / (2 * K),
+            p2p_bytes_per_step=sum(r["p2p"]["p2p_bytes"]
+                                   for r in first) / (2 * K),
+            p2p_ms_per_step_by_rank=p2p_ms,
+            p2p_share_of_step=max(p2p_ms) / timed_ms)
+    return out
 
 
 def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
-    """Serve ``args`` (with ``--tensor-parallel-size``) through the port's
-    server entry, which starts the follower ranks as processes on this
-    card; zero every rank's launch counts, ``drive(client)`` it over
+    """Serve ``args`` (with ``--tensor-parallel-size``,
+    ``--pipeline-parallel-size`` or ``--data-parallel-size``) through the
+    port's server entry, which starts the follower ranks as processes on
+    this host; zero every rank's launch counts, ``drive(client)`` it over
     HTTP, read every rank's counts, and check each of ``shapes`` launched
     on every rank. Returns (drive's result, rank summaries, the decode
     profile or None, init seconds)."""
@@ -4335,7 +4411,7 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
     httpd, core = build_server(list(args))
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    tp = core.config.tensor_parallel_size
+    n = core.layout.size
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     client = Client(httpd.server_address[1])
@@ -4343,15 +4419,15 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
     try:
         # Rank r runs on cuda:(r % cards): ranks share a card, and must
         # use gloo, only when there are fewer cards than ranks.
-        want = "gloo" if tp > torch.cuda.device_count() else "nccl"
-        if core.stats()["tensor_parallel"]["backend"] != want:
-            raise AssertionError(f"{label}: {tp} ranks on "
+        want = "gloo" if n > torch.cuda.device_count() else "nccl"
+        if core._backend != want:
+            raise AssertionError(f"{label}: {n} ranks on "
                                  f"{torch.cuda.device_count()} card(s) "
-                                 f"must use {want}")
+                                 f"must use {want}, not {core._backend}")
         core.rank_stats(reset=True)
         out = drive(client)
         ranks = core.rank_stats()
-        _check_ranks(label, ranks, tp, shapes)
+        _check_ranks(label, ranks, n, shapes)
         if core.fatal_error is not None:
             raise AssertionError(f"{label}: {core.fatal_error}")
         httpd.shutdown()
@@ -4363,7 +4439,7 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
         core.stop()
     if core.fatal_error is not None:
         raise AssertionError(f"{label}: {core.fatal_error}")
-    log(f"[tp] {label}: {tp} ranks up in {init_s:.1f} s")
+    log(f"[ranks] {label}: {n} ranks up in {init_s:.1f} s")
     return out, _rank_summary(ranks), prof, init_s
 
 
@@ -4482,11 +4558,12 @@ def tp_phase(here: str, smi):
     """Tensor parallelism on the card, every rank a process on the one
     H100 under gloo (NCCL refuses two ranks on one device):
 
-    - Llama-3-8B at full width and depth, bf16, random weights from seed
-      0, at ``--tensor-parallel-size 2`` through the server entry, driven
-      as :func:`_tp_llama_drive` says; both kernels launched on both
-      ranks at H 16 / KVH 4; then the decode step's host and device time
-      and the collectives' share (:func:`tp_decode_profile`);
+    - Llama-3-8B at full width and ``TP_LLAMA_LAYERS`` layers, bf16,
+      random weights from seed 0, at ``--tensor-parallel-size 2`` through
+      the server entry, driven as :func:`_tp_llama_drive` says; both
+      kernels launched on both ranks at H 16 / KVH 4; then the decode
+      step's host and device time and the collectives' share
+      (:func:`tp_decode_profile`);
     - tpu-llama-1b in float32 at tp 1, 2 and 4: the same token streams
       (greedy, chunked, a prefix hit, seeded sampled);
     - Mixtral-8x7B at full width, ``TP_MIXTRAL_LAYERS`` layers, tp 2:
@@ -4494,7 +4571,7 @@ def tp_phase(here: str, smi):
     - OPT-125m bf16 at tp 2 and 4 (6 and 3 heads a rank, G 1).
 
     Returns (bf16 launches summed over ranks by shape, the ``tp``
-    summary)."""
+    summary, the tp 1 float32 streams)."""
     import torch
 
     summary = {"card": smi, "card_count": torch.cuda.device_count()}
@@ -4508,12 +4585,15 @@ def tp_phase(here: str, smi):
 
     both = ("paged_attention", "cached_prefill_attention")
     _free_device_memory()
+    args = ([llama_8b_dir(here, TP_LLAMA_LAYERS)] + SERVE_ARGS[1:]
+            + ["--tensor-parallel-size", "2"])
     out, ranks, prof, init_s = _tp_serve(
-        "Llama-3-8B bf16 tp 2", TP_LLAMA_ARGS, _tp_llama_drive,
-        {fn: tp_shape_key(16, 4, 128) for fn in both}, profile_decode=True)
+        f"Llama-3-8B {TP_LLAMA_LAYERS} layers bf16 tp 2", args,
+        _tp_llama_drive, {fn: tp_shape_key(16, 4, 128) for fn in both},
+        profile_decode=True)
     add(ranks)
     summary["llama_8b_tp2"] = dict(out, init_s=init_s, ranks=ranks,
-                                   decode=prof)
+                                   layers=TP_LLAMA_LAYERS, decode=prof)
     log(f"[tp] Llama-3-8B tp 2: {json.dumps(summary['llama_8b_tp2'])}")
 
     streams = {}
@@ -4557,7 +4637,7 @@ def tp_phase(here: str, smi):
             {fn: tp_shape_key(12 // tp, 12 // tp, 64) for fn in both})
         add(ranks)
         summary[f"opt_tp{tp}"] = dict(out, init_s=init_s, ranks=ranks)
-    return launches, summary
+    return launches, summary, streams[1]
 
 
 def tp_cards_phase(here: str, smi) -> dict:
@@ -4638,19 +4718,394 @@ def _serve_once(args, drive):
         core.stop()
 
 
+# -- pipeline and data parallelism ------------------------------------------
+
+PP_LLAMA_ARGS = SERVE_ARGS + ["--pipeline-parallel-size", "2"]
+# tpu-llama-1b float32 runs whose streams are held to tp 1's: (label,
+# extra arguments, launch shape (H, KVH) of a rank's kernels).
+PP_PARITY_RUNS = (
+    ("pp 2", ["--pipeline-parallel-size", "2"], (16, 8)),
+    ("pp 4, one microbatch", ["--pipeline-parallel-size", "4",
+                              "--pp-microbatches", "1"], (16, 8)),
+    ("pp 4", ["--pipeline-parallel-size", "4"], (16, 8)),
+    ("pp 2 x tp 2", ["--pipeline-parallel-size", "2",
+                     "--tensor-parallel-size", "2"], (8, 4)),
+    ("dp 2", ["--data-parallel-size", "2"], (16, 8)))
+# The standalone schedule and ring on the card: an MLP stack at
+# Llama-3-8B's widths, and ring attention at its heads over 4,096 tokens.
+PP_STANDALONE = dict(L=4, M=4, T=64, d=4096, hidden=14336, ring_T=4096,
+                     H=32, KVH=8, D=128)
+PP_STANDALONE_BAR = 1e-5  # float32 ops against their plain versions
+PP_DEVICE = "cuda:0"  # the standalone ranks' device ("cpu": a rehearsal)
+# What one transfer costs on its own: a decode microbatch's activations
+# (4 rows of Llama-3-8B's hidden state) exchanged between the two ranks,
+# and 8 rows shared from the last stage, bf16, timed over this many.
+PP_TRANSFER_ITERS = 50
+
+
+def llama_stage_bytes(cfg, pp: int, lora_slots: int = 8,
+                      lora_rank: int = 16) -> int:
+    """Weight bytes a pipeline stage of a Llama-family ``cfg`` holds: its
+    L/pp layers (attention, MLP, two norms, LoRA slots) and the whole
+    embedding, final norm and head, in the model dtype."""
+    import torch
+
+    Hd, H, KVH, D, I = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.intermediate_size)
+    layer = (2 * Hd * H * D + 2 * Hd * KVH * D + 3 * Hd * I + 2 * Hd
+             + lora_slots * lora_rank * (2 * Hd + H * D + KVH * D))
+    whole = 2 * cfg.vocab_size * Hd + Hd
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return (cfg.num_layers // pp * layer + whole) * item + lora_slots * 4
+
+
+def _check_stages(label: str, ranks: list, pp: int, layers: int,
+                  want_bytes: int) -> None:
+    """Every rank holds its stage's ``layers / pp`` layers (in stage
+    order) and ``want_bytes`` of weights."""
+    per = layers // pp
+    for r in ranks:
+        if r["layers"] != [r["pp"] * per, (r["pp"] + 1) * per]:
+            raise AssertionError(f"{label}: rank {r['rank']} holds layers "
+                                 f"{r['layers']}")
+        if r["weight_bytes"] != want_bytes:
+            raise AssertionError(f"{label}: rank {r['rank']} holds "
+                                 f"{r['weight_bytes']} B of weights, not "
+                                 f"{want_bytes}")
+
+
+_PP_STANDALONE_WORKER = r"""
+import os, sys, time
+import torch
+import torch.distributed as dist
+sys.path.insert(0, os.environ["PP_REPO"])
+import chip_smoke
+from production_stack_tpu_torch.parallel.pipeline import (
+    pipeline_forward, stage_params)
+from production_stack_tpu_torch.parallel.pp import PPGroup
+from production_stack_tpu_torch.parallel.ring_attention import (
+    make_ring_attention)
+
+rank, out = int(os.environ["PP_RANK"]), os.environ["PP_OUT"]
+dist.init_process_group(
+    "gloo", init_method="tcp://127.0.0.1:" + os.environ["PP_PORT"],
+    world_size=2, rank=rank)
+dev = torch.device(os.environ["PP_DEVICE"])
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+group = PPGroup.create([0, 1], dev)
+inputs = torch.load(os.path.join(out, "inputs.pt"))
+params = {k: v.to(dev) for k, v in inputs["params"].items()}
+run = pipeline_forward(chip_smoke.pp_mlp_layer, group)
+y = run(stage_params(params, group.stage, 2), inputs["x"].to(dev))
+ring = make_ring_attention(group, inputs["scale"])
+o = ring(*(inputs[n].to(dev) for n in "qkv"))
+counters = group.counters()
+
+
+def per_call_ms(fn, n):
+    for _ in range(5):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+n = int(os.environ["PP_ITERS"])
+act = torch.randn((4, 1, 4096), device=dev).to(torch.bfloat16)
+hidden = torch.randn((8, 1, 4096), device=dev).to(torch.bfloat16)
+transfer_ms = {"exchange_4x4096_bf16": per_call_ms(lambda: group.rotate(act),
+                                                   n),
+               "share_8x4096_bf16": per_call_ms(
+                   lambda: group.share_last(hidden.clone()), n)}
+torch.save({"pipeline": y.cpu(), "ring": o.cpu(), "counters": counters,
+            "backend": group.backend, "staged": group.staged,
+            "transfer_ms": transfer_ms},
+           os.path.join(out, "rank%d.pt" % rank))
+dist.destroy_process_group()
+"""
+
+
+def pp_mlp_layer(x, p):
+    """The standalone schedule's layer (``tests/test_pipeline.py``'s)."""
+    import torch
+
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    return x + h @ p["w2"]
+
+
+def pp_standalone_phase(here: str) -> dict:
+    """``parallel/pipeline.py::pipeline_forward`` and
+    ``parallel/ring_attention.py::make_ring_attention`` on 2 ranks, each
+    a process on this card (gloo), against their single-process plain
+    versions on the card (``reference_forward``,
+    ``reference_causal_attention``), float32, at ``PP_STANDALONE``'s
+    shapes; every rank's output within ``PP_STANDALONE_BAR``. Then what
+    one transfer costs alone (``PP_TRANSFER_ITERS`` of each, host ms a
+    call with the card synchronized): a decode microbatch's activations
+    exchanged (``PPGroup.rotate``, the staging of ``send_next`` and
+    ``recv_prev`` both ways) and 8 rows shared (``share_last``)."""
+    import subprocess
+
+    import torch
+
+    from production_stack_tpu_torch.parallel.multihost import _free_port_pair
+    from production_stack_tpu_torch.parallel.pipeline import (
+        reference_forward,
+    )
+    from production_stack_tpu_torch.parallel.ring_attention import (
+        reference_causal_attention,
+    )
+
+    c = PP_STANDALONE
+    g = torch.Generator().manual_seed(0)
+
+    def normal(*shape, std=1.0):
+        return torch.randn(shape, generator=g) * std
+
+    d, hid, L = c["d"], c["hidden"], c["L"]
+    inputs = {
+        "params": {"w1": normal(L, d, hid, std=d ** -0.5),
+                   "b1": normal(L, hid, std=0.1),
+                   "w2": normal(L, hid, d, std=hid ** -0.5)},
+        "x": normal(c["M"], c["T"], d),
+        "q": normal(1, c["ring_T"], c["H"], c["D"]),
+        "k": normal(1, c["ring_T"], c["KVH"], c["D"]),
+        "v": normal(1, c["ring_T"], c["KVH"], c["D"]),
+        "scale": c["D"] ** -0.5}
+    out = os.path.join(here, "production_stack_tpu_torch", "_build",
+                       "pp_standalone")
+    os.makedirs(out, exist_ok=True)
+    torch.save(inputs, os.path.join(out, "inputs.pt"))
+    port = _free_port_pair()
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PP_STANDALONE_WORKER],
+        env=dict(os.environ, PP_REPO=here, PP_OUT=out, PP_PORT=str(port),
+                 PP_RANK=str(rank), PP_DEVICE=PP_DEVICE,
+                 PP_ITERS=str(PP_TRANSFER_ITERS)))
+        for rank in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"pp standalone ranks exited with {codes}")
+    wall_s = time.time() - t0
+    dev = torch.device(PP_DEVICE)
+    params = {k: v.to(dev) for k, v in inputs["params"].items()}
+    want = {"pipeline": reference_forward(pp_mlp_layer)(
+                params, inputs["x"].to(dev)).cpu(),
+            "ring": reference_causal_attention(
+                *(inputs[n].to(dev) for n in "qkv"),
+                scale=inputs["scale"]).cpu()}
+    report = {"shapes": c, "wall_s": wall_s, "ranks": []}
+    for rank in range(2):
+        got = torch.load(os.path.join(out, f"rank{rank}.pt"))
+        errs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+        for k, err in errs.items():
+            if not err <= PP_STANDALONE_BAR:
+                raise AssertionError(f"pp standalone {k} on rank {rank}: "
+                                     f"max_abs_err {err:.3e} above "
+                                     f"{PP_STANDALONE_BAR}")
+        report["ranks"].append(dict(rank=rank, max_abs_err=errs,
+                                    backend=got["backend"],
+                                    staged=got["staged"],
+                                    transfer_ms=got["transfer_ms"],
+                                    counters=got["counters"]))
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[pp] standalone: {json.dumps(report)}")
+    return report
+
+
+def pp_phase(here: str, smi, tp1_streams) -> tuple:
+    """Pipeline and data parallelism on the card, every rank a process on
+    the one H100 under gloo (activations staged through pinned host
+    memory, the share a gloo broadcast):
+
+    - Llama-3-8B at full width and depth, bf16, random weights from seed
+      0, at ``--pipeline-parallel-size 2`` through the server entry,
+      driven as :func:`_tp_llama_drive` says: each stage holds 16 layers
+      and the whole embedding and head (:func:`llama_stage_bytes`), both
+      kernels launched on both stages at 32/8 heads; then the decode
+      step at 8 rows (:func:`tp_decode_profile`): host ms a step, each
+      stage's device busy, the transfers a step and their share, and
+      16 decode launches a stage a microbatch of each step;
+    - tpu-llama-1b in float32 at each of ``PP_PARITY_RUNS``: the tp
+      phase's tp 1 streams (greedy, chunked, a prefix hit, seeded
+      sampled), token for token;
+    - :func:`pp_standalone_phase`.
+
+    Returns (bf16 launches summed over ranks by (wrapper, shape), the
+    ``pp`` summary)."""
+    import torch
+
+    from production_stack_tpu_torch.models import get_model_config
+
+    summary = {"card": smi, "card_count": torch.cuda.device_count()}
+    launches: dict = {}
+    both = ("paged_attention", "cached_prefill_attention")
+    cfg = get_model_config("meta-llama/Llama-3-8B")
+    want_bytes = llama_stage_bytes(cfg, 2)
+    _free_device_memory()
+    out, ranks, prof, init_s = _tp_serve(
+        "Llama-3-8B bf16 pp 2", PP_LLAMA_ARGS, _tp_llama_drive,
+        {fn: tp_shape_key(32, 8, 128) for fn in both}, profile_decode=True)
+    _check_stages("Llama-3-8B bf16 pp 2", ranks, 2, cfg.num_layers,
+                  want_bytes)
+    for r in ranks:
+        for fn, by in r["launches_by_shape"].items():
+            for key, n in by.items():
+                launches[(fn, key)] = launches.get((fn, key), 0) + n
+    # 8 rows at the default microbatches (pp): 2 microbatches a step.
+    M = 2
+    for n in prof["decode_launches_per_step_by_rank"]:
+        if n != cfg.num_layers // 2 * M:
+            raise AssertionError(f"Llama-3-8B pp 2: {n} decode launches a "
+                                 f"stage a step, not 16 x {M}")
+    summary["llama_8b_pp2"] = dict(
+        out, init_s=init_s, ranks=ranks, decode=prof, microbatches=M,
+        stage_weight_bytes=want_bytes)
+    log(f"[pp] Llama-3-8B pp 2: {json.dumps(summary['llama_8b_pp2'])}")
+
+    for label, extra, (H, KVH) in PP_PARITY_RUNS:
+        _free_device_memory()
+        f32_key = tp_shape_key(H, KVH, 128).replace("bfloat16", "float32")
+        streams, ranks, _, init_s = _tp_serve(
+            f"{TP_PARITY_MODEL} float32 {label}", TP_PARITY_ARGS + extra,
+            _parity_drive, {fn: f32_key for fn in both})
+        if streams != tp1_streams:
+            raise AssertionError(
+                f"{TP_PARITY_MODEL} float32 streams at {label} differ from "
+                f"tp 1: {streams} vs {tp1_streams}")
+        summary[f"parity {label}"] = {
+            "init_s": init_s, "ranks": len(ranks),
+            "coords": [(r["dp"], r["pp"], r["tp"]) for r in ranks],
+            "layers": [r["layers"] for r in ranks]}
+    summary["parity"] = {"model": TP_PARITY_MODEL, "dtype": "float32",
+                         "runs": [r[0] for r in PP_PARITY_RUNS],
+                         "requests": len(tp1_streams),
+                         "tokens": sum(len(s) for s in tp1_streams),
+                         "equal_to_tp1": True}
+    _free_device_memory()
+    summary["standalone"] = pp_standalone_phase(here)
+    return launches, summary
+
+
+def pp_cards_phase(here: str, smi) -> dict:
+    """Pipeline parallelism with a card a stage (``--tp-cards`` and
+    ``--pp-cards``, on a host of several cards; NCCL carries the
+    point-to-point and the share): Llama-3-8B bf16 at pp 2 and 4 driven
+    as :func:`_tp_llama_drive` says with the decode profile; tpu-llama-1b
+    float32 streams at pp 2 and 4 equal to pp 1's; then
+    :func:`pp_70b_phase`. Returns the ``pp_cards`` summary."""
+    import torch
+
+    from production_stack_tpu_torch.models import get_model_config
+
+    cards = torch.cuda.device_count()
+    sizes = [pp for pp in (2, 4) if pp <= cards]
+    if not sizes:
+        raise AssertionError(f"--pp-cards needs 2 cards at least, not "
+                             f"{cards}")
+    both = ("paged_attention", "cached_prefill_attention")
+    summary = {"card": smi, "card_count": cards}
+    cfg = get_model_config("meta-llama/Llama-3-8B")
+    for pp in sizes:
+        _free_device_memory()
+        label = f"Llama-3-8B bf16 pp {pp} on {pp} cards"
+        out, ranks, prof, init_s = _tp_serve(
+            label, SERVE_ARGS + ["--pipeline-parallel-size", str(pp)],
+            _tp_llama_drive, {fn: tp_shape_key(32, 8, 128) for fn in both},
+            profile_decode=True)
+        _check_stages(label, ranks, pp, cfg.num_layers,
+                      llama_stage_bytes(cfg, pp))
+        summary[f"llama_8b_pp{pp}"] = dict(out, init_s=init_s, ranks=ranks,
+                                           decode=prof)
+        log(f"[pp] {label}: {json.dumps(summary[f'llama_8b_pp{pp}'])}")
+    _free_device_memory()
+    streams = {1: _serve_once(TP_PARITY_ARGS, _parity_drive)}
+    f32_key = tp_shape_key(16, 8, 128).replace("bfloat16", "float32")
+    for pp in sizes:
+        _free_device_memory()
+        streams[pp], _, _, _ = _tp_serve(
+            f"{TP_PARITY_MODEL} float32 pp {pp} on {pp} cards",
+            TP_PARITY_ARGS + ["--pipeline-parallel-size", str(pp)],
+            _parity_drive, {fn: f32_key for fn in both})
+        if streams[pp] != streams[1]:
+            raise AssertionError(f"{TP_PARITY_MODEL} float32 streams at pp "
+                                 f"{pp} differ from pp 1")
+    summary["parity"] = {"model": TP_PARITY_MODEL, "dtype": "float32",
+                         "pp": [1] + sizes, "equal": True}
+    if 4 in sizes:
+        summary.update(pp_70b_phase(smi))
+    return summary
+
+
+def pp_70b_phase(smi) -> dict:
+    """Llama-3-70B's shapes at pp 4 with a card a stage (``--pp-70b``
+    alone, or the end of ``--pp-cards``): 20 of its 80 layers a card
+    (38.56 GB of weights a card, 141 GB in all, which no one card holds),
+    served as :func:`_short_drive` says and profiled. The init draws each
+    stacked leaf whole (a ``w_gate`` is 37.6 GB) before a stage keeps its
+    layers; the card's allocator runs with expandable segments (set by
+    :func:`main` before the first allocation) so that transient fits."""
+    import torch
+
+    from production_stack_tpu_torch.models import get_model_config
+
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("Llama-3-70B at pp 4 needs 4 cards")
+    both = ("paged_attention", "cached_prefill_attention")
+    _free_device_memory()
+    big = get_model_config("meta-llama/Llama-3-70B")
+    label = "Llama-3-70B bf16 pp 4 on 4 cards"
+    out, ranks, prof, init_s = _tp_serve(
+        label, ["meta-llama/Llama-3-70B"] + SERVE_ARGS[1:]
+        + ["--pipeline-parallel-size", "4"], _short_drive,
+        {fn: tp_shape_key(64, 8, 128) for fn in both}, profile_decode=True)
+    _check_stages(label, ranks, 4, big.num_layers, llama_stage_bytes(big, 4))
+    out = dict(out, init_s=init_s, ranks=ranks, decode=prof,
+               model_weight_bytes=sum(r["weight_bytes"] for r in ranks))
+    log(f"[pp] {label}: {json.dumps(out)}")
+    return {"llama_70b_pp4": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="only profile the decode step (no result line)")
     ap.add_argument("--tp-cards", action="store_true",
-                    help="only tensor parallelism with a card a rank, on a "
-                         "host of 2 or more cards (no result line)")
+                    help="only tensor and pipeline parallelism with a card "
+                         "a rank, on a host of 2 or more cards (no result "
+                         "line)")
+    ap.add_argument("--pp-cards", action="store_true",
+                    help="only pipeline parallelism with a card a stage, on "
+                         "a host of 2 or more cards (no result line)")
+    ap.add_argument("--pp-70b", action="store_true",
+                    help="only Llama-3-70B's shapes at pp 4, a card a stage, "
+                         "on a host of 4 cards (no result line)")
     args = ap.parse_args(argv)
     # A crash in native code (a segfault) prints every thread's Python
     # stack to standard error before the process dies.
     faulthandler.enable()
 
     os.environ.setdefault("TPU_STACK_LOG_LEVEL", "WARNING")
+    if args.tp_cards or args.pp_cards or args.pp_70b:
+        # Before the first allocation, in this process and the ranks it
+        # starts: Llama-3-70B's init draws a 37.6 GB leaf beside ~25 GB of
+        # kept slices, which a fragmented cache cannot place.
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -4679,10 +5134,14 @@ def main(argv=None) -> int:
         _free_device_memory()
         print(f"card: {smi}", flush=True)
         return 0
-    if args.tp_cards:
+    if args.tp_cards or args.pp_cards or args.pp_70b:
         _build.build(["paged_attention", "prefill_attention"])
-        print(json.dumps({"tp_cards": tp_cards_phase(here, smi)}),
-              flush=True)
+        if args.tp_cards:
+            print(json.dumps({"tp_cards": tp_cards_phase(here, smi)}),
+                  flush=True)
+        phase = pp_70b_phase(smi) if args.pp_70b else pp_cards_phase(here,
+                                                                     smi)
+        print(json.dumps({"pp_cards": phase}), flush=True)
         print(f"card: {smi}", flush=True)
         return 0
     t0 = time.time()
@@ -4755,7 +5214,7 @@ def main(argv=None) -> int:
         log(f"[time] {time.time() - t0:.0f} s through the structured "
             f"{label} phase")
     log(f"[time] {time.time() - t0:.0f} s before the spec phases")
-    spec_counts, drafter_counts = spec_phase(smi)
+    spec_counts, drafter_counts = spec_phase(smi, here)
     for name, n in spec_counts.items():
         launches[name] += n
     # The verify row counts the cached-prefill kernel's launches on the
@@ -4802,9 +5261,17 @@ def main(argv=None) -> int:
     _free_device_memory()
     arch_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the arch parity phase")
-    tp_launches, tp_summary = tp_phase(here, smi)
+    tp_launches, tp_summary, tp1_streams = tp_phase(here, smi)
     print(json.dumps({"tp": tp_summary}), flush=True)
     log(f"[time] {time.time() - t0:.0f} s through the tp phase")
+    pp_launches, pp_summary = pp_phase(here, smi, tp1_streams)
+    print(json.dumps({"pp": pp_summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the pp phase")
+    # Llama-3-8B's stages launch both kernels at the full 32/8 heads in
+    # bf16: the main rows' shape.
+    for name in ("paged_attention", "cached_prefill_attention"):
+        launches[name] += pp_launches.get(
+            (name, tp_shape_key(32, 8, 128)), 0)
     for name, r in tp_results.items():
         fn = ("paged_attention" if name.startswith("paged_attention")
               else "cached_prefill_attention")

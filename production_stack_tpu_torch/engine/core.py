@@ -114,13 +114,27 @@ chokepoint, :meth:`EngineCore._dispatch`, which sends the op's host
 arguments to the followers before running it, and the followers replay
 them (:meth:`EngineCore.run_follower`) through the same
 :meth:`EngineCore._exec_op`. At N = 1 the chokepoint only calls
-``_exec_op``. Under N > 1 the KV offload tier, KV extract/inject and
-sleep/wake are refused (``NotImplementedError``). A speculative drafter
-runs on the leader alone (its tokens reach the followers inside the
-verify op).
+``_exec_op``. A speculative drafter runs on the leader alone (its tokens
+reach the followers inside the verify op).
+
+Pipeline parallelism (``pipeline_parallel_size = P``, the Llama family
+only) stages the layer stack over P ranks: each holds its L/P layers of
+the weights and a pool of its L/P layers, and the model's ``apply`` is
+swapped for the GPipe schedule of ``parallel/pp_serving.py``, which
+passes each microbatch's activations from stage to stage and shares the
+last stage's hidden states with every stage (``parallel/pp.py``), so
+every rank samples the same tokens. Data parallelism
+(``data_parallel_size = D``) runs D replicas of the ``P x T`` ranks; as
+on the JAX mesh, where no leaf and no pool names ``dp``, every replica
+computes what the leader's does. The job has ``D x P x T`` processes,
+rank ``r`` at ``(dp, pp, tp) = (r // (P T), (r // T) % P, r % T)``
+(``parallel/mesh.py``); every rank, of every stage and replica, replays
+every op. In a job of more than one rank the KV offload tier, KV
+extract/inject/pull and sleep/wake are refused
+(``NotImplementedError``), and a lost rank latches the engine's fault.
 
 Not here yet, and refused at construction when configured: the fused
-step, pipeline and data parallelism.
+step.
 """
 
 from __future__ import annotations
@@ -168,13 +182,17 @@ from production_stack_tpu_torch.obs.steps import StepRecorder
 from production_stack_tpu_torch.ops.attention import to_device
 from production_stack_tpu_torch.parallel import multihost as mh
 from production_stack_tpu_torch.parallel.mesh import build_mesh, default_devices
+from production_stack_tpu_torch.parallel.pp import PPGroup, create_groups
+from production_stack_tpu_torch.parallel.pp_serving import make_pp_apply
 from production_stack_tpu_torch.parallel.sharding import (
     ROW_PARALLEL,
+    check_pp,
     check_tp,
     is_row_parallel,
     kv_heads_local,
     shard_params,
     slice_leaf,
+    stage_layers,
 )
 from production_stack_tpu_torch.parallel.tp import TPGroup
 from production_stack_tpu_torch.structured.api import compile_char_dfa
@@ -188,34 +206,50 @@ from production_stack_tpu_torch.utils.log import init_logger
 logger = init_logger(__name__)
 
 
+def _parallel_sizes(config: EngineConfig) -> "tuple[int, int, int]":
+    """The (dp, pp, tp) sizes a configuration asks for."""
+    return (max(config.data_parallel_size, 1),
+            max(config.pipeline_parallel_size, 1),
+            max(config.tensor_parallel_size, 1))
+
+
 def _unsupported(config: EngineConfig) -> List[str]:
     """Configured features this engine does not run yet."""
     c = config
-    tp = c.tensor_parallel_size > 1
+    dp, pp, tp = _parallel_sizes(c)
     checks = [
-        (c.data_parallel_size > 1, "data_parallel_size > 1"),
-        (c.pipeline_parallel_size > 1, "pipeline_parallel_size > 1"),
         (c.fused_step, "fused_step"),
-        (tp and (c.kv_offload_bytes > 0 or bool(c.kv_remote_url)),
-         "the KV offload tier under tensor_parallel_size > 1"),
+        (dp * pp * tp > 1 and (c.kv_offload_bytes > 0
+                               or bool(c.kv_remote_url)),
+         "the KV offload tier under tensor, pipeline or data parallelism"),
     ]
     return [name for bad, name in checks if bad]
 
 
 def refused_under_tp(what: str) -> NotImplementedError:
-    """The error of a feature that tensor parallelism does not carry."""
+    """The error of a feature that a job of several ranks (tensor or
+    pipeline parallelism, data-parallel replicas) does not carry."""
     return NotImplementedError(
-        f"{what} is not supported by the torch engine under "
-        f"tensor_parallel_size > 1 yet")
+        f"{what} is not supported by the torch engine under tensor or "
+        f"pipeline parallelism yet")
+
+
+def _job_min(value: int) -> int:
+    """The least of every rank's ``value`` (the job's gloo group; a
+    barrier of the job too)."""
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN)
+    return int(t.item())
 
 
 def kv_bytes_per_block(model_config, block_size: int,
                        kv_cache_dtype: str = "bf16") -> int:
-    """Device bytes of one block of the K and V pools over all layers, as
-    allocated: "bf16" pages hold the model dtype; "int8" pages one byte a
-    K/V element plus one float32 scale per (slot, kv head). (The JAX
-    formula adds TPU tile padding; at Llama-family dims, head_dim 128, it
-    has none and the two agree.)"""
+    """Device bytes of one block of the K and V pools over all layers of
+    ``model_config`` (a stage's config counts its layers), as allocated:
+    "bf16" pages hold the model dtype; "int8" pages one byte a K/V
+    element plus one float32 scale per (slot, kv head). (The JAX formula
+    adds TPU tile padding; at Llama-family dims, head_dim 128, it has
+    none and the two agree.)"""
     mc = model_config
     slot_heads = block_size * mc.num_kv_heads
     if kv_cache_dtype == "int8":
@@ -238,13 +272,15 @@ class EngineCore:
         it. ``draft_params`` likewise for
         ``config.speculative_draft_model``.
 
-        With ``tensor_parallel_size = N > 1`` this process is one rank of
-        an N-process job (``multihost``, by default the context of the
-        ``TPU_STACK_*`` environment, ``parallel/multihost.py``), and
-        ``params``, when given, is the WHOLE host tree (numpy leaves or
-        CPU tensors), of which the rank keeps its slice. ``devices``: a
-        device a rank (default: ``config.device``, rank r on
-        ``cuda:(r % cards)``); this rank runs on its entry."""
+        With ``data_parallel_size x pipeline_parallel_size x
+        tensor_parallel_size = N > 1`` this process is one rank of an
+        N-process job (``multihost``, by default the context of the
+        ``TPU_STACK_*`` environment, ``parallel/multihost.py``; under it
+        an unset ``data_parallel_size`` fills the job, as on a multi-host
+        JAX engine), and ``params``, when given, is the WHOLE host tree
+        (numpy leaves or CPU tensors), of which the rank keeps its slice.
+        ``devices``: a device a rank (default: ``config.device``, rank r
+        on ``cuda:(r % cards)``); this rank runs on its entry."""
         missing = _unsupported(config)
         if missing:
             raise NotImplementedError(
@@ -253,48 +289,76 @@ class EngineCore:
         self.model_config = get_model_config(config.model)
         if config.dtype:
             self.model_config = self.model_config.replace(dtype=config.dtype)
-        tp = config.tensor_parallel_size
+        dp, pp, tp = _parallel_sizes(config)
         check_tp(self.model_config, tp)
+        check_pp(self.model_config, pp)
         if config.quantization and self.model_config.arch != "llama":
             raise ValueError(
                 "int8 quantization is supported for the llama family "
                 f"(model arch {self.model_config.arch!r})")
-        # Latched by an unrecoverable fault (a lost tensor-parallel rank):
-        # every request fails, the loop stops and /health answers 503.
+        # Latched by an unrecoverable fault (a lost rank): every request
+        # fails, the loop stops and /health answers 503.
         self.fatal_error: Optional[str] = None
         self._mh: Optional[mh.MultihostContext] = None
         self._tp: Optional[TPGroup] = None
+        self._pp: Optional[PPGroup] = None
+        self._rank_prof = None  # rank_stats(profile=True)'s profiler
         self.rank = 0
-        if tp > 1:
+        if (dp * pp * tp > 1 or multihost is not None
+                or mh.distributed_env() is not None):
             self._mh = multihost if multihost is not None else (
                 mh.maybe_context())
-            if self._mh is None or self._mh.num_processes != tp:
+            if self._mh is None:
                 raise ValueError(
-                    f"tensor_parallel_size {tp} runs as {tp} processes of "
-                    f"one job: start it through the server entry, or join "
-                    f"every rank with multihost.initialize_from_env()")
+                    f"data_parallel_size {dp} x pipeline_parallel_size {pp}"
+                    f" x tensor_parallel_size {tp} runs as {dp * pp * tp} "
+                    f"processes of one job: start it through the server "
+                    f"entry, or join every rank with "
+                    f"multihost.initialize_from_env()")
+            # As in the JAX engine, an unset dp fills the job.
+            dp = mh.job_dp(self._mh.num_processes, config.data_parallel_size,
+                           pp, tp)
             self.rank = self._mh.process_id
+        n = dp * pp * tp
         self.layout = build_mesh(
-            tp, 1, 1, devices if devices is not None
-            else default_devices(config.device, tp))
+            tp, dp, pp, devices if devices is not None
+            else default_devices(config.device, n))
+        _dp, self.stage, self.tp_rank = self.layout.coords(self.rank)
         self.device = self.layout.device_of(self.rank)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {config.device!r} requested but no CUDA device is "
                 f"available (pass device='cpu' to run on the CPU)")
-        if tp > 1:
+        # Ranks placed on this rank's card split its free memory.
+        self._card_share = 1
+        self._backend: Optional[str] = None
+        if self._mh is not None:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             self._agree_on_config()
-            self._tp = TPGroup.create(self.rank, tp, self.device)
+            self._tp, self._pp, self._backend, self._card_share = (
+                create_groups(self.layout, self.rank, self.device))
             logger.info(
-                "Tensor-parallel rank %d/%d on %s: %s collectives (%d "
-                "rank(s) on this device)", self.rank, tp, self.device,
-                self._tp.backend, self._tp.sharing)
+                "Rank %d/%d (dp %d, pp %d, tp %d) on %s: %s transfers (%d "
+                "rank(s) on this device)", self.rank, n, _dp, self.stage,
+                self.tp_rank, self.device, self._backend, self._card_share)
+        # This stage's layers (all of them without a pipeline), and the
+        # model config of a stage: its pool and its bytes a block count
+        # these layers only.
+        self.layers = stage_layers(self.model_config.num_layers, self.stage,
+                                   pp)
+        self.stage_config = self.model_config.replace(
+            num_layers=len(self.layers))
         self.tokenizer = build_tokenizer(
             config.model, self.model_config.vocab_size,
             chat_template_path=config.chat_template)
         init_fn, self._apply = build_model(self.model_config)
+        if pp > 1:
+            # Stage-sharded serving: the GPipe schedule in place of the
+            # layer loop, with apply's signature, so every step runs on it.
+            self._apply = make_pp_apply(
+                self._pp, microbatches=config.pp_microbatches or pp)
+        stage_kw = {"stage": self.stage, "pp": pp} if pp > 1 else {}
         load_ckpt = params is None
         if params is None:
             lora_kwargs = {}
@@ -306,15 +370,17 @@ class EngineCore:
             with torch.no_grad():
                 # int8 weights quantize leaf by leaf inside the init, so
                 # an 8B model never exists whole in bf16 on the card; a
-                # rank keeps its slice of each leaf.
+                # rank draws every leaf as one rank does and keeps its
+                # slice of it (its stage's layers, its tp part).
                 params = init_fn(
                     self.model_config, gen, self.device,
                     quantization=config.quantization,
                     quantize_embeddings=config.quantize_embeddings,
-                    rank=self.rank, tp=tp, **lora_kwargs)
-        elif tp > 1:
+                    rank=self.tp_rank, tp=tp, **stage_kw, **lora_kwargs)
+        elif n > 1:
             params = params_from_numpy(params, self.model_config,
-                                       self.device, self.rank, tp)
+                                       self.device, self.tp_rank, tp,
+                                       self.stage, pp)
         self.params = params
         # Wall seconds of the checkpoint load (read, quantize, copy to the
         # device), when the model is a checkpoint directory.
@@ -335,17 +401,16 @@ class EngineCore:
                                      params=draft_params)
 
         # -- KV pages ------------------------------------------------------
-        # A rank's pool holds its KV heads; every rank takes the least of
-        # the ranks' pool sizes (the block accounting is the leader's).
+        # A rank's pool holds its KV heads of its stage's layers; every
+        # rank of the job takes the least of the ranks' pool sizes (the
+        # block accounting is the leader's).
         self.kv_heads = kv_heads_local(self.model_config, tp)
-        # Ranks placed on this rank's card split its free memory.
-        self._card_share = self._tp.sharing if self._tp is not None else 1
-        if self._tp is not None:
-            self._tp.barrier()  # every rank's weights are in memory
+        if self._mh is not None:
+            _job_min(0)  # every rank's weights are in memory
         free_before = self._free_device_bytes()
         self.num_blocks = config.num_blocks or self._auto_num_blocks()
-        if self._tp is not None:
-            self.num_blocks = self._tp.min_int(self.num_blocks)
+        if self._mh is not None:
+            self.num_blocks = _job_min(self.num_blocks)
         mc = self.model_config
         self.pool_shrink_retries_total = 0
         self.kv = self._alloc_kv_with_shrink()
@@ -535,14 +600,15 @@ class EngineCore:
         if not has_checkpoint(self.config.model):
             return
         t0 = time.perf_counter()
-        tp, int8 = self.config.tensor_parallel_size, (
+        tp, int8 = self.layout.shape["tp"], (
             self.config.quantization == "int8")
-        # A rank copies its slice out of the mapped files; an int8
-        # row-parallel leaf is read whole, quantized, then sliced, so its
-        # scale is the whole leaf's.
+        # A rank copies its slice of its stage's layers out of the mapped
+        # files; an int8 row-parallel leaf is read whole, quantized, then
+        # sliced, so its scale is the whole leaf's.
         loaded = load_checkpoint(self.model_config, self.config.model,
-                                 self.rank, tp,
-                                 whole=ROW_PARALLEL if int8 else ())
+                                 self.tp_rank, tp,
+                                 whole=ROW_PARALLEL if int8 else (),
+                                 layers=self.layers)
         if int8:
             from production_stack_tpu_torch.models.quantize import (
                 quantize_loaded,
@@ -554,7 +620,7 @@ class EngineCore:
             if tp > 1:
                 sliced = shard_params(
                     {"layers": loaded["layers"]}, self.model_config,
-                    self.rank, tp)["layers"]
+                    self.tp_rank, tp)["layers"]
                 loaded["layers"] = {
                     k: (sliced[k] if is_row_parallel(("layers", k)) else v)
                     for k, v in loaded["layers"].items()}
@@ -587,9 +653,9 @@ class EngineCore:
         ``pool_shrink_retries`` rungs, never below two sequences' worth of
         blocks. Only ``torch.cuda.OutOfMemoryError`` is caught."""
         cfg = self.config
-        # Ranks must agree on the pool's size: under tensor parallelism an
-        # out-of-memory error is fatal, as on a multi-host JAX engine.
-        rungs = cfg.pool_shrink_retries if self._tp is None else 0
+        # Ranks must agree on the pool's size: in a job of several ranks
+        # an out-of-memory error is fatal, as on a multi-host JAX engine.
+        rungs = cfg.pool_shrink_retries if self._mh is None else 0
         min_blocks = cfg.max_blocks_per_seq * 2
         for rung in range(rungs + 1):
             k = v = None
@@ -618,9 +684,11 @@ class EngineCore:
                     torch.cuda.empty_cache()
 
     def _kv_bytes_per_block(self) -> int:
-        """Bytes of one block of THIS rank's pool (its KV heads)."""
+        """Bytes of one block of THIS rank's pool (its KV heads of its
+        stage's layers). Sizing the pool by it is the JAX engine's budget
+        times its tp and pp factors."""
         return kv_bytes_per_block(
-            self.model_config.replace(num_kv_heads=self.kv_heads),
+            self.stage_config.replace(num_kv_heads=self.kv_heads),
             self.config.block_size, self.config.kv_cache_dtype)
 
     def _alloc_pages(self):
@@ -629,7 +697,7 @@ class EngineCore:
         scales ``[L, NB, bs*KVH]`` set to ONE, as the JAX engine sets them
         (a never-written slot dequantizes to exact zeros). KVH is this
         rank's KV heads."""
-        mc, bs = self.model_config, self.config.block_size
+        mc, bs = self.stage_config, self.config.block_size
         shape = (mc.num_layers, self.num_blocks, bs, self.kv_heads,
                  mc.head_dim)
         if self.config.kv_cache_dtype == "int8":
@@ -835,7 +903,7 @@ class EngineCore:
         full block is cached. The gather is enqueued under _step_lock
         (after the work already queued, before any later step); the copy
         is waited for outside it."""
-        if self._tp is not None:
+        if self._mh is not None:
             raise refused_under_tp("KV extract")
         with self._step_lock:
             with self._lock:
@@ -891,7 +959,7 @@ class EngineCore:
         a leaf. Returns the blocks cached here afterwards (already cached
         ones count). A payload that does not fit the pool raises, and its
         blocks go back to the pool."""
-        if self._tp is not None:
+        if self._mh is not None:
             raise refused_under_tp("KV inject")
 
         def write(take, dst):
@@ -919,7 +987,7 @@ class EngineCore:
         gather and one scatter a leaf). 0 when the two pools' page
         encodings or devices differ (the host relay re-encodes). Takes
         both cores' step locks in ``id()`` order."""
-        if self._tp is not None or src._tp is not None:
+        if self._mh is not None or src._mh is not None:
             raise refused_under_tp("KV inject")
         if (src.config.kv_cache_dtype != self.config.kv_cache_dtype
                 or src.device != self.device):
@@ -1048,7 +1116,7 @@ class EngineCore:
         drafter's weights and pages stay, as in the JAX engine). Every
         ``level`` does the same, as in the JAX engine. A no-op when
         asleep."""
-        if self._tp is not None:
+        if self._mh is not None:
             raise refused_under_tp("sleep")
         with self._lifecycle_lock:
             with self._lock:
@@ -1108,7 +1176,7 @@ class EngineCore:
     def wake_up(self) -> None:
         """Copy the parameters back from pinned host memory and allocate a
         fresh (zero) KV pool. A no-op when awake."""
-        if self._tp is not None:
+        if self._mh is not None:
             raise refused_under_tp("wake_up")
         with self._lifecycle_lock, self._step_lock:
             with self._lock:
@@ -1171,10 +1239,11 @@ class EngineCore:
     def _lora_load_op(self, slot: int, name: str, scaling: float,
                       weights: Optional[dict]) -> None:
         """Write LoRA slot ``slot`` in place: the given (whole) matrices,
-        of which a rank keeps its slice of the B matrices, or the
-        name-drawn A matrices (the same draw on every rank)."""
+        of which a rank keeps its stage's layers and its slice of the B
+        matrices, or the name-drawn A matrices (the same whole draw on
+        every rank, of which a stage keeps its layers)."""
         lora = self.params["lora"]
-        tp = self.config.tensor_parallel_size
+        shape = self.layout.shape
         with torch.inference_mode():
             if weights is not None:
                 for key in ("wq_a", "wq_b", "wv_a", "wv_b"):
@@ -1182,16 +1251,19 @@ class EngineCore:
                         # [L, ...] of the slot: the rule of the [L, S, ...]
                         # leaf counts its axes from the end.
                         w = slice_leaf(("lora", key), weights[key],
-                                       self.model_config, self.rank, tp)
+                                       self.model_config, self.tp_rank,
+                                       shape["tp"], self.stage, shape["pp"])
                         lora[key][:, slot].copy_(w)
             else:
                 seed = zlib.crc32(name.encode()) % (2 ** 31)
+                L, lo, hi = (self.model_config.num_layers, self.layers.start,
+                             self.layers.stop)
                 for key in ("wq_a", "wv_a"):
-                    L, _, Hd, R = lora[key].shape
+                    _, _, Hd, R = lora[key].shape
                     draw = prng.normal(
                         prng.key(seed, device=self.device), (L, Hd, R))
                     lora[key][:, slot].copy_(
-                        (0.01 * draw).to(lora[key].dtype))
+                        (0.01 * draw[lo:hi]).to(lora[key].dtype))
             lora["scaling"][slot] = scaling
 
     def unload_lora_adapter(self, name: str) -> bool:
@@ -1238,7 +1310,7 @@ class EngineCore:
         def t(x):
             return to_device(torch.from_numpy(x), dev)
 
-        shape = (mc.num_layers, 1, bs, self.kv_heads, mc.head_dim)
+        shape = (len(self.layers), 1, bs, self.kv_heads, mc.head_dim)
         kv = (torch.zeros(shape, dtype=mc.torch_dtype, device=dev),
               torch.zeros(shape, dtype=mc.torch_dtype, device=dev))
         seq_lens = t(np.asarray([n], np.int32))
@@ -1300,10 +1372,18 @@ class EngineCore:
                                    self.config.kv_cache_dtype)
                 // self.config.block_size),
             "tensor_parallel": {
-                "size": self.config.tensor_parallel_size,
+                "size": self.layout.shape["tp"],
                 "backend": self._tp.backend if self._tp else None,
                 "devices": [str(d) for d in self.layout.devices],
                 "kv_heads_per_rank": self.kv_heads},
+            "pipeline_parallel": {
+                "size": self.layout.shape["pp"],
+                "microbatches": (self.config.pp_microbatches
+                                 or self.layout.shape["pp"]),
+                "backend": self._pp.backend if self._pp else None,
+                "layers_per_stage": len(self.layers)},
+            "data_parallel": {"size": self.layout.shape["dp"]},
+            "mesh": dict(self.layout.shape),
             "fatal_error": self.fatal_error,
             "is_sleeping": self._sleeping,
             "prefill_time_total": round(self.prefill_time_total, 3),
@@ -1400,10 +1480,10 @@ class EngineCore:
                 # sees finish_reason "error" instead of hanging.
                 logger.exception("Engine step failed: %s", e)
                 self._fail_step(action, req)
-                if self._tp is not None:
+                if self._mh is not None:
                     # The ranks may have run different parts of the step:
                     # their pools and counts can no longer be trusted.
-                    self._fatal(f"a tensor-parallel step failed: {e!r}")
+                    self._fatal(f"a sharded step failed: {e!r}")
 
     def _fail_step(self, action: str, req) -> None:
         """Finish the requests of a step that raised with "error": a
@@ -1476,7 +1556,7 @@ class EngineCore:
                 # A partial fan-out (one follower's socket dead, others
                 # fed) cannot be resumed: the ranks' op streams differ.
                 self._fatal(f"op-channel send failed ({e!r}); the "
-                            f"tensor-parallel lockstep is broken")
+                            f"ranks' lockstep is broken")
                 raise RuntimeError(self.fatal_error) from e
             return self._exec_op(name, static, arrays)
 
@@ -1531,17 +1611,24 @@ class EngineCore:
                 self._exec_op(name, static, arrays)
 
     def rank_stats(self, reset: bool = False,
-                   timing: Optional[bool] = None) -> List[dict]:
-        """Every rank's device, weight bytes, pool blocks, kernel launches
-        by shape and collective counters, gathered on the leader (an op
-        like any other, ordered with the steps). ``reset`` zeroes the
-        launch and collective counters afterwards; ``timing`` switches
-        the collectives' synchronized timing on or off."""
+                   timing: Optional[bool] = None,
+                   profile: Optional[bool] = None) -> List[dict]:
+        """Every rank's coordinates, device, layers, weight bytes, pool
+        blocks, kernel launches by shape, collective and point-to-point
+        counters, gathered on the leader (an op like any other, ordered
+        with the steps). ``reset`` zeroes the launch, collective and
+        transfer counters afterwards; ``timing`` switches the collectives'
+        and transfers' synchronized timing on or off. ``profile=True``
+        starts a device profiler on every rank (a card's), and
+        ``profile=False`` stops it and reports each rank's kernel time
+        since (``device_busy_s``): every stage's own busy time."""
         with self._step_lock:
             return self._dispatch("rank_stats",
-                                  {"reset": reset, "timing": timing}, [])
+                                  {"reset": reset, "timing": timing,
+                                   "profile": profile}, [])
 
-    def _rank_stats_op(self, reset: bool, timing: Optional[bool]):
+    def _rank_stats_op(self, reset: bool, timing: Optional[bool],
+                       profile: Optional[bool] = None):
         from production_stack_tpu_torch.ops.paged_attention import (
             paged_attention,
         )
@@ -1552,35 +1639,63 @@ class EngineCore:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         kernels = (paged_attention, cached_prefill_attention)
-        tpg = self._tp
+        tpg, ppg = self._tp, self._pp
+        dp, stage, tp_rank = self.layout.coords(self.rank)
         mine = {
-            "rank": self.rank, "device": str(self.device),
+            "rank": self.rank, "dp": dp, "pp": stage, "tp": tp_rank,
+            "layers": [self.layers.start, self.layers.stop],
+            "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "weight_bytes": sum(t.numel() * t.element_size()
                                 for t in _leaves(self.params)),
+            "kv_pool_bytes": sum(t.numel() * t.element_size()
+                                 for side in (self.kv or ())
+                                 for t in _leaves_of(side)),
             "num_blocks": self.num_blocks, "kv_heads": self.kv_heads,
             "launches_by_shape": {k.__name__: dict(k.launches_by_shape)
                                   for k in kernels},
             "collectives_total": tpg.collectives_total if tpg else 0,
             "collective_s": tpg.collective_s if tpg else 0.0,
+            "p2p": ppg.counters() if ppg else None,
+            "device_busy_s": None,
         }
+        if profile is False and self._rank_prof is not None:
+            from torch.autograd import DeviceType
+
+            self._rank_prof.__exit__(None, None, None)
+            mine["device_busy_s"] = sum(
+                getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)
+                for e in self._rank_prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e6
+            self._rank_prof = None
+        if profile and self.device.type == "cuda":
+            from torch.profiler import ProfilerActivity
+
+            self._rank_prof = torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA])
+            self._rank_prof.__enter__()
         if reset:
             for k in kernels:
                 k.launches_by_shape.clear()
             if tpg is not None:
                 tpg.collectives_total, tpg.collective_s = 0, 0.0
-        if timing is not None and tpg is not None:
-            tpg.timing = timing
-        if tpg is None:
+            if ppg is not None:
+                ppg.reset_counters()
+        if timing is not None:
+            for g in (tpg, ppg):
+                if g is not None:
+                    g.timing = timing
+        if self._mh is None:
             return [mine]
-        out: List = [None] * tpg.size
+        out: List = [None] * self._mh.num_processes
         torch.distributed.all_gather_object(out, mine)
         return out
 
     def _rank_lost(self, pid: int) -> None:
         """The op channel's watcher: follower ``pid`` is gone."""
-        self._fatal(f"tensor-parallel rank {pid} is gone")
+        self._fatal(f"rank {pid} of the job is gone")
 
     def _fatal(self, why: str) -> None:
         """Latch an unrecoverable fault: every request fails with

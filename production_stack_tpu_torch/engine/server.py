@@ -872,7 +872,7 @@ class EngineServer:
         return status, out, {}
 
     def _kv_pull(self, body: dict):
-        if self.core.config.tensor_parallel_size > 1:
+        if self.core._mh is not None:
             raise refused_under_tp("KV pull")
         source = body.get("source_url")
         if not source:
@@ -1571,7 +1571,15 @@ class _Handler(BaseHTTPRequestHandler):
                                  "in_flight": eng._inflight}, 503,
                                 {"Retry-After": "1"})
             else:
-                self._send_json({"status": "ok"})
+                body = {"status": "ok"}
+                mhc = eng.core._mh
+                if mhc is not None:
+                    # Every rank joined by construction: report the span,
+                    # as the JAX server does.
+                    body.update({"role": "leader",
+                                 "num_processes": mhc.num_processes,
+                                 "mesh": dict(eng.core.layout.shape)})
+                self._send_json(body)
         elif path == "/v1/models":
             self._send_json(eng.models())
         elif path == "/v1/lora_adapters":
@@ -2107,6 +2115,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "server starts ranks 1..N-1 on this host (rank r "
                         "on cuda:(r %% cards)), with it this process joins "
                         "as TPU_STACK_PROCESS_ID says")
+    p.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="stage-shard the layer stack over a pp mesh axis")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="GPipe microbatches per forward (0 -> pp)")
+    p.add_argument("--data-parallel-size", type=int, default=1,
+                   help="replicas of the pp x tp ranks, each holding the "
+                        "model whole and replaying the same op stream (the "
+                        "job has dp x pp x tp processes; under TPU_STACK_* "
+                        "the replicas fill the job)")
     p.add_argument("--block-size", type=int, default=64)
     p.add_argument("--num-blocks", type=int, default=None)
     p.add_argument("--hbm-utilization", type=float, default=0.7)
@@ -2236,6 +2253,9 @@ def config_from_args(args) -> EngineConfig:
         max_model_len=args.max_model_len,
         max_num_seqs=args.max_num_seqs,
         tensor_parallel_size=args.tensor_parallel_size,
+        pipeline_parallel_size=args.pipeline_parallel_size,
+        pp_microbatches=args.pp_microbatches,
+        data_parallel_size=args.data_parallel_size,
         block_size=args.block_size,
         num_blocks=args.num_blocks,
         hbm_utilization=args.hbm_utilization,
@@ -2265,18 +2285,18 @@ def config_from_args(args) -> EngineConfig:
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     engine: EngineServer
-    # A tensor-parallel leader's job: (multihost context, spawned ranks).
+    # A sharded engine's leader's job: (multihost context, spawned ranks).
     ranks: Optional[tuple] = None
 
     def service_actions(self) -> None:
-        """A latched engine fault (a lost tensor-parallel rank) ends
+        """A latched engine fault (a lost rank of the job) ends
         ``serve_forever`` with exit status 1."""
         if self.engine.core.fatal_error is not None:
             raise SystemExit(1)
 
     def server_close(self) -> None:
         """Close the socket, then stop the KV reporting threads, drop the
-        local-peer entry and close the trace exporter; a tensor-parallel
+        local-peer entry and close the trace exporter; a sharded engine's
         leader then stops the engine and its followers and leaves the
         job."""
         super().server_close()
@@ -2288,17 +2308,17 @@ class _HTTPServer(ThreadingHTTPServer):
             self.engine.core.stop()
             codes = multihost.shutdown(ctx, procs)
             if any(codes):
-                logger.error("tensor-parallel ranks exited with %s", codes)
+                logger.error("the job's ranks exited with %s", codes)
 
 
 def _tp_job(args, argv):
-    """The multihost context of a tensor-parallel engine, and the ranks
-    this process started: none when the ``TPU_STACK_*`` environment names
-    the job, ranks 1..N-1 on this host otherwise."""
+    """The multihost context of a sharded engine, and the ranks this
+    process started: none when the ``TPU_STACK_*`` environment names the
+    job, ranks 1..N-1 (N = dp x pp x tp) on this host otherwise."""
     procs = []
     if multihost.distributed_env() is None:
         procs = multihost.spawn_local_ranks(
-            args.tensor_parallel_size,
+            _job_size(args),
             sys.argv[1:] if argv is None else argv,
             "production_stack_tpu_torch.engine.server")
     try:
@@ -2310,6 +2330,13 @@ def _tp_job(args, argv):
         raise
 
 
+def _job_size(args) -> int:
+    """The processes of the engine's job: dp x pp x tp."""
+    return (max(args.data_parallel_size, 1)
+            * max(args.pipeline_parallel_size, 1)
+            * max(args.tensor_parallel_size, 1))
+
+
 def build_server(argv: Optional[List[str]] = None,
                  core: Optional[EngineCore] = None):
     """Parse ``argv``, build (or take) the engine, start its thread and
@@ -2317,14 +2344,15 @@ def build_server(argv: Optional[List[str]] = None,
     and with the KV controller when one is configured). Returns (httpd,
     core); the caller runs ``httpd.serve_forever()`` and, to stop,
     ``httpd.shutdown()``, ``httpd.server_close()`` and ``core.stop()``.
-    With ``--tensor-parallel-size N`` this process is the leader (rank
-    0) of an N-process job (:func:`_tp_job`); ``server_close`` ends the
-    job."""
+    With ``--tensor-parallel-size``, ``--pipeline-parallel-size`` and
+    ``--data-parallel-size`` whose product N > 1 (or under a
+    ``TPU_STACK_*`` job) this process is the leader (rank 0) of an
+    N-process job (:func:`_tp_job`); ``server_close`` ends the job."""
     args = build_arg_parser().parse_args(argv)
     ranks = None
     if core is None:
         config = config_from_args(args)
-        if config.tensor_parallel_size > 1:
+        if _job_size(args) > 1 or multihost.distributed_env() is not None:
             ranks = _tp_job(args, argv)
         try:
             core = EngineCore(config, multihost=ranks[0] if ranks else None)
@@ -2357,8 +2385,8 @@ def build_server(argv: Optional[List[str]] = None,
 
 
 def run_follower(argv: Optional[List[str]] = None) -> int:
-    """A follower rank (``TPU_STACK_PROCESS_ID`` > 0) of a
-    tensor-parallel engine: build the same engine from the same
+    """A follower rank (``TPU_STACK_PROCESS_ID`` > 0) of a sharded
+    engine: build the same engine from the same
     arguments and replay the leader's ops until it stops. Serves no
     HTTP. Returns the exit status (1 when the replay failed or the
     leader vanished)."""

@@ -6,7 +6,8 @@ the tree of CPU tensors that ``models/weights.py::load_checkpoint`` reads
 from a checkpoint directory, and returns the same dict structure of
 torch tensors on ``device``, with the same leaf names, shapes and dtypes,
 for each architecture the port runs
-(Llama, OPT, Mixtral), or a tensor-parallel rank's slice of it. Both
+(Llama, OPT, Mixtral), or a tensor-parallel rank's slice of it (within
+its pipeline stage's layers). Both
 packages keep the ``[in, out]`` weight orientation, so no leaf is
 transposed. ``draft_params_from_numpy``
 does the same for a JAX ``DraftModel``'s tree, at the drafter's model
@@ -25,7 +26,11 @@ from production_stack_tpu_torch.models.config import (
     ModelConfig,
     get_model_config,
 )
-from production_stack_tpu_torch.parallel.sharding import check_tp, shard_params
+from production_stack_tpu_torch.parallel.sharding import (
+    check_pp,
+    check_tp,
+    shard_params,
+)
 
 ARCHS = ("llama", "opt", "mixtral")
 
@@ -45,22 +50,25 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device, rank: int = 0,
-                      tp: int = 1) -> Dict:
+                      tp: int = 1, stage: int = 0, pp: int = 1) -> Dict:
     """The JAX parameter tree (as numpy) as the torch parameter dict; with
     ``tp > 1``, rank ``rank``'s slice of it (``parallel/sharding.py``),
-    only that slice copied to ``device``."""
+    and with ``pp > 1`` only the layers of stage ``stage``, only that
+    slice copied to ``device``."""
     if cfg.arch not in ARCHS:
         raise ValueError(f"Unknown arch {cfg.arch!r}")
     check_tp(cfg, tp)
+    check_pp(cfg, pp)
 
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
         t = tensor_from_numpy(node, device)
         # A slice must not keep (or write through to) the whole leaf.
-        return t.clone() if tp > 1 and t.device.type == "cpu" else t
+        sliced = tp > 1 or pp > 1
+        return t.clone() if sliced and t.device.type == "cpu" else t
 
-    return convert(shard_params(tree, cfg, rank, tp))
+    return convert(shard_params(tree, cfg, rank, tp, stage=stage, pp=pp))
 
 
 def draft_params_from_numpy(tree: Dict, engine_config, device) -> Dict:

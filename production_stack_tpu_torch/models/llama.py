@@ -89,6 +89,8 @@ def init_params(
     quantize_embeddings: bool = False,
     rank: int = 0,
     tp: int = 1,
+    stage: int = 0,
+    pp: int = 1,
 ) -> Dict:
     """Random-init parameter dict with layer-stacked leaves: the shapes
     and scales of the JAX ``init_params`` (normal / sqrt(fan_in), 0.02 for
@@ -106,7 +108,10 @@ def init_params(
     With ``tp > 1`` every rank draws every leaf whole, in the same order
     as the ``tp = 1`` init, and keeps rank ``rank``'s slice
     (``parallel/sharding.py``), after the quantization: ``tp`` ranks hold
-    the weights of one ``tp = 1`` init."""
+    the weights of one ``tp = 1`` init. With ``pp > 1`` the slice is
+    within the layers of stage ``stage``: a rank draws every leaf as the
+    ``pp = 1`` init draws it (one draw per leaf, so the generator's
+    stream is the same) and keeps its stage's layers."""
     if quantization not in (None, "int8"):
         raise ValueError(f"unsupported quantization {quantization!r}")
     dtype = cfg.torch_dtype
@@ -114,12 +119,15 @@ def init_params(
     I, L, V = cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
     quantize = quantization == "int8"
     quantize_emb = quantize and quantize_embeddings
-    draw = LeafDrawer(cfg, generator, device, rank, tp)
+    draw = LeafDrawer(cfg, generator, device, rank, tp, stage, pp)
+    L_local = L // pp
 
     params = {}
     draw.whole(params, ("embed",), (V, Hd), 0.02, -1 if quantize_emb else None)
-    layers = {"attn_norm": torch.ones((L, Hd), dtype=dtype, device=device),
-              "mlp_norm": torch.ones((L, Hd), dtype=dtype, device=device)}
+    layers = {"attn_norm": torch.ones((L_local, Hd), dtype=dtype,
+                                      device=device),
+              "mlp_norm": torch.ones((L_local, Hd), dtype=dtype,
+                                     device=device)}
     for name, shape, fan_in in (
             ("wq", (Hd, H * D), Hd), ("wk", (Hd, KVH * D), Hd),
             ("wv", (Hd, KVH * D), Hd), ("wo", (H * D, Hd), H * D),
@@ -139,8 +147,8 @@ def init_params(
                             ("wv_a", (L, S, Hd, R)),
                             ("wv_b", (L, S, R, KVH * D))):
             lora[name] = torch.zeros(
-                local_shape(("lora", name), shape, cfg, rank, tp),
-                dtype=dtype, device=device)
+                local_shape(("lora", name), shape, cfg, rank, tp, stage,
+                            pp), dtype=dtype, device=device)
         lora["scaling"] = torch.zeros((S,), dtype=torch.float32, device=device)
         params["lora"] = lora
     return params
@@ -150,17 +158,23 @@ class LeafDrawer:
     """Draws weight leaves for the models' ``init_params``: each leaf
     whole from ``generator`` in the working dtype, scaled in place,
     quantized when asked (int8 codes and float32 scales reduced over
-    ``reduce_axis``), then cut to rank ``rank``'s slice of ``tp``. Every
-    rank draws the same leaves in the same order, so its slice is the
-    slice of the ``tp = 1`` init."""
+    ``reduce_axis``), then cut to rank ``rank``'s slice of ``tp`` (within
+    stage ``stage`` of ``pp``). Every rank draws the same leaves in the
+    same order, so its slice is the slice of the ``tp = 1`` init."""
 
     def __init__(self, cfg: ModelConfig, generator, device, rank: int = 0,
-                 tp: int = 1):
+                 tp: int = 1, stage: int = 0, pp: int = 1):
         self.cfg, self.generator, self.device = cfg, generator, device
-        self.rank, self.tp = rank, tp
+        self.rank, self.tp, self.stage, self.pp = rank, tp, stage, pp
 
     def _cut(self, key, t):
-        return slice_leaf(key, t, self.cfg, self.rank, self.tp)
+        """The rank's part of the whole leaf ``t``, in storage of its own
+        (a view would keep the whole leaf alive)."""
+        part = slice_leaf(key, t, self.cfg, self.rank, self.tp, self.stage,
+                          self.pp)
+        if part.numel() == t.numel():
+            return part.contiguous()
+        return part.clone(memory_format=torch.contiguous_format)
 
     def _normal(self, out: torch.Tensor, std: float) -> torch.Tensor:
         return out.normal_(generator=self.generator).mul_(std)
@@ -176,8 +190,8 @@ class LeafDrawer:
         if reduce_axis is not None:
             w, s = quantize_tensor(w, reduce_axis)
             tree[name + "_scale"] = self._cut(key[:-1] + (name + "_scale",),
-                                              s).contiguous()
-        tree[name] = self._cut(key, w).contiguous()
+                                              s)
+        tree[name] = self._cut(key, w)
 
     def layered(self, tree: dict, key, layer_shape, std: float) -> None:
         """A ``[L, ...]`` stacked leaf ``tree[key[-1]]`` drawn a layer at a

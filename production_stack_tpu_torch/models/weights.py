@@ -138,7 +138,11 @@ def _owned(t: torch.Tensor, dtype) -> torch.Tensor:
 def _stacked(views: List, dtype, cut, key) -> torch.Tensor:
     """The per-layer leaves (or per-layer lists of per-expert leaves)
     stacked on new leading axes, cast in the one copy; ``cut(key, x)``
-    gives the part of a layer's leaf (or list of experts) to keep."""
+    gives the part of a layer's leaf (or list of experts) to keep, and
+    ``cut.layers`` (when set) the layers to keep."""
+    layers = getattr(cut, "layers", None)
+    if layers is not None:
+        views = views[layers.start:layers.stop]
     views = [cut(key, v) for v in views]
     nested = isinstance(views[0], list)
     inner = views[0][0] if nested else views[0]
@@ -354,13 +358,16 @@ def _load_mixtral(cfg: ModelConfig, path: str, cut) -> Dict:
 
 
 def load_checkpoint(cfg: ModelConfig, path: str, rank: int = 0, tp: int = 1,
-                    whole: Tuple[str, ...] = ()) -> Dict:
+                    whole: Tuple[str, ...] = (),
+                    layers: Optional[range] = None) -> Dict:
     """Load the HF weights at ``path`` into the architecture's parameter
     tree (CPU tensors in ``cfg``'s dtype). With ``tp > 1`` only rank
     ``rank``'s slice of each leaf (``parallel/sharding.py``) is copied
     out of the mapped files, except the layer leaves named in ``whole``,
     which are read whole (an int8 row-parallel leaf is quantized whole
-    before it is sliced)."""
+    before it is sliced). ``layers`` (a pipeline stage's) keeps only
+    those layers of the stacked leaves; every layer must still be in
+    the checkpoint."""
     loader = {"llama": _load_llama, "opt": _load_opt,
               "mixtral": _load_mixtral}[cfg.arch]
     logger.info("Loading %s checkpoint from %s", cfg.arch, path)
@@ -373,6 +380,7 @@ def load_checkpoint(cfg: ModelConfig, path: str, rank: int = 0, tp: int = 1,
             return view[rank * n:(rank + 1) * n]
         return slice_leaf(key, view, cfg, rank, tp)
 
+    cut.layers = layers
     return loader(cfg, path, cut)
 
 

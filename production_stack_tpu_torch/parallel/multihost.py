@@ -2,9 +2,10 @@
 channel.
 
 The port's own copy of ``production_stack_tpu/parallel/multihost.py``,
-with ``torch.distributed`` in place of ``jax.distributed``. A
-tensor-parallel engine runs as one process a rank, on one host or
-spread over hosts, and both take this path:
+with ``torch.distributed`` in place of ``jax.distributed``. A sharded
+engine (tensor or pipeline parallelism, data-parallel replicas) runs as
+one process a rank, ``dp x pp x tp`` of them (:func:`job_dp`), on one
+host or spread over hosts, and both take this path:
 
 - every process joins one ``torch.distributed`` job
   (:func:`initialize_from_env`, a gloo group over TCP; the engine adds an
@@ -18,7 +19,8 @@ spread over hosts, and both take this path:
   a step) over a TCP side channel (:class:`OpChannel`), authenticated by
   a shared token. Device state (weights, KV pages, penalty counts, the
   in-flight burst's feedback tokens) never crosses the wire: each rank
-  holds its own slice of the same weights and its own KV heads.
+  holds its own slice of the same weights and its own KV heads (of its
+  own pipeline stage's layers).
 
 Why TCP and not a broadcast collective: a collective would put extra
 device work on every engine step and entangle control ordering with
@@ -108,6 +110,22 @@ def distributed_env(environ=None) -> Optional[dict]:
         "process_id": pid,
         "op_port": op_port,
     }
+
+
+def job_dp(num_processes: int, data_parallel_size: int, pp: int,
+           tp: int) -> int:
+    """The data-parallel size of a job of ``num_processes`` ranks, which
+    must be ``dp x pp x tp``. As in the JAX engine, an unset
+    ``data_parallel_size`` (<= 1) fills the job: every process serves a
+    replica. Raises ValueError when the sizes do not cover the job."""
+    dp = (max(num_processes // (tp * pp), 1) if data_parallel_size <= 1
+          else data_parallel_size)
+    if dp * pp * tp != num_processes:
+        raise ValueError(
+            f"multi-host mesh tp={tp} x pp={pp} x dp={dp} covers "
+            f"{dp * pp * tp} devices but the job has {num_processes}; "
+            f"size the parallelism to the whole slice")
+    return dp
 
 
 def initialize_from_env() -> Optional[dict]:
@@ -441,11 +459,14 @@ def shutdown(ctx: Optional[MultihostContext],
     """Close the op channel, leave the ``torch.distributed`` job and wait
     for spawned ranks (killed past ``timeout``), whose ``TPU_STACK_*``
     variables then leave this process's environment. Returns their exit
-    codes."""
+    codes. The job is left before the wait: a follower tearing down its
+    NCCL communicators may wait for this process's side of them."""
     import torch.distributed as dist
 
     if ctx is not None:
         ctx.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     codes = []
     for p in procs:
         try:
@@ -456,6 +477,4 @@ def shutdown(ctx: Optional[MultihostContext],
     if procs:
         for key in _SPAWN_KEYS:
             os.environ.pop(key, None)
-    if dist.is_initialized():
-        dist.destroy_process_group()
     return codes

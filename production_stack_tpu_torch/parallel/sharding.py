@@ -32,6 +32,13 @@ the dimension that does not divide.
 
 Axes are counted from the end, so one rule serves a stacked ``[L, ...]``
 leaf and one layer's view of it.
+
+Pipeline parallelism (the Llama family only, as in the JAX engine,
+:func:`check_pp`): stage ``s`` of ``pp`` holds layers ``[s*L/pp,
+(s+1)*L/pp)`` of every ``layers`` leaf and every LoRA layer leaf (int8
+scales included), the tp slice taken within them. The embedding, the
+final norm, the head and the LoRA scaling stay whole on every stage, as
+the JAX specs leave them (``P()``).
 """
 
 from __future__ import annotations
@@ -136,6 +143,36 @@ def check_tp(cfg, tp: int) -> None:
             f"divides the other")
 
 
+def check_pp(cfg, pp: int) -> None:
+    """The JAX engine's two refusals of a pipeline: an architecture other
+    than the Llama family, and a layer count ``pp`` does not divide."""
+    if pp < 1:
+        raise ValueError(f"pipeline_parallel_size must be >= 1, got {pp}")
+    if pp == 1:
+        return
+    if cfg.arch != "llama":
+        raise ValueError(
+            "pipeline_parallel_size > 1 is supported for the Llama "
+            f"family (model arch {cfg.arch!r})")
+    if cfg.num_layers % pp != 0:
+        raise ValueError(
+            f"num_layers {cfg.num_layers} is not divisible by "
+            f"pipeline_parallel_size {pp}")
+
+
+def stage_layers(num_layers: int, stage: int, pp: int) -> range:
+    """The (global) layers of stage ``stage`` of ``pp``."""
+    n = num_layers // pp
+    return range(stage * n, (stage + 1) * n)
+
+
+def is_stage_sharded(key: Tuple[str, ...]) -> bool:
+    """Whether a leaf splits on its layer axis over the pipeline: every
+    ``layers`` leaf and every LoRA layer leaf (not the per-slot
+    scaling)."""
+    return key[0] == "layers" or (key[0] == "lora" and key[-1] != "scaling")
+
+
 def kv_heads_local(cfg, tp: int) -> int:
     """KV heads a rank's pool holds: ``num_kv_heads / tp``, or the one
     head its q heads read when ``tp > num_kv_heads``."""
@@ -161,10 +198,16 @@ def split_rule(arch: str, key: Tuple[str, ...]):
     return splits[key]
 
 
-def slice_leaf(key: Tuple[str, ...], leaf, cfg, rank: int, tp: int):
+def slice_leaf(key: Tuple[str, ...], leaf, cfg, rank: int, tp: int,
+               stage: int = 0, pp: int = 1):
     """Rank ``rank``'s slice of a whole leaf (a numpy array or a tensor;
-    a view, which the caller copies). ``key`` is the leaf's path in the
-    parameter tree, e.g. ``("layers", "wq")``."""
+    a view, which the caller copies): its stage's layers of a
+    stage-sharded leaf (``stage`` of ``pp``), and within them its tp
+    slice. ``key`` is the leaf's path in the parameter tree, e.g.
+    ``("layers", "wq")``."""
+    if pp > 1 and is_stage_sharded(key):
+        layers = stage_layers(leaf.shape[0], stage, pp)
+        leaf = leaf[layers.start:layers.stop]
     if tp == 1:
         return leaf
     rule = split_rule(cfg.arch, key)
@@ -195,17 +238,18 @@ def slice_leaf(key: Tuple[str, ...], leaf, cfg, rank: int, tp: int):
 
 
 def shard_params(tree: Dict, cfg, rank: int, tp: int,
-                 prefix: Tuple[str, ...] = ()) -> Dict:
+                 prefix: Tuple[str, ...] = (), stage: int = 0,
+                 pp: int = 1) -> Dict:
     """The tree of rank ``rank``'s slices (views) of a whole parameter
-    tree: the JAX engine's tree as numpy, a checkpoint's CPU tensors or
-    a parameter dict."""
+    tree (at stage ``stage`` of ``pp``): the JAX engine's tree as numpy,
+    a checkpoint's CPU tensors or a parameter dict."""
     out = {}
     for name, node in tree.items():
         key = prefix + (name,)
         if isinstance(node, dict):
-            out[name] = shard_params(node, cfg, rank, tp, key)
+            out[name] = shard_params(node, cfg, rank, tp, key, stage, pp)
         else:
-            out[name] = slice_leaf(key, node, cfg, rank, tp)
+            out[name] = slice_leaf(key, node, cfg, rank, tp, stage, pp)
     return out
 
 
@@ -218,9 +262,9 @@ def is_row_parallel(key: Tuple[str, ...]) -> bool:
 
 
 def local_shape(key: Tuple[str, ...], shape, cfg, rank: int,
-                tp: int) -> tuple:
+                tp: int, stage: int = 0, pp: int = 1) -> tuple:
     """The shape of rank ``rank``'s slice of a leaf of ``shape``."""
     import torch
 
     meta = torch.empty(tuple(shape), device="meta")
-    return tuple(slice_leaf(key, meta, cfg, rank, tp).shape)
+    return tuple(slice_leaf(key, meta, cfg, rank, tp, stage, pp).shape)

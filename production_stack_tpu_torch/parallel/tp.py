@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import socket
 import time
-from typing import List
+from typing import List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,22 +51,19 @@ class TPGroup:
     @classmethod
     def create(cls, rank: int, size: int,
                device: torch.device) -> "TPGroup":
-        """Every rank calls this once, in the same order: the ranks
-        exchange (host, device) and pick the backend."""
+        """Every rank of a job of ``size`` processes, all one tp group,
+        calls this once, in the same order: the ranks exchange (host,
+        device) and pick the backend. An engine whose job also has
+        pipeline stages or data-parallel replicas makes its groups with
+        :func:`production_stack_tpu_torch.parallel.pp.create_groups`."""
         if not dist.is_initialized() or dist.get_world_size() != size:
             raise RuntimeError(
                 f"tensor_parallel_size {size} needs a torch.distributed job "
                 f"of {size} processes (multihost.initialize_from_env)")
         device = torch.device(device)
-        ident = (socket.gethostname(), str(device))
-        idents: List = [None] * size
-        dist.all_gather_object(idents, ident)
-        sharing = sum(1 for i in idents if i == ident)
-        nccl = (device.type == "cuda" and len(set(idents)) == size
-                and dist.is_nccl_available())
-        group = dist.new_group(backend="nccl") if nccl else None
-        return cls(rank, size, device, "nccl" if nccl else "gloo", group,
-                   sharing)
+        backend, sharing = job_backend(device)
+        group = member_group([list(range(size))], backend)
+        return cls(rank, size, device, backend, group, sharing)
 
     def _run(self, fn, *args):
         if not self.timing:
@@ -109,4 +106,40 @@ class TPGroup:
         """Wait for every rank (a one-element all-reduce, card work
         included where the backend orders it)."""
         self.min_int(0)
+
+
+def job_backend(device: torch.device) -> Tuple[str, int]:
+    """The backend of the job's groups and how many ranks share this
+    rank's device. Every rank of the job calls this once, in the same
+    order: the ranks exchange (host, device) on the job's gloo group.
+    NCCL where every rank has a card of its own, gloo otherwise."""
+    world = dist.get_world_size()
+    ident = (socket.gethostname(), str(device))
+    idents: List = [None] * world
+    dist.all_gather_object(idents, ident)
+    sharing = sum(1 for i in idents if i == ident)
+    nccl = (device.type == "cuda" and len(set(idents)) == world
+            and dist.is_nccl_available())
+    return ("nccl" if nccl else "gloo"), sharing
+
+
+def member_group(groups: List[List[int]], backend: str):
+    """The ``torch.distributed`` group of this rank among ``groups`` (each
+    a list of global ranks; together they cover the job). Every rank calls
+    this with the same lists in the same order, since ``new_group`` must
+    be called by every rank for every group, or the job hangs. None
+    stands for the job's own (gloo) group; a group of one rank gets no
+    handle."""
+    me, world = dist.get_rank(), dist.get_world_size()
+    mine = None
+    for ranks in groups:
+        if len(ranks) < 2:
+            continue
+        if backend == "gloo" and len(ranks) == world:
+            handle = None
+        else:
+            handle = dist.new_group(ranks=list(ranks), backend=backend)
+        if me in ranks:
+            mine = handle
+    return mine
 

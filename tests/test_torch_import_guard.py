@@ -55,7 +55,9 @@ def test_every_port_module_imports_without_jax():
                 "models.registry", "models.convert", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build",
                 "parallel", "parallel.sharding", "parallel.mesh",
-                "parallel.multihost", "parallel.tp"):
+                "parallel.multihost", "parallel.tp", "parallel.pp",
+                "parallel.pp_serving", "parallel.pipeline",
+                "parallel.ring_attention"):
         assert f"{PKG}.{mod}" in out["names"], mod
     # First dotted component exactly "production_stack_tpu": the port's
     # own "production_stack_tpu_torch" shares that prefix and is fine.

@@ -231,7 +231,8 @@ def test_server_entry_starts_and_ends_the_ranks():
                     status, out = _post(port, path, {
                         "prompt": "x", "source_url": "http://127.0.0.1:9"})
                     assert status == 501, (path, out)
-                    assert "tensor_parallel_size" in out["error"]["message"]
+                    assert ("tensor or pipeline parallelism"
+                            in out["error"]["message"])
         finally:
             httpd.shutdown()
             httpd.server_close()

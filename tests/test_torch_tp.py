@@ -189,9 +189,11 @@ def _free_port_pair() -> int:
 
 
 class Ranks:
-    """``n`` rank processes of one gloo job, fed jobs on stdin."""
+    """``n`` rank processes of one gloo job, fed jobs on stdin; each runs
+    ``worker`` (a script that answers ``RESULT`` lines, by default this
+    module's)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, worker: str = _WORKER):
         self.n = n
         port = _free_port_pair()
         self.procs, self.lines = [], []
@@ -205,7 +207,7 @@ class Ranks:
                        PYTHONPATH=REPO)
             env.pop("TPU_STACK_OP_PORT", None)
             proc = subprocess.Popen(
-                [sys.executable, "-c", _WORKER], env=env, cwd=REPO,
+                [sys.executable, "-c", worker], env=env, cwd=REPO,
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
             lines: "queue.Queue" = queue.Queue()
