@@ -13,6 +13,7 @@
                                      # the --pp-cards runs
     python3 chip_smoke.py --pp-cards # a card a stage: pp_cards_phase
     python3 chip_smoke.py --pp-70b   # only its Llama-3-70B pp 4 run
+    python3 chip_smoke.py --kv-ranks # only phase 19 (kv_ranks_phase)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -119,7 +120,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the cached-prefill kernel run), ``/kv/pull`` between two engines
    behind their servers over the host relay and the local-device rung,
    a prompt spilled to a stdlib L3 block store by one engine and
-   restored from it by the other, ``/kv/prepare_pull`` answering 501;
+   restored from it by the other, ``/kv/prepare_pull`` answering with
+   an offer of the prefix's pages (the KV device pipe, phase 19);
    spill, restore and card-to-card times and the prefix hashes' host
    cost (a ``{"kv": ...}`` line each).
 12. facebook/opt-125m at full width and depth (12 layers, hidden 768,
@@ -180,11 +182,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by shape over the ranks of the tp phase).
 18. pipeline and data parallelism (:func:`pp_phase`), every rank a
    process on the one card under gloo (activations staged through
-   pinned host memory): Llama-3-8B at full width and depth, bf16, at
-   ``--pipeline-parallel-size 2`` (16 layers and 9,135,464,480 bytes of
-   weights a stage, both kernels on both stages at 32/8 heads, 16
-   decode launches a stage a microbatch; then the decode profile: host
-   ms a step, each stage's device busy, the transfers a step and their
+   pinned host memory): Llama-3-8B at full width and ``PP_LLAMA_LAYERS``
+   = 8 of its 32 layers, bf16, at ``--pipeline-parallel-size 2`` (4
+   layers a stage, both kernels on both stages at 32/8 heads, 4 decode
+   launches a stage a microbatch; then the decode profile: host ms a
+   step, each stage's device busy, the transfers a step and their
    share); tpu-llama-1b in float32 at pp 2, pp 4 (one microbatch and
    the default), pp 2 x tp 2 and dp 2, each token-identical to phase
    17's tp 1 streams; ``pipeline_forward`` and ring attention on 2 ranks
@@ -192,6 +194,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``{"pp": ...}`` line). The pp stages' launches join the main rows of
    the kernels line (the same 32/8-head shape). The spec phases (8) run
    Llama-3-8B's widths at ``SPEC_LAYERS`` = 8 of its 32 layers.
+19. KV movement and the lifecycle across ranks, and the KV device pipe
+   (:func:`kv_ranks_phase`): Llama-3-8B at full width and 8 layers, bf16,
+   at tp 2 (both ranks on the card under gloo) beside a tp 1 engine of
+   the same weights: a 2,048-token prefix (32 blocks, 64 MiB) extracted
+   at tp 2 and injected at tp 1, and the reverse, each moved back out
+   bit for bit and serving that engine's own prefix-hit stream; spilled
+   to every rank's host store (the same hashes on every rank) and
+   restored; sleep (bytes freed by each rank) and wake (seconds); both
+   kernels at a rank's 16/4 heads on both ranks. Two server processes on
+   the card: ``kv_path: "device"`` moves the prefix through the KV
+   device pipe (CUDA IPC), against the host relay (bytes, seconds, GB/s
+   beside the 0.040 ms bound of its read and write, first-token times;
+   equal streams). tpu-llama-1b float32 at pp 2 (the payload bit-equal
+   to tp 1's) and pp 2 x tp 2 with int8 pages (codes within one of tp
+   1's). A ``{"kv_ranks": ...}`` line; the tp 2 ranks' launches join
+   the ``*_tp2`` rows of the kernels line, the tp 1 engine's the main
+   rows.
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
@@ -2802,8 +2821,8 @@ def _move_timings(core, n_blocks: int) -> dict:
         start.record()
         for _ in range(10):
             core._write_pages(bids, *(
-                _leaf_map(lambda t: t.index_select(1, sel), pages)
-                for pages in core.kv))
+                _leaf_map(lambda t: t.index_select(1, sel).transpose(0, 1),
+                          pages) for pages in core.kv))
         end.record()
         end.synchronize()
         out["card_to_card_device_ms"] = start.elapsed_time(end) / 10
@@ -2857,14 +2876,15 @@ def kv_phase(label: str, extra_args, entries, smi):
        blocks have spilled to the L3, flushes; D pulls R3 (P misses:
        ``status: "l3"``) and serves it, restoring through the remote tier,
        with P's prefix-hit stream;
-    5. ``/kv/prepare_pull`` answers 501.
+    5. ``/kv/prepare_pull`` on D offers R3's pages through the KV device
+       pipe (their handles; released at once).
 
     Launch counters are set to 0 before the drive and read after it.
     Returns (launch counts by kernel entry, summary)."""
-    import urllib.error
-    import urllib.request
 
     import torch
+
+    from production_stack_tpu_torch.kv.device_pipe import host_key
 
     t_phase = time.time()
     summary = {"config": label, "card": smi}
@@ -2969,18 +2989,16 @@ def kv_phase(label: str, extra_args, entries, smi):
             "d_fetched_bytes": (after["remote_get_bytes"]
                                 - before["remote_get_bytes"]),
             "first_token_s": got["_first_token_s"], "pull": out}
-        req = urllib.request.Request(
-            dc.base + "/kv/prepare_pull", data=json.dumps(
-                {"prompt": r3}).encode(),
-            headers={"Content-Type": "application/json"})
-        try:
-            urllib.request.urlopen(req, timeout=60)
-            raise AssertionError("kv: /kv/prepare_pull did not answer 501")
-        except urllib.error.HTTPError as err:
-            if err.code != 501:
-                raise AssertionError(f"kv: /kv/prepare_pull answered "
-                                     f"{err.code}")
-        summary["prepare_pull"] = 501
+        pipe_probe()  # waits for the availability probe main started
+        status, offer = _status(dc, "/kv/prepare_pull",
+                                {"prompt": r3, "host_key": host_key()})
+        if status != 200 or len(offer["hashes"]) < len(r3_chain) - 1:
+            raise AssertionError(f"kv: /kv/prepare_pull answered {status}")
+        if _status(dc, "/kv/release", {"uuid": offer["uuid"]})[0] != 200:
+            raise AssertionError("kv: /kv/release failed")
+        summary["prepare_pull"] = {"status": status,
+                                   "blocks": len(offer["hashes"]),
+                                   "bytes": offer["bytes"]}
         metrics = dc.get("/metrics")
         for series in ("tpu:kv_transfer_rx_bytes_total",
                        "tpu:kv_transfer_device_pulls_total",
@@ -4720,7 +4738,9 @@ def _serve_once(args, drive):
 
 # -- pipeline and data parallelism ------------------------------------------
 
-PP_LLAMA_ARGS = SERVE_ARGS + ["--pipeline-parallel-size", "2"]
+# The pp phase serves Llama-3-8B's widths at this many of its 32 layers
+# at pp 2 (4 a stage); --pp-cards serves all 32.
+PP_LLAMA_LAYERS = 8
 # tpu-llama-1b float32 runs whose streams are held to tp 1's: (label,
 # extra arguments, launch shape (H, KVH) of a rank's kernels).
 PP_PARITY_RUNS = (
@@ -4932,14 +4952,15 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
     the one H100 under gloo (activations staged through pinned host
     memory, the share a gloo broadcast):
 
-    - Llama-3-8B at full width and depth, bf16, random weights from seed
-      0, at ``--pipeline-parallel-size 2`` through the server entry,
-      driven as :func:`_tp_llama_drive` says: each stage holds 16 layers
-      and the whole embedding and head (:func:`llama_stage_bytes`), both
-      kernels launched on both stages at 32/8 heads; then the decode
-      step at 8 rows (:func:`tp_decode_profile`): host ms a step, each
-      stage's device busy, the transfers a step and their share, and
-      16 decode launches a stage a microbatch of each step;
+    - Llama-3-8B at full width and ``PP_LLAMA_LAYERS`` = 8 of its 32
+      layers, bf16, random weights from seed 0, at
+      ``--pipeline-parallel-size 2`` through the server entry, driven as
+      :func:`_tp_llama_drive` says: each stage holds 4 layers and the
+      whole embedding and head (:func:`llama_stage_bytes`), both kernels
+      launched on both stages at 32/8 heads; then the decode step at 8
+      rows (:func:`tp_decode_profile`): host ms a step, each stage's
+      device busy, the transfers a step and their share, and 4 decode
+      launches a stage a microbatch of each step;
     - tpu-llama-1b in float32 at each of ``PP_PARITY_RUNS``: the tp
       phase's tp 1 streams (greedy, chunked, a prefix hit, seeded
       sampled), token for token;
@@ -4954,11 +4975,14 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
     summary = {"card": smi, "card_count": torch.cuda.device_count()}
     launches: dict = {}
     both = ("paged_attention", "cached_prefill_attention")
-    cfg = get_model_config("meta-llama/Llama-3-8B")
+    cfg = get_model_config("meta-llama/Llama-3-8B").replace(
+        num_layers=PP_LLAMA_LAYERS)
     want_bytes = llama_stage_bytes(cfg, 2)
     _free_device_memory()
+    args = ([llama_8b_dir(here, PP_LLAMA_LAYERS)] + SERVE_ARGS[1:]
+            + ["--pipeline-parallel-size", "2"])
     out, ranks, prof, init_s = _tp_serve(
-        "Llama-3-8B bf16 pp 2", PP_LLAMA_ARGS, _tp_llama_drive,
+        "Llama-3-8B bf16 pp 2", args, _tp_llama_drive,
         {fn: tp_shape_key(32, 8, 128) for fn in both}, profile_decode=True)
     _check_stages("Llama-3-8B bf16 pp 2", ranks, 2, cfg.num_layers,
                   want_bytes)
@@ -4971,7 +4995,8 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
     for n in prof["decode_launches_per_step_by_rank"]:
         if n != cfg.num_layers // 2 * M:
             raise AssertionError(f"Llama-3-8B pp 2: {n} decode launches a "
-                                 f"stage a step, not 16 x {M}")
+                                 f"stage a step, not "
+                                 f"{cfg.num_layers // 2} x {M}")
     summary["llama_8b_pp2"] = dict(
         out, init_s=init_s, ranks=ranks, decode=prof, microbatches=M,
         stage_weight_bytes=want_bytes)
@@ -5080,6 +5105,476 @@ def pp_70b_phase(smi) -> dict:
     return {"llama_70b_pp4": out}
 
 
+# -- KV movement and the lifecycle across ranks; the KV device pipe --------
+
+# Llama-3-8B's widths at TP_LLAMA_LAYERS layers, 64-token pages: a pool
+# of 64 blocks, so that two other 2,064-token prompts evict a first one's
+# 32 cached blocks to the host tier.
+KVR_ARGS = ["--device", "cuda", "--host", "127.0.0.1", "--max-model-len",
+            "2304", "--max-num-seqs", "4", "--seed", "0", "--num-blocks",
+            "64", "--max-loras", "0"]
+KVR_PREFIX = 2048  # tokens: the 32 blocks an extract or a pull moves
+KVR_MAX_TOKENS = 16
+# tpu-llama-1b float32: the prompt whose 9 cached blocks are extracted.
+KVR_F32_PROMPT = 600
+
+
+_PIPE_PROBE: dict = {}
+
+
+def start_pipe_probe() -> None:
+    """Start the KV device pipe's availability probe (two throwaway
+    processes on the card, ~20 s) on a thread, once, so that it runs
+    beside the phases before the first one that needs the pipe."""
+    import threading
+
+    from production_stack_tpu_torch.kv.device_pipe import (
+        device_pipe_available,
+    )
+
+    if "thread" in _PIPE_PROBE:
+        return
+
+    def run():
+        t0 = time.perf_counter()
+        _PIPE_PROBE["available"] = device_pipe_available()
+        _PIPE_PROBE["seconds"] = time.perf_counter() - t0
+
+    _PIPE_PROBE["thread"] = threading.Thread(target=run, daemon=True)
+    _PIPE_PROBE["thread"].start()
+
+
+def pipe_probe() -> dict:
+    """The probe's result, once it has ended; fails when the pipe is
+    unavailable on the card."""
+    start_pipe_probe()
+    _PIPE_PROBE["thread"].join(timeout=300)
+    if not _PIPE_PROBE.get("available"):
+        raise AssertionError(f"the KV device pipe is unavailable on the "
+                             f"card ({_PIPE_PROBE})")
+    return {k: v for k, v in _PIPE_PROBE.items() if k != "thread"}
+
+
+def _kvr_ids(seed: int, n: int = KVR_PREFIX + 16, vocab: int = 30000):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [int(t) for t in rng.integers(100, vocab, size=n)]
+
+
+def _greedy_ids(core, ids, max_tokens=KVR_MAX_TOKENS):
+    """The greedy token ids of one request on ``core`` (its engine thread
+    runs it), ending in the finish reason."""
+    import queue
+
+    from production_stack_tpu_torch.engine.sampling import SamplingParams
+
+    q: "queue.Queue" = queue.Queue()
+    core.add_request(f"kvr-{time.monotonic_ns()}", list(ids),
+                     SamplingParams(temperature=0.0, max_tokens=max_tokens,
+                                    ignore_eos=True),
+                     lambda t, f: q.put((t, f)))
+    out = []
+    while True:
+        t, f = q.get(timeout=600)
+        if t is not None:
+            out.append(int(t if isinstance(t, int) else t[0]))
+        if f is not None:
+            if f not in ("stop", "length"):
+                raise AssertionError(f"kv_ranks: a request ended {f!r}")
+            return out
+
+
+def _leaf_list(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _same_bits(name, a, b):
+    """Two payloads' hashes and every page leaf bit for bit."""
+    import torch
+
+    if a["hashes"] != b["hashes"]:
+        raise AssertionError(f"kv_ranks: {name}: the hashes differ")
+    for side in ("k", "v"):
+        for x, y in zip(_leaf_list(a[side]), _leaf_list(b[side])):
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(
+                    x.view(-1).view(torch.uint8),
+                    y.view(-1).view(torch.uint8)):
+                raise AssertionError(f"kv_ranks: {name}: {side} pages "
+                                     f"differ")
+
+
+def _payload_bytes(p) -> int:
+    return sum(t.numel() * t.element_size()
+               for side in ("k", "v") for t in _leaf_list(p[side]))
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _start(args):
+    """A port server of ``args`` on a thread of this process."""
+    import threading
+
+    from production_stack_tpu_torch.engine.server import build_server
+
+    httpd, core = build_server(list(args) + ["--port", "0"])
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, core, Client(httpd.server_address[1])
+
+
+def _stop(httpd, core):
+    httpd.shutdown()
+    httpd.server_close()  # ends a sharded engine's job
+    core.stop()
+
+
+def _kvr_tp2_drive(a_core, b_core, summary):
+    """The tp 2 engine ``a_core`` (host tier on) and the tp 1 engine
+    ``b_core`` of the same weights, both Llama-3-8B at 8 layers, bf16
+    pages. Every stream held equal is served over pages whose bits that
+    engine computed itself, so no bf16 near-tie between tp 1's and tp 2's
+    sums can flip it."""
+    P, Q1, Q2, R = (_kvr_ids(s) for s in (301, 302, 303, 304))
+    a_fresh = _greedy_ids(a_core, P)
+    a_hit = _greedy_ids(a_core, P)
+    # Extract at tp 2: every rank's heads to pinned memory, the follower's
+    # over gloo to the leader, which assembles the whole blocks.
+    before = a_core.rank_stats()
+    pa, extract_s = _timed(lambda: a_core.extract_kv(P))
+    ranks = a_core.rank_stats()
+    if pa is None or len(pa["hashes"]) != KVR_PREFIX // 64:
+        raise AssertionError("kv_ranks: the tp 2 extract missed")
+    nbytes = _payload_bytes(pa)
+    summary["extract_tp2"] = {
+        "blocks": len(pa["hashes"]), "bytes": nbytes,
+        "seconds": extract_s, "gb_per_s": nbytes / extract_s / 1e9,
+        "copy_ms_by_rank": [(r["kv_gather_copy_s"] - b["kv_gather_copy_s"])
+                            * 1e3 for r, b in zip(ranks, before)],
+        "gloo_ms_by_rank": [(r["kv_gather_gloo_s"] - b["kv_gather_gloo_s"])
+                            * 1e3 for r, b in zip(ranks, before)]}
+    # Into the tp 1 engine, and back out bit for bit.
+    n, inject_s = _timed(lambda: b_core.inject_kv(pa["hashes"], pa["k"],
+                                                  pa["v"]))
+    pa2 = b_core.extract_kv(P)
+    _same_bits("tp 2 -> tp 1 -> extract", pa, pa2)
+    b_over_a = _greedy_ids(b_core, P)
+    summary["inject_tp1"] = {"blocks": n, "seconds": inject_s,
+                             "cross_stream_equal_to_tp2_hit":
+                                 b_over_a == a_hit}
+    # The host tier at tp 2: two other prompts evict P's 32 blocks, which
+    # every rank spills into its own store; P then comes back restored.
+    before = a_core.stats()["offload"]
+    for ids in (Q1, Q2):
+        _greedy_ids(a_core, ids)
+    ranks = a_core.rank_stats()
+    stores = [r["offload_keys"] for r in ranks]
+    if any(s != stores[0] for s in stores) or not set(pa["hashes"]) <= set(
+            stores[0]):
+        raise AssertionError("kv_ranks: the ranks' host stores differ, or "
+                             "miss the spilled prefix")
+    restored = _greedy_ids(a_core, P)
+    after = a_core.stats()["offload"]
+    if restored != a_hit or after["hits"] - before["hits"] < 32:
+        raise AssertionError(f"kv_ranks: the restored stream differs, or "
+                             f"{after['hits'] - before['hits']} restores")
+    summary["host_tier_tp2"] = {
+        "store_blocks_by_rank": [len(s) for s in stores],
+        "stores_equal": True, "restored_blocks": after["hits"]
+        - before["hits"], "stream_equal": True}
+    # Sleep and wake at tp 2: every rank stages its weights and drops its
+    # pool; after the wake, the pages from tp 1 go back in (8 chunks of 4
+    # blocks, each rank writing its heads) and serve P's stream.
+    free0 = torch_free()
+    _, sleep_s = _timed(a_core.sleep)
+    ranks = a_core.rank_stats()  # after every rank's sleep op
+    free1 = torch_free()
+    _, wake_s = _timed(a_core.wake_up)
+    n2 = a_core.inject_kv(pa2["hashes"], pa2["k"], pa2["v"])
+    after_wake = _greedy_ids(a_core, P)
+    if n2 != 32 or after_wake != a_hit:
+        raise AssertionError("kv_ranks: after the wake, the injected pages "
+                             "did not give the stream before it")
+    summary["lifecycle_tp2"] = {
+        "sleep_s": sleep_s, "wake_s": wake_s,
+        "freed_bytes_by_rank": [r["sleep_freed_bytes"] for r in ranks],
+        "card_free_gain_bytes": free1 - free0, "injected_after_wake": n2,
+        "stream_equal": True}
+    # The reverse: tp 1's pages into tp 2 and back out bit for bit, then
+    # into the tp 1 engine emptied by a sleep, where they serve its own
+    # prefix-hit stream.
+    _greedy_ids(b_core, R)
+    b_hit = _greedy_ids(b_core, R)
+    pb = b_core.extract_kv(R)
+    n3, inject2_s = _timed(lambda: a_core.inject_kv(pb["hashes"], pb["k"],
+                                                    pb["v"]))
+    pb2 = a_core.extract_kv(R)
+    _same_bits("tp 1 -> tp 2 -> extract", pb, pb2)
+    b_core.sleep()
+    b_core.wake_up()
+    b_core.inject_kv(pb2["hashes"], pb2["k"], pb2["v"])
+    if _greedy_ids(b_core, R) != b_hit:
+        raise AssertionError("kv_ranks: tp 1's pages back from tp 2 did not "
+                             "give tp 1's prefix-hit stream")
+    summary["inject_tp2"] = {"blocks": n3, "seconds": inject2_s,
+                             "round_trip_bit_equal": True,
+                             "stream_equal": True}
+    summary["streams"] = {"tp2_fresh_equal_hit": a_fresh == a_hit}
+
+
+def torch_free() -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    return int(torch.cuda.mem_get_info()[0])
+
+
+def _kvr_pipe_drive(b_httpd, b_core, peer_url, summary):
+    """The pipe between two server processes on the card: the peer
+    computes S's pages, ``b`` pulls them (``kv_path: "device"``, then the
+    host relay after a sleep empties its pool, then the pipe again), and
+    serves S over them: first-token time, and the same stream each
+    time."""
+    from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
+
+    S = _kvr_ids(305)
+    peer = Client(int(peer_url.rsplit(":", 1)[1]))
+    mine = Client(b_httpd.server_address[1])
+    body = {"prompt": S, "max_tokens": KVR_MAX_TOKENS, "temperature": 0}
+    _finish("kv_ranks peer", peer.post("/v1/completions", body))
+    runs = []
+    for i, kv_path in enumerate(("device", "host", "device")):
+        if i:
+            b_core.sleep()  # an empty pool: the next pull moves every page
+            b_core.wake_up()
+        status, out = _status(mine, "/kv/pull", {
+            "source_url": peer_url, "request": {"prompt": S},
+            "kv_path": kv_path})
+        if status != 200 or out.get("status") != "ok":
+            raise AssertionError(f"kv_ranks: {kv_path} pull {status} {out}")
+        if out["transfer"]["path"] != kv_path:
+            raise AssertionError(f"kv_ranks: a {kv_path} pull ran the "
+                                 f"{out['transfer']['path']} rung")
+        if out["injected_blocks"] != KVR_PREFIX // 64:
+            raise AssertionError(f"kv_ranks: {kv_path} pull installed "
+                                 f"{out['injected_blocks']} blocks")
+        streamed = mine.post("/v1/completions", dict(body, stream=True),
+                             stream=True)
+        _finish(f"kv_ranks after a {kv_path} pull", streamed)
+        runs.append(dict(out["transfer"],
+                         first_token_s=streamed["_first_token_s"],
+                         stream=_greedy_ids(b_core, S)))
+    streams = [r.pop("stream") for r in runs]
+    if any(s != streams[0] for s in streams):
+        raise AssertionError("kv_ranks: the streams after the device pulls "
+                             "differ from the relay's")
+    nbytes = runs[0]["bytes"]
+    summary["pipe"] = {
+        "path": runs[0]["path"], "bytes": nbytes,
+        "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+        "device": [runs[0], runs[2]], "host_relay": runs[1],
+        "copy_gb_per_s": [nbytes / (r["copy_ms"] / 1e3) / 1e9
+                          for r in (runs[0], runs[2])],
+        "streams_equal_to_relay": True}
+
+
+def _kvr_f32_extracts(summary):
+    """tpu-llama-1b in float32 at tp 1, pp 2 (float32 pages: the payload
+    bit-equal to tp 1's) and pp 2 x tp 2 (int8 pages: codes within one of
+    tp 1's, its ranks adding their partial sums in another order)."""
+    import torch
+
+    ids = _kvr_ids(306, KVR_F32_PROMPT, 32000)
+    both = ("paged_attention", "cached_prefill_attention")
+    got = {}
+    for label, extra, heads in (
+            ("tp 1", [], None), ("tp 1 int8", ["--kv-cache-dtype", "int8"],
+                                 None),
+            ("pp 2", ["--pipeline-parallel-size", "2"], (16, 8, False)),
+            ("pp 2 x tp 2 int8", ["--pipeline-parallel-size", "2",
+                                  "--tensor-parallel-size", "2",
+                                  "--kv-cache-dtype", "int8"], (8, 4, True))):
+        _free_device_memory()
+        t0 = time.time()
+        at = TP_PARITY_ARGS.index("--port")
+        httpd, core, _ = _start(TP_PARITY_ARGS[:at] + TP_PARITY_ARGS[at + 2:]
+                                + extra)
+        try:
+            if heads:
+                core.rank_stats(reset=True)
+            stream = _greedy_ids(core, ids)
+            payload = core.extract_kv(ids)
+            if heads:
+                from production_stack_tpu_torch.ops.paged_attention import (
+                    launch_shape,
+                )
+
+                H, KVH, int8 = heads
+                key = launch_shape(H, KVH, 128, torch.float32, int8)
+                _check_ranks(f"{TP_PARITY_MODEL} {label}", core.rank_stats(),
+                             core.layout.size, {fn: key for fn in both})
+        finally:
+            _stop(httpd, core)
+        got[label] = (payload, stream, time.time() - t0)
+    _same_bits("pp 2 against tp 1", got["tp 1"][0], got["pp 2"][0])
+    ref, mix = got["tp 1 int8"][0], got["pp 2 x tp 2 int8"][0]
+    if ref["hashes"] != mix["hashes"]:
+        raise AssertionError("kv_ranks: pp 2 x tp 2 hashes differ")
+    flips = total = 0
+    scale_rel = 0.0
+    for side in ("k", "v"):
+        d = (mix[side][0].int() - ref[side][0].int()).abs()
+        if int(d.max()) > 1:
+            raise AssertionError(f"kv_ranks: pp 2 x tp 2 {side} codes differ "
+                                 f"by {int(d.max())}")
+        flips += int((d != 0).sum())
+        total += d.numel()
+        scale_rel = max(scale_rel, float(
+            ((mix[side][1] - ref[side][1]).abs() / ref[side][1]).max()))
+    summary["f32_extracts"] = {
+        "model": TP_PARITY_MODEL, "blocks": len(ref["hashes"]),
+        "pp2_bit_equal_to_tp1": True,
+        "pp2_stream_equal": got["pp 2"][1] == got["tp 1"][1],
+        "pp2xtp2_int8_code_flips": flips, "pp2xtp2_int8_codes": total,
+        "pp2xtp2_int8_scale_max_rel_diff": scale_rel,
+        "pp2xtp2_stream_equal_to_tp1_int8":
+            got["pp 2 x tp 2 int8"][1] == got["tp 1 int8"][1],
+        "seconds": {k: v[2] for k, v in got.items()}}
+
+
+def kv_ranks_phase(here: str, smi) -> tuple:
+    """KV movement and the lifecycle across ranks, and the KV device pipe
+    (a ``{"kv_ranks": ...}`` line):
+
+    - Llama-3-8B at full width and ``TP_LLAMA_LAYERS`` layers, bf16,
+      64-token pages, random weights from seed 0: a tp 2 engine (both
+      ranks on the card under gloo, a host tier on) and a tp 1 engine of
+      the same weights, driven as :func:`_kvr_tp2_drive` says: a
+      2,048-token prefix extracted at tp 2 (gather ms by rank and by
+      gloo), injected at tp 1 and back; spilled to every rank's store and
+      restored; sleep (bytes freed by each rank) and wake (seconds); both
+      attention kernels at a rank's 16/4 heads on both ranks;
+    - two server processes on the card, the tp 1 engine pulling the
+      other's prefix through the KV device pipe (CUDA IPC), through the
+      host relay, and through the pipe again (:func:`_kvr_pipe_drive`);
+    - tpu-llama-1b in float32 at pp 2 and pp 2 x tp 2
+      (:func:`_kvr_f32_extracts`).
+
+    Returns (launches by (wrapper, shape) of the tp 2 ranks and the tp 1
+    engine, the summary)."""
+    import socket
+
+    t_phase = time.time()
+    summary = {"card": smi, "layers": TP_LLAMA_LAYERS, "block_size": 64,
+               "prefix_tokens": KVR_PREFIX}
+    path = llama_8b_dir(here, TP_LLAMA_LAYERS)
+    args = [path] + KVR_ARGS
+    _free_device_memory()
+    # The pipe's sender: a server process of its own, started first (it
+    # loads while this process drives the ranks). The availability probe
+    # runs in this process, the puller's (:func:`start_pipe_probe`).
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    err_path = os.path.join(here, "production_stack_tpu_torch", "_build",
+                            "kv_ranks_peer.log")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+    err = open(err_path, "w")
+    peer = subprocess.Popen(
+        [sys.executable, "-m", "production_stack_tpu_torch.engine.server"]
+        + args + ["--port", str(port)], cwd=here, stdout=subprocess.DEVNULL,
+        stderr=err, env=dict(os.environ, PYTHONPATH=here,
+                             TPU_STACK_KV_DEVICE_PIPE="1"))
+    start_pipe_probe()
+    launches: dict = {}
+    b = a = None
+    try:
+        # tp 1 first: a job's environment (the tp 2 ranks') must not be
+        # in place when a single-rank engine is built.
+        b = _start(args)
+        a = _start(args + ["--tensor-parallel-size", "2",
+                           "--kv-offload-gb", "1"])
+        a_httpd, a_core, _ = a
+        parts = {"engines_up": time.time() - t_phase}
+        a_core.rank_stats(reset=True)
+        from production_stack_tpu_torch.ops.paged_attention import (
+            paged_attention,
+        )
+        from production_stack_tpu_torch.ops.prefill_attention import (
+            cached_prefill_attention,
+        )
+
+        wrappers = (paged_attention, cached_prefill_attention)
+        for fn in wrappers:  # this process's counts: the leader's and b's
+            fn.launches_by_shape.clear()
+        t_part = time.time()
+        _kvr_tp2_drive(a_core, b[1], summary)
+        parts["tp2_drive"] = time.time() - t_part
+        ranks = a_core.rank_stats()
+        _check_ranks("kv_ranks Llama-3-8B tp 2", ranks, 2,
+                     {fn.__name__: tp_shape_key(16, 4, 128)
+                      for fn in wrappers})
+        for r in ranks:
+            for fn, by in r["launches_by_shape"].items():
+                key = tp_shape_key(16, 4, 128)
+                launches[(fn, key)] = launches.get((fn, key), 0) + by.get(
+                    key, 0)
+        summary["ranks"] = _rank_summary(ranks)
+        _stop(a_httpd, a_core)
+        a = None
+        # The pipe.
+        deadline = time.monotonic() + 300
+        peer_url = f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                Client(port).get("/health")
+                break
+            except OSError:
+                if peer.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("kv_ranks: the peer server did not "
+                                         "come up")
+                time.sleep(0.5)
+        summary["pipe_probe_s"] = pipe_probe()["seconds"]
+        t_part = time.time()
+        _kvr_pipe_drive(b[0], b[1], peer_url, summary)
+        parts["pipe_drive"] = time.time() - t_part
+        key = tp_shape_key(32, 8, 128)
+        for fn in wrappers:
+            launches[(fn.__name__, key)] = fn.launches_by_shape.get(key, 0)
+            if launches[(fn.__name__, key)] <= 0:
+                raise AssertionError(f"kv_ranks: the tp 1 engine launched no "
+                                     f"{fn.__name__}")
+        _stop(b[0], b[1])
+        b = None
+    finally:
+        for srv in (a, b):
+            if srv is not None:
+                _stop(srv[0], srv[1])
+        if peer.poll() is None:
+            peer.terminate()
+            try:
+                peer.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                peer.kill()
+                peer.wait()
+        err.close()
+    t_part = time.time()
+    _kvr_f32_extracts(summary)
+    parts["f32_extracts"] = time.time() - t_part
+    summary["phase_s"] = time.time() - t_phase
+    summary["part_s"] = parts
+    log(f"[kv_ranks] {json.dumps(summary)}")
+    return launches, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5094,6 +5589,10 @@ def main(argv=None) -> int:
     ap.add_argument("--pp-70b", action="store_true",
                     help="only Llama-3-70B's shapes at pp 4, a card a stage, "
                          "on a host of 4 cards (no result line)")
+    ap.add_argument("--kv-ranks", action="store_true",
+                    help="only the kv_ranks phase: KV movement and the "
+                         "lifecycle across ranks, the KV device pipe (no "
+                         "result line)")
     args = ap.parse_args(argv)
     # A crash in native code (a segfault) prints every thread's Python
     # stack to standard error before the process dies.
@@ -5119,6 +5618,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     from production_stack_tpu_torch.ops import _build
 
+    if not (args.profile or args.tp_cards or args.pp_cards or args.pp_70b):
+        start_pipe_probe()
+
     smi = nvidia_smi_line()
     print(f"device: {smi}", flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5132,6 +5634,12 @@ def main(argv=None) -> int:
         report = profile_structured_phase()
         print(json.dumps({"profile_structured": report}), flush=True)
         _free_device_memory()
+        print(f"card: {smi}", flush=True)
+        return 0
+    if args.kv_ranks:
+        _build.build(["paged_attention", "prefill_attention"])
+        _, summary = kv_ranks_phase(here, smi)
+        print(json.dumps({"kv_ranks": summary}), flush=True)
         print(f"card: {smi}", flush=True)
         return 0
     if args.tp_cards or args.pp_cards or args.pp_70b:
@@ -5267,15 +5775,19 @@ def main(argv=None) -> int:
     pp_launches, pp_summary = pp_phase(here, smi, tp1_streams)
     print(json.dumps({"pp": pp_summary}), flush=True)
     log(f"[time] {time.time() - t0:.0f} s through the pp phase")
-    # Llama-3-8B's stages launch both kernels at the full 32/8 heads in
-    # bf16: the main rows' shape.
+    kv_launches, kv_summary = kv_ranks_phase(here, smi)
+    print(json.dumps({"kv_ranks": kv_summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the kv_ranks phase")
+    # Llama-3-8B's stages, and the kv_ranks phase's tp 1 engine, launch
+    # both kernels at the full 32/8 heads in bf16: the main rows' shape.
     for name in ("paged_attention", "cached_prefill_attention"):
-        launches[name] += pp_launches.get(
-            (name, tp_shape_key(32, 8, 128)), 0)
+        for by in (pp_launches, kv_launches):
+            launches[name] += by.get((name, tp_shape_key(32, 8, 128)), 0)
     for name, r in tp_results.items():
         fn = ("paged_attention" if name.startswith("paged_attention")
               else "cached_prefill_attention")
-        launches[name] = tp_launches.get((fn, r["shape"]), 0)
+        launches[name] = (tp_launches.get((fn, r["shape"]), 0)
+                          + kv_launches.get((fn, r["shape"]), 0))
     results.update(tp_results)
     results.update(probe_results)
     replaces = {

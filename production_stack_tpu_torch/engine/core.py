@@ -57,18 +57,20 @@ with a local cursor, one forward a draft step, under
 where a token outside the grammar, or a finish mid-structure, counts a
 violation.
 
-KV movement is the JAX engine's, single host: with ``kv_offload_bytes``
-or ``kv_remote_url`` an evicted cached page spills to a host-RAM store
-with an optional remote (L3) tier (``kv/offload.py``) and a later prompt
-over that prefix restores it instead of recomputing; ``extract_kv``,
+KV movement is the JAX engine's: with ``kv_offload_bytes`` or
+``kv_remote_url`` an evicted cached page spills to a host-RAM store with
+an optional remote (L3) tier (``kv/offload.py``) and a later prompt over
+that prefix restores it instead of recomputing; ``extract_kv``,
 ``inject_kv`` and ``inject_from_core`` move a prompt's cached prefix
-pages out of a pool, into one, or between two pools on one card. Every
-page movement is ordered on the card's stream against the forwards
-around it: a spill's gather runs before the next forward can overwrite
-the recycled page, and its copy to pinned host memory runs on a side
-stream (:meth:`EngineCore._pages_to_host`); a restore or an inject is
-copied in and scattered before the next forward reads it. HTTP threads
-that extract or inject take ``_step_lock``, which each step holds.
+pages out of a pool, into one, or between two pools on one card, and
+``extract_kv_device`` gathers them on the card for the KV device pipe
+(``kv/device_pipe.py``). Every page movement is ordered on the card's
+stream against the forwards around it: a spill's gather runs before the
+next forward can overwrite the recycled page, and its copy to pinned
+host memory runs on a side stream (:meth:`EngineCore._pages_to_host`); a
+restore or an inject is copied in and scattered before the next forward
+reads it. HTTP threads that extract or inject take ``_step_lock``, which
+each step holds.
 
 The model is any architecture of ``models/registry.py`` (Llama, OPT,
 Mixtral), gated as the JAX engine gates them: LoRA slots and int8
@@ -129,9 +131,29 @@ on the JAX mesh, where no leaf and no pool names ``dp``, every replica
 computes what the leader's does. The job has ``D x P x T`` processes,
 rank ``r`` at ``(dp, pp, tp) = (r // (P T), (r // T) % P, r % T)``
 (``parallel/mesh.py``); every rank, of every stage and replica, replays
-every op. In a job of more than one rank the KV offload tier, KV
-extract/inject/pull and sleep/wake are refused
-(``NotImplementedError``), and a lost rank latches the engine's fault.
+every op, and a lost rank latches the engine's fault.
+
+KV movement and the lifecycle span the ranks as in the JAX engine. A
+whole block travels block-major, and each rank holds its part of it, its
+KV heads of its stage's layers (``parallel/kv_blocks.py``):
+
+- ``write_pages`` (an inject, a restore from the L3 tier): the leader
+  sends the whole payload in 4-block chunks, and every rank writes its
+  part;
+- ``gather_pages`` (an extract, a spill to the L3 tier): every rank of
+  replica 0 copies its part to pinned host memory and sends it to the
+  leader over the job's gloo group, and the leader assembles the blocks;
+- the host-RAM tier alone: every rank spills its part to its own store
+  and restores from it (``offload_blocks``, ``restore_blocks``); the
+  stores stay in lockstep, since every rank's puts come in op order with
+  the same sizes, and a block missing on any rank latches the fault;
+- ``sleep`` and ``wake``: every rank stages its own parameters to pinned
+  host memory and drops its pool, and reallocates it on wake. The leader
+  keeps the scheduler and the prefix bookkeeping.
+
+``inject_from_core`` and ``extract_kv_device`` answer 0 and None when a
+core is a job of several ranks, as the JAX engine's do: the host relay
+serves those pulls.
 
 Not here yet, and refused at construction when configured: the fused
 step.
@@ -215,23 +237,7 @@ def _parallel_sizes(config: EngineConfig) -> "tuple[int, int, int]":
 
 def _unsupported(config: EngineConfig) -> List[str]:
     """Configured features this engine does not run yet."""
-    c = config
-    dp, pp, tp = _parallel_sizes(c)
-    checks = [
-        (c.fused_step, "fused_step"),
-        (dp * pp * tp > 1 and (c.kv_offload_bytes > 0
-                               or bool(c.kv_remote_url)),
-         "the KV offload tier under tensor, pipeline or data parallelism"),
-    ]
-    return [name for bad, name in checks if bad]
-
-
-def refused_under_tp(what: str) -> NotImplementedError:
-    """The error of a feature that a job of several ranks (tensor or
-    pipeline parallelism, data-parallel replicas) does not carry."""
-    return NotImplementedError(
-        f"{what} is not supported by the torch engine under tensor or "
-        f"pipeline parallelism yet")
+    return ["fused_step"] if config.fused_step else []
 
 
 def _job_min(value: int) -> int:
@@ -432,10 +438,21 @@ class EngineCore:
         # drain: spilled before any forward can overwrite them.
         self._pending_offload: List[tuple] = []
         self._copy_stream = None  # the spills' device-to-host copies
-        if config.kv_offload_bytes > 0 or config.kv_remote_url:
+        # In a job of several ranks the remote tier's store of whole
+        # blocks is the leader's; a host-RAM tier alone is one store a
+        # rank, of the rank's parts of the blocks.
+        if (config.kv_remote_url and self.rank == 0) or (
+                config.kv_offload_bytes > 0 and not config.kv_remote_url):
             self.offload = HostKVStore(max(config.kv_offload_bytes, 0),
                                        config.kv_remote_url)
             self.kv_mgr.external_lookup = self.offload.contains
+        # Device bytes the last sleep released on this rank (weights and
+        # pool), and the host and gloo seconds of this rank's part of the
+        # KV gathers (an extract, a spill to the L3 tier).
+        self.sleep_freed_bytes = 0
+        self.kv_gathers_total = 0
+        self.kv_gather_copy_s = 0.0
+        self.kv_gather_gloo_s = 0.0
         # The server's KV-controller evict report. Fired on the engine
         # thread, possibly under self._lock: a listener only enqueues.
         self.prefix_evict_listener: Optional[Callable[[int, int], None]] = None
@@ -755,22 +772,40 @@ class EngineCore:
         """Spill the blocks evicted since the last drain into the offload
         store (engine thread, no self._lock held). Called after every
         allocation that can evict and before the forward that follows
-        it, so the gather reads the pages before they are recycled."""
+        it, so the gather reads the pages before they are recycled. In a
+        job of several ranks the spill is an op: with a remote tier one
+        gather of whole blocks into the leader's store, else every rank
+        spills its part into its own."""
         pending, self._pending_offload = self._pending_offload, []
-        if not pending:
+        if not pending or self.kv is None:
             return
-        k, v, ready = self._pages_to_host([bid for _, bid in pending])
-        for n, (prefix_hash, _) in enumerate(pending):
+        hashes = [h for h, _ in pending]
+        bids = [bid for _, bid in pending]
+        if self._mh is None or not self.config.kv_remote_url:
+            self._dispatch("offload_blocks", {"hashes": hashes},
+                           [np.asarray(bids, np.int64)])
+            return
+        k, v = self._gather_pages(bids)
+        for n, prefix_hash in enumerate(hashes):
+            self.offload.put(prefix_hash, _leaf_map(lambda t: t[n], k),
+                             _leaf_map(lambda t: t[n], v))
+
+    def _offload_blocks_op(self, hashes: List[int], bids) -> None:
+        """This rank's parts of blocks ``bids`` (one rank's: the whole
+        blocks) into its own store."""
+        k, v, ready = self._pages_to_host([int(b) for b in bids])
+        for n, prefix_hash in enumerate(hashes):
             self.offload.put(prefix_hash, _leaf_map(lambda t: t[n], k),
                              _leaf_map(lambda t: t[n], v), ready=ready)
 
     def _pages_to_host(self, bids: List[int]):
-        """(k, v, ready) of blocks ``bids`` on the host, block-major
-        ``[N, L, bs, KVH, D]`` (int8: with ``[N, L, bs*KVH]`` scales). On a
-        card one gather on the engine's stream (ordered before any later
-        forward) and one copy into pinned memory on a side stream, so the
-        engine thread does not wait for it; ``ready()`` waits until the
-        copy has landed. On the CPU, plain copies (``ready`` is None)."""
+        """(k, v, ready) of THIS rank's pages of blocks ``bids`` on the
+        host, block-major ``[N, L, bs, KVH, D]`` (int8: with ``[N, L,
+        bs*KVH]`` scales). On a card one gather on the engine's stream
+        (ordered before any later forward) and one copy into pinned
+        memory on a side stream, so the engine thread does not wait for
+        it; ``ready()`` waits until the copy has landed. On the CPU,
+        plain copies (``ready`` is None)."""
         idx = torch.tensor(bids, dtype=torch.long, device=self.device)
 
         def gather(t):
@@ -797,6 +832,55 @@ class EngineCore:
         done.record(cs)
         return k, v, done.synchronize
 
+    def _gather_pages(self, bids: List[int]):
+        """(k, v): whole blocks ``bids`` of a job of several ranks on the
+        leader's host, block-major (the TKV2 layout), through the
+        ``gather_pages`` op; the caller holds _step_lock."""
+        return self._dispatch("gather_pages", {},
+                              [np.asarray(bids, np.int64)])
+
+    def _gather_pages_op(self, bids):
+        """Every rank of replica 0 copies its parts of blocks ``bids`` to
+        pinned host memory; the followers send theirs to the leader over
+        the job's gloo group (which takes host tensors only), and the
+        leader assembles the whole blocks (returned; None elsewhere).
+        Other replicas hold the same pages and send nothing."""
+        import torch.distributed as dist
+
+        from production_stack_tpu_torch.parallel.kv_blocks import assemble
+
+        replica = self.layout.replicas()[0]
+        if self.rank not in replica:
+            return None
+        t0 = time.perf_counter()
+        k, v, ready = self._pages_to_host([int(b) for b in bids])
+        if ready is not None:
+            ready()
+        t1 = time.perf_counter()
+        mine = [*_leaves_of(k), *_leaves_of(v)]
+        if self.rank != 0:
+            for tag, t in enumerate(mine):
+                dist.send(_as_bytes(t), dst=0, tag=tag)
+        else:
+            parts = [(k, v)]
+            for src in replica[1:]:
+                got = [torch.empty_like(t) for t in mine]
+                for tag, t in enumerate(got):
+                    dist.recv(_as_bytes(t), src=src, tag=tag)
+                half = len(got) // 2
+                parts.append(tuple(
+                    tuple(side) if len(side) > 1 else side[0]
+                    for side in (got[:half], got[half:])))
+        t2 = time.perf_counter()
+        self.kv_gathers_total += 1
+        self.kv_gather_copy_s += t1 - t0
+        self.kv_gather_gloo_s += t2 - t1
+        if self.rank != 0:
+            return None
+        shape = self.layout.shape
+        return tuple(assemble([p[side] for p in parts], self.model_config,
+                              shape["tp"], shape["pp"]) for side in (0, 1))
+
     def _to_card(self, t: torch.Tensor) -> torch.Tensor:
         """A host tensor on the engine's device through pinned memory, as
         an asynchronous copy ordered on the engine's stream. A transposed
@@ -809,31 +893,73 @@ class EngineCore:
             return self._to_card(t.transpose(0, 1)).transpose(0, 1)
         return to_device(t.contiguous(), self.device)
 
+    def _block_shapes(self):
+        """Per side, (shape, dtype) of each leaf of one WHOLE block (every
+        layer, every KV head): what a payload's blocks hold."""
+        mc, bs = self.model_config, self.config.block_size
+        pages = (mc.num_layers, bs, mc.num_kv_heads, mc.head_dim)
+        if self.config.kv_cache_dtype == "int8":
+            return ((pages, torch.int8),
+                    ((mc.num_layers, bs * mc.num_kv_heads), torch.float32))
+        return ((pages, mc.torch_dtype),)
+
+    def _fits(self, side, n: Optional[int] = None) -> bool:
+        """Whether one side of a payload (``n`` blocks, block-major; a
+        single block without the block axis when ``n`` is None) has this
+        pool's page encoding, dtypes and whole-block shapes."""
+        want = self._block_shapes()
+        if (len(want) > 1) != isinstance(side, (tuple, list)):
+            return False
+        lead = () if n is None else (n,)
+        return all(x.dtype == dtype and tuple(x.shape) == lead + shape
+                   for (shape, dtype), x in zip(want, _leaves_of(side)))
+
     def _write_pages(self, bids: List[int], k, v) -> None:
-        """The page-write helper of restores and injects: layer-major
-        ``[L, N, ...]`` leaves on the card into blocks ``bids``, one
-        scatter a leaf on the engine's stream. A payload whose layout or
-        encoding differs from the pool's raises before any page is
-        written."""
-        self._dispatch("write_pages", {}, [bids, k, v])
+        """The page-write helper of restores and injects: whole blocks,
+        block-major ``[N, L, ...]`` leaves on the host or the card, into
+        blocks ``bids``, one scatter a leaf on the engine's stream. A
+        payload whose layout or encoding differs from the pool's raises
+        before any page is written. In a job of several ranks the payload
+        crosses the op channel from the host, in 4-block chunks, so that
+        one write does not hold the dispatch lock against every step."""
+        for side in (k, v):
+            if not self._fits(side, len(bids)):
+                raise ValueError(
+                    "payload " + ", ".join(
+                        f"{tuple(x.shape)} {x.dtype}"
+                        for x in _leaves_of(side))
+                    + f" does not fit this pool's blocks "
+                      f"({self.config.kv_cache_dtype} pages of "
+                      f"{self._block_shapes()[0][0]})")
+        if self._mh is None:
+            self._dispatch("write_pages", {}, [bids, k, v])
+            return
+        step = 4
+        for s0 in range(0, len(bids), step):
+            chunk = [_leaf_map(lambda t: t[s0:s0 + step].cpu().clone(), x)
+                     for x in (k, v)]
+            self._dispatch("write_pages", {}, [bids[s0:s0 + step], *chunk])
 
     def _write_pages_op(self, bids: List[int], k, v) -> None:
-        kv = (k, v)
-        for pages, new in zip(self.kv, kv):
-            if isinstance(pages, tuple) != isinstance(new, (tuple, list)):
-                raise ValueError("payload page encoding differs from the "
-                                 "pool's")
-            for p, x in zip(_leaves_of(pages), _leaves_of(new)):
-                if (x.dtype != p.dtype or x.shape[0] != p.shape[0]
-                        or tuple(x.shape[2:]) != tuple(p.shape[2:])
-                        or x.shape[1] != len(bids)):
-                    raise ValueError(
-                        f"payload {tuple(x.shape)} {x.dtype} does not fit "
-                        f"pages {tuple(p.shape)} {p.dtype}")
+        """Write this rank's part of whole blocks ``k``/``v`` into blocks
+        ``bids`` (``index_copy_`` a leaf)."""
+        shape = self.layout.shape
+        if shape["tp"] * shape["pp"] > 1:
+            from production_stack_tpu_torch.parallel.kv_blocks import (
+                block_slice,
+            )
+
+            k, v = (block_slice(x, self.model_config, self.tp_rank,
+                                shape["tp"], self.stage, shape["pp"])
+                    for x in (k, v))
+        self._write_local(bids, k, v)
+
+    def _write_local(self, bids: List[int], k, v) -> None:
+        """Block-major leaves of this rank's shape into blocks ``bids``."""
         idx = torch.tensor(bids, dtype=torch.long, device=self.device)
-        for pages, new in zip(self.kv, kv):
+        for pages, new in zip(self.kv, (k, v)):
             for p, x in zip(_leaves_of(pages), _leaves_of(new)):
-                p.index_copy_(1, idx, x)
+                p.index_copy_(1, idx, self._to_card(x).transpose(0, 1))
 
     def _restore_blocks(self, restores) -> bool:
         """Copy offloaded blocks ``[(block id, hash), ...]`` back to the
@@ -841,47 +967,62 @@ class EngineCore:
         miss: the store answered ``contains`` but not ``get``, or gave a
         block of another page encoding or shape (an L3 shared with
         engines of other encodings holds their blocks under the same
-        chain hashes)."""
+        chain hashes); the prompt then recomputes. In a job of several
+        ranks with a host-RAM tier alone, the leader checks its store
+        first and every rank restores its parts from its own
+        (``restore_blocks``). That path stays apart from one rank's: there
+        a miss after ``contains`` means the lockstep stores diverged, a
+        fault, where one rank recomputes (as the JAX engine does on one
+        process and raises across several)."""
+        if self._mh is not None and not self.config.kv_remote_url:
+            if self.offload is None or not all(
+                    self.offload.contains(h) for _, h in restores):
+                return False
+            self._dispatch("restore_blocks",
+                           {"hashes": [h for _, h in restores]},
+                           [np.asarray([b for b, _ in restores], np.int64)])
+            return True
         entries = []
         for _, h in restores:
             entry = self.offload.get(h) if self.offload is not None else None
             if entry is None:
                 return False
-            if not self._fits_pool(entry):
+            if not all(self._fits(side) for side in entry):
                 logger.warning("offloaded block %d does not fit this pool's "
                                "pages: recomputing", h)
                 return False
             entries.append(entry)
+        self._wait_for_spills()
+        # One rank stacks the blocks on its card; the leader of several
+        # stacks them on the host, whence its chunks cross the op channel.
+        self._write_pages([bid for bid, _ in restores], *_stacked(
+            entries, self._to_card if self._mh is None else (lambda t: t)))
+        return True
+
+    def _wait_for_spills(self) -> None:
         if self._copy_stream is not None:
             # A block spilled moments ago may still be on its way to the
-            # host: the copies below wait for it on the card.
+            # host: the copies that follow wait for it on the card.
             torch.cuda.current_stream(self.device).wait_stream(
                 self._copy_stream)
 
-        def stacked(side: int):
-            first = entries[0][side]
-            if isinstance(first, (tuple, list)):
-                return tuple(torch.stack([self._to_card(e[side][j])
-                                          for e in entries], dim=1)
-                             for j in range(len(first)))
-            return torch.stack([self._to_card(e[side]) for e in entries],
-                               dim=1)
-
-        self._write_pages([bid for bid, _ in restores], stacked(0),
-                          stacked(1))
-        return True
-
-    def _fits_pool(self, entry) -> bool:
-        """Whether an offloaded block ``(k, v)`` has this pool's page
-        encoding, dtypes and per-block shapes."""
-        for pages, side in zip(self.kv, entry):
-            if isinstance(pages, tuple) != isinstance(side, (tuple, list)):
-                return False
-            for p, x in zip(_leaves_of(pages), _leaves_of(side)):
-                if (x.dtype != p.dtype or tuple(x.shape)
-                        != (p.shape[0],) + tuple(p.shape[2:])):
-                    return False
-        return True
+    def _restore_blocks_op(self, hashes: List[int], bids) -> None:
+        """Every rank writes its parts of the blocks from its own store.
+        The ranks first agree that every store held every block (a gloo
+        collective): the stores run in lockstep, so a miss anywhere means
+        they diverged, which no rank can repair; every rank then raises,
+        and the leader's step latches the fault."""
+        entries = [self.offload.get(h) if self.offload is not None
+                   else None for h in hashes]
+        missing = sum(e is None for e in entries)
+        if _job_min(0 if missing else 1) == 0:
+            raise RuntimeError(
+                f"offload store diverged: {missing} of {len(hashes)} "
+                f"blocks missing on rank {self.rank}"
+                + ("" if missing else " (a miss on another rank)"))
+        self._wait_for_spills()
+        self._write_local([int(b) for b in bids],
+                          *_stacked(entries, self._to_card))
 
     def _cached_chain(self, token_ids: List[int], adapter: str):
         """(hashes, block ids) of the longest cached full-block prefix of
@@ -896,26 +1037,48 @@ class EngineCore:
             bids.append(bid)
         return hashes, bids
 
-    def extract_kv(self, token_ids: List[int], adapter: str = ""):
+    def extract_kv(self, token_ids: List[int], adapter: str = "",
+                   on_device: bool = False):
         """The pages of the longest cached prefix of ``token_ids``, on the
         host: ``{"hashes", "num_tokens", "k", "v"}`` with block-major
         ``[N, L, bs, KVH, D]`` leaves (the TKV2 layout), or None when no
-        full block is cached. The gather is enqueued under _step_lock
-        (after the work already queued, before any later step); the copy
-        is waited for outside it."""
-        if self._mh is not None:
-            raise refused_under_tp("KV extract")
+        full block is cached (or the engine sleeps). The gather is
+        enqueued under _step_lock (after the work already queued, before
+        any later step); on one rank the copy is waited for outside it,
+        in a job of several it is the ``gather_pages`` op. With
+        ``on_device`` the gathered pages stay on the device, layer-major
+        ``[L, N, bs, KVH, D]`` (what the KV device pipe offers for a
+        peer's pull; the pipe synchronizes before it hands them out), and
+        a job of several ranks answers None, as in the JAX engine: the
+        host relay serves that pull."""
+        if on_device and self._mh is not None:
+            return None
+        ready = None
         with self._step_lock:
+            if self.kv is None:
+                return None
             with self._lock:
                 hashes, bids = self._cached_chain(token_ids, adapter)
             if not hashes:
                 return None
-            k, v, ready = self._pages_to_host(bids)
+            if on_device:
+                idx = torch.tensor(bids, dtype=torch.long,
+                                   device=self.device)
+                k, v = (_leaf_map(lambda t: t.index_select(1, idx), pages)
+                        for pages in self.kv)
+            elif self._mh is None:
+                k, v, ready = self._pages_to_host(bids)
+            else:
+                k, v = self._gather_pages(bids)
         if ready is not None:
             ready()
         return {"hashes": hashes,
                 "num_tokens": len(hashes) * self.config.block_size,
                 "k": k, "v": v}
+
+    def extract_kv_device(self, token_ids: List[int], adapter: str = ""):
+        """:meth:`extract_kv` with ``on_device`` (the JAX engine's name)."""
+        return self.extract_kv(token_ids, adapter, on_device=True)
 
     def _install(self, hashes: List[int], write) -> int:
         """Allocate a block for each of ``hashes`` not cached here yet,
@@ -924,7 +1087,8 @@ class EngineCore:
         blocks back and re-raises. Returns the blocks cached and
         installed. Callers hold _step_lock."""
         alloc = self.kv_mgr.allocator
-        if not alloc.enable_prefix_caching or self._sleeping:
+        if (not alloc.enable_prefix_caching or self._sleeping
+                or self.kv is None):
             return 0
         take, dst, already = [], [], 0
         with self._lock:
@@ -954,19 +1118,22 @@ class EngineCore:
         return already + len(dst)
 
     def inject_kv_blocks(self, hashes: List[int], k, v) -> int:
-        """Install transferred pages (layer-major ``[L, N, ...]`` leaves,
-        on the host or the card) as cached prefix blocks, in one scatter
-        a leaf. Returns the blocks cached here afterwards (already cached
-        ones count). A payload that does not fit the pool raises, and its
-        blocks go back to the pool."""
-        if self._mh is not None:
-            raise refused_under_tp("KV inject")
+        """Install transferred pages (layer-major ``[L, N, ...]`` leaves of
+        whole blocks, on the host or the card) as cached prefix blocks,
+        in one scatter a leaf (in a job of several ranks, every rank
+        writes its part). Returns the blocks cached here afterwards
+        (already cached ones count). A payload that does not fit the pool
+        raises, and its blocks go back to the pool."""
+        kb, vb = (_leaf_map(lambda t: t.transpose(0, 1), x) for x in (k, v))
 
         def write(take, dst):
-            sel = torch.tensor(take, dtype=torch.long, device=self.device)
-            self._write_pages(dst, *(
-                _leaf_map(lambda t: self._to_card(t).index_select(1, sel),
-                          x) for x in (k, v)))
+            def pick(t):
+                if take == list(range(t.shape[0])):
+                    return t
+                return t.index_select(
+                    0, torch.tensor(take, dtype=torch.long, device=t.device))
+
+            self._write_pages(dst, *(_leaf_map(pick, x) for x in (kb, vb)))
 
         with self._step_lock:
             return self._install(list(hashes), write)
@@ -985,15 +1152,19 @@ class EngineCore:
         """Move the cached prefix pages of ``token_ids`` from another
         core's pool into this one, card to card with no host transit (one
         gather and one scatter a leaf). 0 when the two pools' page
-        encodings or devices differ (the host relay re-encodes). Takes
-        both cores' step locks in ``id()`` order."""
+        encodings or devices differ (the host relay re-encodes), when
+        either sleeps, and when either is a job of several ranks (as in
+        the JAX engine: the next rung serves the pull). Takes both cores'
+        step locks in ``id()`` order."""
         if self._mh is not None or src._mh is not None:
-            raise refused_under_tp("KV inject")
+            return 0
         if (src.config.kv_cache_dtype != self.config.kv_cache_dtype
                 or src.device != self.device):
             return 0
         first, second = (src, self) if id(src) < id(self) else (self, src)
         with first._step_lock, second._step_lock:
+            if self.kv is None or src.kv is None:
+                return 0
             with src._lock:
                 hashes, src_bids = src._cached_chain(token_ids, adapter)
             if not hashes:
@@ -1003,8 +1174,8 @@ class EngineCore:
                 sel = torch.tensor([src_bids[n] for n in take],
                                    dtype=torch.long, device=self.device)
                 self._write_pages(dst, *(
-                    _leaf_map(lambda t: t.index_select(1, sel), pages)
-                    for pages in src.kv))
+                    _leaf_map(lambda t: t.index_select(1, sel).transpose(
+                        0, 1), pages) for pages in src.kv))
 
             return self._install(hashes, write)
 
@@ -1113,11 +1284,10 @@ class EngineCore:
         prefix hit after the wake-up is restored instead of recomputed),
         clear all prefix state, then copy the parameters to pinned host
         memory and drop them and the KV pool from the device (a speculative
-        drafter's weights and pages stay, as in the JAX engine). Every
-        ``level`` does the same, as in the JAX engine. A no-op when
-        asleep."""
-        if self._mh is not None:
-            raise refused_under_tp("sleep")
+        drafter's weights and pages stay, as in the JAX engine). In a job
+        of several ranks the device part is the ``sleep`` op: every rank
+        stages its own parameters and drops its own pool. Every ``level``
+        does the same, as in the JAX engine. A no-op when asleep."""
         with self._lifecycle_lock:
             with self._lock:
                 if self._sleeping:
@@ -1151,18 +1321,28 @@ class EngineCore:
                     blk.ref_count = 0
                 alloc.free_ids = list(range(alloc.num_blocks))
             self._last_burst_tokens = None
-            if self._copy_stream is not None:
-                # The spills' copies read pages that are about to go.
-                self._copy_stream.synchronize()
-            host = _tree_map(self._to_host, self.params)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            with self._lock:
-                self._host_params = host
-                self.params = None
-                self.kv = None
-            if self.device.type == "cuda":
-                torch.cuda.empty_cache()
+            self._dispatch("sleep", {}, [])
+
+    def _sleep_op(self) -> None:
+        """This rank's weights to pinned host memory; its weights and pool
+        leave the device (``sleep_freed_bytes``), and its allocator's
+        cache goes back to the card."""
+        if self._copy_stream is not None:
+            # The spills' copies read pages that are about to go.
+            self._copy_stream.synchronize()
+        host = _tree_map(self._to_host, self.params)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        freed = sum(t.numel() * t.element_size()
+                    for t in _leaves((self.params, self.kv)))
+        with self._lock:
+            self._host_params = host
+            self.params = None
+            self.kv = None
+            self._sleeping = True
+        self.sleep_freed_bytes = freed
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
         """A device tensor's copy in pinned host memory, enqueued on the
@@ -1175,26 +1355,29 @@ class EngineCore:
 
     def wake_up(self) -> None:
         """Copy the parameters back from pinned host memory and allocate a
-        fresh (zero) KV pool. A no-op when awake."""
-        if self._mh is not None:
-            raise refused_under_tp("wake_up")
+        fresh (zero) KV pool, on every rank (the ``wake`` op). A no-op
+        when awake."""
         with self._lifecycle_lock, self._step_lock:
             with self._lock:
                 if not self._sleeping:
                     return
-                host = self._host_params
-            params = _tree_map(
-                lambda t: t.to(self.device, non_blocking=True), host)
-            kv = (self._alloc_pages(), self._alloc_pages())
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._dispatch("wake", {}, [])
             with self._lock:
-                self.params = params
-                self.kv = kv
-                self._host_params = None
-                self._sleeping = False
                 self._lock.notify()
         logger.info("Engine awake: weights restored, KV reallocated")
+
+    def _wake_op(self) -> None:
+        params = _tree_map(
+            lambda t: t.to(self.device, non_blocking=True),
+            self._host_params)
+        kv = (self._alloc_pages(), self._alloc_pages())
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        with self._lock:
+            self.params = params
+            self.kv = kv
+            self._host_params = None
+            self._sleeping = False
 
     @property
     def is_sleeping(self) -> bool:
@@ -1583,6 +1766,16 @@ class EngineCore:
             return None
         elif name == "write_pages":
             return self._write_pages_op(*arrays)
+        elif name == "gather_pages":
+            return self._gather_pages_op(arrays[0])
+        elif name == "offload_blocks":
+            return self._offload_blocks_op(static["hashes"], arrays[0])
+        elif name == "restore_blocks":
+            return self._restore_blocks_op(static["hashes"], arrays[0])
+        elif name == "sleep":
+            return self._sleep_op()
+        elif name == "wake":
+            return self._wake_op()
         elif name == "rank_stats":
             return self._rank_stats_op(**static)
         else:
@@ -1615,9 +1808,11 @@ class EngineCore:
                    profile: Optional[bool] = None) -> List[dict]:
         """Every rank's coordinates, device, layers, weight bytes, pool
         blocks, kernel launches by shape, collective and point-to-point
-        counters, gathered on the leader (an op like any other, ordered
+        counters, its offload store's hashes (least recently used first),
+        the bytes its last sleep freed and its KV gathers' copy and gloo
+        seconds, gathered on the leader (an op like any other, ordered
         with the steps). ``reset`` zeroes the launch, collective and
-        transfer counters afterwards; ``timing`` switches the collectives'
+        transfer and gather counters afterwards; ``timing`` switches the collectives'
         and transfers' synchronized timing on or off. ``profile=True``
         starts a device profiler on every rank (a card's), and
         ``profile=False`` stops it and reports each rank's kernel time
@@ -1653,6 +1848,12 @@ class EngineCore:
                                  for side in (self.kv or ())
                                  for t in _leaves_of(side)),
             "num_blocks": self.num_blocks, "kv_heads": self.kv_heads,
+            "offload_keys": (self.offload.keys() if self.offload is not None
+                             else None),
+            "sleep_freed_bytes": self.sleep_freed_bytes,
+            "kv_gathers_total": self.kv_gathers_total,
+            "kv_gather_copy_s": self.kv_gather_copy_s,
+            "kv_gather_gloo_s": self.kv_gather_gloo_s,
             "launches_by_shape": {k.__name__: dict(k.launches_by_shape)
                                   for k in kernels},
             "collectives_total": tpg.collectives_total if tpg else 0,
@@ -1679,6 +1880,8 @@ class EngineCore:
         if reset:
             for k in kernels:
                 k.launches_by_shape.clear()
+            self.kv_gathers_total = 0
+            self.kv_gather_copy_s = self.kv_gather_gloo_s = 0.0
             if tpg is not None:
                 tpg.collectives_total, tpg.collective_s = 0, 0.0
             if ppg is not None:
@@ -3249,10 +3452,13 @@ def _leaves_of(x) -> tuple:
 
 
 def _leaves(tree):
+    """Every tensor of nested dicts, tuples and lists (None skipped)."""
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        for v in tree:
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
@@ -3261,3 +3467,22 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _stacked(entries, to_card):
+    """Block-major ``[N, ...]`` leaves of per-block ``(k, v)`` entries on
+    the card: ``(k, v)``, each a tensor or an int8 (data, scales) pair."""
+    def side(i):
+        first = entries[0][i]
+        if isinstance(first, (tuple, list)):
+            return tuple(torch.stack([to_card(e[i][j]) for e in entries])
+                         for j in range(len(first)))
+        return torch.stack([to_card(e[i]) for e in entries])
+
+    return side(0), side(1)
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat ``uint8`` view (what gloo's
+    point-to-point sends, whatever the dtype)."""
+    return t.view(-1).view(torch.uint8)

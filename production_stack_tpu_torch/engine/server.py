@@ -69,12 +69,19 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``POST /kv/inject`` (the inverse), ``POST /kv/pull`` (the decode side
   of disaggregated prefill: ``{"source_url", "request", "kv_path":
   "auto" | "host" | "device"}``; rungs local-device (a server of this
-  process, card to card), then the TKV2 host relay from the source's
-  ``/kv/extract``, then ``status: "l3"`` when the prefix sits in this
-  engine's offload tier; 503 with ``Retry-After: 1`` past
-  ``--kv-pull-max-concurrency`` pulls in flight), and ``POST
-  /kv/prepare_pull`` (501: no device transfer runtime) and ``POST
-  /kv/release``;
+  process, card to card), then the KV device pipe (the source's
+  ``/kv/prepare_pull``, its pages' CUDA IPC handles opened here; 501
+  for ``"device"`` when the pipe is unavailable), then the TKV2 host
+  relay from the source's ``/kv/extract``, then ``status: "l3"`` when
+  the prefix sits in this engine's offload tier; the answer's
+  ``transfer.path`` names the rung that ran; 503 with ``Retry-After: 1``
+  past ``--kv-pull-max-concurrency`` pulls in flight), ``POST
+  /kv/prepare_pull`` (the pipe's sender side: 501 without a pipe, 409
+  when the body's ``host_key`` is not this host's, 404 without a cached
+  prefix, 503 when the offer table is full) and ``POST
+  /kv/release``. Under tensor, pipeline or data parallelism every KV
+  route and the lifecycle answer as on one rank (the relay serves a
+  pull from a sharded engine);
 - with ``--kv-controller-url``, the engine's side of the router's KV
   controller: it registers, heartbeats, resyncs its claim digest and
   reports every admitted prompt's text chunks and every eviction (on
@@ -137,7 +144,7 @@ from typing import Callable, List, Optional
 
 from production_stack_tpu_torch import __version__
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.core import EngineCore, refused_under_tp
+from production_stack_tpu_torch.engine.core import EngineCore
 from production_stack_tpu_torch.engine.sampling import (
     MAX_LOGIT_BIAS,
     SamplingParams,
@@ -290,6 +297,11 @@ class EngineServer:
         # prefix is in host RAM or the L3): prefill restores it.
         self.l3_pull_hits = 0
         self.l3_pull_blocks = 0
+        # The KV device pipe (kv/device_pipe.py), made at its first use;
+        # None once found unavailable (the host relay serves instead).
+        self._device_pipe = None
+        self._device_pipe_failed = False
+        self._pipe_lock = threading.Lock()
         # Per-adapter request metering (tpu:lora_requests_total{adapter}).
         self.lora_request_counts: "dict[str, int]" = {}
         # Graceful drain: once draining, the inference surface answers
@@ -588,11 +600,13 @@ class EngineServer:
                 str(self._bound_port)) is self):
             del EngineServer._local_peers[str(self._bound_port)]
 
-    def _post_json(self, path: str, body: dict, timeout: float = 5.0):
-        """(status, JSON body or {}) of a POST to the controller; (None,
-        {}) when it cannot be reached."""
+    def _post_json(self, path: str, body: dict, timeout: float = 5.0,
+                   base: Optional[str] = None):
+        """(status, JSON body or {}) of a POST to the controller (or to a
+        peer engine at ``base``); (None, {}) when it cannot be reached."""
         req = urllib.request.Request(
-            self.kv_controller_url + path, data=json.dumps(body).encode(),
+            (base or self.kv_controller_url).rstrip("/") + path,
+            data=json.dumps(body).encode(),
             headers={"Content-Type": "application/json",
                      **self._auth_headers()})
         try:
@@ -602,7 +616,8 @@ class EngineServer:
         except urllib.error.HTTPError as e:
             return e.code, {}
         except (urllib.error.URLError, OSError) as e:
-            logger.debug("KV controller %s failed: %s", path, e)
+            logger.debug("POST %s to %s failed: %s", path,
+                         base or "the KV controller", e)
             return None, {}
         try:
             out = json.loads(raw.decode() or "{}")
@@ -872,8 +887,6 @@ class EngineServer:
         return status, out, {}
 
     def _kv_pull(self, body: dict):
-        if self.core._mh is not None:
-            raise refused_under_tp("KV pull")
         source = body.get("source_url")
         if not source:
             return 400, {"error": "source_url required"}
@@ -884,10 +897,6 @@ class EngineServer:
         kv_path = body.get("kv_path", "auto")
         if kv_path not in ("auto", "host", "device"):
             return 400, {"error": f"unknown kv_path {kv_path!r}"}
-        if kv_path == "device":
-            # No device transfer runtime on this backend (the JAX server's
-            # answer when it has none).
-            return 501, {"error": "device path unavailable"}
         bs = self.config.block_size
         peer = self._resolve_local_peer(source) if kv_path == "auto" else None
         if peer is not None:
@@ -916,6 +925,12 @@ class EngineServer:
                         "total_seconds": round(total, 6),
                         "gigabytes_per_second": round(
                             nbytes / max(total, 1e-9) / 1e9, 6)}}
+        if kv_path in ("auto", "device"):
+            result = self._pull_device(source, token_ids, req_body)
+            if result is not None:
+                return 200, result
+            if kv_path == "device":
+                return 501, {"error": "device path unavailable"}
         t0 = time.monotonic()
         req = urllib.request.Request(
             source.rstrip("/") + "/kv/extract",
@@ -960,6 +975,140 @@ class EngineServer:
                 "total_seconds": round(total, 6),
                 "gigabytes_per_second": round(
                     len(data) / max(fetch_seconds, 1e-9) / 1e9, 6)}}
+
+    # -- the KV device pipe ----------------------------------------------
+    def _get_device_pipe(self):
+        """The KV device pipe, made at first use (the availability probe
+        runs then); None when the pipe is unavailable here."""
+        from production_stack_tpu_torch.kv.device_pipe import (
+            KVDevicePipe,
+            device_pipe_available,
+        )
+
+        with self._pipe_lock:
+            if self._device_pipe is None and not self._device_pipe_failed:
+                try:
+                    if device_pipe_available():
+                        self._device_pipe = KVDevicePipe()
+                    else:
+                        self._device_pipe_failed = True
+                except Exception as e:  # noqa: BLE001 - relay instead
+                    logger.warning("KV device pipe init failed: %s", e)
+                    self._device_pipe_failed = True
+            return self._device_pipe
+
+    def kv_prepare_pull(self, body: dict):
+        """(status, body) of ``POST /kv/prepare_pull``, the sender's side
+        of the pipe: the prompt's cached prefix pages gathered on the
+        device and parked for the puller, whose handles the answer
+        carries. 501 without a pipe; 409 unless the body's ``host_key``
+        is this host's (a handle opens only on its own host), before any
+        page is gathered; 404 without a cached prefix (and in a job of
+        several ranks, whose pulls the relay serves); 503 when the offer
+        table is full."""
+        pipe = self._get_device_pipe()
+        if pipe is None:
+            return 501, {"error": "device pipe unavailable on this backend"}
+        if body.get("host_key") != pipe.host:
+            return 409, {"error": "the puller is not on this host: its "
+                                  "pull takes the relay"}
+        payload = self.core.extract_kv_device(
+            self.tokens_from_body(body),
+            self.resolve_adapter(body.get("model", "")))
+        if payload is None:
+            return 404, {"error": "no cached prefix for these tokens"}
+        leaves = [t for side in (payload["k"], payload["v"])
+                  for t in (side if isinstance(side, tuple) else (side,))]
+        uuid_ = pipe.offer(leaves)
+        if uuid_ is None:
+            return 503, {"error": "device pipe offer capacity exhausted"}
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        with self._kv_lock:
+            self.kv_transfer_tx_bytes += nbytes
+        k = leaves[0]
+        return 200, {
+            "uuid": uuid_, "address": pipe.address(),
+            "handles": pipe.handles(uuid_),
+            "hashes": [int(h) for h in payload["hashes"]],
+            "num_tokens": payload["num_tokens"], "shape": list(k.shape),
+            "dtype": str(k.dtype).replace("torch.", ""), "bytes": nbytes}
+
+    def kv_release(self, body: dict) -> dict:
+        """``POST /kv/release``: a pulled (or abandoned) offer frees its
+        slot and its parked pages."""
+        if self._device_pipe is not None and "uuid" in body:
+            self._device_pipe.release(int(body["uuid"]))
+        return {"status": "ok"}
+
+    def _pull_device(self, source: str, token_ids: List[int],
+                     req_body: dict) -> Optional[dict]:
+        """The pipe's rung of ``/kv/pull``: the source's
+        ``/kv/prepare_pull`` (with this host's key: a source on another
+        host answers 409 before it gathers anything), the pull of its
+        handles, the release of its offer slot (whether or not the pull
+        ran, and before the inject, whose failure must not keep the slot),
+        then the inject. None to fall to the relay."""
+        pipe = self._get_device_pipe()
+        if pipe is None:
+            return None
+        t0 = time.monotonic()
+        status, offer = self._post_json(
+            "/kv/prepare_pull",
+            {"token_ids": token_ids, "model": req_body.get("model", ""),
+             "host_key": pipe.host},
+            timeout=30, base=source)
+        if status != 200:
+            return None
+        cost: dict = {}
+        try:
+            got = pipe.pull(offer["address"], offer["uuid"],
+                            offer["handles"], device=self.core.device,
+                            stats=cost)
+        except Exception as e:  # noqa: BLE001 - the peer or the handles
+            logger.warning("device pull failed, falling back: %s", e)
+            got = None
+        # A handle the pull opened keeps its block alive on its own (CUDA
+        # IPC's reference count), so the sender may let the offer go now.
+        for attempt in range(3):
+            status, _ = self._post_json("/kv/release",
+                                        {"uuid": offer["uuid"]}, base=source)
+            if status is not None and status < 300:
+                break
+            if attempt == 2:
+                logger.warning("kv/release to %s failed; its offer slot %s "
+                               "stays held", source, offer["uuid"])
+            else:
+                time.sleep(0.2 * (attempt + 1))
+        if got is None:
+            return None
+        half = len(got) // 2
+        k, v = (tuple(x) if len(x) > 1 else x[0]
+                for x in (got[:half], got[half:]))
+        try:
+            injected = self.core.inject_kv_blocks(
+                [int(h) for h in offer["hashes"]], k, v)
+        except Exception as e:  # noqa: BLE001 - local pool pressure etc.
+            logger.warning("device pull injected 0 blocks, falling back: %s",
+                           e)
+            return None
+        total = time.monotonic() - t0
+        nbytes = int(offer.get("bytes", 0))
+        with self._kv_lock:
+            self.kv_transfer_device_pulls += 1
+            self.kv_transfer_device_bytes += nbytes
+            self.kv_transfer_device_seconds += total
+            self.kv_transfer_pulls += 1
+        return {"status": "ok", "injected_blocks": injected,
+                "num_tokens": offer["num_tokens"],
+                "transfer": {
+                    "path": "device", "bytes": nbytes,
+                    "total_seconds": round(total, 6),
+                    "gigabytes_per_second": round(
+                        nbytes / max(total, 1e-9) / 1e9, 6),
+                    # The pull alone: opening the peer's handles and
+                    # copying its pages out.
+                    "open_seconds": round(cost["open_seconds"], 6),
+                    "copy_ms": round(cost["copy_ms"], 6)}}
 
     # -- embeddings, score, rerank, tokenizer ------------------------------
     def embeddings(self, body: dict) -> dict:
@@ -1633,10 +1782,6 @@ class _Handler(BaseHTTPRequestHandler):
                     self._send_json(body, status)
             except BadRequest as exc:
                 self._send_error(exc)
-            except NotImplementedError as exc:
-                self._send_json({"error": {"message": str(exc),
-                                           "type": "NotImplementedError"}},
-                                501)
             return
         kv_routes = {"/kv/extract": self._kv_extract,
                      "/kv/inject": self._kv_inject,
@@ -1648,10 +1793,6 @@ class _Handler(BaseHTTPRequestHandler):
                 kv_routes[path]()
             except BadRequest as exc:
                 self._send_error(exc)
-            except NotImplementedError as exc:
-                self._send_json({"error": {"message": str(exc),
-                                           "type": "NotImplementedError"}},
-                                501)
             return
         kinds = {"/v1/completions": "completion",
                  "/v1/chat/completions": "chat"}
@@ -1772,11 +1913,11 @@ class _Handler(BaseHTTPRequestHandler):
         return {"status": "awake"}
 
     def _kv_prepare_pull(self) -> None:
-        self._send_json({"error": "device pipe unavailable on this "
-                                  "backend"}, 501)
+        status, out = self.engine.kv_prepare_pull(self._read_json())
+        self._send_json(out, status)
 
     def _kv_release(self) -> None:
-        self._send_json({"status": "ok"})
+        self._send_json(self.engine.kv_release(self._read_json()))
 
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)

@@ -367,6 +367,12 @@ class HostKVStore:
             self.misses += 1
         return None
 
+    def keys(self) -> list:
+        """The hashes of the blocks in host RAM, least recently used
+        first."""
+        with self._lock:
+            return list(self._store)
+
     def contains(self, prefix_hash: int) -> bool:
         with self._lock:
             if prefix_hash in self._store:

@@ -1,4 +1,5 @@
 """Parallelism across ranks: the sharding rules, the rank layout, the
 multi-process bring-up with its op channel, the collectives of a
 tensor-parallel forward, the point-to-point transfers and GPipe schedule
-of a pipeline-parallel one, and ring attention."""
+of a pipeline-parallel one, ring attention, and a rank's part of a KV
+block (:mod:`kv_blocks`)."""

@@ -219,17 +219,23 @@ def test_cuda_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("over", [
-    # Data, pipeline and tensor parallelism construct
-    # (tests/test_torch_pp.py, tests/test_torch_tp.py); the KV offload
-    # tier is refused under each of them.
-    dict(data_parallel_size=2, kv_offload_bytes=1 << 20),
-    dict(pipeline_parallel_size=2, kv_offload_bytes=1 << 20),
-    dict(tensor_parallel_size=2, kv_offload_bytes=1 << 20),
+    # Data, pipeline and tensor parallelism construct inside a job of
+    # that many processes (tests/test_torch_pp.py, tests/test_torch_tp.py;
+    # with the KV offload tier, tests/test_torch_kv_ranks.py): outside
+    # one, such a configuration is refused for want of its job. The
+    # fused step is refused outright.
+    dict(data_parallel_size=2),
+    dict(pipeline_parallel_size=2),
+    dict(tensor_parallel_size=2),
     dict(fused_step=True)])
 def test_unported_features_are_refused(over):
     cfg = EngineConfig(device="cpu", **dict(MAKE_ENGINE, **over))
-    with pytest.raises(NotImplementedError, match="not supported"):
-        EngineCore(cfg)
+    if over.get("fused_step"):
+        with pytest.raises(NotImplementedError, match="not supported"):
+            EngineCore(cfg)
+    else:
+        with pytest.raises(ValueError, match="processes of one job"):
+            EngineCore(cfg)
 
 
 def test_kv_pool_is_sized_like_jax_without_a_memory_figure():

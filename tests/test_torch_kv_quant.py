@@ -319,21 +319,51 @@ def models():
             convert.params_from_numpy(tree, tcfg, "cpu"))
 
 
-def _assert_pages_agree(got, want):
-    """A written int8 side of the pool: scales to 1e-6 relative, codes
-    equal but for a rare flip by one where the two models' f32 K/V (equal
-    to ~1e-7) land on the two sides of a rounding boundary."""
+def _assert_pages_agree(got, want, kv_rel):
+    """A written int8 side of the pool: scales within ``kv_rel``, the
+    measured relative difference of the two models' float32 K/V row
+    maxima that the scales are taken from (a scale is ``amax / 127``,
+    rounded once on each side), never looser than 1e-6; codes equal but
+    for a rare flip by one where the two models' f32 K/V land on the two
+    sides of a rounding boundary."""
     (gd, gs), (wd, ws) = got, (np.asarray(want[0]), np.asarray(want[1]))
-    np.testing.assert_allclose(gs.numpy(), ws, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(gs.numpy(), ws,
+                               rtol=max(1e-6, kv_rel + 2.0 ** -23), atol=0)
     diff = gd.numpy().astype(np.int32) - wd.astype(np.int32)
     assert np.abs(diff).max() <= 1
     assert (diff != 0).sum() <= 2, (diff != 0).sum()
 
 
-def test_model_with_int8_pool_matches_jax(models):
+def _record_quantizer_inputs(monkeypatch):
+    """Record the float32 K/V each model hands its int8 quantizer, layer
+    by layer, K before V: ``(torch list, jax list)``. The JAX model runs
+    its layers in a ``lax.scan``, so its values leave through an ordered
+    debug callback."""
+    tgot, jgot = [], []
+    tq, jq = tatt.quantize_kv, jatt.quantize_kv
+
+    def t_rec(x):
+        tgot.append(x.float().numpy().copy())
+        return tq(x)
+
+    def j_rec(x):
+        jax.debug.callback(lambda v: jgot.append(np.asarray(v)), x,
+                           ordered=True)
+        return jq(x)
+
+    monkeypatch.setattr(tatt, "quantize_kv", t_rec)
+    monkeypatch.setattr(jatt, "quantize_kv", j_rec)
+    return tgot, jgot
+
+
+def test_model_with_int8_pool_matches_jax(models, monkeypatch):
     """prefill, prefill_cached and decode over an int8 pool; before each
     step the torch pool takes the JAX pool's bytes, so each step's logits
-    compare on identical pages."""
+    compare on identical pages. The scales' bar is the measured agreement
+    of the K/V they quantize: the two models' float32 K/V differ in the
+    last bits (XLA's and torch's reduction order in the RMS norm and
+    their own cos, sin and rsqrt), and each step's quantizer inputs are
+    held to each other first."""
     jcfg, tcfg, jparams, tparams = models
     L, KVH, D, bs, NB = (jcfg.num_layers, jcfg.num_kv_heads, jcfg.head_dim,
                          4, 16)
@@ -342,6 +372,7 @@ def test_model_with_int8_pool_matches_jax(models):
     jkv = (_jpages(zeros), _jpages(zeros))
     tables = np.stack([np.arange(8), np.arange(8, 16)]).astype(np.int32)
     rng = np.random.default_rng(1)
+    tgot, jgot = _record_quantizer_inputs(monkeypatch)
 
     def slots(positions, take):
         out = np.full(positions.shape, -1, np.int64)
@@ -349,6 +380,20 @@ def test_model_with_int8_pool_matches_jax(models):
             pos = positions[b, :n]
             out[b, :n] = tables[b, pos // bs] * bs + pos % bs
         return out
+
+    def kv_agreement(sl):
+        """Max relative difference of the recorded K/V's row maxima (the
+        torch side quantizes the live rows only)."""
+        live = np.flatnonzero(sl.reshape(-1) >= 0)
+        assert len(tgot) == len(jgot) == 2 * L
+        rel = 0.0
+        for t, j in zip(tgot, jgot):
+            j = j.reshape(-1, KVH, D)[live]
+            np.testing.assert_allclose(t, j, rtol=MODEL_TOL, atol=XLA_TOL)
+            ta, ja = np.abs(t).max(-1), np.abs(j).max(-1)
+            rel = max(rel, float((np.abs(ta - ja) / ja).max()))
+        del tgot[:], jgot[:]
+        return rel
 
     def step(tokens, positions, take, context, seq_lens, mode, last=None):
         nonlocal jkv
@@ -359,6 +404,7 @@ def test_model_with_int8_pool_matches_jax(models):
             jnp.asarray(sl), jnp.asarray(tables), jnp.asarray(context),
             jnp.asarray(seq_lens), mode=mode,
             last_token=None if last is None else jnp.asarray(last))
+        jax.effects_barrier()
         tl, out = tllama.apply(
             tparams, tcfg, _t(tokens), _t(positions), tkv, _t(sl),
             _t(tables), _t(context), _t(seq_lens), mode=mode,
@@ -366,8 +412,9 @@ def test_model_with_int8_pool_matches_jax(models):
         assert out[0][0] is tkv[0][0]  # updated in place
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                    rtol=MODEL_TOL, atol=MODEL_TOL)
+        kv_rel = kv_agreement(sl)
         for got, want in zip(out, jkv):
-            _assert_pages_agree(got, want)
+            _assert_pages_agree(got, want, kv_rel)
 
     T, take = 16, np.asarray([16, 11], np.int32)
     pos = np.tile(np.arange(T, dtype=np.int32), (2, 1))

@@ -11,8 +11,9 @@ the server entry.
   within a time limit (the engine latches the fault, never hangs);
 - ``--tensor-parallel-size 2`` on the server entry with no ``TPU_STACK_*``
   environment starts rank 1 on this host (``python -m ...engine.server``,
-  gloo on the CPU), serves the tp 1 server's greedy text, answers 501 for
-  what tensor parallelism refuses, and ends the job with the server.
+  gloo on the CPU), serves the tp 1 server's greedy text, answers the
+  KV and lifecycle routes as one rank does, and ends the job with the
+  server.
 """
 
 import json
@@ -227,12 +228,15 @@ def test_server_entry_starts_and_ends_the_ranks():
                 assert len(procs) == 1 and procs[0].poll() is None
                 stats = core.stats()["tensor_parallel"]
                 assert stats["size"] == 2 and stats["backend"] == "gloo"
-                for path in ("/sleep", "/kv/extract", "/kv/pull"):
+                # Once refused with 501, now the JAX server's answers: a
+                # pull from an unreachable source, no cached prefix to
+                # extract, a sleep (and the wake after it).
+                for path, want in (
+                        ("/kv/pull", 502), ("/kv/extract", 404),
+                        ("/sleep", 200), ("/wake_up", 200)):
                     status, out = _post(port, path, {
                         "prompt": "x", "source_url": "http://127.0.0.1:9"})
-                    assert status == 501, (path, out)
-                    assert ("tensor or pipeline parallelism"
-                            in out["error"]["message"])
+                    assert status == want, (path, out)
         finally:
             httpd.shutdown()
             httpd.server_close()

@@ -23,8 +23,8 @@ conftest's 8-device CPU mesh.
 - (f) dp 2 streams equal to pp 1; in every engine job each follower's
   sampled tokens (every op's) equal the leader's;
 - (g) the refusals: OPT and Mixtral under pp and ``L % pp`` raise the
-  JAX engine's ``ValueError``; the offload tier, KV extract and sleep
-  raise ``NotImplementedError``;
+  JAX engine's ``ValueError``; the offload tier constructs, and KV
+  extract and sleep answer as the JAX engine does;
 - (h) the pool is sized like the JAX engine's under pp, with and without
   a memory figure;
 - the server entry serves pp 2 (its ranks started on this host) with
@@ -115,14 +115,7 @@ def engine_job(job):
     if rank != 0:
         core.run_follower()
         return dict(info, log=core.sampled_log)
-    refusals = {}
-    if job.get("refusals"):
-        for name, call in (("extract", lambda: core.extract_kv([1, 2, 3])),
-                           ("sleep", core.sleep)):
-            try:
-                call()
-            except NotImplementedError as e:
-                refusals[name] = str(e)
+    answers = {}
     for name, weights in job.get("loras", {}).items():
         assert core.load_lora_adapter(name, weights=weights)
     reqs = job["requests"]
@@ -158,12 +151,23 @@ def engine_job(job):
                     raise TimeoutError("request %d" % i)
         embedding = (core.embed(job["embed"]) if job.get("embed")
                      else None)
+        if job.get("lifecycle"):
+            # What the JAX engine answers under pp: a payload, a sleep.
+            payload = core.extract_kv(reqs[0]["prompt"])
+            answers["extract"] = (payload["hashes"], payload["num_tokens"],
+                                  tuple(payload["k"].shape))
+            answers["chain"] = list(
+                core.kv_mgr.chain_hashes(reqs[0]["prompt"]))
+            core.sleep()
+            answers["sleeping"] = core.is_sleeping
+            core.wake_up()
+            answers["awake"] = not core.is_sleeping
         stats = core.stats()
         ranks = core.rank_stats()
     finally:
         core.stop()
     return dict(info, streams=streams, log=core.sampled_log, stats=stats,
-                embedding=embedding, refusals=refusals, ranks=ranks)
+                embedding=embedding, answers=answers, ranks=ranks)
 
 
 def logits_job(job):
@@ -693,6 +697,9 @@ def test_pp_refusals_match_the_jax_engine(model, pp):
 
 
 def test_job_sizes_and_offload_refusals():
+    """The job's sizes; and the offload tier is no longer refused under
+    pp or dp: such a configuration only asks for its job (the ranks'
+    tiers run in ``tests/test_torch_kv_ranks.py``)."""
     assert multihost.job_dp(4, 0, 2, 1) == 2  # dp fills the job
     assert multihost.job_dp(4, 1, 2, 2) == 1
     with pytest.raises(ValueError, match="covers 4 devices but the job has 6"):
@@ -700,18 +707,25 @@ def test_job_sizes_and_offload_refusals():
     for over in (dict(pipeline_parallel_size=2), dict(data_parallel_size=2)):
         cfg = EngineConfig(model="tiny-llama", device="cpu", max_loras=0,
                            kv_offload_bytes=1 << 20, **over)
-        with pytest.raises(NotImplementedError, match="not supported"):
+        with pytest.raises(ValueError, match="processes of one job"):
             EngineCore(cfg)
 
 
 def test_extract_and_sleep_are_refused_under_pp(ranks):
+    """Once refused, now answered as the JAX engine answers them under pp:
+    the prompt's cached blocks as one payload of every layer, a sleep,
+    and a wake."""
     reqs = _requests()[:1]
     res = _engine(ranks, 2, dict(pipeline_parallel_size=2), reqs,
-                  job={"refusals": True})
-    refusals = res[0]["refusals"]
-    assert set(refusals) == {"extract", "sleep"}
-    for msg in refusals.values():
-        assert "tensor or pipeline parallelism" in msg
+                  job={"lifecycle": True})
+    answers = res[0]["answers"]
+    hashes, num_tokens, shape = answers["extract"]
+    bs = PP_BASE["block_size"]
+    n = len(reqs[0]["prompt"]) // bs
+    assert hashes == answers["chain"][:n] and num_tokens == n * bs
+    cfg = get_model_config("tiny-llama")
+    assert shape == (n, cfg.num_layers, bs, cfg.num_kv_heads, cfg.head_dim)
+    assert answers["sleeping"] and answers["awake"]
 
 
 # -- the server entry ---------------------------------------------------------
@@ -756,8 +770,11 @@ def test_server_entry_serves_pp2():
                     health = json.loads(resp.read())
                 assert health["mesh"] == {"dp": 1, "pp": 2, "tp": 1}
                 assert health["num_processes"] == 2
-                status, out = post(port, "/sleep", {})
-                assert status == 501, out
+                # The lifecycle answers as on one rank.
+                assert post(port, "/sleep", {}) == (
+                    200, {"status": "sleeping", "level": 1})
+                assert post(port, "/wake_up", {}) == (
+                    200, {"status": "awake"})
         finally:
             httpd.shutdown()
             httpd.server_close()

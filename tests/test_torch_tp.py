@@ -140,7 +140,8 @@ def logits_job(job):
     from production_stack_tpu_torch.models import build_model
     from production_stack_tpu_torch.models import get_model_config
     from production_stack_tpu_torch.models.convert import params_from_numpy
-    from production_stack_tpu_torch.parallel.sharding import kv_heads_local
+    from production_stack_tpu_torch.parallel.sharding import (
+        kv_head_start, kv_heads_local)
 
     cfg = get_model_config(job["model"]).replace(dtype="float32")
     params = params_from_numpy(job["tree"], cfg, "cpu", rank, size)
@@ -155,8 +156,20 @@ def logits_job(job):
     else:
         kv = (torch.zeros(shape), torch.zeros(shape))
     out = []
+    h0 = kv_head_start(cfg, rank, size)
+    n = kv_heads_local(cfg, size)
+
+    def my_heads(data, scales):
+        # This rank's heads of whole int8 pages (scales slot-major).
+        s = scales.reshape(scales.shape[:2] + (bs, -1))[..., h0:h0 + n]
+        return (torch.from_numpy(data[:, :, :, h0:h0 + n].copy()),
+                torch.from_numpy(s.reshape(s.shape[:2] + (-1,)).copy()))
+
     with torch.inference_mode():
-        for step in job["steps"]:
+        for i, step in enumerate(job["steps"]):
+            if job.get("pages_in"):
+                # Each step on the given pages (the tp 1 pool before it).
+                kv = tuple(my_heads(*side) for side in job["pages_in"][i])
             args = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
                         else v) for k, v in step.items()}
             logits, kv = apply(params, cfg, kv_pages=kv, tp=tp, **args)
@@ -452,8 +465,9 @@ def _jax_logits(jcfg, tree, steps, NB=16, bs=4):
     return out
 
 
-def _tp1(name, tree, steps, int8, NB=16, bs=4):
-    """The port's tp 1 logits and pages of ``steps``."""
+def _tp1(name, tree, steps, int8, NB=16, bs=4, before=None):
+    """The port's tp 1 logits and pages of ``steps``; ``before``, a list,
+    takes a copy of the pool before each step."""
     cfg = get_model_config(name).replace(dtype="float32")
     params = params_from_numpy(tree, cfg, "cpu")
     _, apply = build_model(cfg)
@@ -467,6 +481,9 @@ def _tp1(name, tree, steps, int8, NB=16, bs=4):
     out = []
     with torch.inference_mode():
         for st in steps:
+            if before is not None:
+                before.append([tuple(x.numpy().copy() for x in side)
+                               for side in kv])
             args = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
                         else v) for k, v in st.items()}
             logits, kv = apply(params, cfg, kv_pages=kv, **args)
@@ -480,10 +497,16 @@ def _tp1(name, tree, steps, int8, NB=16, bs=4):
 def test_logits_and_pages_at_tp2(ranks, name, int8):
     jcfg, tree = _jax_tree(name, lora=name == "tiny-llama")
     steps = _three_steps(jcfg.vocab_size)
+    # Under int8 the ranks' float32 sums (another order than tp 1's) can
+    # put a K/V value on the other side of a rounding boundary, and a
+    # flipped code moves the next step's logits past TOL: each step runs
+    # on the tp 1 pool as it stood before that step (as
+    # tests/test_torch_kv_quant.py holds the port to JAX's pages).
+    before = [] if int8 else None
+    want, kv1 = _tp1(name, tree, steps, int8, before=before)
     res = ranks[2].run({"kind": "logits", "model": name, "tree": tree,
                         "steps": steps, "num_blocks": 16, "block_size": 4,
-                        "int8": int8})
-    want, kv1 = _tp1(name, tree, steps, int8)
+                        "int8": int8, "pages_in": before})
     jax_want = None if int8 else _jax_logits(jcfg, tree, steps)
     cfg = get_model_config(name)
     for rank, r in enumerate(res):
