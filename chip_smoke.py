@@ -69,9 +69,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    served path;
 7. serve bf16 again with chunked-prefill step plans
    (``--enable-chunked-prefill --max-num-batched-tokens 512``, ten
-   slots): two ~2,000-token prompts arrive while eight sequences decode
-   and prefill in 512-token steps between decode bursts (a
-   ``{"chunked": ...}`` line);
+   slots): eight short prompts arrive together (a step plan's rows must
+   go as one batched dispatch), then two ~2,000-token prompts together, which
+   prefill in 512-token steps between the eight's decode bursts; then
+   three shorts and a long one at a time (a ``{"chunked": ...}`` line);
+   then its twin with ``--fused-step`` (:func:`fused_phase`): each step
+   plan and the decode burst launched as ONE dispatch while sequences
+   run, the one-at-a-time segment's greedy texts equal to the chunked
+   run's (the concurrent segment's equal texts counted), fused steps
+   taken and
+   recorded as such, every dispatch of both runs accounted for by their
+   step records (a fused step one; a plan and a burst one each), both
+   kernels launched, the fused step's wall time beside an alternating
+   plan's plus burst's (a ``{"fused": ...}`` line); then Whisper
+   (:func:`asr_phase`): whisper-small at full width (d 768, 12 + 12
+   layers, vocab 51,865; random bf16 weights from seed 0) behind the
+   port's ASR server, a 30 s and a 5 s WAV in the three response
+   formats, the 400 cases and a 413, ``/metrics`` counting them; float32
+   on the card against the host on the same weights (encoder states and
+   logits within ``ASR_F32_TOL``, which a TF32 run of the card must
+   fail; 16 greedy tokens equal); a checkpoint
+   of the served weights through the port's writer and loader, bit for
+   bit; the mel frontend's, the encoder's and a token's times beside the
+   encoder's operation bound and a token's byte bound (an ``{"asr":
+   ...}`` line);
 8. speculative decoding at full width and ``SPEC_LAYERS`` = 8 of 32
    layers (a local directory holding the config.json): the same eight
    greedy 128-token requests (four prompts repeating a phrase, four of
@@ -92,13 +113,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the greedy self-drafter accepting every draft under a grammar (a
    ``{"spec_parity": ...}`` line);
 10. structured output at full width (before the speculative phases):
-   Llama-3-8B in bf16, then with ``--kv-cache-dtype int8 --quantization
-   int8``, eight requests at once (a corpus ``guided_json`` schema, a
-   ``response_format`` ``json_schema``, ``guided_regex`` ``[ab]{3}``, an
-   enum schema on a ~2,000-token prompt, a grammar on a prompt that hits
-   the prefix cache, three unconstrained rows, two of them ~2,000-token
-   prompts): a finite language's text must fullmatch its grammar, an open
-   one's keep its automaton alive, and ``structured_violations_total``
+   Llama-3-8B at ``STRUCTURED_LAYERS`` = 8 of its 32 layers (cut to pay
+   for the fused and asr phases) in bf16, then with ``--kv-cache-dtype
+   int8 --quantization int8``, eight requests at once (a corpus
+   ``guided_json`` schema, a ``response_format`` ``json_schema``,
+   ``guided_regex`` ``[ab]{3}``, an enum schema on a ~2,000-token
+   prompt, a grammar on a prompt that hits the prefix cache, three
+   unconstrained rows, two of them ~2,000-token prompts): a finite
+   language's text must fullmatch its grammar, an open one's keep its
+   automaton alive, and ``structured_violations_total``
    must move by the length caps mid-structure only; a plain and a
    structured request alone give the decode forwards a token costs each;
    the mask's host seconds a state at the 128,256-token vocabulary and
@@ -112,9 +135,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain version at that shape over 2,048-token contexts, timed
    beside the decode kernel, a ``{"draft_step_prefill": ...}`` line).
 
-11. KV movement at full width and depth (after the speculative
-   phases), in bf16 and with ``--kv-cache-dtype int8 --quantization
-   int8``, each engine's pool bounded to 96 blocks (:func:`kv_phase`):
+11. KV movement at full width and ``KV_LAYERS`` = 8 of 32 layers (cut
+   to pay for the fused and asr phases; after the speculative phases),
+   in bf16 and with ``--kv-cache-dtype int8 --quantization int8``, each
+   engine's pool bounded to 96 blocks (:func:`kv_phase`):
    a 2,048-token prompt evicted to the host tier and restored (its
    stream equal to its prefix-hit stream, at least 31 blocks restored,
    the cached-prefill kernel run), ``/kv/pull`` between two engines
@@ -149,8 +173,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the pool) and ``/wake_up`` (the stream before equals the stream
    after), timed; ``/drain`` (a ``{"lifecycle": ...}`` line);
 15. local checkpoints (before phase 16; :func:`checkpoint_phase`):
-   Llama-3-8B at full width cut to ``CKPT_LAYERS`` = 8 of its 32 layers
-   (5.59 GB of bf16 weights drawn from a seed), written with the port's
+   Llama-3-8B at full width cut to ``CKPT_LAYERS`` = 4 of its 32 layers
+   (3.85 GB of bf16 weights drawn from a seed), written with the port's
    standard-library safetensors writer under HF names with a config.json
    and served from the directory behind an API key, in bf16 and with
    ``--kv-cache-dtype int8 --quantization int8``: every leaf on the card
@@ -168,7 +192,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. tensor parallelism (:func:`tp_phase`), every rank a process of its
    own on the one card under gloo, each started by the port's server
    entry (``--tensor-parallel-size``): Llama-3-8B at full width and
-   ``TP_LLAMA_LAYERS`` = 8 of its 32 layers, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
+   ``TP_LLAMA_LAYERS`` = 4 of its 32 layers, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
    prefix hit, a seeded pair; then a decode step's host time, the
    leader's device time and the collectives' share); tpu-llama-1b in
    float32 at tp 1, 2 and 4, token-identical streams; Mixtral-8x7B at
@@ -183,8 +207,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 18. pipeline and data parallelism (:func:`pp_phase`), every rank a
    process on the one card under gloo (activations staged through
    pinned host memory): Llama-3-8B at full width and ``PP_LLAMA_LAYERS``
-   = 8 of its 32 layers, bf16, at ``--pipeline-parallel-size 2`` (4
-   layers a stage, both kernels on both stages at 32/8 heads, 4 decode
+   = 4 of its 32 layers, bf16, at ``--pipeline-parallel-size 2`` (2
+   layers a stage, both kernels on both stages at 32/8 heads, 2 decode
    launches a stage a microbatch; then the decode profile: host ms a
    step, each stage's device busy, the transfers a step and their
    share); tpu-llama-1b in float32 at pp 2, pp 4 (one microbatch and
@@ -195,7 +219,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels line (the same 32/8-head shape). The spec phases (8) run
    Llama-3-8B's widths at ``SPEC_LAYERS`` = 8 of its 32 layers.
 19. KV movement and the lifecycle across ranks, and the KV device pipe
-   (:func:`kv_ranks_phase`): Llama-3-8B at full width and 8 layers, bf16,
+   (:func:`kv_ranks_phase`): Llama-3-8B at full width and 4 layers, bf16,
    at tp 2 (both ranks on the card under gloo) beside a tp 1 engine of
    the same weights: a 2,048-token prefix (32 blocks, 64 MiB) extracted
    at tp 2 and injected at tp 1, and the reverse, each moved back out
@@ -1398,6 +1422,9 @@ SERVE_ARGS = ["meta-llama/Llama-3-8B", "--device", "cuda", "--host",
               "--max-num-seqs", "8", "--seed", "0", "--prefill-batch", "4"]
 CHUNKED_ARGS = ["--enable-chunked-prefill", "--max-num-batched-tokens",
                 "512", "--max-num-seqs", "10"]
+# The chunked and fused phases' one-at-a-time segment: this many short
+# prompts, then a long one.
+SERIAL_SHORTS = 3
 INT8_ARGS = ["--kv-cache-dtype", "int8", "--quantization", "int8"]
 REQUIRED_SERIES = (
     "vllm:num_requests_running", "vllm:num_requests_waiting",
@@ -1757,20 +1784,32 @@ def recorder_summary(steps_doc: dict, metrics: str, core) -> dict:
                        or line.startswith("tpu:model_bandwidth")]}
 
 
-def chunked_phase(entries):
+def _chunked_serve(label: str, extra_args, entries):
     """Serve Llama-3-8B in bf16 with chunked-prefill step plans
     (``SERVE_ARGS`` plus ``CHUNKED_ARGS``: a 512-token step budget, ten
-    slots) while eight sequences decode: two ~2,000-token prompts arrive
-    once the eight are running and prefill in budgeted step plans that
-    alternate with the decode bursts. Counters as in :func:`serve_phase`.
-    Returns (launch counts by kernel entry, summary)."""
+    slots; plus ``extra_args``) and drive it over HTTP in two segments:
+
+    - concurrent: eight short prompts arrive together (their admissions
+      share batched ``[rows, chunk]`` step plans), then, once the eight
+      run, two ~2,000-token prompts arrive together and prefill in
+      512-token step plans while the eight decode (a plan holds the first
+      long's last chunk and the second's first tokens);
+    - one at a time: ``SERIAL_SHORTS`` short prompts, then a ~2,000-token
+      prompt, each sent once the one before holds a decode slot, so that
+      each request's step plans (and so its prefill shapes) are the same
+      under any schedule of plans and bursts: the chunked and the fused
+      phases must give this segment the same greedy streams.
+
+    Counters as in :func:`serve_phase`. Returns (launch counts by kernel
+    entry, summary, the texts of both segments, the run's step records,
+    stats deltas)."""
     import threading
 
     import torch
 
     from production_stack_tpu_torch.engine.server import build_server
 
-    httpd, core = build_server(SERVE_ARGS + CHUNKED_ARGS)
+    httpd, core = build_server(SERVE_ARGS + CHUNKED_ARGS + list(extra_args))
     torch.cuda.synchronize()
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -1779,77 +1818,594 @@ def chunked_phase(entries):
         _finish("warm-up", client.post("/v1/completions", {
             "prompt": _text(98, 1100), "max_tokens": 9, "temperature": 0}))
         base = core.stats()
+        base_step = json.loads(client.get("/debug/steps?limit=1"))[
+            "recorded_total"]
         counters = _counters()
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         t_run = time.time()
-        outs = [None] * 10
+        n_serial = SERIAL_SHORTS + 1
+        outs = [None] * (10 + n_serial)
 
         def run(i, prompt, max_tokens):
             outs[i] = client.post("/v1/completions", {
                 "prompt": prompt, "max_tokens": max_tokens,
                 "temperature": 0})
 
-        threads = [threading.Thread(target=run, args=(
-            i, _text(60 + i, 120), 96)) for i in range(8)]
+        def start(i, prompt, max_tokens):
+            th = threading.Thread(target=run, args=(i, prompt, max_tokens))
+            th.start()
+            return th
+
+        def started(finished0):
+            """Requests since ``finished0`` that hold or held a slot."""
+            with core._lock:
+                return (core.scheduler.num_running
+                        + core.requests_finished_total - finished0)
+
+        def running(n, finished0):
+            deadline = time.time() + 120
+            while started(finished0) < n and time.time() < deadline:
+                time.sleep(0.002)
+            if started(finished0) < n:
+                raise AssertionError(f"{label}: {n} sequences never ran")
+
+        # Concurrent: eight shorts together, then two longs together.
+        finished0 = core.requests_finished_total
+        threads = [start(i, _text(60 + i, 120), 96) for i in range(8)]
+        running(8, finished0)
+        threads += [start(8 + i, _text(70 + i, 2000), 8) for i in range(2)]
         for th in threads:
-            th.start()
-        deadline = time.time() + 120
-        while core.scheduler.num_running < 8 and time.time() < deadline:
-            time.sleep(0.01)
-        if core.scheduler.num_running < 8:
-            raise AssertionError("the eight decoding sequences never ran")
-        longs = [threading.Thread(target=run, args=(
-            8 + i, _text(70 + i, 2000), 8)) for i in range(2)]
-        for th in longs:
-            th.start()
-        for th in threads + longs:
+            th.join(timeout=600)
+        steps_concurrent = core.step_recorder.recorded_total
+        # One at a time: the serial shorts, then a long.
+        finished0 = core.requests_finished_total
+        threads = []
+        for j in range(n_serial):
+            prompt = (_text(80 + j, 120) if j < SERIAL_SHORTS
+                      else _text(90, 2000))
+            threads.append(start(10 + j, prompt,
+                                 48 if j < SERIAL_SHORTS else 8))
+            running(j + 1, finished0)
+        for th in threads:
             th.join(timeout=600)
         for i, out in enumerate(outs):
             if out is None:
-                raise AssertionError(f"chunked-run request {i} got no reply")
-            _finish(f"chunked run {i}", out)
+                raise AssertionError(f"{label}: request {i} got no reply")
+            _finish(f"{label} {i}", out)
         steps_doc = json.loads(client.get("/debug/steps?limit=1024"))
         metrics = client.get("/metrics")
         launches = {name: getattr(fn, attr)
                     for name, (fn, attr) in counters.items()}
         now = core.stats()
-        order = [r["kind"] for r in reversed(steps_doc["steps"])]
-        chunk_steps = [i for i, k in enumerate(order) if k == "prefill_chunk"]
-        if not chunk_steps:
-            raise AssertionError("no chunked-prefill step plan ran")
-        interleaved = sum(1 for k in order[chunk_steps[0]:chunk_steps[-1]]
-                          if k == "decode_burst")
-        if interleaved <= 0:
-            raise AssertionError("no decode burst ran between the chunks")
-        deferred = (now["deferred_prefill_tokens_total"]
-                    - base["deferred_prefill_tokens_total"])
-        if deferred <= 0:
-            raise AssertionError("the step budget deferred no tokens")
+        deltas = {k: now[k] - base[k] for k in (
+            "deferred_prefill_tokens_total", "prefill_chunks_total",
+            "fused_steps_total", "dispatch_count_total",
+            "dispatch_enqueue_s", "decode_burst_count")}
+        steps = [r for r in reversed(steps_doc["steps"])
+                 if r["step"] > base_step]
+        if len(steps) != steps_doc["recorded_total"] - base_step:
+            raise AssertionError(f"{label}: the step ring lost records")
+        # Step plans of the concurrent segment whose rows went as one
+        # batched [rows, chunk] dispatch (alone, or as a fused step's leg).
+        batched = {}
+        for r in steps:
+            if r["step"] <= steps_concurrent and r["batched"]:
+                batched[r["kind"]] = batched.get(r["kind"], 0) + 1
+        if not batched:
+            raise AssertionError(f"{label}: no step plan of the concurrent "
+                                 f"segment ran as a batched dispatch")
         summary = {
-            "config": "bf16, chunked prefill (512-token steps)",
+            "config": label,
             "run_s": time.time() - t_run,
-            "prefill_chunk_steps": len(chunk_steps),
-            "decode_bursts_between_chunks": interleaved,
-            "deferred_prefill_tokens": deferred,
-            "prefill_chunks": (now["prefill_chunks_total"]
-                               - base["prefill_chunks_total"]),
-            "long_latency_s": [o["_latency_s"] for o in outs[8:]],
+            "deferred_prefill_tokens":
+                deltas["deferred_prefill_tokens_total"],
+            "prefill_chunks": deltas["prefill_chunks_total"],
+            "long_latency_s": [o["_latency_s"] for o in outs[8:10]],
             "short_latency_s": [o["_latency_s"] for o in outs[:8]],
+            "serial_latency_s": [o["_latency_s"] for o in outs[10:]],
+            "batched_plans": batched,
             "recorder": recorder_summary(steps_doc, metrics, core),
+            "fused_steps_scrape": metric_value(
+                metrics, "tpu:fused_steps_total"),
             "launches": launches}
+        kind_counts = core.stats()["step_kind_stats"]
     finally:
         httpd.shutdown()
         httpd.server_close()
         core.stop()
     for name, n in launches.items():
         if name in entries and n <= 0:
-            raise AssertionError(f"{name} never launched on the chunked "
+            raise AssertionError(f"{name} never launched on the {label} "
                                  f"served path")
         if name not in entries and n != 0:
-            raise AssertionError(f"{name} launched {n} times on the chunked "
+            raise AssertionError(f"{name} launched {n} times on the {label} "
                                  f"served path, which does not use it")
-    return {name: launches[name] for name in entries}, summary
+    texts = {"concurrent": [o["choices"][0]["text"] for o in outs[:10]],
+             "serial": [o["choices"][0]["text"] for o in outs[10:]]}
+    deltas["fused_recorded"] = kind_counts["fused"]["count"]
+    return ({name: launches[name] for name in entries}, summary, texts,
+            steps, deltas)
+
+
+def metric_value(text: str, name: str):
+    """The value of the first sample of ``name`` in ``/metrics`` text."""
+    for line in text.splitlines():
+        if line.startswith(name + "{"):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _step_dispatches(steps) -> dict:
+    """The dispatches the run's step records account for, by kind: a
+    fused step is one; a step plan one a forward (its rows share one
+    batched dispatch, or go one a dispatch); a decode burst one."""
+    out = {}
+    for r in steps:
+        n = 1 if r["kind"] in ("fused", "decode_burst") else r["forwards"]
+        out[r["kind"]] = out.get(r["kind"], 0) + n
+    return out
+
+
+def _mean_wall(steps, kind):
+    walls = [r["wall_s"] for r in steps if r["kind"] == kind]
+    return sum(walls) / len(walls) if walls else None
+
+
+def chunked_phase(entries):
+    """The chunked-prefill serve of :func:`_chunked_serve`: step plans
+    must alternate with decode bursts and defer tokens. Returns (launch
+    counts by kernel entry, summary, (texts, step records, deltas))."""
+    counts, summary, texts, steps, deltas = _chunked_serve(
+        "bf16, chunked prefill (512-token steps)", [], entries)
+    order = [r["kind"] for r in steps]
+    chunk_steps = [i for i, k in enumerate(order) if k == "prefill_chunk"]
+    if not chunk_steps:
+        raise AssertionError("no chunked-prefill step plan ran")
+    interleaved = sum(1 for k in order[chunk_steps[0]:chunk_steps[-1]]
+                      if k == "decode_burst")
+    if interleaved <= 0:
+        raise AssertionError("no decode burst ran between the chunks")
+    if summary["deferred_prefill_tokens"] <= 0:
+        raise AssertionError("the step budget deferred no tokens")
+    if deltas["fused_steps_total"] != 0:
+        raise AssertionError("the alternating schedule took a fused step")
+    summary.update(prefill_chunk_steps=len(chunk_steps),
+                   decode_bursts_between_chunks=interleaved)
+    return counts, summary, (texts, steps, deltas)
+
+
+def fused_phase(entries, chunked):
+    """The twin of :func:`chunked_phase` with ``--fused-step``: the same
+    model, depth, arguments and prompts, each step plan launched with the
+    decode burst as ONE dispatch while sequences run. The greedy texts of
+    its one-at-a-time segment must equal the chunked phase's
+    (``chunked``: its texts, step records and stats deltas; the
+    concurrent segment's equal texts are counted), it must take fused
+    steps, the recorder's "fused"
+    count must equal ``fused_steps_total``, every dispatch of both runs
+    must be accounted for by their step records (a fused step one, a
+    step plan and a decode burst one each), and both kernels must
+    launch. Returns (launch counts by kernel entry, summary)."""
+    want_texts, alt_steps, alt = chunked
+    counts, summary, texts, steps, deltas = _chunked_serve(
+        "bf16, chunked prefill (512-token steps), --fused-step",
+        ["--fused-step"], entries)
+    if deltas["fused_steps_total"] < 1:
+        raise AssertionError("the fused phase took no fused step")
+    if deltas["fused_recorded"] != deltas["fused_steps_total"]:
+        raise AssertionError(
+            f"the recorder counts {deltas['fused_recorded']} fused steps, "
+            f"the engine {deltas['fused_steps_total']}")
+    if summary["fused_steps_scrape"] != deltas["fused_steps_total"]:
+        raise AssertionError("/metrics: tpu:fused_steps_total is "
+                             f"{summary['fused_steps_scrape']}")
+    by_kind = {"fused": _step_dispatches(steps),
+               "alternating": _step_dispatches(alt_steps)}
+    for name, d, got in (("fused", by_kind["fused"], deltas),
+                         ("alternating", by_kind["alternating"], alt)):
+        if sum(d.values()) != got["dispatch_count_total"]:
+            raise AssertionError(
+                f"{name}: {got['dispatch_count_total']} dispatches, the "
+                f"step records account for {d}")
+    fused_records = sum(1 for r in steps if r["kind"] == "fused")
+    if by_kind["fused"].get("fused", 0) != fused_records:
+        raise AssertionError("a fused step took more than one dispatch")
+    same = [a == b for a, b in zip(texts["serial"], want_texts["serial"])]
+    if len(same) != SERIAL_SHORTS + 1 or not all(same):
+        raise AssertionError(
+            f"the one-at-a-time segment's fused streams differ from the "
+            f"chunked phase's: equal {same}")
+    # Concurrent arrivals batch by timing, so a request's prefill shapes,
+    # and so its bf16 bits, may differ between the two runs: reported.
+    same_concurrent = sum(a == b for a, b in zip(
+        texts["concurrent"], want_texts["concurrent"]))
+    alt_pair = ((_mean_wall(alt_steps, "prefill_chunk") or 0.0)
+                + (_mean_wall(alt_steps, "decode_burst") or 0.0))
+    summary.update(
+        fused_steps=deltas["fused_steps_total"],
+        fused_recorded=deltas["fused_recorded"],
+        streams_equal_chunked=len(same),
+        concurrent_streams_equal_chunked=same_concurrent,
+        dispatches=deltas["dispatch_count_total"],
+        dispatches_chunked=alt["dispatch_count_total"],
+        dispatches_by_kind=by_kind,
+        dispatches_per_pair={"fused": 1, "alternating": 2},
+        dispatch_enqueue_s=deltas["dispatch_enqueue_s"],
+        dispatch_enqueue_s_chunked=alt["dispatch_enqueue_s"],
+        fused_step_wall_ms=1e3 * _mean_wall(steps, "fused"),
+        alternating_pair_wall_ms=1e3 * alt_pair,
+        prefill_chunk_wall_ms_chunked=1e3 * (
+            _mean_wall(alt_steps, "prefill_chunk") or 0.0),
+        decode_burst_wall_ms_chunked=1e3 * (
+            _mean_wall(alt_steps, "decode_burst") or 0.0))
+    return counts, summary
+
+
+# -- speech to text: Whisper and the ASR server -----------------------------
+
+ASR_MODEL = "whisper-small"  # full width: d 768, 12 + 12 layers, 12 heads
+ASR_DEVICE = "cuda"
+ASR_MAX_TOKENS = 64
+ASR_CLIPS = ((30.0, 440.0, 1), (5.0, 220.0, 2))  # seconds, tone Hz, seed
+ASR_FORMATS = ("json", "text", "verbose_json")
+ASR_F32_TOKENS = 16
+# float32 on the card against the same weights on the host, absolute:
+# both run float32 products (no TF32: the port flips no global flag and
+# computes its convolutions as plain products), so the two differ only
+# in summation order. On an H100 against its host CPU that measured
+# 4.7e-6 on the encoder states (max |x| 5.13) and 2.7e-6 on the logits;
+# TF32 products round at ~5e-4 relative, ~1e-3 on such states. The bar
+# sits between, and the phase checks that a TF32 run of the card fails
+# it (its control).
+ASR_F32_TOL = 5e-5
+ASR_BODY_LIMIT = 64 * 1024 * 1024
+
+
+def _asr_wav(seconds: float, freq: float, seed: int) -> bytes:
+    """A 16 kHz mono 16-bit WAV: a tone plus seeded noise."""
+    import io
+    import wave
+
+    import numpy as np
+
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000.0
+    noise = np.random.default_rng(seed).normal(0, 0.05, n)
+    pcm = ((0.3 * np.sin(2 * np.pi * freq * t) + noise)
+           * 32767).clip(-32768, 32767).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def _asr_post(base: str, fields):
+    """POST a multipart form (``fields``: (name, value[, filename])) to
+    ``/v1/audio/transcriptions``: (status, content type, body bytes,
+    seconds)."""
+    import urllib.error
+    import urllib.request
+
+    boundary = "chip-smoke-asr"
+    body = b""
+    for name, value, *rest in fields:
+        disp = f'form-data; name="{name}"'
+        if rest:
+            disp += f'; filename="{rest[0]}"'
+        head = f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n"
+        body += head.encode() + (value if isinstance(value, bytes)
+                                 else value.encode()) + b"\r\n"
+    body += f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        base + "/v1/audio/transcriptions", data=body, headers={
+            "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out = (resp.status, resp.headers["Content-Type"], resp.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers["Content-Type"], e.read())
+    return out + (time.perf_counter() - t0,)
+
+
+def _whisper_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _whisper_leaves(v, f"{prefix}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _whisper_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def whisper_encoder_flops(params, cfg) -> int:
+    """Operations of one 30 s window's encoder pass: both convolutions,
+    and a layer's four projections, two attention products over all
+    1,500 positions and the FFN (its width read from the weights)."""
+    T, d = cfg.n_audio_ctx, cfg.d_model
+    ffn = params["enc_blocks"][0]["fc1"].shape[1]
+    convs = 2 * 3 * (2 * T * cfg.n_mels * d + T * d * d)
+    layer = 2 * T * (4 * d * d + 2 * T * d + 2 * d * ffn)
+    return convs + cfg.encoder_layers * layer
+
+
+def whisper_token_bytes(params, cfg) -> int:
+    """Bytes one greedy decoder step must read: every decoder weight but
+    the cross-attention K/V projections (run once a request), the tied
+    embedding (the logits), and the cached cross K/V over the 1,500
+    encoder positions."""
+    skip = ("xk", "xv", "xv_b")
+    blocks = sum(t.numel() * t.element_size()
+                 for blk in params["dec_blocks"]
+                 for k, t in blk.items() if k not in skip)
+    emb = params["tok_emb"]
+    kv = (2 * cfg.decoder_layers * cfg.n_audio_ctx * cfg.d_model
+          * emb.element_size())
+    return blocks + emb.numel() * emb.element_size() + kv
+
+
+def asr_phase(smi: str, here: str) -> dict:
+    """Whisper on the card (``ASR_MODEL`` at full width, random weights
+    from seed 0, bf16) served by the port's ASR server
+    (``engine/asr_server.py``) over HTTP: a 30 s and a 5 s synthetic WAV
+    (tone plus seeded noise) in each response format, the 400 cases and
+    a 413; ``/metrics`` must count every served request and second of
+    audio. Then float32 on the card against the same weights on the host
+    (encoder states and the first step's logits within ``ASR_F32_TOL``,
+    which a TF32 run of the card must fail, ``ASR_F32_TOKENS`` greedy
+    tokens equal), and a checkpoint of the
+    served weights written by the port's writer and read back with
+    ``load_whisper_checkpoint``: leaves bit-equal, the same tokens.
+    Times: the host's mel frontend, the encoder (card synchronized), a
+    generated token, each request, beside the encoder's operation bound
+    and a token's byte bound. Returns the ``{"asr": ...}`` summary."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine.asr_server import (
+        ASRServer,
+        build_asr_server,
+    )
+    from production_stack_tpu_torch.models import whisper as tw
+    from production_stack_tpu_torch.models.weights import (
+        load_whisper_checkpoint,
+        save_whisper_checkpoint,
+    )
+    from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
+
+    def sync():
+        if ASR_DEVICE != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.time()
+    asr = ASRServer(ASR_MODEL, seed=0, max_tokens=ASR_MAX_TOKENS,
+                    device=ASR_DEVICE)
+    sync()
+    cfg, model = asr.cfg, asr.model
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in _whisper_leaves(model.params))
+    summary = {"model": ASR_MODEL, "card": smi, "dtype": cfg.dtype,
+               "device": str(model.device), "init_s": time.time() - t0,
+               "weight_bytes": weight_bytes,
+               "d_model": cfg.d_model, "layers": [cfg.encoder_layers,
+                                                  cfg.decoder_layers],
+               "vocab": cfg.vocab_size}
+    httpd = build_asr_server(asr, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(httpd.server_address[1])
+    base = client.base
+    clips = {sec: _asr_wav(sec, hz, seed) for sec, hz, seed in ASR_CLIPS}
+
+    def counters():
+        text = client.get("/metrics")
+        return (metric_value(text, "tpu:asr_requests_total"),
+                metric_value(text, "tpu:asr_audio_seconds_total"),
+                metric_value(text, "vllm:num_requests_running"),
+                metric_value(text, "vllm:num_requests_waiting"))
+
+    try:
+        status, _, body, warm_s = _asr_post(base, [
+            ("file", clips[5.0], "warm.wav")])
+        if status != 200:
+            raise AssertionError(f"asr warm-up: {status} {body[:200]!r}")
+        before = counters()
+        requests, texts = [], {}
+        for sec, _hz, _seed in ASR_CLIPS:
+            for fmt in ASR_FORMATS:
+                status, ctype, body, secs = _asr_post(base, [
+                    ("file", clips[sec], f"{sec:g}s.wav"),
+                    ("model", ASR_MODEL), ("response_format", fmt)])
+                if status != 200:
+                    raise AssertionError(f"asr {sec:g} s {fmt}: {status} "
+                                         f"{body[:200]!r}")
+                if fmt == "text":
+                    text = body.decode()
+                    if not ctype.startswith("text/plain"):
+                        raise AssertionError(f"asr text: {ctype}")
+                else:
+                    doc = json.loads(body)
+                    text = doc["text"]
+                    if fmt == "verbose_json" and (
+                            doc["duration"] != sec or not doc["segments"]
+                            or doc["segments"][0]["end"] != sec):
+                        raise AssertionError(f"asr verbose_json: {doc}")
+                texts.setdefault(sec, set()).add(text)
+                requests.append({"seconds": sec, "format": fmt,
+                                 "request_s": secs,
+                                 "real_time_factor": secs / sec,
+                                 "chars": len(text)})
+        for sec, seen in texts.items():
+            if len(seen) != 1 or not next(iter(seen)):
+                raise AssertionError(f"asr {sec:g} s: the formats gave "
+                                     f"{len(seen)} texts")
+        refusals = {}
+        for case, fields, want in (
+                ("no_file", [("model", ASR_MODEL)], 400),
+                ("model", [("file", clips[5.0], "a.wav"),
+                           ("model", "whisper-large")], 400),
+                ("format", [("file", clips[5.0], "a.wav"),
+                            ("response_format", "srt")], 400),
+                ("audio", [("file", b"RIFF not a wave", "a.wav")], 400),
+                ("too_large", [("file", b"\0" * (ASR_BODY_LIMIT + 1),
+                                "big.wav")], 413)):
+            status, _, body, _ = _asr_post(base, fields)
+            if status != want:
+                raise AssertionError(f"asr {case}: {status}, not {want}")
+            refusals[case] = status
+        after = counters()
+        served = len(ASR_CLIPS) * len(ASR_FORMATS)
+        audio = len(ASR_FORMATS) * sum(c[0] for c in ASR_CLIPS)
+        if (after[0] - before[0] != served
+                or abs(after[1] - before[1] - audio) > 1e-3
+                or after[2] != 0 or after[3] != 0):
+            raise AssertionError(f"asr /metrics moved {before} -> {after}")
+        models = json.loads(client.get("/v1/models"))
+        if models["data"][0]["task"] != "transcription":
+            raise AssertionError(f"asr /v1/models: {models}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    summary.update(warm_up_s=warm_s, requests=requests, refusals=refusals,
+                   metrics={"requests": after[0] - before[0],
+                            "audio_seconds": after[1] - before[1]})
+
+    # Where a request's time goes: the host's mel frontend, the encoder
+    # and a generated token (the card synchronized around each).
+    pcm30 = tw.decode_wav_bytes(clips[30.0])
+    mel_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        mel = tw.log_mel_spectrogram(pcm30)
+        mel_ms.append(1e3 * (time.perf_counter() - t))
+    enc = model.encode(mel)
+    sync()
+    enc_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        enc = model.encode(mel)
+        sync()
+        enc_ms.append(1e3 * (time.perf_counter() - t))
+    t = time.perf_counter()
+    kv = tw.cross_kv(model.params, enc)
+    sync()
+    cross_ms = 1e3 * (time.perf_counter() - t)
+    del kv
+    t = time.perf_counter()
+    toks = model.generate(enc, asr.sot, eot=-1, max_tokens=ASR_MAX_TOKENS)
+    sync()
+    token_ms = 1e3 * (time.perf_counter() - t) / len(toks)
+    flops = whisper_encoder_flops(model.params, cfg)
+    tok_bytes = whisper_token_bytes(model.params, cfg)
+    summary.update(
+        mel_host_ms=min(mel_ms), encode_ms=min(enc_ms),
+        encode_ms_all=enc_ms, cross_kv_ms=cross_ms,
+        ms_per_token=token_ms, tokens_timed=len(toks),
+        encoder_flops=flops,
+        encoder_bound_ms=flops / 989e12 * 1e3, encoder_bound_by="operations",
+        token_bytes=tok_bytes,
+        token_bound_ms=tok_bytes / HBM_BYTES_PER_S * 1e3,
+        token_bound_by="bytes")
+
+    # float32: the card against the host on the same weights.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    host = tw.init_whisper_params(cfg32, 0, "cpu")
+    m_host = tw.WhisperModel(cfg32, params=host, device="cpu")
+    m_card = tw.WhisperModel(cfg32, params=tw.params_to(host, ASR_DEVICE),
+                             device=ASR_DEVICE)
+    mel5 = tw.log_mel_spectrogram(tw.decode_wav_bytes(clips[5.0]))
+    enc_h, enc_c = m_host.encode(mel5), m_card.encode(mel5)
+    enc_err = float((enc_c.cpu() - enc_h).abs().max())
+    with torch.inference_mode():
+        lg_h = tw.decoder_logits(host, cfg32, asr.sot, len(asr.sot),
+                                 enc=enc_h)
+        lg_c = tw.decoder_logits(m_card.params, cfg32, asr.sot,
+                                 len(asr.sot), enc=enc_c)
+    logit_err = float((lg_c.cpu() - lg_h).abs().max())
+    tok_h = m_host.generate(enc_h, asr.sot, eot=-1,
+                            max_tokens=ASR_F32_TOKENS)
+    tok_c = m_card.generate(enc_c, asr.sot, eot=-1,
+                            max_tokens=ASR_F32_TOKENS)
+    if not (enc_err <= ASR_F32_TOL and logit_err <= ASR_F32_TOL):
+        raise AssertionError(f"asr float32 card vs host: encoder {enc_err}, "
+                             f"logits {logit_err} (bar {ASR_F32_TOL})")
+    # The control: the card's float32 run with TF32 products (what a
+    # module setting the matmul precision to "high" would give) must fail
+    # the bar, or the bar could not see that regression (a CPU rehearsal,
+    # ASR_DEVICE "cpu", has no TF32 and skips it).
+    tf32 = None
+    if ASR_DEVICE != "cpu":
+        precision = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            enc_t = m_card.encode(mel5)
+            with torch.inference_mode():
+                lg_t = tw.decoder_logits(m_card.params, cfg32, asr.sot,
+                                         len(asr.sot), enc=enc_t)
+        finally:
+            torch.set_float32_matmul_precision(precision)
+        tf32 = {"encoder_max_abs_err":
+                float((enc_t.cpu() - enc_h).abs().max()),
+                "logits_max_abs_err": float((lg_t.cpu() - lg_h).abs().max())}
+        if not tf32["encoder_max_abs_err"] > ASR_F32_TOL:
+            raise AssertionError(f"asr float32 bar {ASR_F32_TOL} passes a "
+                                 f"TF32 run: {tf32}")
+    if tok_c != tok_h or len(tok_c) != ASR_F32_TOKENS:
+        raise AssertionError(f"asr float32 tokens: card {tok_c}, host "
+                             f"{tok_h}")
+    summary["float32"] = {"encoder_max_abs_err": enc_err,
+                          "logits_max_abs_err": logit_err,
+                          "encoder_max_abs": float(enc_h.abs().max()),
+                          "logits_max_abs": float(lg_h.abs().max()),
+                          "tol": ASR_F32_TOL, "tokens": len(tok_c),
+                          "tokens_equal": True,
+                          "tf32_control": tf32}
+    del m_card, m_host, host, enc_c
+
+    # A checkpoint of the served weights, through the port's writer and
+    # loader: bit for bit, and the same tokens.
+    ckpt = os.path.join(here, "production_stack_tpu_torch", "_build",
+                        "whisper-small-ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        written = save_whisper_checkpoint(model.params, cfg, ckpt)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = load_whisper_checkpoint(
+            dataclasses.replace(tw.get_whisper_config(ckpt),
+                                dtype=cfg.dtype), ckpt)
+        read_s = time.perf_counter() - t
+        want = dict(_whisper_leaves(model.params))
+        got = dict(_whisper_leaves(loaded))
+        if got.keys() != want.keys():
+            raise AssertionError("asr checkpoint: other leaves")
+        differ = [k for k in want
+                  if not torch.equal(got[k], want[k].cpu())]
+        if differ:
+            raise AssertionError(f"asr checkpoint: leaves differ {differ[:4]}")
+        m_ckpt = tw.WhisperModel(cfg, params=tw.params_to(loaded, ASR_DEVICE),
+                                 device=ASR_DEVICE)
+        pcm5 = tw.decode_wav_bytes(clips[5.0])
+        kwargs = dict(sot=asr.sot, eot=asr.eot, max_tokens=ASR_F32_TOKENS)
+        if (m_ckpt.transcribe_tokens(pcm5, **kwargs)
+                != model.transcribe_tokens(pcm5, **kwargs)):
+            raise AssertionError("asr checkpoint: other tokens")
+        summary["checkpoint"] = {"bytes": written, "write_s": write_s,
+                                 "read_s": read_s, "leaves": len(got),
+                                 "bit_equal": True, "tokens_equal": True}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[asr] {json.dumps(summary)}")
+    return summary
 
 
 # -- structured output, n > 1 and tools ----------------------------------------
@@ -1859,6 +2415,10 @@ def chunked_phase(entries):
 # finite language (an enum, a bounded regex) must be fullmatched with
 # finish "stop"; an open one (free strings, integers) may end by length
 # mid-structure, which counts one violation, as in the JAX engine.
+# The structured runs' depth: Llama-3-8B's widths at 8 of its 32 layers
+# (cut to pay for the fused and asr phases; their grammars, masks and
+# kernels are the same at any depth).
+STRUCTURED_LAYERS = 8
 WEATHER_TOOL = {"type": "function", "function": {
     "name": "get_weather", "description": "Current weather for a city",
     "parameters": {"type": "object", "properties": {
@@ -2050,8 +2610,10 @@ def surface_drive(client) -> dict:
             "tools_calls": len(msg.get("tool_calls") or [])}
 
 
-def structured_phase(label: str, extra_args, entries, surface: bool):
-    """Serve Llama-3-8B (``SERVE_ARGS`` plus ``extra_args``) and send
+def structured_phase(label: str, extra_args, entries, surface: bool,
+                     model: str):
+    """Serve Llama-3-8B (``SERVE_ARGS`` plus ``extra_args``, with
+    ``model``, a local directory of :func:`llama_8b_dir`, in its place) and send
     eight requests at once: the grammars of :func:`_grammar_requests`
     (one on a prompt that hits the prefix cache, the enum on a
     ~2,000-token prompt) beside three unconstrained ones (two more
@@ -2071,7 +2633,8 @@ def structured_phase(label: str, extra_args, entries, surface: bool):
     grammars = _grammar_requests()
     warm = _text(96, 1100)
     t0 = time.time()
-    httpd, core = build_server(SERVE_ARGS + list(extra_args))
+    httpd, core = build_server([model] + SERVE_ARGS[1:]
+                               + list(extra_args))
     torch.cuda.synchronize()
     init_s = time.time() - t0
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -2675,6 +3238,10 @@ KV_BLOCKS = 96  # a small pool: 2,048-token prompts evict each other
 KV_BS = 64  # the serving runs' block size
 KV_PROMPT = 2048  # tokens: 32 full blocks (31 can be a hit)
 KV_MAX_TOKENS = 16
+# The kv phases' depth: Llama-3-8B's widths at 8 of its 32 layers (cut to
+# pay for the fused and asr phases; a block's movement is the same code
+# at any depth, its bytes scale with the layers).
+KV_LAYERS = 8
 
 
 class _BlockStore:
@@ -2731,13 +3298,15 @@ def _kv_ids(seed: int):
     return [int(t) for t in rng.integers(1, 32000, size=KV_PROMPT)]
 
 
-def _kv_serve(label, extra):
-    """One port server on a thread with the KV phase's pool."""
+def _kv_serve(label, extra, here):
+    """One port server on a thread with the KV phase's pool, at
+    ``KV_LAYERS`` of Llama-3-8B's layers."""
     import threading
 
     from production_stack_tpu_torch.engine.server import build_server
 
-    httpd, core = build_server(SERVE_ARGS + list(extra) + [
+    httpd, core = build_server([llama_8b_dir(here, KV_LAYERS)]
+                               + SERVE_ARGS[1:] + list(extra) + [
         "--num-blocks", str(KV_BLOCKS), "--block-size", str(KV_BS)])
     threading.Thread(target=httpd.serve_forever, daemon=True,
                      name=f"kv-{label}").start()
@@ -2858,9 +3427,10 @@ def _hash_cost() -> dict:
                 (time.perf_counter() - t0) / reps * 1e3}
 
 
-def kv_phase(label: str, extra_args, entries, smi):
-    """KV movement at Llama-3-8B full width and depth (``SERVE_ARGS`` plus
-    ``extra_args``, ``KV_BLOCKS``-block pools), driven over HTTP:
+def kv_phase(label: str, extra_args, entries, smi, here):
+    """KV movement at Llama-3-8B full width and ``KV_LAYERS`` layers
+    (``SERVE_ARGS`` plus ``extra_args``, ``KV_BLOCKS``-block pools),
+    driven over HTTP:
 
     1. one engine with ``--kv-offload-gb 4``: a greedy 2,048-token prompt A
        twice (the second run a prefix hit, ``S_hit``), other 2,048-token
@@ -2893,7 +3463,8 @@ def kv_phase(label: str, extra_args, entries, smi):
         setattr(fn, attr, 0)
     prefill_fn, prefill_attr = counters[entries[1]]
     # -- 1. offload and restore ------------------------------------------
-    e = _kv_serve("offload", list(extra_args) + ["--kv-offload-gb", "4"])
+    e = _kv_serve("offload", list(extra_args) + ["--kv-offload-gb", "4"],
+                  here)
     try:
         _, core, client = e
         a = _kv_ids(1)
@@ -2936,8 +3507,8 @@ def kv_phase(label: str, extra_args, entries, smi):
     remote = ["--kv-remote-url", store.url]
     p = d = None
     try:
-        p = _kv_serve("P", list(extra_args) + remote)
-        d = _kv_serve("D", list(extra_args) + remote)
+        p = _kv_serve("P", list(extra_args) + remote, here)
+        d = _kv_serve("D", list(extra_args) + remote, here)
         pc, dc = p[2], d[2]
         for part, seed, kv_path, rung in (("host", 2, "host", "host"),
                                           ("local", 3, "auto",
@@ -3526,7 +4097,7 @@ def arch_parity_phase(smi):
 
 
 CKPT_MODEL = "meta-llama/Llama-3-8B"
-CKPT_LAYERS = 8  # of Llama-3-8B's 32: 5.6 GB of bf16 on disk
+CKPT_LAYERS = 4  # of Llama-3-8B's 32: 3.85 GB of bf16 on disk
 CKPT_OPT = "facebook/opt-125m"
 CKPT_DEVICE = "cuda"
 CKPT_KEY = "sk-chip-smoke"
@@ -4278,10 +4849,9 @@ def tp_kernel_phase() -> dict:
     return results
 
 
-# The tp phase serves Llama-3-8B's widths at this many of its 32 layers
-# at tp 2 (the pp phase serves all 32 at pp 2; --tp-cards all 32 at tp 2
-# and 4).
-TP_LLAMA_LAYERS = 8
+# The tp and kv_ranks phases serve Llama-3-8B's widths at this many of
+# its 32 layers (--tp-cards serves all 32 at tp 2 and 4).
+TP_LLAMA_LAYERS = 4
 TP_PARITY_MODEL = "tpu-llama-1b"
 TP_PARITY_ARGS = [TP_PARITY_MODEL, "--device", "cuda", "--dtype", "float32",
                   "--host", "127.0.0.1", "--port", "0", "--max-model-len",
@@ -4739,8 +5309,8 @@ def _serve_once(args, drive):
 # -- pipeline and data parallelism ------------------------------------------
 
 # The pp phase serves Llama-3-8B's widths at this many of its 32 layers
-# at pp 2 (4 a stage); --pp-cards serves all 32.
-PP_LLAMA_LAYERS = 8
+# at pp 2 (2 a stage); --pp-cards serves all 32.
+PP_LLAMA_LAYERS = 4
 # tpu-llama-1b float32 runs whose streams are held to tp 1's: (label,
 # extra arguments, launch shape (H, KVH) of a rank's kernels).
 PP_PARITY_RUNS = (
@@ -4952,14 +5522,14 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
     the one H100 under gloo (activations staged through pinned host
     memory, the share a gloo broadcast):
 
-    - Llama-3-8B at full width and ``PP_LLAMA_LAYERS`` = 8 of its 32
+    - Llama-3-8B at full width and ``PP_LLAMA_LAYERS`` = 4 of its 32
       layers, bf16, random weights from seed 0, at
       ``--pipeline-parallel-size 2`` through the server entry, driven as
-      :func:`_tp_llama_drive` says: each stage holds 4 layers and the
+      :func:`_tp_llama_drive` says: each stage holds 2 layers and the
       whole embedding and head (:func:`llama_stage_bytes`), both kernels
       launched on both stages at 32/8 heads; then the decode step at 8
       rows (:func:`tp_decode_profile`): host ms a step, each stage's
-      device busy, the transfers a step and their share, and 4 decode
+      device busy, the transfers a step and their share, and 2 decode
       launches a stage a microbatch of each step;
     - tpu-llama-1b in float32 at each of ``PP_PARITY_RUNS``: the tp
       phase's tp 1 streams (greedy, chunked, a prefix hit, seeded
@@ -5239,7 +5809,7 @@ def _stop(httpd, core):
 
 def _kvr_tp2_drive(a_core, b_core, summary):
     """The tp 2 engine ``a_core`` (host tier on) and the tp 1 engine
-    ``b_core`` of the same weights, both Llama-3-8B at 8 layers, bf16
+    ``b_core`` of the same weights, both Llama-3-8B at 4 layers, bf16
     pages. Every stream held equal is served over pages whose bits that
     engine computed itself, so no bf16 near-tie between tp 1's and tp 2's
     sums can flip it."""
@@ -5700,12 +6270,22 @@ def main(argv=None) -> int:
               f"B/s ({smi})", flush=True)
     _free_device_memory()
     entries = ("paged_attention", "cached_prefill_attention")
-    counts, summary = chunked_phase(entries)
+    counts, summary, chunked = chunked_phase(entries)
     for name, n in counts.items():
         launches[name] += n
     summary["card"] = smi
     log(f"[serve] {json.dumps(summary)}")
     print(json.dumps({"chunked": summary}), flush=True)
+    _free_device_memory()
+    counts, summary = fused_phase(entries, chunked)
+    for name, n in counts.items():
+        launches[name] += n
+    summary["card"] = smi
+    print(json.dumps({"fused": summary}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the fused phase")
+    _free_device_memory()
+    print(json.dumps({"asr": asr_phase(smi, here)}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the asr phase")
     for label, extra, entries, surface in (
             ("bf16", (), ("paged_attention", "cached_prefill_attention"),
              True),
@@ -5713,7 +6293,9 @@ def main(argv=None) -> int:
              ("paged_attention_int8", "cached_prefill_attention_int8"),
              False)):
         _free_device_memory()
-        counts, summary = structured_phase(label, extra, entries, surface)
+        counts, summary = structured_phase(
+            f"{label}, {STRUCTURED_LAYERS} layers", extra, entries, surface,
+            llama_8b_dir(here, STRUCTURED_LAYERS))
         for name, n in counts.items():
             launches[name] += n
         summary["card"] = smi
@@ -5740,7 +6322,7 @@ def main(argv=None) -> int:
             ("int8 KV + int8 weights", INT8_ARGS,
              ("paged_attention_int8", "cached_prefill_attention_int8"))):
         _free_device_memory()
-        counts, summary = kv_phase(label, extra, entries, smi)
+        counts, summary = kv_phase(label, extra, entries, smi, here)
         for name, n in counts.items():
             launches[name] += n
         print(json.dumps({"kv": summary}), flush=True)

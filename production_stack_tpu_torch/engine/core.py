@@ -155,12 +155,25 @@ KV heads of its stage's layers (``parallel/kv_blocks.py``):
 core is a job of several ranks, as the JAX engine's do: the host relay
 serves those pulls.
 
-Not here yet, and refused at construction when configured: the fused
-step.
+The fused step (``fused_step``, with chunked prefill) is the JAX
+engine's: when the scheduler has both a prefill step plan and running
+sequences (action ``"fused"``), the plan's chunks and the decode burst
+run their usual host-side code, :meth:`EngineCore._dispatch` diverts
+their ``prefill`` and ``decode`` ops into a capture list instead of
+launching them, and the pair goes out as ONE ``"fused"`` op (one
+dispatch, one op-channel message under tp/pp) whose constituent ops run
+through :meth:`EngineCore._exec_op`, so followers replay it unchanged.
+Any other op that arrives mid-capture (a counts-row rebuild, a spill or
+restore of pages, a verify) first issues what was captured, one op at a
+time, in order, and then runs: the step degrades to the alternating
+dispatches. A sequence whose final chunk rides the fused op sits that
+burst out (its first token is not readable yet) and joins the next one,
+so the streams equal the alternating schedule's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -236,8 +249,42 @@ def _parallel_sizes(config: EngineConfig) -> "tuple[int, int, int]":
 
 
 def _unsupported(config: EngineConfig) -> List[str]:
-    """Configured features this engine does not run yet."""
-    return ["fused_step"] if config.fused_step else []
+    """Configured features this engine does not run yet: none."""
+    return []
+
+
+class _FusedPlaceholder:
+    """The result slot of an op diverted into a fused-step capture, filled
+    when the fused dispatch (or the degraded one-op-at-a-time drain)
+    runs; ``error`` carries a failed dispatch to the deferred readback
+    that would otherwise wait for a value that never comes. Readbacks
+    waiting on it register in ``waiters`` and start their host copies
+    when it is filled."""
+
+    __slots__ = ("value", "error", "ready", "waiters")
+
+    def __init__(self):
+        self.value = None
+        self.error = None
+        self.ready = False
+        self.waiters: list = []
+
+    def settle(self, value=None, error=None) -> None:
+        self.value, self.error, self.ready = value, error, True
+        waiters, self.waiters = self.waiters, []
+        if error is None:
+            for fn in waiters:
+                fn(value)
+
+
+def _unwrap_fused(x):
+    """A dispatch result, through its placeholder if it was captured
+    (raising the captured dispatch's error, if any)."""
+    if isinstance(x, _FusedPlaceholder):
+        if x.error is not None:
+            raise x.error
+        return x.value
+    return x
 
 
 def _job_min(value: int) -> int:
@@ -507,6 +554,16 @@ class EngineCore:
         self.deferred_prefill_tokens_total = 0
         self.last_step_batched_tokens = 0
         self.decode_burst_count = 0
+        # Fused steps: prefill-chunk + decode-burst pairs launched as ONE
+        # dispatch; and every dispatch with the engine thread's seconds
+        # spent launching them (a fused pair counts one, an alternating
+        # pair two).
+        self.fused_steps_total = 0
+        self.dispatch_count_total = 0
+        self.dispatch_enqueue_s = 0.0
+        # While a fused step is built: the captured ops, each (name,
+        # static, arrays, placeholder), instead of launched ones.
+        self._fused_capture: Optional[list] = None
         # Target-model forwards of the decode path: K a plain K-step
         # burst, one a verify burst (generation tokens per forward is what
         # speculation buys).
@@ -570,6 +627,9 @@ class EngineCore:
         self._step_lock = threading.Lock()
         # Serializes sleep() and wake_up() (taken before _step_lock).
         self._lifecycle_lock = threading.Lock()
+        # Callers inside between_steps(): the loop takes no step while
+        # any wait, so the step lock comes to them at the next boundary.
+        self._pausing = 0
         self._running = True
         self._stopped = False
         self._thread = threading.Thread(
@@ -1255,6 +1315,25 @@ class EngineCore:
         with self._lock:
             return self.scheduler.abort(request_id)
 
+    @contextlib.contextmanager
+    def between_steps(self):
+        """Hold the engine between two steps with the card drained: inside,
+        the engine's thread launches nothing and nothing of it is queued
+        on the device. ``POST /debug/profile`` switches its profiler on
+        and off in here, because CUPTI can crash the process when it
+        (un)registers its launch callbacks under a thread that launches."""
+        with self._lock:
+            self._pausing += 1
+        try:
+            with self._step_lock:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                yield
+        finally:
+            with self._lock:
+                self._pausing -= 1
+                self._lock.notify_all()
+
     def stop(self) -> None:
         """Stop the engine thread; a tensor-parallel leader then stops its
         followers' replay (the job's op channel stays open). A second call
@@ -1590,6 +1669,9 @@ class EngineCore:
             "prefill_attention_dispatch_total":
                 dict(self.prefill_attention_dispatch_total),
             "decode_burst_count": self.decode_burst_count,
+            "fused_steps_total": self.fused_steps_total,
+            "dispatch_count_total": self.dispatch_count_total,
+            "dispatch_enqueue_s": round(self.dispatch_enqueue_s, 3),
             "decode_forward_steps_total": self.decode_forward_steps_total,
             "spec_proposed_tokens_total": self.spec_proposed_tokens_total,
             "spec_accepted_tokens_total": self.spec_accepted_tokens_total,
@@ -1618,9 +1700,11 @@ class EngineCore:
     def _loop(self) -> None:
         while True:
             with self._lock:
-                while (self._running and self._pending_burst is None
-                       and (self._sleeping
-                            or not self.scheduler.has_work())):
+                while self._running and (
+                        self._pausing
+                        or (self._pending_burst is None
+                            and (self._sleeping
+                                 or not self.scheduler.has_work()))):
                     self._lock.wait(timeout=0.1)
                 if not self._running:
                     return
@@ -1647,6 +1731,12 @@ class EngineCore:
                         self.prefill_time_total += dt
                         self.prefill_count += 1
                         self._record_step(dt)
+                    elif action == "fused":
+                        t0 = time.perf_counter()
+                        self._do_fused(req)
+                        # Each leg's time joins its own split inside
+                        # _do_fused; the step record takes the whole.
+                        self._record_step(time.perf_counter() - t0)
                     elif action == "decode":
                         t0 = time.perf_counter()
                         self._do_decode()
@@ -1672,8 +1762,10 @@ class EngineCore:
         """Finish the requests of a step that raised with "error": a
         prefill's request and the storm-group members it took from the
         queue, a step plan's members, or (decode) every running sequence,
-        with the burst and first tokens in flight dropped."""
-        if action == "prefill_step":
+        with the burst and first tokens in flight dropped; a fused step
+        both its plan's members and every running sequence."""
+        self._fused_capture = None
+        if action in ("prefill_step", "fused"):
             reqs = [pc.req for pc in (req or [])]
         elif action == "prefill" and req is not None:
             reqs = [req] + self._step_reqs
@@ -1696,7 +1788,7 @@ class EngineCore:
                 # An aborted request has had its finish already.
                 if self.scheduler._requests.pop(r.request_id, None):
                     r.on_token(None, "error")
-            if action == "decode":
+            if action in ("decode", "fused"):
                 self._pending_burst = None
                 self._pending_prefills = []
                 for seq in self.scheduler.running():
@@ -1727,21 +1819,75 @@ class EngineCore:
     # feedback tokens) stays on each rank.
 
     def _dispatch(self, name: str, static: dict, arrays: list):
+        cap = self._fused_capture
+        if cap is not None:
+            if name in ("prefill", "decode"):
+                # A fused step is being built: capture the op; _do_fused
+                # launches the pair as ONE "fused" dispatch.
+                ph = _FusedPlaceholder()
+                cap.append((name, static, arrays, ph))
+                return ph
+            # An op the fused dispatch does not carry arrived mid-capture.
+            # Op order is the contract: stop capturing, launch what was
+            # captured one op at a time, then this op.
+            self._fused_capture = None
+            self._drain_captured(cap)
         mhc = self._mh
-        if mhc is None:
-            return self._exec_op(name, static, arrays)
-        with mhc.lock:  # (send, launch) atomic: one op order on every rank
-            if self.fatal_error is not None:
-                raise RuntimeError(self.fatal_error)
-            try:
-                mhc.channel.send((name, static, arrays))
-            except OSError as e:
-                # A partial fan-out (one follower's socket dead, others
-                # fed) cannot be resumed: the ranks' op streams differ.
-                self._fatal(f"op-channel send failed ({e!r}); the "
-                            f"ranks' lockstep is broken")
-                raise RuntimeError(self.fatal_error) from e
-            return self._exec_op(name, static, arrays)
+        t0 = time.perf_counter()
+        try:
+            if mhc is None:
+                return self._exec_op(name, static, arrays)
+            # (send, launch) atomic: one op order on every rank.
+            with mhc.lock:
+                if self.fatal_error is not None:
+                    raise RuntimeError(self.fatal_error)
+                try:
+                    mhc.channel.send((name, static, arrays))
+                except OSError as e:
+                    # A partial fan-out (one follower's socket dead,
+                    # others fed) cannot be resumed: the ranks' op
+                    # streams differ.
+                    self._fatal(f"op-channel send failed ({e!r}); the "
+                                f"ranks' lockstep is broken")
+                    raise RuntimeError(self.fatal_error) from e
+                return self._exec_op(name, static, arrays)
+        finally:
+            # The engine thread's seconds launching work (readback waits
+            # count in flush_time_total).
+            self.dispatch_count_total += 1
+            self.dispatch_enqueue_s += time.perf_counter() - t0
+
+    def _drain_captured(self, cap: list) -> None:
+        """Launch captured ops one dispatch each, in capture order (the
+        degraded path: the capture was aborted, or a leg launched
+        nothing). A failure poisons every placeholder still open, so no
+        deferred readback waits forever, and is raised."""
+        err = None
+        for name, static, arrays, ph in cap:
+            if ph.ready:
+                continue
+            if err is None:
+                try:
+                    out = self._dispatch(name, static, arrays)
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    err = e
+                    ph.settle(error=e)
+                    continue
+                ph.settle(out)
+            else:
+                ph.settle(error=err)
+        if err is not None:
+            raise err
+
+    def _abort_fused_capture(self) -> None:
+        """Leave capture mode and launch what was captured. The spec and
+        structured paths call it before they read back: their drafts and
+        masks need the tokens a captured prefill has not produced."""
+        cap = self._fused_capture
+        if cap is None:
+            return
+        self._fused_capture = None
+        self._drain_captured(cap)
 
     def _exec_op(self, name: str, static: dict, arrays: list):
         """What each op does on the device; the leader and the followers
@@ -1752,6 +1898,15 @@ class EngineCore:
             out = self._decode_op(static["K"], static["use_prev"], *arrays)
         elif name == "spec_verify":
             out = self._verify_op(static["K"], *arrays)
+        elif name == "fused":
+            # One dispatch, its constituent ops run back to back through
+            # this same method: the followers replay it unchanged.
+            outs, off = [], 0
+            for n_i, s_i, c_i in zip(static["names"], static["statics"],
+                                     static["counts"]):
+                outs.append(self._exec_op(n_i, s_i, arrays[off:off + c_i]))
+                off += c_i
+            return outs
         elif name == "embed":
             return self._embed_op(static["n"], arrays[0])
         elif name == "set_counts_row":
@@ -2158,6 +2313,80 @@ class EngineCore:
                 {"req": req, "seq": seq, "slot": slot,
                  "sampled": sampled, "row": row})
 
+    def _do_fused(self, plan) -> None:
+        """One scheduler "fused" action: the budgeted prefill step plan
+        AND the decode burst as ONE dispatch. Both legs run their usual
+        host-side code while :meth:`_dispatch` captures their device ops;
+        the pair then goes out as a single "fused" op (the usual ops back
+        to back: one launch call, one op-channel message). An op the
+        fused dispatch does not carry ends the capture and the step
+        degrades to the alternating dispatches; the streams are the same
+        either way, only the dispatch counts differ. A failed fused
+        dispatch poisons every placeholder of the pair (no readback waits
+        forever) and raises."""
+        self._fused_capture = cap = []
+        info_p = info_d = None
+        dt_p = dt_d = 0.0
+        chunks0 = self.prefill_chunks_total
+        forwards0 = self.decode_forward_steps_total
+        try:
+            t0 = time.perf_counter()
+            self._do_prefill_step(plan)
+            dt_p = time.perf_counter() - t0
+            info_p, self._step_info = self._step_info, None
+            t0 = time.perf_counter()
+            self._do_decode()
+            dt_d = time.perf_counter() - t0
+            info_d, self._step_info = self._step_info, None
+        finally:
+            aborted = self._fused_capture is None
+            self._fused_capture = None
+            names = [c[0] for c in cap]
+            fused = (not aborted and "prefill" in names
+                     and names[-1] == "decode")
+            if fused:
+                try:
+                    outs = self._dispatch("fused", {
+                        "names": names,
+                        "statics": [c[1] for c in cap],
+                        "counts": [len(c[2]) for c in cap],
+                    }, [a for c in cap for a in c[2]])
+                except Exception as e:  # noqa: BLE001 - re-raised
+                    for *_op, ph in cap:
+                        if not ph.ready:
+                            ph.settle(error=e)
+                    raise
+                for (*_op, ph), out in zip(cap, outs):
+                    ph.settle(out)
+                self.fused_steps_total += 1
+            else:
+                # Degraded (the capture ended early, or a leg launched
+                # nothing): launch what is still captured one by one.
+                self._drain_captured(cap)
+        # Each leg's wall time joins its own split if it launched work.
+        if self.prefill_chunks_total > chunks0:
+            self.prefill_time_total += dt_p
+            self.prefill_count += 1
+        if self.decode_forward_steps_total > forwards0:
+            self.decode_time_total += dt_d
+            self.decode_burst_count += 1
+        if self.step_recorder is None:
+            return
+        if fused and info_p is not None and info_d is not None:
+            # _loop records it with the whole step's wall time.
+            self._step_info = {
+                "kind": "fused",
+                **{k: info_p[k] + info_d[k] for k in (
+                    "rows", "tokens", "forwards", "kv_read_tokens",
+                    "kv_write_tokens")},
+                "batched": info_p.get("batched", False)}
+        else:
+            # Degraded: each leg is recorded as the step it was.
+            for info, dt in ((info_p, dt_p), (info_d, dt_d)):
+                if info is not None:
+                    self._step_info = info
+                    self._record_step(dt)
+
     def _flush_pending_prefills(self) -> None:
         """Read back and emit deferred prefill first tokens, in dispatch
         order. Runs before a decode burst is built (its feedback and
@@ -2165,8 +2394,15 @@ class EngineCore:
         if not self._pending_prefills:
             return
         pending, self._pending_prefills = self._pending_prefills, []
+        keep: List[dict] = []
         t0 = time.perf_counter()
         for entry in pending:
+            if not entry["sampled"].ready:
+                # Captured for the fused dispatch being built: read back
+                # after it launches. Such entries are the queue's tail
+                # (captured this step), so emission keeps dispatch order.
+                keep.append(entry)
+                continue
             req, seq, slot = entry["req"], entry["seq"], entry["slot"]
             row_i = entry.get("row", 0)  # batched prefills: a row a request
             try:
@@ -2216,6 +2452,7 @@ class EngineCore:
             # Decode positions start from the emitted tokens (a re-prefill
             # after preemption carries prior outputs).
             req.scheduled_steps = len(req.output_token_ids)
+        self._pending_prefills = keep + self._pending_prefills
         self.flush_time_total += time.perf_counter() - t0
 
     # -- storm-scoped prefill batching --------------------------------------
@@ -2517,7 +2754,11 @@ class EngineCore:
         if cfg.speculative_num_tokens > 0:
             # Drafts need the TRUE last token: speculation collapses the
             # pipeline (the burst in flight is read back first, and the
-            # next burst feeds from host tokens).
+            # next burst feeds from host tokens). A captured prefill's
+            # sample must really run, and be emitted, before it can seed
+            # a draft: the fused capture ends here.
+            self._abort_fused_capture()
+            self._flush_pending_prefills()
             self._flush_pending_burst()
             plan = self._propose_spec_drafts()
             if plan:
@@ -2531,6 +2772,9 @@ class EngineCore:
                 s.req.structured is not None and s.req.structured.masking
                 for s in self.scheduler.running())
         if has_structured:
+            # The masks need the tokens of a captured prefill too.
+            self._abort_fused_capture()
+            self._flush_pending_prefills()
             self._flush_pending_burst()
         B = cfg.max_num_seqs
         K_max = max(cfg.decode_steps, 1)
@@ -2564,14 +2808,23 @@ class EngineCore:
         prev = self._pending_burst
         prev_slots = ({id(s): prev["allows"].get(s.req.request_id, 1)
                        for s in prev["active"]} if prev else {})
+        # Sequences whose first token is still in the fused capture have
+        # no sample to feed back: they sit this burst out and join the
+        # next (per-row positions and keys keep their streams the
+        # alternating schedule's).
+        pending_first = {e["req"].request_id for e in self._pending_prefills
+                         if not e["sampled"].ready}
 
         with self._lock:
-            active0 = self.scheduler.running()
+            active0 = [s for s in self.scheduler.running()
+                       if s.req.request_id not in pending_first]
             allows: Dict[str, int] = {}
             # Account the about-to-be-written tokens; preempt on OOM.
             for seq in list(self.scheduler.running()):
                 if self.scheduler.slots[seq.slot] is not seq:
                     continue  # already preempted this pass
+                if seq.req.request_id in pending_first:
+                    continue  # first token still in the fused capture
                 need = seq_allow(seq.req)
                 allows[seq.req.request_id] = need
                 while need > 0:
@@ -2774,7 +3027,9 @@ class EngineCore:
     def _flush_pending_burst(self) -> None:
         """Read back and emit the burst in flight, if any."""
         pending = self._pending_burst
-        if pending is None:
+        if pending is None or not pending["out"].ready:
+            # (A burst still in a fused capture has nothing to read back;
+            # _do_fused settles every capture before it returns.)
             return
         self._pending_burst = None
         t0 = time.perf_counter()
@@ -3395,10 +3650,21 @@ class _Readback:
     """The outputs of a dispatch and their copies to the host, started
     right behind the dispatch's launches (on a card: asynchronous copies
     into pinned memory and an event), so that :meth:`get` waits for this
-    dispatch only, not for work launched after it."""
+    dispatch only, not for work launched after it. The outputs of an op
+    captured for a fused step are a :class:`_FusedPlaceholder`: the
+    copies start when the fused dispatch fills it."""
 
     def __init__(self, outs):
         self.event = None
+        self.host = None
+        self.placeholder = (outs if isinstance(outs, _FusedPlaceholder)
+                            else None)
+        if self.placeholder is None:
+            self._start(outs)
+        else:
+            outs.waiters.append(self._start)
+
+    def _start(self, outs) -> None:
         if outs[0].is_cuda:
             self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                          .copy_(t, non_blocking=True) for t in outs]
@@ -3407,8 +3673,15 @@ class _Readback:
         else:
             self.host = list(outs)
 
+    @property
+    def ready(self) -> bool:
+        """False while the op waits in a fused capture."""
+        return self.placeholder is None or self.placeholder.ready
+
     def get(self):
-        """The outputs as numpy arrays, once their copies have landed."""
+        """The outputs as numpy arrays, once their copies have landed;
+        raises the error of a fused dispatch that failed."""
+        _unwrap_fused(self.placeholder)
         if self.event is not None:
             self.event.synchronize()
         return [t.numpy() for t in self.host]

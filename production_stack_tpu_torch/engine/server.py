@@ -21,6 +21,8 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``text_1`` broadcast, one embed call per distinct text), ``POST
   /v1/rerank`` and ``/rerank``, ``POST /tokenize``, ``POST /detokenize``
   and ``GET /version``, with the JAX server's bodies;
+- ``POST /v1/audio/transcriptions`` answers 501 with the JAX server's
+  pointer to an ASR pod (``engine/asr_server.py``);
 - the lifecycle of the stack's control plane: ``POST /sleep?level=N``,
   ``POST /wake_up``, ``GET /is_sleeping`` (generation and embeddings
   answer 503 while the engine sleeps) and ``POST /drain?timeout_s=N``
@@ -45,7 +47,7 @@ per connection, server-sent events written by hand for ``stream: true``,
   scheduler series (``tpu:preempted_requests_total{priority}``,
   ``tpu:rejected_requests_total{reason}``, ``tpu:prefill_chunks_total``,
   ``tpu:deferred_prefill_tokens_total``,
-  ``tpu:batched_token_utilization``,
+  ``tpu:batched_token_utilization``, ``tpu:fused_steps_total``,
   ``tpu:prefill_attention_dispatch_total{path}``,
   ``tpu:pool_shrink_retries_total``) and its tracing series
   (``tpu:{queue,prefill,decode}_time_seconds``,
@@ -1385,6 +1387,9 @@ class EngineServer:
              s["deferred_prefill_tokens_total"]),
             ("tpu:batched_token_utilization", "gauge",
              f"{s['batched_token_utilization']:.6f}"),
+            # Fused step (--fused-step): prefill-chunk + decode-burst pairs
+            # launched as one dispatch.
+            ("tpu:fused_steps_total", "counter", s["fused_steps_total"]),
             # Request tracing: slow requests, traces head sampling dropped
             # and slow-trace log lines the interval suppressed.
             ("tpu:slow_requests_total", "counter",
@@ -1562,18 +1567,23 @@ class EngineServer:
             "artifacts_url": "/debug/profile/artifacts", **result}
 
     def _capture_profile(self, out_dir: str, duration_s: float) -> dict:
-        import torch
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.core.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(out_dir, exist_ok=True)
+        prof = profile(activities=activities)
         try:
-            with profile(activities=activities) as prof:
+            # On and off only between engine steps (see between_steps):
+            # the steps in between run under the profiler as they come.
+            with self.core.between_steps():
+                prof.start()
+            try:
                 time.sleep(duration_s)
-                if self.core.device.type == "cuda":
-                    torch.cuda.synchronize(self.core.device)
+            finally:
+                with self.core.between_steps():
+                    prof.stop()
             prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
         except Exception as e:  # noqa: BLE001 - reported, not raised
             return {"ok": False, "error": f"profiler failed: {e}"}
@@ -1794,6 +1804,9 @@ class _Handler(BaseHTTPRequestHandler):
             except BadRequest as exc:
                 self._send_error(exc)
             return
+        if path == "/v1/audio/transcriptions":
+            self._transcriptions()
+            return
         kinds = {"/v1/completions": "completion",
                  "/v1/chat/completions": "chat"}
         if path not in kinds:
@@ -1918,6 +1931,26 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _kv_release(self) -> None:
         self._send_json(self.engine.kv_release(self._read_json()))
+
+    def _transcriptions(self) -> None:
+        """Audio transcription is served by dedicated ASR pods
+        (:mod:`production_stack_tpu_torch.engine.asr_server`) that the
+        router proxies multipart audio to; this text server answers 501
+        with a pointer rather than 404, so a misrouted client gets a
+        diagnosis. The body is read and dropped."""
+        length = int(self.headers.get("Content-Length") or 0)
+        while length > 0:
+            got = self.rfile.read(min(length, 1 << 20))
+            if not got:
+                break
+            length -= len(got)
+        self._send_json({"error": {
+            "message": "this pod serves text generation; deploy a "
+                       "whisper-class ASR pod (python -m production_"
+                       "stack_tpu_torch.engine.asr_server, or a helm "
+                       "modelSpec with modelType: transcription) and "
+                       "route audio there",
+            "type": "NotImplementedError"}}, 501)
 
     def _read_json(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
@@ -2293,6 +2326,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="chunked prefill: force a decode step after this "
                         "many consecutive prefill steps while sequences "
                         "are running")
+    p.add_argument("--fused-step", action="store_true", default=False,
+                   help="fused step: when the chunked-prefill scheduler has "
+                        "both a prefill plan and running decodes, launch "
+                        "the prefill chunk span AND the decode burst as "
+                        "ONE dispatch (one op-channel message under tp/pp; "
+                        "requires --enable-chunked-prefill)")
     p.add_argument("--structured-cache-size", type=int, default=32,
                    help="LRU capacity of the compiled structured-output "
                         "token-FSM cache (one entry per distinct "
@@ -2410,6 +2449,7 @@ def config_from_args(args) -> EngineConfig:
         enable_chunked_prefill=args.enable_chunked_prefill,
         max_num_batched_tokens=args.max_num_batched_tokens,
         max_consecutive_prefills=args.max_consecutive_prefills,
+        fused_step=args.fused_step,
         structured_cache_size=args.structured_cache_size,
         speculative_num_tokens=args.speculative_num_tokens,
         speculative_ngram_size=args.speculative_ngram_size,

@@ -81,3 +81,22 @@ def draft_params_from_numpy(tree: Dict, engine_config, device) -> Dict:
     if "lora" in tree:
         raise ValueError("a draft model carries no LoRA slots")
     return params_from_numpy(tree, cfg, device)
+
+
+def whisper_params_from_numpy(tree: Dict, cfg, device) -> Dict:
+    """The JAX Whisper parameter tree (``models/whisper.py``, as numpy:
+    dicts, the block lists, numpy leaves) as the port's Whisper parameter
+    dict on ``device``, with the same structure, leaf names, shapes and
+    dtypes, cast to ``cfg``'s dtype (a ``WhisperConfig``). No leaf is
+    transposed: both packages keep ``[in, out]`` projections and ``[k,
+    in, out]`` convolutions."""
+    dtype = cfg.torch_dtype
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return tensor_from_numpy(node, device).to(dtype)
+
+    return convert(tree)

@@ -475,6 +475,151 @@ def save_checkpoint(params: Dict, cfg: ModelConfig, path: str,
     return nbytes
 
 
+# --------------------------------------------------------------------- #
+# Whisper (speech to text)
+# --------------------------------------------------------------------- #
+
+# A block's leaves: (leaf, HF name under the block's prefix, kind); kind
+# "t" transposes HF's [out, in] to [in, out], "raw" keeps the tensor. The
+# k projections carry no bias in Whisper.
+_WHISPER_BLOCK = (
+    ("ln1_g", "self_attn_layer_norm.weight", "raw"),
+    ("ln1_b", "self_attn_layer_norm.bias", "raw"),
+    ("q", "self_attn.q_proj.weight", "t"),
+    ("q_b", "self_attn.q_proj.bias", "raw"),
+    ("k", "self_attn.k_proj.weight", "t"),
+    ("v", "self_attn.v_proj.weight", "t"),
+    ("v_b", "self_attn.v_proj.bias", "raw"),
+    ("o", "self_attn.out_proj.weight", "t"),
+    ("o_b", "self_attn.out_proj.bias", "raw"),
+    ("ln2_g", "final_layer_norm.weight", "raw"),
+    ("ln2_b", "final_layer_norm.bias", "raw"),
+    ("fc1", "fc1.weight", "t"),
+    ("fc1_b", "fc1.bias", "raw"),
+    ("fc2", "fc2.weight", "t"),
+    ("fc2_b", "fc2.bias", "raw"),
+)
+_WHISPER_CROSS = (
+    ("lnx_g", "encoder_attn_layer_norm.weight", "raw"),
+    ("lnx_b", "encoder_attn_layer_norm.bias", "raw"),
+    ("xq", "encoder_attn.q_proj.weight", "t"),
+    ("xq_b", "encoder_attn.q_proj.bias", "raw"),
+    ("xk", "encoder_attn.k_proj.weight", "t"),
+    ("xv", "encoder_attn.v_proj.weight", "t"),
+    ("xv_b", "encoder_attn.v_proj.bias", "raw"),
+    ("xo", "encoder_attn.out_proj.weight", "t"),
+    ("xo_b", "encoder_attn.out_proj.bias", "raw"),
+)
+# Top-level leaves; kind "conv" takes HF's conv1d [out, in, k] to the
+# model's [k, in, out].
+_WHISPER_TOP = (
+    ("conv1", "model.encoder.conv1.weight", "conv"),
+    ("conv1_b", "model.encoder.conv1.bias", "raw"),
+    ("conv2", "model.encoder.conv2.weight", "conv"),
+    ("conv2_b", "model.encoder.conv2.bias", "raw"),
+    ("enc_pos", "model.encoder.embed_positions.weight", "raw"),
+    ("enc_ln_g", "model.encoder.layer_norm.weight", "raw"),
+    ("enc_ln_b", "model.encoder.layer_norm.bias", "raw"),
+    ("tok_emb", "model.decoder.embed_tokens.weight", "raw"),
+    ("dec_pos", "model.decoder.embed_positions.weight", "raw"),
+    ("dec_ln_g", "model.decoder.layer_norm.weight", "raw"),
+    ("dec_ln_b", "model.decoder.layer_norm.bias", "raw"),
+)
+
+
+def _whisper_leaf_map(cfg):
+    """(path into the param tree, HF name, kind) of every leaf of ``cfg``
+    (a ``models/whisper.py::WhisperConfig``)."""
+    for key, name, kind in _WHISPER_TOP:
+        yield (key,), name, kind
+    for stack, prefix, n, block in (
+            ("enc_blocks", "model.encoder", cfg.encoder_layers,
+             _WHISPER_BLOCK),
+            ("dec_blocks", "model.decoder", cfg.decoder_layers,
+             _WHISPER_BLOCK + _WHISPER_CROSS)):
+        for i in range(n):
+            for key, name, kind in block:
+                yield (stack, i, key), f"{prefix}.layers.{i}.{name}", kind
+
+
+def _whisper_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """HF's layout to the model's, or back: both maps are their own
+    inverse (a transpose, a reversal of the three axes)."""
+    if kind == "t":
+        return t.T
+    if kind == "conv":
+        return t.permute(2, 1, 0)
+    return t
+
+
+def load_whisper_checkpoint(cfg, path: str) -> Dict:
+    """HF WhisperForConditionalGeneration weights (safetensors or torch
+    shards) -> the parameter tree of
+    :mod:`production_stack_tpu_torch.models.whisper` as CPU tensors in
+    ``cfg``'s dtype: the JAX loader's leaf map
+    (``production_stack_tpu/models/weights.py::load_whisper_checkpoint``).
+    Every projection transposes from ``[out, in]`` to ``[in, out]``;
+    conv1d weights go ``[out, in, k]`` -> ``[k, in, out]``; k_proj and
+    the cross-attention's k_proj carry no bias. A missing tensor raises."""
+    dtype = cfg.torch_dtype
+    sd = dict(_iter_checkpoint_tensors(path))
+    leaves = list(_whisper_leaf_map(cfg))
+    missing = [name for _, name, _ in leaves if name not in sd]
+    wanted = {name for _, name, _ in leaves}
+    unmapped = [n for n in sd if n not in wanted
+                and n != "proj_out.weight"]  # proj_out ties to tok_emb
+    _check_missing(path, missing, unmapped)
+    logger.info("Loading whisper checkpoint from %s", path)
+    params: Dict = {
+        "enc_blocks": [{} for _ in range(cfg.encoder_layers)],
+        "dec_blocks": [{} for _ in range(cfg.decoder_layers)]}
+    for where, name, kind in leaves:
+        node = params
+        for k in where[:-1]:
+            node = node[k]
+        node[where[-1]] = _owned(_whisper_layout(sd[name], kind), dtype)
+    return params
+
+
+def whisper_hf_tensors(params: Dict, cfg
+                       ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The inverse of :func:`load_whisper_checkpoint`: each leaf under its
+    HF name, back in HF's layout, as views of ``params``."""
+    for where, name, kind in _whisper_leaf_map(cfg):
+        t = params
+        for k in where:
+            t = t[k]
+        yield name, _whisper_layout(t, kind)
+
+
+def whisper_hf_config(cfg) -> Dict:
+    """The HF ``config.json`` fields that ``models/whisper.py``
+    reads back into ``cfg`` (its dtype aside); one head count serves both
+    stacks."""
+    return {"model_type": "whisper", "vocab_size": cfg.vocab_size,
+            "d_model": cfg.d_model, "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": cfg.decoder_layers,
+            "encoder_attention_heads": cfg.num_heads,
+            "decoder_attention_heads": cfg.num_heads,
+            "max_target_positions": cfg.max_target_len,
+            "num_mel_bins": cfg.n_mels,
+            "max_source_positions": cfg.n_audio_ctx,
+            "torch_dtype": cfg.dtype}
+
+
+def save_whisper_checkpoint(params: Dict, cfg, path: str) -> int:
+    """Write a Whisper parameter tree as an HF checkpoint directory
+    (``config.json`` and one safetensors file under the HF names).
+    Returns the tensor bytes written."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(whisper_hf_config(cfg), f, indent=1)
+    tensors = dict(whisper_hf_tensors(params, cfg))
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"),
+                     {"format": "pt"})
+    return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
 def has_checkpoint(path: str) -> bool:
     """True for a local directory holding safetensors or torch shards."""
     return os.path.isdir(path) and (

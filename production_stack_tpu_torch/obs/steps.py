@@ -28,9 +28,9 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
-# Step kinds, in scheduling order. "spec_verify" and "fused" are steps
-# this engine does not take yet; they stay so the /debug/steps schema and
-# the Prometheus label set equal the JAX engine's.
+# Step kinds, in scheduling order, the JAX engine's: a speculative verify
+# burst is "spec_verify", a step plan and a decode burst launched as one
+# dispatch (--fused-step) is "fused".
 STEP_KINDS = ("prefill", "prefill_chunk", "decode_burst", "spec_verify",
               "fused")
 

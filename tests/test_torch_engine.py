@@ -223,16 +223,19 @@ def test_cuda_device_without_a_card_raises():
     # that many processes (tests/test_torch_pp.py, tests/test_torch_tp.py;
     # with the KV offload tier, tests/test_torch_kv_ranks.py): outside
     # one, such a configuration is refused for want of its job. The
-    # fused step is refused outright.
+    # fused step, the last feature once refused, now constructs
+    # (tests/test_torch_fused_step.py): nothing is unsupported.
     dict(data_parallel_size=2),
     dict(pipeline_parallel_size=2),
     dict(tensor_parallel_size=2),
     dict(fused_step=True)])
 def test_unported_features_are_refused(over):
+    from production_stack_tpu_torch.engine.core import _unsupported
+
     cfg = EngineConfig(device="cpu", **dict(MAKE_ENGINE, **over))
+    assert _unsupported(cfg) == []
     if over.get("fused_step"):
-        with pytest.raises(NotImplementedError, match="not supported"):
-            EngineCore(cfg)
+        EngineCore(cfg).stop()
     else:
         with pytest.raises(ValueError, match="processes of one job"):
             EngineCore(cfg)

@@ -53,7 +53,8 @@ def test_every_port_module_imports_without_jax():
                 "kv.device_pipe", "parallel.kv_blocks",
                 "utils.xxh64", "utils.auth", "obs.trace", "models.weights",
                 "models.llama", "models.opt", "models.mixtral",
-                "models.registry", "models.convert", "ops.attention",
+                "models.registry", "models.convert", "models.whisper",
+                "engine.asr_server", "ops.attention",
                 "ops.paged_attention", "ops.prefill_attention", "ops._build",
                 "parallel", "parallel.sharding", "parallel.mesh",
                 "parallel.multihost", "parallel.tp", "parallel.pp",

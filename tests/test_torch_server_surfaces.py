@@ -13,7 +13,7 @@ requests to both and compares what comes back.
   the pool (the pre-check) and for a scheduler rejection (blocks pinned
   below the prompt's footprint), with the same ``rejected_total``;
 - ``/metrics`` names: the port's are a superset of the JAX server's, less
-  the loop-monitor and fused-step series;
+  the loop-monitor series;
 - the KV-pool shrink ladder: rungs, pool size and counter against the
   JAX engine's ladder on the same failures;
 - ``/debug/traces`` (the ``traceparent`` join, stage spans that add up),
@@ -58,8 +58,8 @@ AUTH = {"Authorization": f"Bearer {KEY}"}
 CFG = dict(model="tiny-llama", max_model_len=128, max_num_seqs=2,
            block_size=4, num_blocks=20, max_loras=0, dtype="float32")
 # Series the port does not export: the JAX event-loop monitor (the port's
-# server has no event loop) and the fused step (refused by the port).
-NOT_PORTED = re.compile(r"^tpu:(event_loop_|loop_stalls|fused_steps)")
+# server has no event loop).
+NOT_PORTED = re.compile(r"^tpu:(event_loop_|loop_stalls)")
 
 
 class KeyedPair:
@@ -411,6 +411,29 @@ def test_healthz_and_profile_capture(pair):
                 headers=AUTH)[0] == 404
     assert call(pair.port, "/debug/profile", {"duration_s": "x"},
                 AUTH)[0] == 400
+
+
+def test_engine_takes_no_step_between_steps(pair):
+    """``POST /debug/profile`` switches its profiler on and off inside
+    ``between_steps()``: while a caller holds it the engine takes no step,
+    and a request that arrived meanwhile is served once it lets go."""
+    core = pair.core
+    got = {}
+
+    def request():
+        got["reply"] = call(pair.port, "/v1/completions", {
+            "prompt": "held", "max_tokens": 3, "temperature": 0}, AUTH)
+
+    th = threading.Thread(target=request)
+    with core.between_steps():
+        steps = core.prefill_count + core.decode_burst_count
+        th.start()
+        time.sleep(0.5)
+        assert th.is_alive()
+        assert core.prefill_count + core.decode_burst_count == steps
+    th.join(timeout=120)
+    assert got["reply"][0] == 200, got
+    assert core.prefill_count + core.decode_burst_count > steps
 
 
 def test_pull_from_keyed_jax_server_carries_the_key(pair):
