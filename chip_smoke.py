@@ -53,7 +53,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. serve ``meta-llama/Llama-3-8B`` at full width and depth with random
    weights through the port's OpenAI server (in-process, on a thread)
    under the JAX engine's default step (prefill batching at 4 rows, the
-   step recorder, pipelined decode bursts) and drive it over HTTP:
+   step recorder, pipelined decode bursts), warmed by the server before
+   it binds (the warm-up's seconds, programs, kernel launches and peak
+   allocation: ``"warmup"`` in the ``{"serve"}`` line and a ``[warmup]``
+   line), and drive it over HTTP: a streamed 1,100-token request first
+   (its time to first token beside a later one's of that length),
    concurrent greedy completions, a chunked long prompt, a prefix-cache
    hit, a streamed sampled chat, a repeated greedy request, a storm of
    six ~2,000-token prompts (batched prefills), a seeded sampled request
@@ -66,7 +70,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--kv-cache-dtype int8 --quantization int8`` (int8 KV pages, int8
    weights), driven the same way; both kernels must have launched in
    their int8 mode, and never in the other. No probe launches on either
-   served path;
+   served path. Then two fresh server processes at full width and
+   ``WARMUP_LAYERS`` = 8 layers, started together, one with
+   ``--no-warmup`` and one warm (:func:`warmup_phase`: seconds to
+   ``/health``, the first and second 2,000-token requests' times to
+   first token, a ``{"warmup"}`` line).
+   Every other server of the run starts with ``--no-warmup``
+   (:func:`build_server`) and warms by hand where it measures;
 7. serve bf16 again with chunked-prefill step plans
    (``--enable-chunked-prefill --max-num-batched-tokens 512``, ten
    slots): eight short prompts arrive together (a step plan's rows must
@@ -195,7 +205,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``TP_LLAMA_LAYERS`` = 4 of its 32 layers, bf16, at tp 2 (decode bursts, a 2,500-token prompt's chunks, a
    prefix hit, a seeded pair; then a decode step's host time, the
    leader's device time and the collectives' share); tpu-llama-1b in
-   float32 at tp 1, 2 and 4, token-identical streams; Mixtral-8x7B at
+   float32 at tp 1, 2 and 4, token-identical streams (the tp 2 job
+   warmed: both ranks at one op count, the follower having replayed the
+   leader's warm-up); Mixtral-8x7B at
    full width and 4 layers at tp 2 (4 experts a rank); OPT-125m at tp 2
    and 4. Both kernels must launch on every rank at its heads, and no
    rank may run on the CPU (a ``{"tp": ...}`` line: each rank's device,
@@ -1488,6 +1500,17 @@ class Client:
             return resp.read().decode()
 
 
+def build_server(argv, core=None, warmup: bool = False):
+    """The port's server entry (``engine/server.py::build_server``) with
+    ``--no-warmup`` unless ``warmup``: the phases that measure something
+    else start as they did before the engine had a warm-up, and warm by
+    hand where their measurement needs it."""
+    from production_stack_tpu_torch.engine import server
+
+    return server.build_server(
+        list(argv) + ([] if warmup else ["--no-warmup"]), core=core)
+
+
 def _finish(name: str, out: dict) -> str:
     if "choices" in out:
         finish = out["choices"][0]["finish_reason"]
@@ -1539,7 +1562,7 @@ def _weight_bytes(params):
 
 
 def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
-                long_chars=2500, hit_chars=2000, after=None):
+                long_chars=2500, hit_chars=2000, after=None, warmup=False):
     """Serve Llama-3-8B (or ``base_args``'s model) through the port's
     server (``base_args`` plus ``extra_args``) and drive it over HTTP:
     the long prompt has ``long_chars`` tokens, the prefix hit shares its
@@ -1547,18 +1570,46 @@ def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
     drive and read just after, and each kind of work must launch its
     kernel: decode the decode kernel, a chunk continuation, a prefix hit
     and a storm the cached-prefill kernel. ``after(core)``, when given,
-    runs on the stopped engine and its result joins the summary. Returns
+    runs on the stopped engine and its result joins the summary. With
+    ``warmup`` the server warms the engine (its seconds, programs, kernel
+    launches and peak device memory join the summary as ``warmup``) and
+    the drive opens with a streamed 1,100-token request, whose time to
+    first token is set beside that of another of its length at the end;
+    without it an unmeasured request warms the engine by hand. Returns
     (launch counts of the served run by kernel entry, summary); raises
     unless each of ``entries`` launched and no other entry did."""
     import threading
 
-    from production_stack_tpu_torch.engine.server import build_server
+    from production_stack_tpu_torch.engine.core import EngineCore
+    from production_stack_tpu_torch.engine.server import (
+        build_arg_parser,
+        config_from_args,
+    )
     from production_stack_tpu_torch.probes.common import HBM_BYTES_PER_S
 
     import torch
 
     t0 = time.time()
-    httpd, core = build_server(list(base_args) + list(extra_args))
+    argv = list(base_args) + list(extra_args)
+    warm = None
+    if warmup:
+        # The engine first, so that the peak read after the server's
+        # warm-up is the warm-up's own (the weights and pool included).
+        core = EngineCore(config_from_args(
+            build_arg_parser().parse_args(argv)))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        httpd, core = build_server(argv, core=core, warmup=True)
+        peak = torch.cuda.max_memory_allocated()
+        warm = {"seconds": core.warmup_seconds,
+                "variants": core.warmup_variants,
+                "launches": core.warmup_launches,
+                "allocated_before_gb": before / 1e9,
+                "peak_allocated_gb": peak / 1e9,
+                "peak_over_before_gb": (peak - before) / 1e9}
+    else:
+        httpd, core = build_server(argv)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1580,17 +1631,26 @@ def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
                "device_memory_allocated_gb":
                    torch.cuda.memory_allocated() / 1e9}
     try:
-        # Warm-up (first-use library set-up of every GEMM shape, the
-        # kernels' first launches): a prefill, a chunk continuation and a
-        # decode burst, outside the measured run.
-        _finish("warm-up", client.post("/v1/completions", {
-            "prompt": _text(99, 1100), "max_tokens": 9, "temperature": 0}))
+        if not warmup:
+            # Warm-up by hand (first-use library set-up of every GEMM
+            # shape, the kernels' first launches): a prefill, a chunk
+            # continuation and a decode burst, outside the measured run.
+            _finish("warm-up", client.post("/v1/completions", {
+                "prompt": _text(99, 1100), "max_tokens": 9,
+                "temperature": 0}))
         base = core.stats()
         counters = _counters()
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         decode_fn, prefill_fn = (counters[entries[0]], counters[entries[1]])
         by_kind = {}
+        if warmup:
+            # The warm engine's first request: a chunk and its
+            # continuation, then a decode burst, streamed.
+            first = client.post("/v1/completions", {
+                "prompt": _text(99, 1100), "max_tokens": 9,
+                "temperature": 0, "stream": True}, stream=True)
+            _finish("first request", first)
 
         def launched(kind, fn_attr, since):
             """The launches of one kernel since ``since`` by the kind of
@@ -1688,6 +1748,17 @@ def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
             _finish("seeded", out)
         if seeded[0]["choices"][0]["text"] != seeded[1]["choices"][0]["text"]:
             raise AssertionError("a seeded sampled request gave two texts")
+        if warmup:
+            # The same length once the engine has served (no prefix in
+            # common with an earlier prompt).
+            steady = client.post("/v1/completions", {
+                "prompt": _text(98, 1100), "max_tokens": 9,
+                "temperature": 0, "stream": True}, stream=True)
+            _finish("steady request", steady)
+            warm.update(first_ttft_s=first["_first_token_s"],
+                        steady_ttft_s=steady["_first_token_s"],
+                        first_latency_s=first["_latency_s"],
+                        steady_latency_s=steady["_latency_s"])
         steps_doc = json.loads(client.get("/debug/steps?limit=1024"))
         metrics = client.get("/metrics")
         launches = {name: getattr(fn, attr)
@@ -1740,6 +1811,8 @@ def serve_phase(label: str, extra_args, entries, base_args=SERVE_ARGS,
             launches=launches,
             launches_by_kind=by_kind,
             sample_text=results[0]["choices"][0]["text"][:40])
+        if warm is not None:
+            summary["warmup"] = warm
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1806,8 +1879,6 @@ def _chunked_serve(label: str, extra_args, entries):
     import threading
 
     import torch
-
-    from production_stack_tpu_torch.engine.server import build_server
 
     httpd, core = build_server(SERVE_ARGS + CHUNKED_ARGS + list(extra_args))
     torch.cuda.synchronize()
@@ -2628,8 +2699,6 @@ def structured_phase(label: str, extra_args, entries, surface: bool,
 
     import torch
 
-    from production_stack_tpu_torch.engine.server import build_server
-
     grammars = _grammar_requests()
     warm = _text(96, 1100)
     t0 = time.time()
@@ -2904,6 +2973,110 @@ def llama_8b_dir(here: str, layers: int) -> str:
     return path
 
 
+WARMUP_LAYERS = 8  # of Llama-3-8B's 32, at full width
+WARMUP_PROMPT = 2000  # tokens of the first requests the fresh servers take
+# Each fresh server's pool: what the serve phases' pools come to (64
+# blocks a sequence x 8 x 4), fixed so that two servers side by side
+# take the same.
+WARMUP_BLOCKS = 2048
+WARMUP_LINE = re.compile(
+    r"Warmup ran (\d+) prefill \+ (\d+) decode \+ (\d+) spec-verify \+ "
+    r"(\d+) draft variants in ([0-9.]+) s")
+
+
+def warmup_phase(here: str, smi) -> dict:
+    """Two fresh server processes of Llama-3-8B at full width and
+    ``WARMUP_LAYERS`` layers (``SERVE_ARGS``, random weights from seed 0,
+    ``WARMUP_BLOCKS`` blocks each) on the kernel libraries this process
+    built (``_build/``), started together: one with ``--no-warmup``, one
+    warming as the server does by default. For each: the seconds from
+    starting the process to the first 200 of ``/health``; then, one
+    server at a time once both answer, the time to first token of its
+    first streamed ``WARMUP_PROMPT``-token request and of a second one
+    (another text) right after. The warm server's log line gives its
+    warm-up's seconds and programs. Returns the ``warmup`` summary."""
+    import socket
+    import urllib.error
+
+    path = llama_8b_dir(here, WARMUP_LAYERS)
+    out = {"card": smi, "model": "meta-llama/Llama-3-8B",
+           "layers": WARMUP_LAYERS, "prompt_tokens": WARMUP_PROMPT,
+           "num_blocks": WARMUP_BLOCKS, "started_together": True}
+    names = ("no_warmup", "warmup")
+    servers = {}
+    _free_device_memory()
+    try:
+        for name, extra in zip(names, (["--no-warmup"], [])):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            log_path = os.path.join(here, "production_stack_tpu_torch",
+                                    "_build", f"warmup_phase_{name}.log")
+            err = open(log_path, "w")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "production_stack_tpu_torch.engine.server", path]
+                + SERVE_ARGS[1:] + ["--num-blocks", str(WARMUP_BLOCKS),
+                                    "--port", str(port)] + extra, cwd=here,
+                stdout=subprocess.DEVNULL, stderr=err,
+                env=dict(os.environ, PYTHONPATH=here,
+                         TPU_STACK_LOG_LEVEL="INFO"))
+            servers[name] = dict(proc=proc, err=err, log=log_path, t0=t0,
+                                 client=Client(port), entry={})
+        deadline = time.monotonic() + 300
+        waiting = set(names)
+        while waiting:
+            for name in sorted(waiting):
+                srv = servers[name]
+                try:
+                    srv["client"].get("/health")
+                except (OSError, urllib.error.URLError):
+                    if srv["proc"].poll() is not None or \
+                            time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"warmup phase: the {name} server never "
+                            f"answered /health (exit {srv['proc'].poll()})")
+                    continue
+                srv["entry"]["start_to_health_s"] = (
+                    time.perf_counter() - srv["t0"])
+                waiting.discard(name)
+            time.sleep(0.05)
+        for name in names:
+            srv = servers[name]
+            for i, seed in enumerate((120, 121)):
+                r = srv["client"].post("/v1/completions", {
+                    "prompt": _text(seed, WARMUP_PROMPT), "max_tokens": 4,
+                    "temperature": 0, "stream": True}, stream=True)
+                _finish(f"warmup phase {name} request {i}", r)
+                srv["entry"][("first" if i == 0 else "second")
+                             + "_ttft_s"] = r["_first_token_s"]
+    finally:
+        for srv in servers.values():
+            srv["proc"].terminate()
+        for srv in servers.values():
+            try:
+                srv["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                srv["proc"].kill()
+                srv["proc"].wait()
+            srv["err"].close()
+    for name in names:
+        entry = servers[name]["entry"]
+        with open(servers[name]["log"]) as f:
+            found = WARMUP_LINE.findall(f.read())
+        if (name == "warmup") != bool(found):
+            raise AssertionError(f"warmup phase: the {name} server logged "
+                                 f"{len(found)} warm-ups")
+        if found:
+            counts = [int(x) for x in found[0][:4]]
+            entry.update(seconds=float(found[0][4]), variants=dict(
+                zip(("prefill", "decode", "spec", "draft"), counts)))
+        out[name] = entry
+        log(f"[warmup] {name}: {json.dumps(entry)} ({smi})")
+    return out
+
+
 def spec_phase(smi, here):
     """Serve Llama-3-8B (``SPEC_LAYERS`` of its layers) in bf16 four
     times on the same requests
@@ -2921,8 +3094,6 @@ def spec_phase(smi, here):
     import threading
 
     import torch
-
-    from production_stack_tpu_torch.engine.server import build_server
 
     prompts = _spec_prompts()
     plain_tpf = plain_greedy_tpf = plain_texts = None
@@ -3302,8 +3473,6 @@ def _kv_serve(label, extra, here):
     """One port server on a thread with the KV phase's pool, at
     ``KV_LAYERS`` of Llama-3-8B's layers."""
     import threading
-
-    from production_stack_tpu_torch.engine.server import build_server
 
     httpd, core = build_server([llama_8b_dir(here, KV_LAYERS)]
                                + SERVE_ARGS[1:] + list(extra) + [
@@ -3853,8 +4022,6 @@ def lifecycle_phase(smi):
 
     import torch
 
-    from production_stack_tpu_torch.engine.server import build_server
-
     httpd, core = build_server(SERVE_ARGS + ["--max-loras", "4"])
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -4180,8 +4347,6 @@ def _checkpoint_serve(label, llama_dir, want, extra, entries, smi):
     add up. Returns (launches of ``entries``, summary, greedy texts)."""
     import threading
 
-    from production_stack_tpu_torch.engine.server import build_server
-
     args = [llama_dir, "--device", CKPT_DEVICE, "--host", "127.0.0.1",
             "--port", "0", "--max-model-len", "4096", "--max-num-seqs", "8",
             "--seed", "0", "--prefill-batch", "4", "--api-key", CKPT_KEY,
@@ -4306,7 +4471,6 @@ def _reference_greedy(llama_dir, want, extra) -> list:
     from production_stack_tpu_torch.engine.core import EngineCore
     from production_stack_tpu_torch.engine.server import (
         build_arg_parser,
-        build_server,
         config_from_args,
     )
     from production_stack_tpu_torch.models import get_model_config
@@ -4871,7 +5035,7 @@ def _rank_summary(ranks: list) -> list:
                                "device_name", "weight_bytes",
                                "kv_pool_bytes", "num_blocks", "kv_heads",
                                "launches_by_shape", "collectives_total",
-                               "p2p")}
+                               "p2p", "ops_total")}
             for r in ranks]
 
 
@@ -4981,22 +5145,24 @@ def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
     return out
 
 
-def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
+def _tp_serve(label: str, args, drive, shapes, profile_decode=False,
+              warmup=None):
     """Serve ``args`` (with ``--tensor-parallel-size``,
     ``--pipeline-parallel-size`` or ``--data-parallel-size``) through the
     port's server entry, which starts the follower ranks as processes on
     this host; zero every rank's launch counts, ``drive(client)`` it over
     HTTP, read every rank's counts, and check each of ``shapes`` launched
-    on every rank. Returns (drive's result, rank summaries, the decode
-    profile or None, init seconds)."""
+    on every rank. ``warmup``, a dict, starts the server warm and takes
+    the warm-up's seconds and programs and each rank's op count, which
+    must be one count on every rank (the followers replayed the leader's
+    warm-up). Returns (drive's result, rank summaries, the decode profile
+    or None, init seconds)."""
     import threading
-
-    from production_stack_tpu_torch.engine.server import build_server
 
     import torch
 
     t0 = time.time()
-    httpd, core = build_server(list(args))
+    httpd, core = build_server(list(args), warmup=warmup is not None)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     n = core.layout.size
@@ -5016,6 +5182,16 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False):
         out = drive(client)
         ranks = core.rank_stats()
         _check_ranks(label, ranks, n, shapes)
+        if warmup is not None:
+            v = core.warmup_variants
+            ops = [r["ops_total"] for r in ranks]
+            # The warm-up's programs and the two ops that bracket it.
+            least = v["prefill"] + v["decode"] + v["spec"] + 2
+            if len(set(ops)) != 1 or ops[0] <= least:
+                raise AssertionError(f"{label}: ops by rank {ops} after a "
+                                     f"warm-up of {least} ops")
+            warmup.update(seconds=core.warmup_seconds, variants=v,
+                          ops_by_rank=ops, warmup_ops=least)
         if core.fatal_error is not None:
             raise AssertionError(f"{label}: {core.fatal_error}")
         httpd.shutdown()
@@ -5193,10 +5369,17 @@ def tp_phase(here: str, smi):
             continue
         H, KVH = 16 // tp, 8 // tp
         f32_key = tp_shape_key(H, KVH, 128).replace("bfloat16", "float32")
+        # The tp 2 job starts warm: its follower replays the warm-up, and
+        # its streams are still tp 1's.
+        warm = {} if tp == 2 else None
         streams[tp], ranks, _, init_s = _tp_serve(
             f"{TP_PARITY_MODEL} float32 tp {tp}", args, _parity_drive,
-            {fn: f32_key for fn in both})
+            {fn: f32_key for fn in both}, warmup=warm)
         summary[f"parity_tp{tp}"] = {"init_s": init_s, "ranks": ranks}
+        if warm is not None:
+            summary[f"parity_tp{tp}"]["warmup"] = warm
+            log(f"[warmup] {TP_PARITY_MODEL} float32 tp {tp}: "
+                f"{json.dumps(warm)} ({smi})")
         if streams[tp] != streams[1]:
             raise AssertionError(
                 f"{TP_PARITY_MODEL} float32 streams at tp {tp} differ from "
@@ -5292,8 +5475,6 @@ def tp_cards_phase(here: str, smi) -> dict:
 def _serve_once(args, drive):
     """``drive(client)`` of one single-rank server of ``args``."""
     import threading
-
-    from production_stack_tpu_torch.engine.server import build_server
 
     httpd, core = build_server(list(args))
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -5793,8 +5974,6 @@ def _start(args):
     """A port server of ``args`` on a thread of this process."""
     import threading
 
-    from production_stack_tpu_torch.engine.server import build_server
-
     httpd, core = build_server(list(args) + ["--port", "0"])
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
@@ -6060,7 +6239,8 @@ def kv_ranks_phase(here: str, smi) -> tuple:
     err = open(err_path, "w")
     peer = subprocess.Popen(
         [sys.executable, "-m", "production_stack_tpu_torch.engine.server"]
-        + args + ["--port", str(port)], cwd=here, stdout=subprocess.DEVNULL,
+        + args + ["--port", str(port), "--no-warmup"], cwd=here,
+        stdout=subprocess.DEVNULL,
         stderr=err, env=dict(os.environ, PYTHONPATH=here,
                              TPU_STACK_KV_DEVICE_PIPE="1"))
     start_pipe_probe()
@@ -6254,11 +6434,13 @@ def main(argv=None) -> int:
         # The previous engine's pool and weights go before the next one
         # sizes its pool from free memory.
         _free_device_memory()
-        counts, summary = serve_phase(label, extra, entries)
+        counts, summary = serve_phase(label, extra, entries, warmup=True)
         launches.update(counts)
         summary["card"] = smi
         log(f"[serve] {json.dumps(summary)}")
         print(json.dumps({"serve": summary}), flush=True)
+        print(f"[warmup] {label}: {json.dumps(summary['warmup'])} ({smi})",
+              flush=True)
         print(json.dumps({"recorder": dict(summary["recorder"], card=smi,
                                            config=label)}), flush=True)
         print(f"[serve] {label}: {summary['prefill_groups']} storm groups, "
@@ -6268,6 +6450,8 @@ def main(argv=None) -> int:
               f"{summary['recorder']['kinds']}; bandwidth share "
               f"{summary['recorder']['bandwidth_utilization']} of 3.35e12 "
               f"B/s ({smi})", flush=True)
+    print(json.dumps({"warmup": warmup_phase(here, smi)}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the warmup phase")
     _free_device_memory()
     entries = ("paged_attention", "cached_prefill_attention")
     counts, summary, chunked = chunked_phase(entries)

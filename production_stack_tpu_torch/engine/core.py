@@ -169,6 +169,24 @@ time, in order, and then runs: the step degrades to the alternating
 dispatches. A sequence whose final chunk rides the fused op sits that
 burst out (its first token is not readable yet) and joins the next one,
 so the streams equal the alternating schedule's.
+
+The warm-up (:meth:`EngineCore.warmup`, run by the server before it
+binds its socket) is the JAX engine's set of shapes, run once on dummy
+rows whose page slots are all -1 (nothing is written): every prefill
+bucket at its tight table width and, cached, at each width doubling to
+``max_blocks_per_seq``; the batched ``[prefill_batch, chunk]`` prefill at
+each width to its cap; each decode burst width (the full burst and the
+pressure width) at each table width; the verify at each table width; the
+drafter's catch-up buckets and scan. Eager PyTorch compiles nothing, so
+what it takes out of the first request is the kernels' build and load,
+cuBLAS's first use of each product shape, the caching allocator's growth
+to the largest activation and each kernel instantiation's first launch.
+Its ops go through :meth:`EngineCore._dispatch` like any other, so the
+followers of a sharded engine replay them; a ``warmup`` op on every rank
+brackets them and puts back what they move (the penalty counts, the last
+burst's feedback tokens, the kernels' launch counters), and the leader
+restores its dispatch counters, so no serving counter, series or step
+record sees the warm-up.
 """
 
 from __future__ import annotations
@@ -587,6 +605,14 @@ class EngineCore:
         self._mask_row_bytes = mask_row_bytes(mc.vocab_size)
         self.structured_requests_total = 0
         self.structured_violations_total = 0
+        # The warm-up's programs by kind (the JAX engine's counts), its
+        # seconds, and the kernel launches it made on the leader (the
+        # counters themselves are put back). Each rank's stash of what
+        # the warm-up moves while it runs.
+        self.warmup_variants: Dict[str, int] = {}
+        self.warmup_seconds: Optional[float] = None
+        self.warmup_launches: Dict[str, int] = {}
+        self._warmup_saved: Optional[dict] = None
 
         # Step flight recorder: the step functions stash ``_step_info``
         # only when it is on; _loop completes it with the step's wall time.
@@ -616,8 +642,11 @@ class EngineCore:
             device=self.device)
         self._counts_reset: "set[int]" = set()
         # The sampled tokens of every op this rank executed, on the host,
-        # when a caller sets it to a list (the ranks' streams compared).
+        # when a caller sets it to a list (the ranks' streams compared);
+        # and the count of ops this rank executed (a warm-up's included:
+        # every rank of a job runs the leader's ops).
         self.sampled_log: Optional[list] = None
+        self.ops_total = 0
 
         # -- engine thread -------------------------------------------------
         self._lock = threading.Condition()
@@ -1245,6 +1274,124 @@ class EngineCore:
     def start(self) -> None:
         self._thread.start()
 
+    def warmup(self) -> None:
+        """Run every serving program once on dummy rows (the JAX engine's
+        shapes, in its order; module docstring), so that no first launch
+        lands inside a user request. Between two steps, with the loop
+        paused: every dummy slot is -1, so no page and no allocator state
+        is touched, and what the dummy forwards move is put back. A
+        failure raises."""
+        t0 = time.perf_counter()
+        with self._lock:
+            self._pausing += 1
+        try:
+            with self._step_lock, torch.inference_mode():
+                kept = (self.dispatch_count_total, self.dispatch_enqueue_s)
+                self._dispatch("warmup", {"end": False}, [])
+                variants = self._warmup_programs()
+                self.warmup_launches = self._dispatch("warmup",
+                                                      {"end": True}, [])
+                self.dispatch_count_total, self.dispatch_enqueue_s = kept
+        finally:
+            with self._lock:
+                self._pausing -= 1
+                self._lock.notify_all()
+        self.warmup_variants = variants
+        self.warmup_seconds = time.perf_counter() - t0
+        logger.info("Warmup ran %d prefill + %d decode + %d spec-verify + "
+                    "%d draft variants in %.2f s", variants["prefill"],
+                    variants["decode"], variants["spec"], variants["draft"],
+                    self.warmup_seconds)
+
+    def _warmup_programs(self) -> Dict[str, int]:
+        """The warm-up's dispatches, each read back before the next;
+        returns the count of each kind."""
+        cfg = self.config
+        B, maxb_all = cfg.max_num_seqs, cfg.max_blocks_per_seq
+
+        def widths(start: int, cap: int):
+            w = start
+            while True:
+                w = min(w, cap)
+                yield w
+                if w >= cap:
+                    return
+                w *= 2
+
+        def prefill(R: int, bucket: int, maxb: int, cached: bool) -> None:
+            a = _prefill_arrays(R, bucket, maxb, self._mask_row_bytes)
+            a["positions"][:] = np.arange(bucket)
+            a["context"][:] = a["seq_lens"][:] = min(bucket, 2)
+            _Readback(self._dispatch("prefill", {"cached": cached},
+                                     [a])).get()
+
+        n_prefill = 0
+        buckets = cfg.prefill_buckets()
+        chunk_bucket = None
+        if cfg.prefill_chunk_size:
+            chunk_bucket = cfg.bucket_for(min(cfg.prefill_chunk_size,
+                                              cfg.max_model_len))
+            buckets = [b for b in buckets if b <= chunk_bucket]
+        for bucket in buckets:
+            # Plain prefill sees context == span: one tight table width;
+            # a cached one any width from there up.
+            blocks = -(-bucket // cfg.block_size)
+            tight = 4
+            while tight < blocks:
+                tight *= 2
+            tight = min(tight, maxb_all)
+            prefill(1, bucket, tight, cached=False)
+            n_prefill += 1
+            for maxb in widths(tight, maxb_all):
+                prefill(1, bucket, maxb, cached=True)
+                n_prefill += 1
+        if cfg.prefill_batch > 1 and chunk_bucket is not None:
+            for maxb in widths(4, self._prefill_batch_maxb()):
+                prefill(cfg.prefill_batch, chunk_bucket, maxb, cached=True)
+                n_prefill += 1
+
+        K_full = max(cfg.decode_steps, 1)
+        bursts = {K_full}
+        if cfg.decode_steps_pressure > 0:
+            bursts.add(min(K_full, max(cfg.decode_steps_pressure, 1)))
+        n_decode = 0
+        for K in sorted(bursts):
+            for maxb in widths(4, maxb_all):
+                self._launch_burst(
+                    K, False, np.ones((B,), bool),  # reset_counts
+                    np.zeros((B,), np.int64), np.zeros((B,), np.int64),
+                    np.ones((B,), bool), np.zeros((B,), np.int64),
+                    np.full((B, K), -1, np.int64),
+                    np.zeros((B, maxb), np.int32), np.ones((B,), np.int64),
+                    np.zeros((B,), np.int64), np.zeros((B,), np.float32),
+                    np.zeros((B,), np.int64), np.ones((B,), np.float32),
+                    np.zeros((B,), np.int64), np.zeros((B,), np.float32),
+                    np.zeros((B,), np.float32), np.zeros((B,), np.int64),
+                    np.zeros((B,), np.int64), [None] * B, [None] * B,
+                    np.zeros((B, self._mask_row_bytes), np.uint8),
+                    np.zeros((B,), bool)).get()
+                n_decode += 1
+
+        n_spec = 0
+        Ks = cfg.speculative_num_tokens
+        if Ks > 0:
+            for maxb in widths(4, maxb_all):
+                self._launch_verify(
+                    Ks, np.zeros((B, Ks), np.int64), np.zeros((B,), np.int64),
+                    np.full((B, Ks), -1, np.int64),
+                    np.zeros((B, maxb), np.int32), np.ones((B,), np.int64),
+                    np.zeros((B,), np.int64), np.zeros((B,), np.float32),
+                    np.zeros((B,), np.int64), np.ones((B,), np.float32),
+                    np.zeros((B,), np.int64), np.zeros((B,), np.int64),
+                    np.zeros((B,), np.int64), [None] * B, [None] * B,
+                    np.zeros((B, Ks, self._mask_row_bytes), np.uint8),
+                    np.zeros((B, Ks), bool)).get()
+                n_spec += 1
+        n_draft = (self._draft.warmup(self._mask_row_bytes)
+                   if self._draft is not None else 0)
+        return {"prefill": n_prefill, "decode": n_decode, "spec": n_spec,
+                "draft": n_draft}
+
     def add_request(
         self,
         request_id: str,
@@ -1692,6 +1839,8 @@ class EngineCore:
             "step_kind_stats": rec.kind_stats() if rec else {},
             "model_bandwidth_utilization": (
                 round(rec.bandwidth_utilization(), 6) if rec else 0.0),
+            "warmup_variants": dict(self.warmup_variants),
+            "warmup_seconds": self.warmup_seconds,
         }
 
     # ------------------------------------------------------------------ #
@@ -1892,6 +2041,7 @@ class EngineCore:
     def _exec_op(self, name: str, static: dict, arrays: list):
         """What each op does on the device; the leader and the followers
         both run exactly this. Returns the op's device outputs."""
+        self.ops_total += 1
         if name == "prefill":
             out = self._prefill_op(static["cached"], arrays[0])
         elif name == "decode":
@@ -1933,6 +2083,8 @@ class EngineCore:
             return self._wake_op()
         elif name == "rank_stats":
             return self._rank_stats_op(**static)
+        elif name == "warmup":
+            return self._warmup_op(static["end"])
         else:
             raise ValueError(f"unknown device op {name!r}")
         if self.sampled_log is not None:
@@ -1962,8 +2114,9 @@ class EngineCore:
                    timing: Optional[bool] = None,
                    profile: Optional[bool] = None) -> List[dict]:
         """Every rank's coordinates, device, layers, weight bytes, pool
-        blocks, kernel launches by shape, collective and point-to-point
-        counters, its offload store's hashes (least recently used first),
+        blocks, ops executed, kernel launches by shape, collective and
+        point-to-point counters, its offload store's hashes (least
+        recently used first),
         the bytes its last sleep freed and its KV gathers' copy and gloo
         seconds, gathered on the leader (an op like any other, ordered
         with the steps). ``reset`` zeroes the launch, collective and
@@ -2011,6 +2164,7 @@ class EngineCore:
             "kv_gather_gloo_s": self.kv_gather_gloo_s,
             "launches_by_shape": {k.__name__: dict(k.launches_by_shape)
                                   for k in kernels},
+            "ops_total": self.ops_total,
             "collectives_total": tpg.collectives_total if tpg else 0,
             "collective_s": tpg.collective_s if tpg else 0.0,
             "p2p": ppg.counters() if ppg else None,
@@ -2050,6 +2204,61 @@ class EngineCore:
         out: List = [None] * self._mh.num_processes
         torch.distributed.all_gather_object(out, mine)
         return out
+
+    def _warmup_op(self, end: bool) -> Optional[Dict[str, int]]:
+        """Each rank's bracket of a warm-up. At its start, stash what the
+        dummy forwards move on this rank: the penalty counts (the bursts
+        run with ``reset_counts`` set), the last burst's feedback tokens,
+        the sampled-token log (paused), the kernels' launch counters
+        (process-wide: warm an engine while no other of its process
+        serves) and the collectives' and transfers' counters. At its end,
+        put them back and return the kernel launches the warm-up made on
+        this rank, by counter."""
+        from production_stack_tpu_torch.ops.paged_attention import (
+            paged_attention,
+        )
+        from production_stack_tpu_torch.ops.prefill_attention import (
+            cached_prefill_attention,
+        )
+
+        counters = {f"{k.__name__}{suffix}": (k, attr)
+                    for k in (paged_attention, cached_prefill_attention)
+                    for suffix, attr in (("", "launches"),
+                                         ("_int8", "launches_int8"))}
+        if not end:
+            groups = []
+            if self._tp is not None:
+                groups.append((self._tp, {
+                    "collectives_total": self._tp.collectives_total,
+                    "collective_s": self._tp.collective_s}))
+            if self._pp is not None:
+                groups.append((self._pp, self._pp.counters()))
+            self._warmup_saved = {
+                "counts": self._token_counts.clone(),
+                "feedback": self._last_burst_tokens,
+                "log": self.sampled_log,
+                "launches": {n: getattr(*ka) for n, ka in counters.items()},
+                "by_shape": [(k, dict(k.launches_by_shape))
+                             for k in (paged_attention,
+                                       cached_prefill_attention)],
+                "groups": groups}
+            self.sampled_log = None
+            return None
+        saved, self._warmup_saved = self._warmup_saved, None
+        self._token_counts.copy_(saved["counts"])
+        self._last_burst_tokens = saved["feedback"]
+        self.sampled_log = saved["log"]
+        made = {}
+        for name, (k, attr) in counters.items():
+            made[name] = getattr(k, attr) - saved["launches"][name]
+            setattr(k, attr, saved["launches"][name])
+        for k, by_shape in saved["by_shape"]:
+            k.launches_by_shape.clear()
+            k.launches_by_shape.update(by_shape)
+        for group, values in saved["groups"]:
+            for attr, value in values.items():
+                setattr(group, attr, value)
+        return made
 
     def _rank_lost(self, pid: int) -> None:
         """The op channel's watcher: follower ``pid`` is gone."""

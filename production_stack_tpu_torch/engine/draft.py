@@ -18,6 +18,8 @@ stay those of plain decode.
 - :meth:`DraftModel.scan`: ``K - 2`` greedy decode steps, each sampled
   token fed back on the device, that extend the first draft token to the
   full draft width (only when ``speculative_num_tokens > 2``).
+- :meth:`DraftModel.warmup`: each catch-up bucket's forward and the scan
+  once on dummy rows (no page written), from the engine's warm-up.
 
 Both run through the port's attention kernels on a card (the catch-up
 through the cached-prefill kernel, the scan through the decode kernel).
@@ -144,6 +146,34 @@ class DraftModel:
             tokens = torch.argmax(logits[:, 0], dim=-1)
             out.append(tokens)
         return torch.stack(out, dim=1)
+
+    def warmup(self, mask_row_bytes: int) -> int:
+        """One catch-up forward a bucket and, when the drafts are wider
+        than 2, the scan, on dummy rows at the full table width with every
+        slot -1 (no page written). Returns how many ran (the warm-up's
+        ``draft`` count)."""
+        cfg = self.config
+        B, maxb = cfg.max_num_seqs, cfg.max_blocks_per_seq
+        n = 0
+        for bucket in self.buckets():
+            self.forward(
+                np.zeros((B, bucket), np.int64),
+                np.tile(np.arange(bucket, dtype=np.int64), (B, 1)),
+                np.full((B, bucket), -1, np.int64),
+                np.zeros((B, maxb), np.int32),
+                np.full((B,), min(bucket, 2), np.int64),
+                np.full((B,), min(bucket, 2), np.int64),
+                np.zeros((B, mask_row_bytes), np.uint8),
+                np.zeros((B,), bool)).cpu()
+            n += 1
+        if cfg.speculative_num_tokens > 2:
+            S = cfg.speculative_num_tokens - 2
+            self.scan(np.zeros((B,), np.int64), np.zeros((B,), np.int64),
+                      np.full((B, S), -1, np.int64),
+                      np.zeros((B, maxb), np.int32),
+                      np.ones((B,), np.int64)).cpu()
+            n += 1
+        return n
 
     # -- host bookkeeping --------------------------------------------------
     def buckets(self):

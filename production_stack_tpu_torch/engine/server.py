@@ -102,6 +102,15 @@ the scheduling class that preemption picks its victims by. A prompt that
 can never fit the KV pool gets 503 with ``Retry-After: 1``, and so does
 one the scheduler refuses for KV capacity before its first token.
 
+The engine warms up (``EngineCore.warmup``: every serving program once
+on dummy rows) before the socket is bound, so ``/health`` first answers
+a warm engine; ``--no-warmup`` skips it, and the first requests then pay
+for the kernels' build and load and each shape's first launch. A
+request's trace is recorded just before its response's last bytes are
+written (the body of a whole response, the ``data: [DONE]`` of a
+stream), so a client that reads ``/debug/traces/{id}`` right after its
+response finds it.
+
 A request that fails inside the engine finishes with ``finish_reason:
 "error"``. The JAX server's event-loop monitor (``--loop-monitor``,
 ``/debug/loop``) is not here: this server runs a thread a connection and
@@ -116,7 +125,8 @@ has no event loop to watch.
         [--kv-controller-url ROUTER --advertise-url URL] \\
         [--speculative-num-tokens 4 [--speculative-ngram-size 3] \\
          [--speculative-draft-model M --speculative-draft-probation 64]] \\
-        [--api-key KEY] [--trace-sample-rate 1.0] [--profile-dir DIR]
+        [--api-key KEY] [--trace-sample-rate 1.0] [--profile-dir DIR] \\
+        [--no-warmup]
 
 ``<model>`` is a preset name or a local HF checkpoint directory
 (``config.json`` with ``*.safetensors`` or ``pytorch_model*.bin``), whose
@@ -1631,6 +1641,9 @@ class EngineServer:
 class _Handler(BaseHTTPRequestHandler):
     server_version = "production-stack-tpu-torch"
     engine: EngineServer  # set on the subclass built by build_server
+    # (rid, model, clock, traceparent) of the request whose trace is not
+    # recorded yet.
+    _pending_trace: Optional[tuple] = None
 
     def log_message(self, fmt, *args):  # route access logs to our logger
         logger.debug("%s - %s", self.address_string(), fmt % args)
@@ -1840,6 +1853,7 @@ class _Handler(BaseHTTPRequestHandler):
         declared = (tool_names(tools)
                     if tools and body.get("tool_choice") != "none" else None)
         args = (kind, rid, model, prompt_ids, sampling, streams, declared)
+        self._pending_trace = (rid, model, clock, traceparent)
         try:
             if len(streams) > 1:
                 self._respond_n(bool(body.get("stream")), *args)
@@ -1848,8 +1862,17 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._respond_full(*args)
         finally:
-            # Finished, refused or disconnected: the timeline is kept.
-            eng.record_trace(rid, model, clock, traceparent)
+            # Refused or disconnected: the timeline is kept all the same.
+            self._record_trace()
+
+    def _record_trace(self) -> None:
+        """Record this request's trace, once. A response records it just
+        before its last bytes are written (the body, or a stream's ``data:
+        [DONE]``), so a client that reads ``/debug/traces/{id}`` as soon
+        as it has the response finds it."""
+        pending, self._pending_trace = self._pending_trace, None
+        if pending is not None:
+            self.engine.record_trace(*pending)
 
     # -- KV transfer routes ----------------------------------------------
     def _kv_extract(self) -> None:
@@ -2053,6 +2076,7 @@ class _Handler(BaseHTTPRequestHandler):
             if entries:
                 choice["logprobs"] = self.engine.completions_logprobs(entries)
             obj = "text_completion"
+        self._record_trace()
         self._send_json({"id": rid, "object": obj, "created": created,
                          "model": model, "choices": [choice],
                          "usage": usage}, headers={"X-Request-Id": rid})
@@ -2119,6 +2143,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if calls:
                     finish = "tool_calls"
             event("", finish, first, pending)
+            self._record_trace()
             self.wfile.write(b"data: [DONE]\n\n")
             self.wfile.flush()
         except (BrokenPipeError, ConnectionResetError):
@@ -2222,6 +2247,7 @@ class _Handler(BaseHTTPRequestHandler):
                             {"content": pendings[i]} if chat
                             else self.engine.completions_logprobs(pendings[i]))
                     self._chunk(kind, rid, model, created, choice)
+                self._record_trace()
                 self.wfile.write(b"data: [DONE]\n\n")
                 self.wfile.flush()
                 return
@@ -2249,6 +2275,7 @@ class _Handler(BaseHTTPRequestHandler):
                         lp_all[i])
             choices.append(choice)
         total = sum(counts)
+        self._record_trace()
         self._send_json({
             "id": rid,
             "object": "chat.completion" if chat else "text_completion",
@@ -2420,6 +2447,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="directory of POST /debug/profile torch.profiler "
                         "artifacts (default: a per-process temp dir)")
+    p.add_argument("--no-warmup", dest="warmup", action="store_false",
+                   default=True,
+                   help="skip precompiling serving programs at startup")
     return p
 
 
@@ -2522,7 +2552,9 @@ def build_server(argv: Optional[List[str]] = None,
                  core: Optional[EngineCore] = None):
     """Parse ``argv``, build (or take) the engine, start its thread and
     bind the HTTP server (registered as a local peer for ``/kv/pull``,
-    and with the KV controller when one is configured). Returns (httpd,
+    and with the KV controller when one is configured). Unless
+    ``--no-warmup`` is given, the engine (a handed-in ``core`` too) runs
+    :meth:`EngineCore.warmup` before the socket is bound. Returns (httpd,
     core); the caller runs ``httpd.serve_forever()`` and, to stop,
     ``httpd.shutdown()``, ``httpd.server_close()`` and ``core.stop()``.
     With ``--tensor-parallel-size``, ``--pipeline-parallel-size`` and
@@ -2535,14 +2567,19 @@ def build_server(argv: Optional[List[str]] = None,
         config = config_from_args(args)
         if _job_size(args) > 1 or multihost.distributed_env() is not None:
             ranks = _tp_job(args, argv)
-        try:
+    try:
+        if core is None:
             core = EngineCore(config, multihost=ranks[0] if ranks else None)
-        except BaseException:
-            if ranks is not None:
-                for p in ranks[1]:
-                    p.kill()
-                multihost.shutdown(*ranks)
-            raise
+        if args.warmup:
+            # Before the socket is bound: /health first answers a warm
+            # engine. A failure stops the start-up.
+            core.warmup()
+    except BaseException:
+        if ranks is not None:
+            for p in ranks[1]:
+                p.kill()
+            multihost.shutdown(*ranks)
+        raise
     core.start()
     served = args.served_model_name or [core.config.model]
     engine = EngineServer(
@@ -2569,8 +2606,9 @@ def run_follower(argv: Optional[List[str]] = None) -> int:
     """A follower rank (``TPU_STACK_PROCESS_ID`` > 0) of a sharded
     engine: build the same engine from the same
     arguments and replay the leader's ops until it stops. Serves no
-    HTTP. Returns the exit status (1 when the replay failed or the
-    leader vanished)."""
+    HTTP and runs no warm-up of its own: it replays the leader's, so the
+    leader's ``--no-warmup`` decides. Returns the exit status (1 when the
+    replay failed or the leader vanished)."""
     args = build_arg_parser().parse_args(argv)
     ctx = multihost.maybe_context()
     status = 0

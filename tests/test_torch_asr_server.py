@@ -289,7 +289,7 @@ def test_text_server_answers_501():
 
     httpd, core = build_server(["tiny-llama", "--device", "cpu", "--host",
                                 "127.0.0.1", "--port", "0", "--max-loras",
-                                "0", "--dtype", "float32"])
+                                "0", "--dtype", "float32", "--no-warmup"])
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:

@@ -251,7 +251,8 @@ def test_pull_between_two_server_processes(monkeypatch):
     the same seeded weights pulling over ``kv_path: "device"``."""
     argv = ["tiny-llama", "--device", "cpu", "--dtype", "float32",
             "--host", "127.0.0.1", "--max-model-len", "256",
-            "--block-size", "8", "--num-blocks", "64", "--max-loras", "0"]
+            "--block-size", "8", "--num-blocks", "64", "--max-loras", "0",
+            "--no-warmup"]
     port = _free_port()
     child = subprocess.Popen(
         [sys.executable, "-m", "production_stack_tpu_torch.engine.server"]

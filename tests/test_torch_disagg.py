@@ -47,7 +47,8 @@ class Servers(ServerPair):
             tree, cfg_model(cfg), "cpu"))
         self.d_httpd, self.d_core = build_server(
             ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1",
-             "--port", "0", "--kv-pull-max-concurrency", "1"], core=core)
+             "--port", "0", "--kv-pull-max-concurrency", "1", "--no-warmup"],
+            core=core)
         self.d_thread = threading.Thread(target=self.d_httpd.serve_forever,
                                          daemon=True)
         self.d_thread.start()

@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 
 ENGINE = ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1", "--port",
           "0", "--max-model-len", "512", "--max-num-seqs", "2",
-          "--block-size", "8", "--max-loras", "0", "--dtype", "float32"]
+          "--block-size", "8", "--max-loras", "0", "--dtype", "float32",
+          "--no-warmup"]
 
 
 @pytest.fixture(autouse=True)

@@ -238,7 +238,8 @@ def test_drain_stops_leases_then_deregisters():
         "0", "--max-model-len", "128", "--block-size", "4", "--num-blocks",
         "64", "--max-loras", "0", "--dtype", "float32",
         "--kv-controller-url", stub.url, "--instance-id", "eng-1",
-        "--kv-heartbeat-interval", "0.05", "--kv-resync-interval", "0.05"])
+        "--kv-heartbeat-interval", "0.05", "--kv-resync-interval", "0.05",
+        "--no-warmup"])
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"

@@ -53,7 +53,7 @@ class ServerPair:
             tree, cfg_model(cfg), "cpu"))
         self.httpd, self.core = build_server(
             ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1",
-             "--port", "0"], core=core)
+             "--port", "0", "--no-warmup"], core=core)
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
         self.thread.start()

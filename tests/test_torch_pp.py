@@ -70,12 +70,14 @@ from production_stack_tpu_torch.parallel.mesh import build_mesh
 from production_stack_tpu_torch.parallel.pp_serving import _microbatch_count
 from test_torch_tp import (
     BASE,
+    TAP_WARMUP,
     Ranks,
     _flat,
     _np_tree,
     _requests,
     _serve,
     _three_steps,
+    check_replayed_warmup,
 )
 
 torch.set_num_threads(1)
@@ -83,7 +85,7 @@ torch.set_num_threads(1)
 TOL = 1e-4  # float32 logits
 
 # The ranks' side: join the job, then run each job sent on stdin.
-_WORKER = r"""
+_WORKER = TAP_WARMUP + r"""
 import base64, pickle, sys, threading, traceback
 import numpy as np
 import torch
@@ -112,9 +114,15 @@ def engine_job(job):
     if job.get("free_figure"):
         core._free_device_bytes = lambda: job["free_figure"]
         info["auto_num_blocks"] = core._auto_num_blocks()
+    if job.get("warmup"):
+        info["warm"] = tap_warmup(core)
     if rank != 0:
         core.run_follower()
         return dict(info, log=core.sampled_log)
+    if job.get("warmup"):
+        # As the server does: before the engine's thread starts.
+        core.warmup()
+        info["warm"]["variants"] = dict(core.warmup_variants)
     answers = {}
     for name, weights in job.get("loras", {}).items():
         assert core.load_lora_adapter(name, weights=weights)
@@ -574,6 +582,25 @@ def test_pp2_streams_equal_the_jax_engine(ranks, jax_pp2):
     assert by_rank[1]["p2p"]["recvs_total"] > 0
     assert by_rank[0]["weight_bytes"] == by_rank[1]["weight_bytes"]
     assert cfg.num_layers == 2
+
+
+def test_warmup_at_pp2_is_replayed_and_keeps_the_streams(ranks, jax_pp2):
+    """The leader's warm-up at pp 2, before its engine's thread starts:
+    the other stage replays it (its one-row prefills and its dummy
+    decode rows split into microbatches); every stage's pool is
+    unchanged, the streams after it are the JAX engine's, and the
+    stages' transfer counters are those of a run without it."""
+    reqs, want = jax_pp2["reuse"]
+    over = dict(pipeline_parallel_size=2, pp_microbatches=2)
+    res = _engine(ranks, 2, over, reqs, params=jax_pp2["tree"],
+                  job={"warmup": True})
+    # Buckets 32, 64 and 128; tables 4 to 16 blocks wide.
+    check_replayed_warmup(res, {"prefill": 12, "decode": 3, "spec": 0,
+                                "draft": 0})
+    assert res[0]["streams"] == want
+    cold = _engine(ranks, 2, over, reqs, params=jax_pp2["tree"])
+    assert ([r["p2p"] for r in res[0]["ranks"]]
+            == [r["p2p"] for r in cold[0]["ranks"]])
 
 
 def test_pp2_concurrent_microbatched_equal_the_jax_engine(ranks, jax_pp2):

@@ -41,7 +41,7 @@ def torch_engine():
     httpd, core = build_server([
         "tiny-llama", "--device", "cpu", "--host", "127.0.0.1", "--port",
         "0", "--max-model-len", "256", "--block-size", "4", "--num-blocks",
-        "128", "--dtype", "float32", "--max-loras", "2"])
+        "128", "--dtype", "float32", "--max-loras", "2", "--no-warmup"])
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     yield f"http://127.0.0.1:{httpd.server_address[1]}"

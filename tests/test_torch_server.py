@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 ARGS = ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1", "--port",
         "0", "--max-model-len", "256", "--block-size", "4", "--num-blocks",
-        "128", "--dtype", "float32", "--max-loras", "2"]
+        "128", "--dtype", "float32", "--max-loras", "2", "--no-warmup"]
 
 
 @pytest.fixture(scope="module")

@@ -74,7 +74,8 @@ class KeyedPair:
             tree, cfg_model(cfg), "cpu"))
         self.httpd, self.core = build_server(
             ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1",
-             "--port", "0", "--api-key", KEY, *port_args], core=core)
+             "--port", "0", "--api-key", KEY, "--no-warmup", *port_args],
+            core=core)
         self.thread = threading.Thread(target=self.httpd.serve_forever,
                                        daemon=True)
         self.thread.start()
@@ -289,6 +290,60 @@ def test_request_id_is_adopted_and_echoed(pair, stream):
         assert call(base, f"/debug/traces/{rid}", headers=AUTH)[0] == 200
 
 
+SPAN_NAMES = ("engine.request", "engine.queue", "engine.prefill",
+              "engine.decode")
+
+
+def _span_names(base, rid):
+    status, text, _ = call(base, f"/debug/traces/{rid}", headers=AUTH)
+    assert status == 200, (base, rid, text)
+    return tuple(s["name"] for s in json.loads(text)["spans"])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_trace_is_readable_as_soon_as_the_response_is(pair, stream,
+                                                      monkeypatch):
+    """Each server records a request's trace before the response's last
+    bytes leave: read right after each of 50 responses, the trace is
+    there (200), with the same span names on both servers. On the port
+    this holds however slow the recording is: held back by 0.2 s, it is
+    still there once the whole body, or a stream up to its ``data:
+    [DONE]``, has arrived."""
+    body = {"prompt": "read my trace", "max_tokens": 2, "temperature": 0,
+            "stream": stream}
+    names = {}
+    for base, _ in pair.bases:
+        for i in range(50):
+            rid = f"at-once-{int(stream)}-{i}"
+            status, text, _ = call(base, "/v1/completions", body,
+                                   dict(AUTH, **{"X-Request-Id": rid}))
+            assert status == 200, text
+            names.setdefault(base, set()).add(_span_names(base, rid))
+    assert names[pair.port] == names[pair.ref] == {SPAN_NAMES}
+    eng = pair.httpd.engine
+    record = eng.record_trace
+
+    def slow_record(*args):
+        time.sleep(0.2)
+        record(*args)
+
+    monkeypatch.setattr(eng, "record_trace", slow_record)
+    for i in range(5):
+        rid = f"slow-record-{int(stream)}-{i}"
+        req = urllib.request.Request(
+            pair.port + "/v1/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", **AUTH,
+                     "X-Request-Id": rid})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            if stream:
+                for line in resp:
+                    if line.strip() == b"data: [DONE]":
+                        break
+            else:
+                json.loads(resp.read())
+            assert _span_names(pair.port, rid) == SPAN_NAMES
+
+
 def test_kv_capacity_refusals(pair):
     """503 + Retry-After on the pre-check (an 80-token prompt needs 21 of
     the 20 blocks) and on a scheduler rejection (16 blocks pinned, a
@@ -481,8 +536,8 @@ def test_controller_reports_carry_the_key():
         ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1", "--port",
          "0", "--api-key", KEY, "--kv-controller-url",
          f"http://127.0.0.1:{stub.server_address[1]}",
-         "--kv-heartbeat-interval", "0", "--kv-resync-interval", "0"],
-        core=core)
+         "--kv-heartbeat-interval", "0", "--kv-resync-interval", "0",
+         "--no-warmup"], core=core)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         base = f"http://127.0.0.1:{httpd.server_address[1]}"

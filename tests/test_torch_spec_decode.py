@@ -334,7 +334,7 @@ def test_spec_metrics_over_http_under_the_jax_names():
         "0", "--max-model-len", "128", "--max-num-seqs", "2",
         "--block-size", "8", "--num-blocks", "32", "--dtype", "float32",
         "--max-loras", "0", "--speculative-num-tokens", "4",
-        "--speculative-ngram-size", "2"])
+        "--speculative-ngram-size", "2", "--no-warmup"])
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"

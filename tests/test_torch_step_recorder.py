@@ -35,7 +35,7 @@ ENGINE = dict(model="tiny-llama", max_model_len=128, max_num_seqs=4,
               max_loras=0, dtype="float32", device="cpu")
 ARGS = ["tiny-llama", "--device", "cpu", "--host", "127.0.0.1", "--port",
         "0", "--max-model-len", "128", "--block-size", "4", "--num-blocks",
-        "96", "--dtype", "float32", "--max-loras", "0"]
+        "96", "--dtype", "float32", "--max-loras", "0", "--no-warmup"]
 
 
 # -- ring and roofline ---------------------------------------------------------

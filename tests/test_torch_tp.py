@@ -76,9 +76,33 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4  # float32 logits: the ranks add their partial sums in another order
 JOB_TIMEOUT = 120.0
 
+# A worker's tap of its engine for a warm-up job (the ranks' scripts
+# import torch before they call it).
+TAP_WARMUP = r"""def tap_warmup(core):
+    # The names of every op this rank runs, and whether its pool is bit
+    # for bit what it was when the warm-up's closing op has run.
+    def leaves():
+        return [t.clone() for side in core.kv
+                for t in (side if isinstance(side, tuple) else (side,))]
+
+    before, run = leaves(), core._exec_op
+    warm = {"ops": [], "pool_kept": None}
+
+    def tap(name, static, arrays):
+        out = run(name, static, arrays)
+        warm["ops"].append(name)
+        if name == "warmup" and static["end"]:
+            warm["pool_kept"] = all(
+                torch.equal(a, b) for a, b in zip(before, leaves()))
+        return out
+
+    core._exec_op = tap
+    return warm
+"""
+
 # The ranks' side: join the job, then run each job sent on stdin (one
 # base64 pickle a line) and answer one "RESULT <base64 pickle>" line.
-_WORKER = r"""
+_WORKER = TAP_WARMUP + r"""
 import base64, pickle, sys, threading, traceback
 import numpy as np
 import torch
@@ -102,10 +126,15 @@ def engine_job(job):
     shapes = {k: tuple(v.shape) for k, v in core.params["layers"].items()}
     pool = tuple(core.kv[0].shape if not isinstance(core.kv[0], tuple)
                  else core.kv[0][0].shape)
+    warm = tap_warmup(core) if job.get("warmup") else None
     if rank != 0:
         core.run_follower()
-        return {"log": core.sampled_log, "shapes": shapes, "pool": pool}
+        return {"log": core.sampled_log, "shapes": shapes, "pool": pool,
+                "warm": warm}
     core.start()
+    if warm is not None:
+        core.warmup()
+        warm["variants"] = dict(core.warmup_variants)
     streams = []
     try:
         for name, weights in job.get("loras", {}).items():
@@ -130,10 +159,13 @@ def engine_job(job):
         embedding = (core.embed(job["embed"]) if job.get("embed")
                      else None)
         stats = core.stats()
+        ranks = core.rank_stats() if warm is not None else None
     finally:
         core.stop()
     return {"streams": streams, "log": core.sampled_log, "shapes": shapes,
-            "pool": pool, "stats": stats, "embedding": embedding}
+            "pool": pool, "stats": stats, "embedding": embedding,
+            "warm": warm, "ranks": ranks}
+
 
 
 def logits_job(job):
@@ -641,6 +673,48 @@ def test_llama_streams_equal_the_jax_engine(ranks, jax_llama, tp):
     heads = cfg.num_heads // tp
     assert leader["shapes"]["wq"][-1] == heads * cfg.head_dim
     assert leader["pool"][3] == sharding.kv_heads_local(cfg, tp)
+
+
+def check_replayed_warmup(res, variants):
+    """Every rank ran the leader's warm-up: ``variants`` programs (its
+    prefill, decode and verify counts) between the two ``warmup`` ops
+    that open and close it, then the same serving ops, in the leader's
+    order; its pool is unchanged by them, its sampled-token log holds
+    none of them, and each follower's log is the leader's."""
+    warm = [r["warm"] for r in res]
+    assert warm[0]["variants"] == variants
+    n = variants["prefill"] + variants["decode"] + variants["spec"]
+    ops = warm[0]["ops"]
+    assert ops[0] == ops[n + 1] == "warmup" and "warmup" not in ops[1:n + 1]
+    sampled = sum(op in ("prefill", "decode", "spec_verify")
+                  for op in ops[n + 2:])
+    assert sampled > 0  # the requests' ops follow
+    for w, r in zip(warm, res):
+        assert w["ops"] == ops
+        assert w["pool_kept"] is True
+        assert len(r["log"]) == sampled
+        for (n0, a0), (n1, a1) in zip(res[0]["log"], r["log"]):
+            assert n0 == n1
+            np.testing.assert_array_equal(a0, a1)
+
+
+def test_warmup_at_tp2_is_replayed_and_keeps_the_streams(ranks, jax_llama):
+    """The leader's warm-up on a running tp 2 engine: the follower replays
+    it from the op channel and runs none of its own; every rank's pool is
+    unchanged; the streams after it are the JAX engine's."""
+    reqs, want, tree = jax_llama
+    res = ranks[2].run(dict(kind="engine", params=tree, warmup=True,
+                            config=dict(BASE, model="tiny-llama",
+                                        device="cpu",
+                                        tensor_parallel_size=2),
+                            requests=reqs))
+    # Chunks of 16: one bucket; tables 4 to 16 blocks wide.
+    check_replayed_warmup(res, {"prefill": 7, "decode": 3, "spec": 0,
+                                "draft": 0})
+    assert res[0]["streams"] == want
+    # rank_stats' count of the ops each rank ran, the warm-up's included.
+    assert res[0]["ranks"][0]["ops_total"] == res[0]["ranks"][1]["ops_total"]
+    assert res[0]["ranks"][0]["ops_total"] >= len(res[0]["warm"]["ops"])
 
 
 def _port_tp1(model, reqs, loras=None, embed=None, **over):
