@@ -14,6 +14,7 @@
     python3 chip_smoke.py --pp-cards # a card a stage: pp_cards_phase
     python3 chip_smoke.py --pp-70b   # only its Llama-3-70B pp 4 run
     python3 chip_smoke.py --kv-ranks # only phase 19 (kv_ranks_phase)
+    python3 chip_smoke.py --harness  # only phase 20 (harness_phase)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -121,7 +122,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    mode): streams of both proposers, greedy, through preemption, seeded
    sampled and under grammars, equal to plain decode's token for token,
    the greedy self-drafter accepting every draft under a grammar (a
-   ``{"spec_parity": ...}`` line);
+   ``{"spec_parity": ...}`` line; it runs in the float32 side process
+   beside phase 17, see phase 19);
 10. structured output at full width (before the speculative phases):
    Llama-3-8B at ``STRUCTURED_LAYERS`` = 8 of its 32 layers (cut to pay
    for the fused and asr phases) in bf16, then with ``--kv-cache-dtype
@@ -246,7 +248,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to tp 1's) and pp 2 x tp 2 with int8 pages (codes within one of tp
    1's). A ``{"kv_ranks": ...}`` line; the tp 2 ranks' launches join
    the ``*_tp2`` rows of the kernels line, the tp 1 engine's the main
-   rows.
+   rows. These float32 extracts, the pp phase's float32 parity runs
+   (the pp 2 extract on its pp 2 job) and phase 9's spec parity run in
+   a second process (``--f32-side``) beside phase 17, from its tp 1
+   streams (:func:`start_f32_side`): they check streams, bits and
+   counts and time nothing, and no timed run overlaps them (phase 17's
+   Llama-3-8B profile runs before the side starts, phase 18's after it
+   ends).
+20. (its slow starters, the KV handoff's source process and the device
+   pipe's handshake, start before phase 19) the port legs of the JAX
+   harnesses (:func:`harness_phase`), each at
+   its JAX flagship shape, tpu-llama-1b: the decode-burst ablations and
+   the kernel alone (``probes/decode_profile.py``), the prefill chunk's
+   ablations by chunk position, the cached-prefill kernel against its
+   plain version and SDPA, and the fused step against a plan plus a
+   burst (``probes/prefill_profile.py``), the dispatch accounting, the
+   decode kernel at page sizes 64-512 (``probes/kernel_bs_sweep.py``;
+   rows of the kernels line), the KV handoff of an 8,000-token prompt
+   by rung (local-device, device pipe, host relay), the device pipe's
+   two-process handshake and the cross-host 409, the speculation A/B
+   (the model drafting for itself), the structured-output A/B (30/30
+   corpus conformance on both surfaces; the non-binding mask's
+   overhead) and the stall monitor's served run (tpu-llama-1b behind
+   the server with ``--loop-monitor``, 8 plain and 8 structured
+   requests at once: the lag over their ticks, stalls, blocking frames
+   and the ``/debug/loop`` rollups): a ``{"harness": ...}`` line.
 
 The output ends with a ``{"kernels": [...]}`` line (each kernel in each
 page encoding, the cached prefill also at the verify's and the
@@ -3285,8 +3311,9 @@ def spec_parity_phase(smi):
     rows on two tokens) through a plain engine, a prompt-lookup engine
     and a self-drafting one; every stream must equal the plain engine's,
     each speculative engine must have run verify bursts and the greedy
-    self-drafter must accept nine drafts in ten at least. Prints a
-    ``{"spec_parity": ...}`` line."""
+    self-drafter must accept nine drafts in ten at least. Returns the
+    ``{"spec_parity": ...}`` line's report (it runs in the float32 side
+    process)."""
     import queue
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -3402,7 +3429,7 @@ def spec_parity_phase(smi):
                         f"{stats['spec_accepted_tokens_total']} of "
                         f"{stats['spec_proposed_tokens_total']} drafts "
                         f"accepted")
-    print(json.dumps({"spec_parity": report}), flush=True)
+    return report
 
 
 KV_BLOCKS = 96  # a small pool: 2,048-token prompts evict each other
@@ -3828,68 +3855,16 @@ def mixtral_dir(here: str) -> str:
 
 
 def decode_profile(core, rows: int = 8, ctx_chars: int = 1000) -> dict:
-    """A decode step of a stopped engine (its thread ended), driven on this
-    thread as :func:`profile_phase` drives it: ``rows`` sequences at
-    ~``ctx_chars`` tokens of context, pipelined bursts timed on the host
-    clock three times over three bursts (the least is the step), then two
-    bursts under torch.profiler for the device's busy time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """A decode step of a stopped engine at ``rows`` sequences of
+    ~``ctx_chars`` tokens of context: host ms a step and the card's busy
+    time (``probes/decode_profile.py::served_decode_profile``)."""
+    from production_stack_tpu_torch.probes.decode_profile import (
+        served_decode_profile,
+    )
 
-    from production_stack_tpu_torch.engine.sampling import SamplingParams
-
-    for i in range(rows):
-        core.add_request(
-            f"prof{i}", core.tokenizer.encode(_text(100 + i, ctx_chars)),
-            SamplingParams(temperature=0, max_tokens=400, ignore_eos=True),
-            lambda t, f: None)
-    K = core.config.decode_steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    with torch.inference_mode():
-        while True:
-            action, req = core.scheduler.next_action()
-            if action != "prefill":
-                break
-            core._do_prefill(req)
-        core._do_decode()
-        core._flush_pending_burst()
-        runs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                core._do_decode()
-            torch.cuda.synchronize()
-            runs.append(1e3 * (time.perf_counter() - t0) / 3 / K)
-        core._flush_pending_burst()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                core._do_decode()
-            torch.cuda.synchronize()
-        core._flush_pending_burst()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
-    step_ms = min(runs)
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    with core._lock:
-        for seq in core.scheduler.running():
-            core.scheduler.finish(seq, "abort")
-    return {"decode_rows": rows,
-            "decode_host_ms_per_step": step_ms,
-            "decode_host_ms_per_step_runs": runs,
-            "decode_device_busy_ms_per_step": busy_ms,
-            "decode_device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-            "decode_top_device_ops": [
-                {"name": e.key[:70], "calls": e.count,
-                 "device_ms_per_step": dev_us(e) / 1e3 / K / 2}
-                for e in top]}
+    return served_decode_profile(core, [
+        core.tokenizer.encode(_text(100 + i, ctx_chars))
+        for i in range(rows)])
 
 
 def opt_phase(label: str, extra_args, smi):
@@ -4710,17 +4685,15 @@ def profile_phase(extra_args=()) -> dict:
     pipelining can hide. Then each is profiled over two bursts under
     torch.profiler for the device's busy time. Idle share = 1 - busy /
     the least unprofiled step. The pipelined op table goes to standard
-    error."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    error. (The timing and profiling are
+    ``probes/decode_profile.py::burst_modes``.)"""
     from production_stack_tpu_torch.engine.core import EngineCore
     from production_stack_tpu_torch.engine.sampling import SamplingParams
     from production_stack_tpu_torch.engine.server import (
         build_arg_parser,
         config_from_args,
     )
+    from production_stack_tpu_torch.probes.decode_profile import burst_modes
 
     core = EngineCore(config_from_args(build_arg_parser().parse_args(
         SERVE_ARGS + list(extra_args))))
@@ -4730,69 +4703,7 @@ def profile_phase(extra_args=()) -> dict:
             SamplingParams(temperature=0, max_tokens=800, ignore_eos=True),
             lambda t, f: None)
     K = core.config.decode_steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    def burst(mode):
-        core._do_decode()
-        if mode == "serial":
-            core._flush_pending_burst()
-
-    times = {"serial": [], "pipelined": []}
-    waits = {"serial": [], "pipelined": []}
-    modes = {}
-    with torch.inference_mode():
-        while True:
-            action, req = core.scheduler.next_action()
-            if action != "prefill":
-                break
-            core._do_prefill(req)
-        core._do_decode()  # warm-up burst (lands the first tokens)
-        core._flush_pending_burst()
-        for _ in range(5):
-            for mode in times:
-                burst(mode)
-                torch.cuda.synchronize()
-                w0 = core.flush_time_total
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    burst(mode)
-                torch.cuda.synchronize()
-                times[mode].append(1e3 * (time.perf_counter() - t0) / 3 / K)
-                waits[mode].append(1e3 * (core.flush_time_total - w0) / 3 / K)
-                core._flush_pending_burst()
-        for mode in times:
-            burst(mode)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(2):
-                    burst(mode)
-                torch.cuda.synchronize()
-                prof_wall_s = (time.perf_counter() - t0) / 2
-            core._flush_pending_burst()
-            # Device-side rows only (kernels, copies, memsets): the CPU op
-            # rows carry their kernels' time as well.
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
-            busy_ms = sum(dev_us(e) for e in kernels) / 2 / 1e3 / K
-            step_ms = min(times[mode])
-            top = sorted(kernels, key=dev_us, reverse=True)[:12]
-            modes[mode] = {
-                "ms_per_step": step_ms, "ms_per_step_runs": times[mode],
-                "readback_wait_ms_per_step": sum(waits[mode]) / 5,
-                "profiled_ms_per_step": 1e3 * prof_wall_s / K,
-                "device_busy_ms_per_step": busy_ms,
-                "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-                "top_device_ops": [
-                    {"name": e.key[:70], "calls": e.count,
-                     "device_ms_per_step": dev_us(e) / 1e3 / K / 2}
-                    for e in top]}
-            if mode == "pipelined":
-                log(prof.key_averages().table(row_limit=40))
+    modes = burst_modes(core, log)
     core.stop()
     return {
         "config": " ".join(extra_args) or "bf16",
@@ -5146,7 +5057,7 @@ def tp_decode_profile(core, rows: int = 8, ctx_chars: int = 600) -> dict:
 
 
 def _tp_serve(label: str, args, drive, shapes, profile_decode=False,
-              warmup=None):
+              warmup=None, after=None):
     """Serve ``args`` (with ``--tensor-parallel-size``,
     ``--pipeline-parallel-size`` or ``--data-parallel-size``) through the
     port's server entry, which starts the follower ranks as processes on
@@ -5155,8 +5066,10 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False,
     on every rank. ``warmup``, a dict, starts the server warm and takes
     the warm-up's seconds and programs and each rank's op count, which
     must be one count on every rank (the followers replayed the leader's
-    warm-up). Returns (drive's result, rank summaries, the decode profile
-    or None, init seconds)."""
+    warm-up). ``after(core)`` runs once the counts are checked, while the
+    job is still up (another phase's work on the same job). Returns
+    (drive's result, rank summaries, the decode profile or None, init
+    seconds)."""
     import threading
 
     import torch
@@ -5192,6 +5105,8 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False,
                                      f"warm-up of {least} ops")
             warmup.update(seconds=core.warmup_seconds, variants=v,
                           ops_by_rank=ops, warmup_ops=least)
+        if after is not None:
+            after(core)
         if core.fatal_error is not None:
             raise AssertionError(f"{label}: {core.fatal_error}")
         httpd.shutdown()
@@ -5203,7 +5118,8 @@ def _tp_serve(label: str, args, drive, shapes, profile_decode=False,
         core.stop()
     if core.fatal_error is not None:
         raise AssertionError(f"{label}: {core.fatal_error}")
-    log(f"[ranks] {label}: {n} ranks up in {init_s:.1f} s")
+    log(f"[ranks] {label}: {n} ranks up in {init_s:.1f} s, "
+        f"{time.time() - t0:.1f} s from start to the job's end")
     return out, _rank_summary(ranks), prof, init_s
 
 
@@ -5318,7 +5234,7 @@ def _short_drive(client):
     return {"sample_text": results[0]["choices"][0]["text"][:40]}
 
 
-def tp_phase(here: str, smi):
+def tp_phase(here: str, smi, on_tp1=None):
     """Tensor parallelism on the card, every rank a process on the one
     H100 under gloo (NCCL refuses two ranks on one device):
 
@@ -5334,8 +5250,10 @@ def tp_phase(here: str, smi):
       each rank holds 4 of the 8 experts;
     - OPT-125m bf16 at tp 2 and 4 (6 and 3 heads a rank, G 1).
 
-    Returns (bf16 launches summed over ranks by shape, the ``tp``
-    summary, the tp 1 float32 streams)."""
+    ``on_tp1(streams)`` is called with the tp 1 float32 streams as soon
+    as they are known (the float32 side process starts there). Returns
+    (bf16 launches summed over ranks by shape, the ``tp`` summary, the
+    tp 1 float32 streams)."""
     import torch
 
     summary = {"card": smi, "card_count": torch.cuda.device_count()}
@@ -5366,6 +5284,8 @@ def tp_phase(here: str, smi):
         args = TP_PARITY_ARGS + ["--tensor-parallel-size", str(tp)]
         if tp == 1:
             streams[tp] = _serve_once(args, _parity_drive)
+            if on_tp1 is not None:
+                on_tp1(streams[1])
             continue
         H, KVH = 16 // tp, 8 // tp
         f32_key = tp_shape_key(H, KVH, 128).replace("bfloat16", "float32")
@@ -5698,7 +5618,7 @@ def pp_standalone_phase(here: str) -> dict:
     return report
 
 
-def pp_phase(here: str, smi, tp1_streams) -> tuple:
+def pp_phase(here: str, smi, parity: dict) -> tuple:
     """Pipeline and data parallelism on the card, every rank a process on
     the one H100 under gloo (activations staged through pinned host
     memory, the share a gloo broadcast):
@@ -5714,7 +5634,9 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
       launches a stage a microbatch of each step;
     - tpu-llama-1b in float32 at each of ``PP_PARITY_RUNS``: the tp
       phase's tp 1 streams (greedy, chunked, a prefix hit, seeded
-      sampled), token for token;
+      sampled), token for token (:func:`pp_parity_runs`, whose entries
+      ``parity`` holds: they ran in the float32 side process beside the
+      tp phase);
     - :func:`pp_standalone_phase`.
 
     Returns (bf16 launches summed over ranks by (wrapper, shape), the
@@ -5753,12 +5675,32 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
         stage_weight_bytes=want_bytes)
     log(f"[pp] Llama-3-8B pp 2: {json.dumps(summary['llama_8b_pp2'])}")
 
+    summary.update(parity)
+    _free_device_memory()
+    summary["standalone"] = pp_standalone_phase(here)
+    return launches, summary
+
+
+def pp_parity_runs(tp1_streams) -> dict:
+    """tpu-llama-1b in float32 at each of ``PP_PARITY_RUNS``, its streams
+    held to the tp phase's tp 1 ones token for token; the pp 2 job also
+    runs the kv_ranks phase's pp 2 extract (``SHARED_JOBS``). Returns the
+    ``pp`` summary's parity entries."""
+    both = ("paged_attention", "cached_prefill_attention")
+    summary = {}
     for label, extra, (H, KVH) in PP_PARITY_RUNS:
         _free_device_memory()
         f32_key = tp_shape_key(H, KVH, 128).replace("bfloat16", "float32")
+        after = None
+        if label in KVR_F32_RUNS:
+            # The kv_ranks phase's float32 extract of this layout runs on
+            # this job instead of a job of its own.
+            def after(core, label=label):
+                SHARED_JOBS[label] = _kvr_f32_extract(
+                    core, label, KVR_F32_RUNS[label][1])
         streams, ranks, _, init_s = _tp_serve(
             f"{TP_PARITY_MODEL} float32 {label}", TP_PARITY_ARGS + extra,
-            _parity_drive, {fn: f32_key for fn in both})
+            _parity_drive, {fn: f32_key for fn in both}, after=after)
         if streams != tp1_streams:
             raise AssertionError(
                 f"{TP_PARITY_MODEL} float32 streams at {label} differ from "
@@ -5772,9 +5714,74 @@ def pp_phase(here: str, smi, tp1_streams) -> tuple:
                          "requests": len(tp1_streams),
                          "tokens": sum(len(s) for s in tp1_streams),
                          "equal_to_tp1": True}
+    return summary
+
+
+def f32_side_jobs(tp1_streams, smi) -> tuple:
+    """The float32 side: :func:`pp_parity_runs`, every kv_ranks float32
+    extract that they did not run, and :func:`spec_parity_phase`. These
+    runs check streams, bits and counts and measure no time, so they run
+    in a process of their own beside the tp phase (:func:`start_f32_side`).
+    Returns (the parity entries, the extracts by label, the spec parity
+    report)."""
+    parity = pp_parity_runs(tp1_streams)
+    for label in KVR_F32_RUNS:
+        if label not in SHARED_JOBS:
+            SHARED_JOBS[label] = _kvr_f32_job(label)
     _free_device_memory()
-    summary["standalone"] = pp_standalone_phase(here)
-    return launches, summary
+    return parity, dict(SHARED_JOBS), spec_parity_phase(smi)
+
+
+def start_f32_side(here: str, tp1_streams, smi):
+    """Start ``chip_smoke.py --f32-side`` (:func:`f32_side_jobs` on
+    ``tp1_streams``) as a process of its own, its output in the build
+    directory. Returns (the process, its output path, its log path, its
+    log file, the start time)."""
+    build = os.path.join(here, "production_stack_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    inp = os.path.join(build, "f32_side_in.json")
+    out = os.path.join(build, "f32_side_out.pt")
+    log_path = os.path.join(build, "f32_side.log")
+    for path in (out,):
+        if os.path.exists(path):
+            os.remove(path)
+    with open(inp, "w") as f:
+        json.dump({"tp1_streams": tp1_streams, "card": smi}, f)
+    err = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--f32-side",
+         inp, out], cwd=here, stdout=err, stderr=subprocess.STDOUT)
+    CHILDREN.append(proc)
+    return proc, out, log_path, err, time.time()
+
+
+def join_f32_side(side) -> dict:
+    """Wait for :func:`start_f32_side`'s process and take its results:
+    the extracts go to ``SHARED_JOBS``; returns (the pp parity entries,
+    the spec parity report). A failed side fails the run, its log's tail
+    in the error."""
+    import torch
+
+    proc, out, log_path, err, t0 = side
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    err.close()
+    if rc != 0 or not os.path.exists(out):
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"the float32 side process exited {rc}:\n"
+                             f"{tail}")
+    parity, shared, spec_parity = torch.load(out, weights_only=False)
+    SHARED_JOBS.update(shared)
+    log(f"[f32 side] done {time.time() - t0:.1f} s after its start")
+    return parity, spec_parity
+
+
+# Processes this run started that must not outlive it.
+CHILDREN: list = []
 
 
 def pp_cards_phase(here: str, smi) -> dict:
@@ -6135,44 +6142,72 @@ def _kvr_pipe_drive(b_httpd, b_core, peer_url, summary):
         "streams_equal_to_relay": True}
 
 
+# The float32 extracts of the kv_ranks phase: label -> (server flags over
+# TP_PARITY_ARGS, (H, KVH, int8 pages) a rank, or None at tp 1).
+KVR_F32_RUNS = {
+    "tp 1": ([], None),
+    "tp 1 int8": (["--kv-cache-dtype", "int8"], None),
+    "pp 2": (["--pipeline-parallel-size", "2"], (16, 8, False)),
+    "pp 2 x tp 2 int8": (["--pipeline-parallel-size", "2",
+                          "--tensor-parallel-size", "2",
+                          "--kv-cache-dtype", "int8"], (8, 4, True)),
+}
+# The kv_ranks phase's float32 extracts that ran before it (label ->
+# (payload, stream, seconds)): in the float32 side process
+# (:func:`f32_side_jobs`), the pp 2 one on the pp parity pp 2 job.
+SHARED_JOBS: dict = {}
+
+
+def _kvr_f32_extract(core, label, heads):
+    """The kv_ranks float32 extract on a running engine: the greedy stream
+    of the extract prompt, its payload, and (on ranks) both kernels at a
+    rank's heads on every rank. Returns (payload, stream, seconds)."""
+    import torch
+
+    t0 = time.time()
+    ids = _kvr_ids(306, KVR_F32_PROMPT, 32000)
+    if heads:
+        core.rank_stats(reset=True)
+    stream = _greedy_ids(core, ids)
+    payload = core.extract_kv(ids)
+    if heads:
+        from production_stack_tpu_torch.ops.paged_attention import (
+            launch_shape,
+        )
+
+        H, KVH, int8 = heads
+        key = launch_shape(H, KVH, 128, torch.float32, int8)
+        _check_ranks(f"{TP_PARITY_MODEL} {label}", core.rank_stats(),
+                     core.layout.size,
+                     {fn: key for fn in ("paged_attention",
+                                         "cached_prefill_attention")})
+    return payload, stream, time.time() - t0
+
+
+def _kvr_f32_job(label):
+    """The float32 extract of ``label`` on a job of its own: (payload,
+    stream, seconds)."""
+    extra, heads = KVR_F32_RUNS[label]
+    _free_device_memory()
+    t0 = time.time()
+    at = TP_PARITY_ARGS.index("--port")
+    httpd, core, _ = _start(TP_PARITY_ARGS[:at] + TP_PARITY_ARGS[at + 2:]
+                            + extra)
+    try:
+        payload, stream, _ = _kvr_f32_extract(core, label, heads)
+    finally:
+        _stop(httpd, core)
+    return payload, stream, time.time() - t0
+
+
 def _kvr_f32_extracts(summary):
     """tpu-llama-1b in float32 at tp 1, pp 2 (float32 pages: the payload
     bit-equal to tp 1's) and pp 2 x tp 2 (int8 pages: codes within one of
-    tp 1's, its ranks adding their partial sums in another order)."""
-    import torch
-
-    ids = _kvr_ids(306, KVR_F32_PROMPT, 32000)
-    both = ("paged_attention", "cached_prefill_attention")
-    got = {}
-    for label, extra, heads in (
-            ("tp 1", [], None), ("tp 1 int8", ["--kv-cache-dtype", "int8"],
-                                 None),
-            ("pp 2", ["--pipeline-parallel-size", "2"], (16, 8, False)),
-            ("pp 2 x tp 2 int8", ["--pipeline-parallel-size", "2",
-                                  "--tensor-parallel-size", "2",
-                                  "--kv-cache-dtype", "int8"], (8, 4, True))):
-        _free_device_memory()
-        t0 = time.time()
-        at = TP_PARITY_ARGS.index("--port")
-        httpd, core, _ = _start(TP_PARITY_ARGS[:at] + TP_PARITY_ARGS[at + 2:]
-                                + extra)
-        try:
-            if heads:
-                core.rank_stats(reset=True)
-            stream = _greedy_ids(core, ids)
-            payload = core.extract_kv(ids)
-            if heads:
-                from production_stack_tpu_torch.ops.paged_attention import (
-                    launch_shape,
-                )
-
-                H, KVH, int8 = heads
-                key = launch_shape(H, KVH, 128, torch.float32, int8)
-                _check_ranks(f"{TP_PARITY_MODEL} {label}", core.rank_stats(),
-                             core.layout.size, {fn: key for fn in both})
-        finally:
-            _stop(httpd, core)
-        got[label] = (payload, stream, time.time() - t0)
+    tp 1's, its ranks adding their partial sums in another order). A
+    layout whose extract already ran on another phase's job
+    (``SHARED_JOBS``) starts no job of its own."""
+    got = {label: SHARED_JOBS.get(label) or _kvr_f32_job(label)
+           for label in KVR_F32_RUNS}
     _same_bits("pp 2 against tp 1", got["tp 1"][0], got["pp 2"][0])
     ref, mix = got["tp 1 int8"][0], got["pp 2 x tp 2 int8"][0]
     if ref["hashes"] != mix["hashes"]:
@@ -6196,7 +6231,8 @@ def _kvr_f32_extracts(summary):
         "pp2xtp2_int8_scale_max_rel_diff": scale_rel,
         "pp2xtp2_stream_equal_to_tp1_int8":
             got["pp 2 x tp 2 int8"][1] == got["tp 1 int8"][1],
-        "seconds": {k: v[2] for k, v in got.items()}}
+        "seconds": {k: v[2] for k, v in got.items()},
+        "on_shared_jobs": sorted(k for k in got if k in SHARED_JOBS)}
 
 
 def kv_ranks_phase(here: str, smi) -> tuple:
@@ -6325,6 +6361,278 @@ def kv_ranks_phase(here: str, smi) -> tuple:
     return launches, summary
 
 
+# -- the port legs of the JAX harnesses ----------------------------------------
+
+HARNESS_MODEL = "tpu-llama-1b"  # the JAX scripts' flagship shape
+# The stall monitor's served run: its threshold (the ticker wakes every
+# half of it), and its plain and structured requests (each) and tokens.
+LOOP_STALL_MS = 20
+LOOP_REQUESTS = 8
+LOOP_MAX_TOKENS = 64
+
+
+def _strip(x, drop=("streams", "continuations")):
+    """``x`` without the token streams (kept off the result line)."""
+    if isinstance(x, dict):
+        return {k: _strip(v, drop) for k, v in x.items() if k not in drop}
+    if isinstance(x, list):
+        return [_strip(v, drop) for v in x]
+    return x
+
+
+def harness_prestart(device: str = "cuda") -> dict:
+    """What the harness phase needs that starts slowly and holds little
+    of the card: the device pipe's two-process handshake, on a thread,
+    and the KV handoff's source server process. Called before the
+    kv_ranks phase, so both start while it runs."""
+    import threading
+
+    from production_stack_tpu_torch.probes import (
+        kv_handoff_bench,
+        transfer_repro,
+    )
+
+    pre = {"handshake": None}
+
+    def handshake():
+        pre["handshake"] = transfer_repro.handshake(
+            "cuda:0" if device == "cuda" else "cpu")
+
+    pre["thread"] = threading.Thread(target=handshake, daemon=True)
+    pre["thread"].start()
+    pre["source"] = kv_handoff_bench.start_child(kv_handoff_bench.server_args(
+        HARNESS_MODEL, device, kv_handoff_bench.PROMPT_TOKENS))
+    return pre
+
+
+def harness_phase(smi, device: str = "cuda", pre=None) -> tuple:
+    """The port legs of the JAX harnesses (``probes/``, ``testing/``), each
+    at its JAX flagship shape on the card: the decode and prefill
+    profiles, the dispatch accounting (on the decode profile's engine),
+    the page-size sweep, the KV handoff by rung, the transfer probe, the
+    speculation and structured-output A/B harnesses, and the stall
+    monitor's served run (``HARNESS_MODEL`` behind the server with
+    ``--loop-monitor`` under ``LOOP_REQUESTS`` plain and as many
+    structured requests at once; its lag over the traffic's ticks and
+    its ``/debug/loop`` rollups). Every leg
+    must run and agree where it checks (no kernel error above its bar,
+    every ablation undone, 30/30 conformance, equal masked and unmasked
+    streams, the handshake and the cross-host 409). ``pre`` is
+    :func:`harness_prestart`'s (started here when None). ``device="cpu"``
+    (with ``HARNESS_MODEL`` pointed at tiny-llama) rehearses it on the
+    CPU. Returns (the sweep's rows, the ``harness`` summary)."""
+    import threading
+
+    import torch
+
+    from production_stack_tpu_torch.engine import core as core_mod
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.probes import (
+        _profile_common as common,
+        decode_profile,
+        dispatch_accounting,
+        kernel_bs_sweep,
+        kv_handoff_bench,
+        prefill_profile,
+    )
+    from production_stack_tpu_torch.testing import (
+        spec_draft_ab,
+        structured_ab,
+    )
+
+    dev = torch.device(device)
+    pre = pre or harness_prestart(device)
+    patched = {(m, n): getattr(m, n) for m, n in (
+        (llama, "paged_decode_attention"), (llama, "scatter_kv_pages"),
+        (llama, "context_prefill_attention"), (core_mod, "sample_tokens"),
+        (core_mod, "sample_with_gumbel"), (core_mod, "logprob_outputs"))}
+    out = {"card": smi, "model": HARNESS_MODEL, "seconds": {}}
+
+    def decode_and_accounting():
+        rtt, enq = dispatch_accounting.measure_trivial(dev)
+        core = common.build_engine(HARNESS_MODEL, device=dev)
+        try:
+            out["decode_profile"] = decode_profile.report(
+                core, decode_profile.profile(core, decode_profile.CTX),
+                decode_profile.CTX, dev)
+            progs = dispatch_accounting.measure_programs(
+                core, decode_profile.CTX, 1024, decode_profile.MAXB, reps=4)
+            core.start()
+            served = dispatch_accounting.served_run(core, 16, 1024, 64)
+        finally:
+            core.stop()
+        return {"metric": "dispatch_accounting", **common.card(dev),
+                "trivial_dispatch_roundtrip_s": rtt,
+                "trivial_dispatch_enqueue_s": enq, **progs,
+                "served": served}
+
+    def prefill():
+        core = common.build_engine(HARNESS_MODEL, device=dev,
+                                   max_num_seqs=1, decode_steps=1)
+        try:
+            chunk = prefill_profile.CHUNK
+            rows = prefill_profile.chunk_rows(
+                core, chunk, [0, chunk, 2 * chunk, 3 * chunk], 2)
+            ab = prefill_profile.kernel_ab(core, chunk, rows, 5)
+        finally:
+            core.stop()
+        for r in ab["per_chunk"]:
+            if dev.type == "cuda" and r["err_over_max_abs"] > 2.0 ** -5:
+                raise AssertionError(f"prefill kernel_ab: {r}")
+        fused = prefill_profile.fused_dispatch(dev)
+        if not fused["streams_equal"]:
+            raise AssertionError(f"fused_dispatch streams differ: {fused}")
+        return {"metric": "prefill_profile", **common.card(dev),
+                "chunk": chunk, "chunks": rows, "kernel_ab": ab,
+                "fused_dispatch": fused}
+
+    def sweep():
+        rows = (kernel_bs_sweep.sweep(dev) if dev.type == "cuda"
+                else kernel_bs_sweep.cpu_rows())
+        for r in rows:
+            if r.get("max_abs_err", 0.0) > kernel_bs_sweep.BAR:
+                raise AssertionError(f"page-size sweep: {r}")
+        return {"metric": "kernel_bs_sweep", **common.card(dev),
+                "rows": rows}
+
+    def handoff():
+        rungs = kv_handoff_bench.run_paths(
+            HARNESS_MODEL, kv_handoff_bench.PROMPT_TOKENS,
+            ("auto", "device", "host"), dev, cross_host=True,
+            source=pre["source"])
+        out["cross_host"] = rungs.pop("cross_host")
+        texts = [r["continuations"] for r in rungs.values()]
+        return {"rungs": _strip(rungs),
+                "continuations_equal": all(t == texts[0] for t in texts)}
+
+    def transfer():
+        # The handshake ran beside the kv_ranks phase; the cross-host 409
+        # came from the handoff's source process.
+        pre["thread"].join(timeout=300)
+        hs, ch = pre["handshake"], out.pop("cross_host")
+        if not (hs and hs["ok"] and ch["ok"]):
+            raise AssertionError(f"transfer probe: {hs} {ch}")
+        return {"metric": "transfer_repro", "handshake": hs,
+                "cross_host": ch}
+
+    def spec():
+        res = spec_draft_ab.run_spec_draft_ab(device=dev,
+                                              model=HARNESS_MODEL)
+        if res["failed_requests"]:
+            raise AssertionError(f"spec_draft_ab: {res}")
+        return _strip(res)
+
+    def structured():
+        httpd, core, base, bias = structured_ab.conformance_server(dev)
+        try:
+            # The two surfaces at once (two clients: the engine batches
+            # their requests).
+            conf = {}
+            threads = [threading.Thread(target=lambda s=s: conf.__setitem__(
+                s, structured_ab.run_corpus_conformance(s, base, bias)))
+                for s in ("guided", "response_format")]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            if len(conf) != 2:
+                raise AssertionError("structured_ab: a conformance surface "
+                                     "did not finish")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            core.stop()
+        for key, res in conf.items():
+            if res["conformance"] != 1.0 or not res["rejects_uncompilable"]:
+                raise AssertionError(f"structured_ab {key}: {res}")
+        overhead = structured_ab.run_engine_overhead(
+            repeats=2, device=dev, model=HARNESS_MODEL)
+        streams = overhead.pop("streams")
+        if streams["masked"] != streams["unmasked"]:
+            raise AssertionError("structured_ab: a non-binding mask moved "
+                                 "the greedy tokens")
+        return {"metric": "structured_output_ab",
+                "conformance_guided": conf["guided"],
+                "conformance_response_format": conf["response_format"],
+                "overhead": overhead}
+
+    def loop_monitor():
+        # The stall monitor's served run: HARNESS_MODEL behind the port's
+        # server with --loop-monitor, warm, under the overhead legs'
+        # plain and structured traffic at once. The lag is read over the
+        # traffic's ticks only (the monitor's sequence marker).
+        httpd, core = build_server(
+            [HARNESS_MODEL, "--device", device, "--host", "127.0.0.1",
+             "--port", "0", "--served-model-name", structured_ab.MODEL,
+             "--max-model-len", "2048", "--max-num-seqs", "16",
+             "--num-blocks", "1024", "--max-loras", "0",
+             "--loop-monitor", "--loop-stall-threshold-ms",
+             str(LOOP_STALL_MS)], warmup=True)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        client = Client(httpd.server_address[1])
+        mon = httpd.engine.loop_monitor
+        try:
+            seq0, stalls0 = mon.seq(), mon.stalls()
+            blockers0 = mon.detector.blocker_snapshot()
+            traffic = structured_ab.run_mixed_traffic(
+                f"http://127.0.0.1:{httpd.server_address[1]}",
+                LOOP_REQUESTS, LOOP_MAX_TOKENS)
+            window = mon.percentiles(since_seq=seq0)
+            stalls = {k: v - stalls0[k] for k, v in mon.stalls().items()}
+            blockers = {
+                key: {"stalls": rec["stalls"] - blockers0.get(
+                          key, {}).get("stalls", 0),
+                      "stall_s": rec["stall_s"] - blockers0.get(
+                          key, {}).get("stall_s", 0.0)}
+                for key, rec in mon.detector.blocker_snapshot().items()}
+            health = json.loads(client.get("/debug/loop?blockers=5"))
+            series = [line for line in client.get("/metrics").splitlines()
+                      if "event_loop_lag" in line or "loop_stalls" in line]
+            stats = core.stats()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            core.stop()
+        if traffic["failed"] or stats["structured_requests_total"] < \
+                LOOP_REQUESTS:
+            raise AssertionError(f"loop monitor run: {traffic}")
+        if window["count"] <= 0 or len(series) != 13:
+            raise AssertionError(f"loop monitor: {window} {series}")
+        top = sorted(blockers.items(), key=lambda kv: -kv[1]["stall_s"])
+        return {
+            "card": smi, "model": HARNESS_MODEL,
+            "dtype": str(core.model_config.torch_dtype),
+            "traffic": traffic,
+            "structured_requests": stats["structured_requests_total"],
+            "generation_tokens": stats["generation_tokens_total"],
+            "interval_s": health["interval_s"],
+            "stall_threshold_s": health["stall_threshold_s"],
+            "lag_during_traffic": window, "stalls_during_traffic": stalls,
+            "top_blockers_during_traffic": [
+                {"frame": key, **rec} for key, rec in top[:5]
+                if rec["stall_s"] > 0],
+            "debug_loop": {k: health[k] for k in (
+                "lag", "samples_total", "stalls", "stall_s_measured",
+                "stall_s_attributed", "stall_s_unattributed")},
+            "series": len(series)}
+
+    for name, fn in (("dispatch_accounting", decode_and_accounting),
+                     ("prefill_profile", prefill),
+                     ("kernel_bs_sweep", sweep), ("kv_handoff", handoff),
+                     ("transfer_repro", transfer), ("spec_draft_ab", spec),
+                     ("structured_ab", structured),
+                     ("loop_monitor", loop_monitor)):
+        _free_device_memory()
+        t0 = time.time()
+        out[name] = fn()
+        out["seconds"][name] = time.time() - t0
+        log(f"[harness] {name}: {out['seconds'][name]:.1f} s")
+        for (mod, attr), fn0 in patched.items():
+            if getattr(mod, attr) is not fn0:
+                raise AssertionError(f"{name} left {attr} patched")
+    return out["kernel_bs_sweep"]["rows"], out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6339,6 +6647,14 @@ def main(argv=None) -> int:
     ap.add_argument("--pp-70b", action="store_true",
                     help="only Llama-3-70B's shapes at pp 4, a card a stage, "
                          "on a host of 4 cards (no result line)")
+    ap.add_argument("--harness", action="store_true",
+                    help="only the harness phase: the port legs of the JAX "
+                         "harnesses at tpu-llama-1b (no result line)")
+    ap.add_argument("--f32-side", nargs=2, metavar=("STREAMS", "OUT"),
+                    help="only the float32 side jobs (the pp parity runs "
+                         "against the tp 1 streams in STREAMS, the "
+                         "kv_ranks float32 extracts), their results saved "
+                         "to OUT; the full run starts it (no result line)")
     ap.add_argument("--kv-ranks", action="store_true",
                     help="only the kv_ranks phase: KV movement and the "
                          "lifecycle across ranks, the KV device pipe (no "
@@ -6368,7 +6684,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     from production_stack_tpu_torch.ops import _build
 
-    if not (args.profile or args.tp_cards or args.pp_cards or args.pp_70b):
+    if args.f32_side:
+        _build.build(["paged_attention", "prefill_attention"])
+        with open(args.f32_side[0]) as f:
+            given = json.load(f)
+        torch.save(f32_side_jobs(given["tp1_streams"], given["card"]),
+                   args.f32_side[1])
+        return 0
+    if not (args.profile or args.tp_cards or args.pp_cards or args.pp_70b
+            or args.harness):
         start_pipe_probe()
 
     smi = nvidia_smi_line()
@@ -6384,6 +6708,12 @@ def main(argv=None) -> int:
         report = profile_structured_phase()
         print(json.dumps({"profile_structured": report}), flush=True)
         _free_device_memory()
+        print(f"card: {smi}", flush=True)
+        return 0
+    if args.harness:
+        _build.build(["paged_attention", "prefill_attention"])
+        _, summary = harness_phase(smi)
+        print(json.dumps({"harness": summary}), flush=True)
         print(f"card: {smi}", flush=True)
         return 0
     if args.kv_ranks:
@@ -6499,7 +6829,6 @@ def main(argv=None) -> int:
         "cached_prefill_attention"]
     launches["cached_prefill_attention_draft_step"] = drafter_counts[
         "cached_prefill_attention"]
-    spec_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the spec phases")
     for label, extra, entries in (
             ("bf16", (), ("paged_attention", "cached_prefill_attention")),
@@ -6535,15 +6864,29 @@ def main(argv=None) -> int:
     _free_device_memory()
     arch_parity_phase(smi)
     log(f"[time] {time.time() - t0:.0f} s through the arch parity phase")
-    tp_launches, tp_summary, tp1_streams = tp_phase(here, smi)
+    # The float32 side process (the pp parity jobs, the kv_ranks float32
+    # extracts, the spec parity) runs beside the tp phase from its tp 1
+    # streams.
+    side = []
+    tp_launches, tp_summary, _ = tp_phase(
+        here, smi, on_tp1=lambda streams: side.append(
+            start_f32_side(here, streams, smi)))
     print(json.dumps({"tp": tp_summary}), flush=True)
     log(f"[time] {time.time() - t0:.0f} s through the tp phase")
-    pp_launches, pp_summary = pp_phase(here, smi, tp1_streams)
+    parity, spec_parity = join_f32_side(side[0])
+    print(json.dumps({"spec_parity": spec_parity}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the float32 side")
+    pp_launches, pp_summary = pp_phase(here, smi, parity)
     print(json.dumps({"pp": pp_summary}), flush=True)
     log(f"[time] {time.time() - t0:.0f} s through the pp phase")
+    harness_pre = harness_prestart()
     kv_launches, kv_summary = kv_ranks_phase(here, smi)
     print(json.dumps({"kv_ranks": kv_summary}), flush=True)
     log(f"[time] {time.time() - t0:.0f} s through the kv_ranks phase")
+    _free_device_memory()
+    sweep_rows, harness = harness_phase(smi, pre=harness_pre)
+    print(json.dumps({"harness": harness}), flush=True)
+    log(f"[time] {time.time() - t0:.0f} s through the harness phase")
     # Llama-3-8B's stages, and the kv_ranks phase's tp 1 engine, launch
     # both kernels at the full 32/8 heads in bf16: the main rows' shape.
     for name in ("paged_attention", "cached_prefill_attention"):
@@ -6582,6 +6925,18 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+    # The page-size sweep's rows: the decode kernel at tpu-llama-1b's
+    # heads, B 16 at 3,000 tokens, over all 16 layers a row (times and
+    # bound alike); no main-path run uses these page sizes and heads.
+    for r in sweep_rows:
+        kernels.append(dict(
+            name=f"paged_attention_bs{r['bs']}_tpu_llama_1b_16_layers",
+            route="cuda", source=sources["paged_attention"],
+            replaces=replaces["paged_attention"], launches=0,
+            max_abs_err=r.get("max_abs_err"), ms=r.get("kernel_ms"),
+            plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
+            bound_by="bytes", library_ms=r.get("library_ms"),
+            **({"error": r["error"]} if "error" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6590,5 +6945,15 @@ def main(argv=None) -> int:
     return 0
 
 
+def _main_and_children(argv=None) -> int:
+    try:
+        return main(argv)
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_main_and_children())

@@ -65,6 +65,11 @@ per connection, server-sent events written by hand for ``stream: true``,
 - ``POST /debug/profile`` (``{"duration_s": 2}``: a ``torch.profiler``
   capture into ``--profile-dir``; 409 while one runs), ``GET
   /debug/profile/artifacts`` and ``GET /debug/profile/artifacts/{name}``;
+- ``GET /debug/loop`` (``--loop-monitor``; ``?blockers=N``): the
+  interpreter-lock lag monitor's rollups and top blockers
+  (``obs/looplag.py``), with the JAX server's
+  ``tpu:event_loop_lag_*`` and ``tpu:loop_stalls_total{bucket}`` series
+  (``--loop-stall-threshold-ms``); none of them without the flag;
 - KV movement, as the JAX server answers it: ``POST /kv/extract`` (a
   prompt's cached prefix pages as one TKV2 payload, written buffer by
   buffer under one ``Content-Length``; 404 without a cached block),
@@ -178,6 +183,7 @@ from production_stack_tpu_torch.kv.offload import (
     pack_transfer_buffers,
     unpack_transfer,
 )
+from production_stack_tpu_torch.obs.looplag import LoopMonitor
 from production_stack_tpu_torch.obs.steps import STEP_KINDS
 from production_stack_tpu_torch.obs.trace import StageClock, TraceRecorder
 from production_stack_tpu_torch.parallel import multihost
@@ -246,7 +252,9 @@ class EngineServer:
                  trace_export: Optional[str] = None,
                  slow_trace_threshold_s: float = 0.0,
                  slow_trace_log_interval_s: float = 0.0,
-                 profile_dir: Optional[str] = None):
+                 profile_dir: Optional[str] = None,
+                 loop_monitor: bool = False,
+                 loop_stall_threshold_ms: float = 100.0):
         self.core = core
         self.config = core.config
         self.served_models = served_models
@@ -269,6 +277,15 @@ class EngineServer:
             tempfile.gettempdir(), f"tpu-stack-profiles-{os.getpid()}")
         self._profile_lock = threading.Lock()
         self._profile_runs = 0
+        # Interpreter-lock lag (--loop-monitor, obs/looplag.py): a ticker
+        # thread's wake-up lateness and the watchdog's blocking frames,
+        # at GET /debug/loop and as the JAX server's tpu:event_loop_*
+        # series. None when off: no thread, no route, no series.
+        self.loop_monitor = None
+        if loop_monitor:
+            self.loop_monitor = LoopMonitor(
+                "tpu-stack-engine",
+                stall_threshold_s=float(loop_stall_threshold_ms) / 1000.0)
         # -- the KV controller's engine side ------------------------------
         self.kv_controller_url = (kv_controller_url.rstrip("/")
                                   if kv_controller_url else None)
@@ -605,6 +622,8 @@ class EngineServer:
         recycled port never resolves to this server's frozen pool."""
         self._kv_stop.set()
         self._reports.put(None)
+        if self.loop_monitor is not None:
+            self.loop_monitor.stop()
         for th in self._kv_threads:
             th.join(timeout=10)
         self._kv_threads = []
@@ -1517,6 +1536,32 @@ class EngineServer:
             lines += ["# TYPE tpu:model_bandwidth_utilization gauge",
                       f"tpu:model_bandwidth_utilization{{{labels}}} "
                       f"{rec.bandwidth_utilization():.6f}"]
+        mon = self.loop_monitor
+        if mon is not None:
+            # Interpreter-lock lag (--loop-monitor) under the JAX server's
+            # event-loop names: lifetime sum and count, the ring's
+            # rollups, stalls by severity bucket.
+            pct = mon.percentiles()
+            lines += [
+                "# TYPE tpu:event_loop_lag_seconds summary",
+                f"tpu:event_loop_lag_seconds_sum{{{labels}}} "
+                f"{mon.lag_s_sum:.6f}",
+                f"tpu:event_loop_lag_seconds_count{{{labels}}} "
+                f"{mon.samples_total}",
+                "# TYPE tpu:event_loop_lag_p50_seconds gauge",
+                f"tpu:event_loop_lag_p50_seconds{{{labels}}} "
+                f"{pct['p50']:.6f}",
+                "# TYPE tpu:event_loop_lag_p99_seconds gauge",
+                f"tpu:event_loop_lag_p99_seconds{{{labels}}} "
+                f"{pct['p99']:.6f}",
+                "# TYPE tpu:event_loop_lag_max_seconds gauge",
+                f"tpu:event_loop_lag_max_seconds{{{labels}}} "
+                f"{pct['max']:.6f}",
+                "# TYPE tpu:loop_stalls counter",
+            ]
+            for bucket, count in sorted(mon.stalls().items()):
+                lines.append(f'tpu:loop_stalls_total{{{labels},'
+                             f'bucket="{bucket}"}} {count}')
         return "\n".join(lines) + "\n"
 
     def debug_traces(self, query: dict):
@@ -1617,6 +1662,20 @@ class EngineServer:
             raise BadRequest("invalid artifact path")
         return full if os.path.isfile(full) else None
 
+    def debug_loop(self, query: dict):
+        """``GET /debug/loop``: the monitor's summary and its top
+        blockers (``?blockers=N``, default 10), as the JAX route."""
+        try:
+            blockers = int(query.get("blockers", 10) or 10)
+        except ValueError:
+            return 400, {"error": "blockers must be an integer"}
+        if blockers < 1:
+            return 400, {"error": "blockers must be >= 1"}
+        out = self.loop_monitor.summary()
+        out["top_blockers"] = self.loop_monitor.detector.top_blockers(
+            limit=blockers)
+        return 200, out
+
     def debug_steps(self, query: dict):
         """(status, body) of ``GET /debug/steps``: the recorder's summary,
         the pool's page occupancy and the newest-first records, filtered
@@ -1711,6 +1770,9 @@ class _Handler(BaseHTTPRequestHandler):
         eng = self.engine
         if path == "/debug/steps" and eng.core.step_recorder is not None:
             status, body = eng.debug_steps(query)
+            self._send_json(body, status)
+        elif path == "/debug/loop" and eng.loop_monitor is not None:
+            status, body = eng.debug_loop(query)
             self._send_json(body, status)
         elif path == "/debug/traces":
             status, body = eng.debug_traces(query)
@@ -2450,6 +2512,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    default=True,
                    help="skip precompiling serving programs at startup")
+    p.add_argument("--loop-monitor", action="store_true",
+                   help="measure how late a ticker thread wakes (the "
+                        "interpreter-lock wait every server thread pays) "
+                        "and name the Python frames that held the lock "
+                        "(watchdog stack sampler); serves GET /debug/loop "
+                        "and the tpu:event_loop_* metrics. Off = no "
+                        "thread, route or series")
+    p.add_argument("--loop-stall-threshold-ms", type=float, default=100.0,
+                   help="lag counted as a stall and sampled by the "
+                        "blocking-call watchdog once the ticker has not "
+                        "ticked for this long")
     return p
 
 
@@ -2593,12 +2666,15 @@ def build_server(argv: Optional[List[str]] = None,
         trace_export=args.trace_export,
         slow_trace_threshold_s=args.slow_trace_threshold_s,
         slow_trace_log_interval_s=args.slow_trace_log_interval_s,
-        profile_dir=args.profile_dir)
+        profile_dir=args.profile_dir, loop_monitor=args.loop_monitor,
+        loop_stall_threshold_ms=args.loop_stall_threshold_ms)
     handler = type("Handler", (_Handler,), {"engine": engine})
     httpd = _HTTPServer((args.host, args.port), handler)
     httpd.engine = engine
     httpd.ranks = ranks
     engine.start_kv_reporting(args.host, httpd.server_address[1])
+    if engine.loop_monitor is not None:
+        engine.loop_monitor.start()
     return httpd, core
 
 

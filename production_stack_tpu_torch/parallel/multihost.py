@@ -138,6 +138,11 @@ def initialize_from_env() -> Optional[dict]:
     if env is None:
         return None
     if not dist.is_initialized():
+        if env["process_id"] == 0:
+            # The op channel's port is bound before the job is joined: the
+            # group's own connections take ephemeral ports, and one of
+            # them could otherwise land on it first.
+            _listen_op_port(env["op_port"])
         logger.info(
             "Joining distributed job: coordinator=%s process %d/%d",
             env["coordinator"], env["process_id"], env["num_processes"])
@@ -146,6 +151,23 @@ def initialize_from_env() -> Optional[dict]:
             world_size=env["num_processes"], rank=env["process_id"],
             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     return env
+
+
+# The leader's op-channel sockets bound ahead of the channel, by port.
+_PREBOUND: dict = {}
+
+
+def _listen_op_port(port: int) -> socket.socket:
+    """A listening socket on the op port (every interface), kept for the
+    op channel of this process."""
+    srv = _PREBOUND.get(port)
+    if srv is None:
+        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind(("0.0.0.0", port))
+        srv.listen(64)
+        _PREBOUND[port] = srv
+    return srv
 
 
 class OpChannel:
@@ -201,10 +223,8 @@ class OpChannel:
         probes/scanners may connect — a connection only claims a slot
         after a valid, non-duplicate pid handshake; anything else is
         closed and does not consume a slot or crash bring-up."""
-        srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        srv.bind(("0.0.0.0", port))
-        srv.listen(self.num_processes)
+        srv = _listen_op_port(port)
+        del _PREBOUND[port]
         srv.settimeout(5.0)
         by_pid: dict = {}
         deadline = time.monotonic() + self.ACCEPT_TIMEOUT_SEC

@@ -21,6 +21,7 @@ PKG = "production_stack_tpu_torch"
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["aiohttp"] = None  # the card's host has no aiohttp either
 import production_stack_tpu_torch as pkg
 names = sorted(m.name for m in pkgutil.walk_packages(
     pkg.__path__, pkg.__name__ + "."))
@@ -59,7 +60,15 @@ def test_every_port_module_imports_without_jax():
                 "parallel", "parallel.sharding", "parallel.mesh",
                 "parallel.multihost", "parallel.tp", "parallel.pp",
                 "parallel.pp_serving", "parallel.pipeline",
-                "parallel.ring_attention"):
+                "parallel.ring_attention",
+                # The harness legs and the lag monitor: none reaches JAX,
+                # aiohttp or a JAX-free module of the JAX package (the
+                # router, its fake engine, its looplag.py).
+                "probes._profile_common", "probes.decode_profile",
+                "probes.prefill_profile", "probes.dispatch_accounting",
+                "probes.kernel_bs_sweep", "probes.kv_handoff_bench",
+                "probes.transfer_repro", "testing", "testing.spec_draft_ab",
+                "testing.structured_ab", "obs.looplag"):
         assert f"{PKG}.{mod}" in out["names"], mod
     # First dotted component exactly "production_stack_tpu": the port's
     # own "production_stack_tpu_torch" shares that prefix and is fine.
@@ -109,3 +118,15 @@ def test_port_imports_without_xxhash_ml_dtypes_or_aiohttp():
         capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_port_sources_name_no_aiohttp_import():
+    """The card's host has no aiohttp: no port module (the harness legs
+    included, whose clients are standard library) imports it, even
+    inside a function."""
+    pattern = re.compile(r"^\s*(import|from)\s+aiohttp\b", re.M)
+    files = sorted(p for p in (REPO / PKG).rglob("*.py")
+                   if "_build" not in p.parts) + [REPO / "chip_smoke.py"]
+    assert [str(p.relative_to(REPO)) for p in files
+            if pattern.search(p.read_text())] == []
+    assert pattern.search("    import aiohttp\n")

@@ -7,6 +7,7 @@ the server entry.
   the same environment;
 - a follower with a wrong ``TPU_STACK_OP_TOKEN`` is refused at the
   handshake (and a right one then joins);
+- the leader holds the op port before it joins the job;
 - a follower that dies makes the leader fail its requests with "error"
   within a time limit (the engine latches the fault, never hangs);
 - ``--tensor-parallel-size 2`` on the server entry with no ``TPU_STACK_*``
@@ -160,6 +161,38 @@ os._exit(0)
 """
 
 
+def test_the_leader_binds_the_op_port_before_joining_the_job(monkeypatch):
+    """The group's own connections take ephemeral ports; the op port is
+    already the leader's when the job is joined, so none can take it."""
+    import torch.distributed as dist
+
+    port = multihost._free_port_pair()
+    held = []
+
+    def join(*args, **kwargs):
+        probe = socket.socket()
+        try:
+            probe.bind(("127.0.0.1", port + 1))
+        except OSError:
+            held.append(True)
+        finally:
+            probe.close()
+
+    monkeypatch.setattr(dist, "init_process_group", join)
+    monkeypatch.setenv("TPU_STACK_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("TPU_STACK_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TPU_STACK_PROCESS_ID", "0")
+    monkeypatch.delenv("TPU_STACK_OP_PORT", raising=False)
+    try:
+        env = multihost.initialize_from_env()
+        assert env["op_port"] == port + 1
+        assert held == [True]
+    finally:
+        srv = multihost._PREBOUND.pop(port + 1, None)
+        if srv is not None:
+            srv.close()
+
+
 def test_a_follower_that_dies_fails_the_leaders_requests():
     port = multihost._free_port_pair()
     procs = []
@@ -172,17 +205,21 @@ def test_a_follower_that_dies_fails_the_leaders_requests():
         env.pop("TPU_STACK_OP_PORT", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _DYING], env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
+        # The RESULT line has stdout to itself: the engine's log lines
+        # go to stderr, on a pipe of their own, and can never land inside
+        # it (on one shared pipe, a log line written between the RESULT
+        # text and its newline broke the JSON under load).
+        outs, errs = zip(*(p.communicate(timeout=120) for p in procs))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert procs[1].returncode == 3, outs[1][-3000:]
+    assert procs[1].returncode == 3, (outs[1] + errs[1])[-3000:]
     line = next((ln for ln in outs[0].splitlines()
                  if ln.startswith("RESULT ")), None)
-    assert line is not None, outs[0][-3000:]
+    assert line is not None, (outs[0] + errs[0])[-3000:]
     res = json.loads(line[7:])
     assert res["finished"] and res["finish"] == "error", res
     assert res["tokens"] < 200

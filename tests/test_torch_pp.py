@@ -850,17 +850,21 @@ def test_a_lost_stage_latches_the_fault():
         env.pop("TPU_STACK_OP_PORT", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", script], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
+        # The RESULT line has stdout to itself: the engine's log lines
+        # go to stderr, on a pipe of their own, and can never land inside
+        # it (on one shared pipe, a log line written between the RESULT
+        # text and its newline broke the JSON under load).
+        outs, errs = zip(*(p.communicate(timeout=120) for p in procs))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert procs[1].returncode == 3, outs[1][-3000:]
+    assert procs[1].returncode == 3, (outs[1] + errs[1])[-3000:]
     line = next((ln for ln in outs[0].splitlines()
                  if ln.startswith("RESULT ")), None)
-    assert line is not None, outs[0][-3000:]
+    assert line is not None, (outs[0] + errs[0])[-3000:]
     res = json.loads(line[7:])
     assert res["finished"] and res["finish"] == "error", res
     assert res["tokens"] < 200 and res["seconds"] < 60
