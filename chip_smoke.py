@@ -15,6 +15,10 @@
     python3 chip_smoke.py --pp-70b   # only its Llama-3-70B pp 4 run
     python3 chip_smoke.py --kv-ranks # only phase 19 (kv_ranks_phase)
     python3 chip_smoke.py --harness  # only phase 20 (harness_phase)
+    python3 chip_smoke.py --kv-net-cards  # on a host of 2 or more cards:
+                                     # the KV device pipe's network
+                                     # transport between two server
+                                     # processes (kv_net_cards_phase)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -157,7 +161,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    behind their servers over the host relay and the local-device rung,
    a prompt spilled to a stdlib L3 block store by one engine and
    restored from it by the other, ``/kv/prepare_pull`` answering with
-   an offer of the prefix's pages (the KV device pipe, phase 19);
+   an offer of the prefix's pages (the KV device pipe, phase 19): with
+   their IPC handles to a puller of this host, with the network
+   transport's ``transfer_port`` and no handles to one that names
+   another host, each offer's slot freed by ``/kv/release``;
    spill, restore and card-to-card times and the prefix hashes' host
    cost (a ``{"kv": ...}`` line each).
 12. facebook/opt-125m at full width and depth (12 layers, hidden 768,
@@ -266,7 +273,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode kernel at page sizes 64-512 (``probes/kernel_bs_sweep.py``;
    rows of the kernels line), the KV handoff of an 8,000-token prompt
    by rung (local-device, device pipe, host relay), the device pipe's
-   two-process handshake and the cross-host 409, the speculation A/B
+   two-process handshake and its network transport between two
+   processes (the ``cross_host`` leg, over gloo on CPU tensors: one card
+   cannot hold both NCCL ranks), the speculation A/B
    (the model drafting for itself), the structured-output A/B (30/30
    corpus conformance on both surfaces; the non-binding mask's
    overhead) and the stall monitor's served run (tpu-llama-1b behind
@@ -3643,7 +3652,10 @@ def kv_phase(label: str, extra_args, entries, smi, here):
        ``status: "l3"``) and serves it, restoring through the remote tier,
        with P's prefix-hit stream;
     5. ``/kv/prepare_pull`` on D offers R3's pages through the KV device
-       pipe (their handles; released at once).
+       pipe: their IPC handles to a puller of this host, the network
+       transport's ``transfer_port`` and no handles to one that names
+       another host; each released at once, after which D holds no
+       offer.
 
     Launch counters are set to 0 before the drive and read after it.
     Returns (launch counts by kernel entry, summary)."""
@@ -3757,15 +3769,28 @@ def kv_phase(label: str, extra_args, entries, smi, here):
                                 - before["remote_get_bytes"]),
             "first_token_s": got["_first_token_s"], "pull": out}
         pipe_probe()  # waits for the availability probe main started
-        status, offer = _status(dc, "/kv/prepare_pull",
-                                {"prompt": r3, "host_key": host_key()})
-        if status != 200 or len(offer["hashes"]) < len(r3_chain) - 1:
-            raise AssertionError(f"kv: /kv/prepare_pull answered {status}")
-        if _status(dc, "/kv/release", {"uuid": offer["uuid"]})[0] != 200:
-            raise AssertionError("kv: /kv/release failed")
-        summary["prepare_pull"] = {"status": status,
-                                   "blocks": len(offer["hashes"]),
-                                   "bytes": offer["bytes"]}
+        offers = {}
+        for where, key in (("this_host", host_key()),
+                           ("another_host", "another-host")):
+            status, offer = _status(dc, "/kv/prepare_pull",
+                                    {"prompt": r3, "host_key": key})
+            if status != 200 or len(offer["hashes"]) < len(r3_chain) - 1:
+                raise AssertionError(f"kv: /kv/prepare_pull ({where}) "
+                                     f"answered {status}")
+            if (("handles" in offer) != (where == "this_host")
+                    or offer["transfer_port"]
+                    != d[0].engine._device_pipe.transfer_port):
+                raise AssertionError(f"kv: /kv/prepare_pull ({where}): "
+                                     f"{sorted(offer)}")
+            if _status(dc, "/kv/release", {"uuid": offer["uuid"]})[0] != 200:
+                raise AssertionError("kv: /kv/release failed")
+            offers[where] = {"status": status, "blocks": len(offer["hashes"]),
+                             "bytes": offer["bytes"],
+                             "handles": len(offer.get("handles", ())),
+                             "transfer_port": offer["transfer_port"]}
+        if d[0].engine._device_pipe.pending() != 0:
+            raise AssertionError("kv: a released offer still holds its slot")
+        summary["prepare_pull"] = offers
         metrics = dc.get("/metrics")
         for series in ("tpu:kv_transfer_rx_bytes_total",
                        "tpu:kv_transfer_device_pulls_total",
@@ -6363,6 +6388,434 @@ def kv_ranks_phase(here: str, smi) -> tuple:
 
 # -- the port legs of the JAX harnesses ----------------------------------------
 
+# -- the KV device pipe between hosts (--kv-net-cards) ------------------------
+
+KVN_PREFIX = 2048  # tokens of full blocks a pull moves: 32 blocks of 64
+KVN_MAX_TOKENS = 32  # greedy tokens each engine continues the prompt with
+KVN_VOCAB = 30000  # the prompts' token ids lie below it
+KVN_ARGS = ["meta-llama/Llama-3-8B", "--device", "cuda", "--host",
+            "127.0.0.1", "--port", "0", "--max-model-len", "2304",
+            "--max-num-seqs", "4", "--seed", "0", "--num-blocks", "160",
+            "--max-loras", "0", "--no-warmup"]
+KVN_CONFIGS = (("bf16", []), ("int8 KV + int8 weights", INT8_ARGS))
+# NCCL's defaults (NVLink, or PCIe peer to peer, between two cards of one
+# host), then its socket transport: the one two hosts without RDMA use.
+KVN_TRANSPORTS = (("defaults", {}),
+                  ("socket", {"NCCL_P2P_DISABLE": "1",
+                              "NCCL_SHM_DISABLE": "1"}))
+# Seconds the decode engine's network pull may take before it fails: what
+# a pull from a killed offerer costs where NCCL cannot see the death.
+KVN_PULL_TIMEOUT = 20.0
+
+# A server process of the --kv-net-cards phase: argv is its role
+# (prefill or decode), the redirect file, then the server's flags. Each
+# offer's and each pull's leaves are checksummed on the card and printed
+# as a JSON line; SIGTERM prints the kernels' launch counts and exits.
+_KVN_SERVER = r"""
+import json, os, signal, sys
+import torch
+from production_stack_tpu_torch.engine.server import (
+    EngineServer,
+    build_server,
+)
+from production_stack_tpu_torch.kv import device_pipe as dp
+from production_stack_tpu_torch.ops.paged_attention import paged_attention
+from production_stack_tpu_torch.ops.prefill_attention import (
+    cached_prefill_attention,
+)
+
+role, redirect, timeout = sys.argv[1], sys.argv[2], float(sys.argv[3])
+
+
+def sums(tensors):
+    # Two checksums of each leaf's bytes (a sum and a position-weighted
+    # sum of its 32-bit words), its shape and dtype.
+    out = []
+    for t in tensors:
+        w = t.contiguous().view(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append([int(w.sum()), int((w * pos % 1000003).sum()),
+                    list(t.shape), str(t.dtype)])
+    return out
+
+
+offer, pull = dp.KVDevicePipe.offer, dp.KVDevicePipe.pull
+
+
+def offer_and_sum(self, tensors, ipc=True):
+    uuid = offer(self, tensors, ipc)
+    if uuid is not None:
+        print(json.dumps({"offered": uuid, "sums": sums(tensors)}),
+              flush=True)
+    return uuid
+
+
+def pull_and_sum(self, address, uuid, specs, **kw):
+    got = pull(self, address, uuid, specs, **kw)
+    print(json.dumps({"pulled": uuid, "sums": sums(got)}), flush=True)
+    return got
+
+
+dp.KVDevicePipe.offer, dp.KVDevicePipe.pull = offer_and_sum, pull_and_sum
+if role == "prefill":
+    # While the redirect file exists, this engine's offers name the
+    # dying offerer's (the killed-offerer check).
+    prepare = EngineServer.kv_prepare_pull
+
+    def redirected(self, body):
+        status, out = prepare(self, body)
+        if status == 200 and os.path.exists(redirect):
+            self.kv_release({"uuid": out["uuid"]})
+            with open(redirect) as f:
+                out = dict(out, **json.load(f))
+        return status, out
+
+    EngineServer.kv_prepare_pull = redirected
+
+
+def launches(*_):
+    print(json.dumps({"launches": {
+        "paged_attention": paged_attention.launches,
+        "paged_attention_int8": paged_attention.launches_int8,
+        "cached_prefill_attention": cached_prefill_attention.launches,
+        "cached_prefill_attention_int8":
+            cached_prefill_attention.launches_int8}}), flush=True)
+    os._exit(0)
+
+
+signal.signal(signal.SIGTERM, launches)
+httpd, core = build_server(sys.argv[4:])
+pipe = httpd.engine._get_device_pipe()
+if role == "decode":
+    pipe.host, pipe.timeout = "another-host", timeout
+print(json.dumps({"ready": httpd.server_address[1]}), flush=True)
+httpd.serve_forever()
+"""
+
+# An offerer process that dies mid-transfer: it offers zeros of the
+# leaves on its stdin, prints the offer, and exits (code 3) as soon as
+# its first leaf is sent.
+_KVN_DYING = r"""
+import json, os, sys
+import torch
+from production_stack_tpu_torch.kv import device_pipe as dp
+
+device = sys.argv[1]
+torch.zeros(1, device=device)  # the card's context, before the offer
+
+
+def send_one_then_die(pair, tensors, stream, deadline):
+    dp._settle([pair.group.send([tensors[0]], 1, 0)], deadline,
+               stream is None)
+    os._exit(3)
+
+
+dp.KVDevicePipe._send = staticmethod(send_one_then_die)
+leaves = json.loads(sys.stdin.readline())
+pipe = dp.KVDevicePipe(device)
+ts = [torch.zeros(s["shape"], dtype=dp._DTYPES[s["dtype"]], device=device)
+      for s in leaves]
+uuid = pipe.offer(ts, ipc=False)
+print(json.dumps({"uuid": uuid, "token": pipe.token(uuid),
+                  "transfer_port": pipe.transfer_port}), flush=True)
+sys.stdin.readline()
+"""
+
+
+class _KvnChild:
+    """A child process of the --kv-net-cards phase on one card, its JSON
+    stdout lines gathered by a thread; stderr goes to a log under
+    ``_build/``."""
+
+    def __init__(self, here, name, script, args, card, env):
+        import threading
+
+        self.log = os.path.join(here, "production_stack_tpu_torch",
+                                "_build", f"kv_net_{name}.log")
+        self.name, self.lines, self.nccl = name, [], []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", script] + list(args), cwd=here,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=open(self.log, "w"), text=True,
+            env=dict(os.environ, PYTHONPATH=here,
+                     CUDA_VISIBLE_DEVICES=str(card),
+                     TPU_STACK_KV_DEVICE_PIPE="1",
+                     TPU_STACK_LOG_LEVEL="WARNING", NCCL_DEBUG="INFO",
+                     NCCL_DEBUG_SUBSYS="INIT,P2P,NET", **env))
+        CHILDREN.append(self.proc)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if " NCCL INFO " in line:  # NCCL_DEBUG writes to stdout
+                self.nccl.append(line)
+                continue
+            try:
+                obj = json.loads(line)
+            except ValueError:  # not one of the script's lines
+                continue
+            if isinstance(obj, dict):
+                self.lines.append(obj)
+
+    def first(self, key, timeout=600.0):
+        """The first line carrying ``key``, waited for."""
+        deadline = time.monotonic() + timeout
+        while True:
+            hit = [ln for ln in self.lines if key in ln]
+            if hit:
+                return hit[0]
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                with open(self.log) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"kv_net: {self.name} gave no {key!r} "
+                                     f"(exit {self.proc.poll()}): {tail}")
+            time.sleep(0.1)
+
+    def nccl_paths(self) -> dict:
+        """What NCCL's log says it used: its channels' transports and its
+        socket interface."""
+        import re
+
+        text = "".join(self.nccl)
+        return {"via": sorted(set(re.findall(r" via (\S+)", text))),
+                "socket_interface": sorted(set(re.findall(
+                    r"NET/Socket : Using (.*)", text)))}
+
+    def stop(self) -> dict:
+        """Stop it: a server's launch counts (``{}`` for others)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.thread.join(timeout=10)
+        hit = [ln["launches"] for ln in self.lines if "launches" in ln]
+        return hit[0] if hit else {}
+
+
+def _kvn_pull(dc, pc, ids, kv_path):
+    status, out = _status(dc, "/kv/pull", {
+        "source_url": pc.base, "request": {"prompt": ids},
+        "kv_path": kv_path})
+    if status != 200 or out.get("status") != "ok":
+        raise AssertionError(f"kv_net: {kv_path} pull {status} {out}")
+    return out
+
+
+def _kvn_empty(dc):
+    """Empty the decode engine's pool (sleep, wake): the next pull moves
+    every block again."""
+    for path in ("/sleep?level=1", "/wake_up"):
+        if _status(dc, path, {})[0] != 200:
+            raise AssertionError(f"kv_net: {path} failed")
+
+
+def _kvn_cached(dc) -> float:
+    return sum(float(line.rsplit(" ", 1)[1])
+               for line in dc.get("/metrics").splitlines()
+               if line.startswith("tpu:cached_prompt_tokens_total"))
+
+
+def _kvn_traffic(p, d, label, link, seed) -> dict:
+    """A 2,064-token prompt prefilled on P; D pulls its 32 blocks over
+    the network transport (``kv_path: "device"``: a first pull with the
+    pair's rendezvous, then, its pool emptied, a second), then over the
+    host relay; after each pull D continues the prompt with P's own
+    prefix-hit stream, its cached tokens rising by the pulled 2,048.
+    Every leaf D received equals the one P offered (checksums on each
+    card)."""
+    pc, dc = Client(p.port), Client(d.port)
+    ids = _kvr_ids(seed, KVN_PREFIX + 16, KVN_VOCAB)
+    _finish("kv_net prefill", pc.post("/v1/completions", {
+        "prompt": ids, "max_tokens": 1, "temperature": 0}))
+    want = _greedy(pc, ids, KVN_MAX_TOKENS)  # P's prefix-hit stream
+    runs = []
+    for i, kv_path in enumerate(("device", "device", "host")):
+        if i:
+            _kvn_empty(dc)
+        cached = _kvn_cached(dc)
+        out = _kvn_pull(dc, pc, ids, kv_path)
+        t = out["transfer"]
+        if (t["path"] != kv_path or out["injected_blocks"] != KVN_PREFIX // 64
+                or (kv_path == "device" and t["transport"] != "network")):
+            raise AssertionError(f"kv_net {label}: {kv_path} pull {out}")
+        got = _greedy(dc, ids, KVN_MAX_TOKENS)
+        _same(f"net {label} after a {kv_path} pull", got, want)
+        rise = _kvn_cached(dc) - cached
+        if rise != KVN_PREFIX:
+            raise AssertionError(f"kv_net {label}: cached tokens rose by "
+                                 f"{rise}, not {KVN_PREFIX}")
+        runs.append(dict(t, first_token_s=got["_first_token_s"]))
+    offered = {ln["offered"]: ln["sums"] for ln in p.lines if "offered" in ln}
+    pulled = [ln for ln in d.lines if "pulled" in ln]
+    if len(pulled) != 2 or any(offered.get(ln["pulled"]) != ln["sums"]
+                               for ln in pulled):
+        raise AssertionError(f"kv_net {label}: the pulled leaves' checksums "
+                             f"are not the offered ones")
+    del d.lines[:]
+    first, second, relay = runs
+    nbytes = second["bytes"]
+    rate = link["gigabytes_per_second"]
+    return {
+        "config": label, "bytes": nbytes, "leaves": len(pulled[0]["sums"]),
+        "backend": second["backend"],
+        "first_pull": {k: first[k] for k in (
+            "total_seconds", "rendezvous_seconds", "transfer_ms",
+            "pull_seconds")},
+        "second_pull": {k: second[k] for k in (
+            "total_seconds", "rendezvous_seconds", "transfer_ms",
+            "pull_seconds")},
+        "transfer_ms": second["transfer_ms"],
+        "transfer_gb_per_s": nbytes / second["transfer_ms"] / 1e6,
+        "link": link["link"], "link_gb_per_s": rate,
+        "link_bound_ms": nbytes / rate / 1e6 if rate else None,
+        "relay": {k: relay[k] for k in ("bytes", "total_seconds",
+                                        "gigabytes_per_second")},
+        "leaves_equal": True, "streams_equal": True,
+        "first_token_s": {"prefill_engine_hit": want["_first_token_s"],
+                          "after_pulls": [r["first_token_s"] for r in runs]}}
+
+
+def _kvn_killed(p, d, dying, redirect) -> dict:
+    """An offerer killed mid-pull: P's next offer names the dying
+    process's (card 0), which exits once its first leaf is sent. D's
+    ``"auto"`` pull must answer within its pipe's timeout (and a margin)
+    from the host relay, and D must then go on serving: P's prefix-hit
+    stream, and a network pull from P on the pair it kept."""
+    pc, dc = Client(p.port), Client(d.port)
+    ids = _kvr_ids(950, KVN_PREFIX + 16, KVN_VOCAB)
+    _finish("kv_net prefill", pc.post("/v1/completions", {
+        "prompt": ids, "max_tokens": 1, "temperature": 0}))
+    want = _greedy(pc, ids, KVN_MAX_TOKENS)
+    status, real = _status(pc, "/kv/prepare_pull", {
+        "token_ids": ids, "host_key": "another-host"})
+    if status != 200:
+        raise AssertionError(f"kv_net: prepare_pull {status}")
+    _status(pc, "/kv/release", {"uuid": real["uuid"]})
+    dying.proc.stdin.write(json.dumps(real["leaves"]) + "\n")
+    dying.proc.stdin.flush()
+    with open(redirect, "w") as f:
+        json.dump(dying.first("uuid"), f)
+    out = {"timeout_s": KVN_PULL_TIMEOUT}
+    t0 = time.perf_counter()
+    try:
+        status, body = _status(dc, "/kv/pull", {
+            "source_url": pc.base, "request": {"prompt": ids},
+            "kv_path": "auto"})
+        out.update(status=status, injected_blocks=body.get("injected_blocks"),
+                   **{k: body.get("transfer", {}).get(k) for k in (
+                       "path", "fetch_seconds", "total_seconds")})
+    except OSError as e:  # the decode engine itself went down
+        out.update(status=None, error=str(e))
+    out["seconds"] = time.perf_counter() - t0
+    os.remove(redirect)
+    try:
+        out["offerer_exit"] = dying.proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        out["offerer_exit"] = None
+    try:
+        got = _greedy(dc, ids, KVN_MAX_TOKENS)
+        out["stream_equal_after"] = got["text"] == want["text"]
+        _kvn_empty(dc)
+        again = _kvn_pull(dc, pc, ids, "device")["transfer"]
+        out["next_network_pull"] = {k: again[k] for k in (
+            "transport", "rendezvous_seconds", "transfer_ms")}
+        out["serving_after"] = True
+    except (OSError, AssertionError) as e:
+        out.update(serving_after=False, error_after=str(e)[:500])
+    out["ok"] = bool(out.get("status") == 200 and out.get("path") == "host"
+                     and out["seconds"] < KVN_PULL_TIMEOUT + 30
+                     and out["offerer_exit"] == 3
+                     and out.get("stream_equal_after")
+                     and out.get("serving_after"))
+    return out
+
+
+def kv_net_cards_phase(here: str, smi) -> dict:
+    """The KV device pipe's network transport between two server
+    processes on two cards (``--kv-net-cards``, on a host of two or more
+    cards): for each of NCCL's transports (``KVN_TRANSPORTS``: its
+    defaults, then its socket transport, set in every child's
+    environment), Llama-3-8B at full width and all 32 layers with random
+    weights from seed 0, bf16 and int8 KV + weights: a prefill engine on
+    card 0 and a decode engine on card 1 whose pipe names another host,
+    driven as :func:`_kvn_traffic` says (bytes, the first pull's seconds
+    with its rendezvous and a second's without, the sends' device time
+    and GB/s, the link between the cards and its rate as the bound, the
+    relay's GB/s), then the killed-offerer check (:func:`_kvn_killed`).
+    The decode engines launch both attention kernels on the pulled
+    pages. Returns the ``kv_net_cards`` summary."""
+    import torch
+
+    from production_stack_tpu_torch.probes import _profile_common as common
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"--kv-net-cards needs 2 cards at least, not "
+                             f"{cards}")
+    summary = {"card": smi, "card_count": cards,
+               "model": "meta-llama/Llama-3-8B", "layers": 32,
+               "prompt_tokens": KVN_PREFIX + 16, "pulled_tokens": KVN_PREFIX,
+               "runs": {}}
+    failed = []
+    for transport, env in KVN_TRANSPORTS:
+        t0 = time.time()
+        redirect = os.path.join(here, "production_stack_tpu_torch", "_build",
+                                f"kv_net_redirect_{transport}.json")
+        if os.path.exists(redirect):
+            os.remove(redirect)
+        dying = _KvnChild(here, f"{transport}_dying", _KVN_DYING,
+                          [KVN_ARGS[2]], 0, env)
+        servers = {}
+        run = {"nccl_env": env,
+               "link": common.link(0, 1, socket=bool(env))}
+        try:
+            for label, extra in KVN_CONFIGS:
+                for role, card in (("prefill", 0), ("decode", 1)):
+                    servers[label, role] = _KvnChild(
+                        here, f"{transport}_{label.split()[0]}_{role}",
+                        _KVN_SERVER, [role, redirect, str(KVN_PULL_TIMEOUT)]
+                        + KVN_ARGS + list(extra), card, env)
+            for child in servers.values():
+                child.port = child.first("ready")["ready"]
+            run["start_s"] = time.time() - t0
+            for n, (label, _) in enumerate(KVN_CONFIGS):
+                run[label] = _kvn_traffic(servers[label, "prefill"],
+                                          servers[label, "decode"], label,
+                                          run["link"], 900 + n)
+                log(f"[kv_net] {transport} {label}: {json.dumps(run[label])}")
+            run["killed_offerer"] = _kvn_killed(
+                servers["bf16", "prefill"], servers["bf16", "decode"], dying,
+                redirect)
+            log(f"[kv_net] {transport} killed offerer: "
+                f"{json.dumps(run['killed_offerer'])}")
+        finally:
+            dying.stop()
+            counts = {key: child.stop() for key, child in servers.items()}
+        run["nccl"] = servers["bf16", "decode"].nccl_paths()
+        for label, extra in KVN_CONFIGS:
+            suffix = "_int8" if extra else ""
+            got = counts.get((label, "decode"), {})
+            run[label]["decode_launches"] = {
+                name: got.get(name + suffix) for name in (
+                    "paged_attention", "cached_prefill_attention")}
+            if not all(run[label]["decode_launches"].values()):
+                raise AssertionError(f"kv_net {label}: the decode engine "
+                                     f"launched {got}")
+        if not run["killed_offerer"]["ok"]:
+            failed.append(transport)
+        run["seconds"] = time.time() - t0
+        summary["runs"][transport] = run
+    if failed:
+        print(json.dumps({"kv_net_cards": summary}), flush=True)
+        raise AssertionError(f"kv_net: the killed-offerer check failed "
+                             f"under {failed}")
+    return summary
+
+
 HARNESS_MODEL = "tpu-llama-1b"  # the JAX scripts' flagship shape
 # The stall monitor's served run: its threshold (the ticker wakes every
 # half of it), and its plain and structured requests (each) and tokens.
@@ -6382,8 +6835,9 @@ def _strip(x, drop=("streams", "continuations")):
 
 def harness_prestart(device: str = "cuda") -> dict:
     """What the harness phase needs that starts slowly and holds little
-    of the card: the device pipe's two-process handshake, on a thread,
-    and the KV handoff's source server process. Called before the
+    of the card: the device pipe's two-process handshake and its network
+    transport's two-process leg, on a thread, and the KV handoff's
+    source server process. Called before the
     kv_ranks phase, so both start while it runs."""
     import threading
 
@@ -6392,11 +6846,14 @@ def harness_prestart(device: str = "cuda") -> dict:
         transfer_repro,
     )
 
-    pre = {"handshake": None}
+    pre = {"handshake": None, "cross_host": None}
 
     def handshake():
         pre["handshake"] = transfer_repro.handshake(
             "cuda:0" if device == "cuda" else "cpu")
+        # One card cannot hold both NCCL ranks: the network transport's
+        # leg runs on CPU tensors over gloo (--kv-net-cards runs NCCL).
+        pre["cross_host"] = transfer_repro.cross_host("gloo")
 
     pre["thread"] = threading.Thread(target=handshake, daemon=True)
     pre["thread"].start()
@@ -6417,7 +6874,7 @@ def harness_phase(smi, device: str = "cuda", pre=None) -> tuple:
     its ``/debug/loop`` rollups). Every leg
     must run and agree where it checks (no kernel error above its bar,
     every ablation undone, 30/30 conformance, equal masked and unmasked
-    streams, the handshake and the cross-host 409). ``pre`` is
+    streams, the handshake and the cross-host pulls bit for bit). ``pre`` is
     :func:`harness_prestart`'s (started here when None). ``device="cpu"``
     (with ``HARNESS_MODEL`` pointed at tiny-llama) rehearses it on the
     CPU. Returns (the sweep's rows, the ``harness`` summary)."""
@@ -6498,19 +6955,16 @@ def harness_phase(smi, device: str = "cuda", pre=None) -> tuple:
     def handoff():
         rungs = kv_handoff_bench.run_paths(
             HARNESS_MODEL, kv_handoff_bench.PROMPT_TOKENS,
-            ("auto", "device", "host"), dev, cross_host=True,
-            source=pre["source"])
-        out["cross_host"] = rungs.pop("cross_host")
+            ("auto", "device", "host"), dev, source=pre["source"])
         texts = [r["continuations"] for r in rungs.values()]
         return {"rungs": _strip(rungs),
                 "continuations_equal": all(t == texts[0] for t in texts)}
 
     def transfer():
-        # The handshake ran beside the kv_ranks phase; the cross-host 409
-        # came from the handoff's source process.
+        # Both legs ran beside the kv_ranks phase.
         pre["thread"].join(timeout=300)
-        hs, ch = pre["handshake"], out.pop("cross_host")
-        if not (hs and hs["ok"] and ch["ok"]):
+        hs, ch = pre["handshake"], pre["cross_host"]
+        if not (hs and hs["ok"] and ch and ch["ok"]):
             raise AssertionError(f"transfer probe: {hs} {ch}")
         return {"metric": "transfer_repro", "handshake": hs,
                 "cross_host": ch}
@@ -6655,6 +7109,10 @@ def main(argv=None) -> int:
                          "against the tp 1 streams in STREAMS, the "
                          "kv_ranks float32 extracts), their results saved "
                          "to OUT; the full run starts it (no result line)")
+    ap.add_argument("--kv-net-cards", action="store_true",
+                    help="only the KV device pipe's network transport "
+                         "between two server processes on two cards, on a "
+                         "host of 2 or more cards (no result line)")
     ap.add_argument("--kv-ranks", action="store_true",
                     help="only the kv_ranks phase: KV movement and the "
                          "lifecycle across ranks, the KV device pipe (no "
@@ -6692,7 +7150,7 @@ def main(argv=None) -> int:
                    args.f32_side[1])
         return 0
     if not (args.profile or args.tp_cards or args.pp_cards or args.pp_70b
-            or args.harness):
+            or args.harness or args.kv_net_cards):
         start_pipe_probe()
 
     smi = nvidia_smi_line()
@@ -6714,6 +7172,12 @@ def main(argv=None) -> int:
         _build.build(["paged_attention", "prefill_attention"])
         _, summary = harness_phase(smi)
         print(json.dumps({"harness": summary}), flush=True)
+        print(f"card: {smi}", flush=True)
+        return 0
+    if args.kv_net_cards:
+        _build.build(["paged_attention", "prefill_attention"])
+        print(json.dumps({"kv_net_cards": kv_net_cards_phase(here, smi)}),
+              flush=True)
         print(f"card: {smi}", flush=True)
         return 0
     if args.kv_ranks:

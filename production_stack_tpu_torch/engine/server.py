@@ -77,18 +77,22 @@ per connection, server-sent events written by hand for ``stream: true``,
   of disaggregated prefill: ``{"source_url", "request", "kv_path":
   "auto" | "host" | "device"}``; rungs local-device (a server of this
   process, card to card), then the KV device pipe (the source's
-  ``/kv/prepare_pull``, its pages' CUDA IPC handles opened here; 501
-  for ``"device"`` when the pipe is unavailable), then the TKV2 host
-  relay from the source's ``/kv/extract``, then ``status: "l3"`` when
-  the prefix sits in this engine's offload tier; the answer's
-  ``transfer.path`` names the rung that ran; 503 with ``Retry-After: 1``
-  past ``--kv-pull-max-concurrency`` pulls in flight), ``POST
-  /kv/prepare_pull`` (the pipe's sender side: 501 without a pipe, 409
-  when the body's ``host_key`` is not this host's, 404 without a cached
-  prefix, 503 when the offer table is full) and ``POST
-  /kv/release``. Under tensor, pipeline or data parallelism every KV
-  route and the lifecycle answer as on one rank (the relay serves a
-  pull from a sharded engine);
+  ``/kv/prepare_pull``; its pages' CUDA IPC handles opened here when
+  both engines share a host, else the pages received over a two-rank
+  NCCL communicator, gloo on the CPU, at the answer's
+  ``transfer_port``; 501 for ``"device"`` when the pipe is unavailable
+  or the pull fails), then the TKV2 host relay from the source's
+  ``/kv/extract``, then ``status: "l3"`` when the prefix sits in this
+  engine's offload tier; the answer's ``transfer.path`` names the rung
+  that ran, and ``transfer.transport`` the pipe's transport; 503 with
+  ``Retry-After: 1`` past ``--kv-pull-max-concurrency`` pulls in
+  flight), ``POST /kv/prepare_pull`` (the pipe's sender side: the
+  offer's uuid, token, leaves and ``transfer_port``, its IPC handles
+  only for a puller whose ``host_key`` is this host's; 501 without a
+  pipe, 404 without a cached prefix, 503 when the offer table is full)
+  and ``POST /kv/release``. Under tensor, pipeline or data parallelism
+  every KV route and the lifecycle answer as on one rank (the relay
+  serves a pull from a sharded engine);
 - with ``--kv-controller-url``, the engine's side of the router's KV
   controller: it registers, heartbeats, resyncs its claim digest and
   reports every admitted prompt's text chunks and every eviction (on
@@ -618,8 +622,9 @@ class EngineServer:
             self._kv_threads.append(th)
 
     def close(self) -> None:
-        """Stop the reporting threads and drop the local-peer entry, so a
-        recycled port never resolves to this server's frozen pool."""
+        """Stop the reporting threads, close the KV device pipe and drop
+        the local-peer entry, so a recycled port never resolves to this
+        server's frozen pool."""
         self._kv_stop.set()
         self._reports.put(None)
         if self.loop_monitor is not None:
@@ -627,6 +632,10 @@ class EngineServer:
         for th in self._kv_threads:
             th.join(timeout=10)
         self._kv_threads = []
+        with self._pipe_lock:
+            pipe, self._device_pipe = self._device_pipe, None
+        if pipe is not None:
+            pipe.close()
         if (self._bound_port is not None and EngineServer._local_peers.get(
                 str(self._bound_port)) is self):
             del EngineServer._local_peers[str(self._bound_port)]
@@ -1020,7 +1029,7 @@ class EngineServer:
             if self._device_pipe is None and not self._device_pipe_failed:
                 try:
                     if device_pipe_available():
-                        self._device_pipe = KVDevicePipe()
+                        self._device_pipe = KVDevicePipe(self.core.device)
                     else:
                         self._device_pipe_failed = True
                 except Exception as e:  # noqa: BLE001 - relay instead
@@ -1031,18 +1040,18 @@ class EngineServer:
     def kv_prepare_pull(self, body: dict):
         """(status, body) of ``POST /kv/prepare_pull``, the sender's side
         of the pipe: the prompt's cached prefix pages gathered on the
-        device and parked for the puller, whose handles the answer
-        carries. 501 without a pipe; 409 unless the body's ``host_key``
-        is this host's (a handle opens only on its own host), before any
-        page is gathered; 404 without a cached prefix (and in a job of
-        several ranks, whose pulls the relay serves); 503 when the offer
-        table is full."""
+        device and parked for the puller. The answer names the offer
+        (``uuid``, ``token``), its leaves' shapes and dtypes, and the
+        pipe's ``transfer_port`` (the network transport, as in the JAX
+        answer); it carries the pages' IPC handles only when the body's
+        ``host_key`` is this host's. 501 without a pipe; 404 without a
+        cached prefix (and in a job of several ranks, whose pulls the
+        relay serves); 503 when the offer table is full."""
+        from production_stack_tpu_torch.kv.device_pipe import leaf_specs
+
         pipe = self._get_device_pipe()
         if pipe is None:
             return 501, {"error": "device pipe unavailable on this backend"}
-        if body.get("host_key") != pipe.host:
-            return 409, {"error": "the puller is not on this host: its "
-                                  "pull takes the relay"}
         payload = self.core.extract_kv_device(
             self.tokens_from_body(body),
             self.resolve_adapter(body.get("model", "")))
@@ -1050,19 +1059,24 @@ class EngineServer:
             return 404, {"error": "no cached prefix for these tokens"}
         leaves = [t for side in (payload["k"], payload["v"])
                   for t in (side if isinstance(side, tuple) else (side,))]
-        uuid_ = pipe.offer(leaves)
+        same_host = body.get("host_key") == pipe.host
+        uuid_ = pipe.offer(leaves, ipc=same_host)
         if uuid_ is None:
             return 503, {"error": "device pipe offer capacity exhausted"}
         nbytes = sum(t.numel() * t.element_size() for t in leaves)
         with self._kv_lock:
             self.kv_transfer_tx_bytes += nbytes
         k = leaves[0]
-        return 200, {
-            "uuid": uuid_, "address": pipe.address(),
-            "handles": pipe.handles(uuid_),
+        out = {
+            "uuid": uuid_, "token": pipe.token(uuid_),
+            "address": pipe.address(), "transfer_port": pipe.transfer_port,
+            "leaves": leaf_specs(leaves),
             "hashes": [int(h) for h in payload["hashes"]],
             "num_tokens": payload["num_tokens"], "shape": list(k.shape),
             "dtype": str(k.dtype).replace("torch.", ""), "bytes": nbytes}
+        if same_host:
+            out["handles"] = pipe.handles(uuid_)
+        return 200, out
 
     def kv_release(self, body: dict) -> dict:
         """``POST /kv/release``: a pulled (or abandoned) offer frees its
@@ -1074,11 +1088,13 @@ class EngineServer:
     def _pull_device(self, source: str, token_ids: List[int],
                      req_body: dict) -> Optional[dict]:
         """The pipe's rung of ``/kv/pull``: the source's
-        ``/kv/prepare_pull`` (with this host's key: a source on another
-        host answers 409 before it gathers anything), the pull of its
-        handles, the release of its offer slot (whether or not the pull
-        ran, and before the inject, whose failure must not keep the slot),
-        then the inject. None to fall to the relay."""
+        ``/kv/prepare_pull`` (with this host's key), the pull of its
+        offer (over IPC when the answer carries handles, else over the
+        network transport at the source URL's host and the answer's
+        ``transfer_port``, as the JAX puller joins them), the release of
+        its offer slot (whether or not the pull ran, and before the
+        inject, whose failure must not keep the slot), then the inject.
+        None to fall to the relay."""
         pipe = self._get_device_pipe()
         if pipe is None:
             return None
@@ -1090,16 +1106,26 @@ class EngineServer:
             timeout=30, base=source)
         if status != 200:
             return None
+        if "handles" in offer:
+            address, specs = offer["address"], offer["handles"]
+        elif "leaves" in offer:
+            host = urllib.parse.urlparse(source).hostname
+            address, specs = f"{host}:{offer['transfer_port']}", offer[
+                "leaves"]
+        else:  # a source whose pipe this one cannot pull from
+            address = None
         cost: dict = {}
-        try:
-            got = pipe.pull(offer["address"], offer["uuid"],
-                            offer["handles"], device=self.core.device,
-                            stats=cost)
-        except Exception as e:  # noqa: BLE001 - the peer or the handles
-            logger.warning("device pull failed, falling back: %s", e)
-            got = None
+        got = None
+        if address is not None:
+            try:
+                got = pipe.pull(address, offer["uuid"], specs,
+                                device=self.core.device, stats=cost,
+                                token=offer.get("token"))
+            except Exception as e:  # noqa: BLE001 - the peer or transport
+                logger.warning("device pull failed, falling back: %s", e)
         # A handle the pull opened keeps its block alive on its own (CUDA
-        # IPC's reference count), so the sender may let the offer go now.
+        # IPC's reference count), and a network pull has received its
+        # pages, so the sender may let the offer go now.
         for attempt in range(3):
             status, _ = self._post_json("/kv/release",
                                         {"uuid": offer["uuid"]}, base=source)
@@ -1129,6 +1155,9 @@ class EngineServer:
             self.kv_transfer_device_bytes += nbytes
             self.kv_transfer_device_seconds += total
             self.kv_transfer_pulls += 1
+        # The pull alone: over IPC opening the peer's handles and copying
+        # its pages out; over the network the pair's rendezvous (the first
+        # pull's) and the transfer.
         return {"status": "ok", "injected_blocks": injected,
                 "num_tokens": offer["num_tokens"],
                 "transfer": {
@@ -1136,10 +1165,8 @@ class EngineServer:
                     "total_seconds": round(total, 6),
                     "gigabytes_per_second": round(
                         nbytes / max(total, 1e-9) / 1e9, 6),
-                    # The pull alone: opening the peer's handles and
-                    # copying its pages out.
-                    "open_seconds": round(cost["open_seconds"], 6),
-                    "copy_ms": round(cost["copy_ms"], 6)}}
+                    **{key: round(val, 6) if isinstance(val, float) else val
+                       for key, val in cost.items()}}}
 
     # -- embeddings, score, rerank, tokenizer ------------------------------
     def embeddings(self, body: dict) -> dict:

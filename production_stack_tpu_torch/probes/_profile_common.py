@@ -71,6 +71,64 @@ def card(device) -> Dict[str, Optional[str]]:
             "power_limit": limit}
 
 
+# Published one-way rates (GB/s) of the links between two cards: an
+# NVLink 4 link (an H100 SXM has 18: 900 GB/s both ways), and a PCIe lane
+# by generation (after its line coding). An H100's host link is PCIe
+# Gen5 x16 (NVIDIA's data sheet), where nvidia-smi reads none.
+NVLINK4_LINK_GB_S = 25.0
+PCIE_LANE_GB_S = {3: 0.985, 4: 1.969, 5: 3.938}
+H100_PCIE = (5, 16)
+
+
+def _smi(*args) -> str:
+    try:
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+
+
+def link(a: int = 0, b: int = 1, socket: bool = False) -> dict:
+    """The link a transfer from card ``a`` to card ``b`` takes and its
+    published one-way rate (the transfer's bound): the NVLinks that
+    ``nvidia-smi topo -m`` names between them (``NV<n>``), or, where
+    that matrix cannot be read, card ``a``'s active links in ``nvidia-smi
+    nvlink -s`` (through the NVSwitch every link reaches every card);
+    card ``a``'s PCIe link (``pcie.link.gen.max``, ``pcie.link.width.max``,
+    or an H100's data sheet where those read N/A) where there are none
+    or ``socket`` (NCCL's socket transport stages
+    every byte through host memory: it crosses both cards' PCIe links,
+    and the host's copies have no published rate)."""
+    # The matrix's row of card a (its diagonal reads X; the header row
+    # starts with the same name).
+    entry = next((r[b + 1] for r in (
+        line.split() for line in _smi("topo", "-m").splitlines())
+        if len(r) > max(a, b) + 1 and r[0] == f"GPU{a}" and r[a + 1] == "X"),
+        None)
+    if entry is None:
+        active = [line for line in _smi("nvlink", "-s", "-i", str(a))
+                  .splitlines() if "Link" in line and "GB/s" in line]
+        entry = f"NV{len(active)} (nvlink -s)" if active else None
+    if entry and entry.startswith("NV") and not socket:
+        n = int(entry[2:].split()[0])
+        return {"link": f"NVLink 4 x {n}", "topo": entry,
+                "gigabytes_per_second": n * NVLINK4_LINK_GB_S}
+    gen_width = _smi("--query-gpu=pcie.link.gen.max,pcie.link.width.max",
+                     "--format=csv,noheader", "-i", str(a)).strip()
+    source = "nvidia-smi"
+    try:
+        gen, width = (int(x) for x in gen_width.split(","))
+    except ValueError:  # some hosts read "[N/A], [N/A]"
+        if not (torch.cuda.is_available()
+                and "H100" in torch.cuda.get_device_name(a)):
+            return {"link": None, "topo": entry,
+                    "gigabytes_per_second": None}
+        (gen, width), source = H100_PCIE, "H100 data sheet"
+    return {"link": f"PCIe Gen{gen} x{width} ({source})", "topo": entry,
+            "gigabytes_per_second": width * PCIE_LANE_GB_S.get(gen, 0.0)
+            or None}
+
+
 def build_engine(model: str, *, device, max_model_len: int = 8192,
                  max_num_seqs: int = 16, decode_steps: int = 16,
                  num_blocks: int = 900, **overrides):

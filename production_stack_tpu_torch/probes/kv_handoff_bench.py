@@ -12,16 +12,24 @@ port's ladder:
   device   the prefill engine in a child process: the KV device pipe
            (``kv/device_pipe.py``: the source's ``/kv/prepare_pull``, its
            pages' CUDA IPC handles opened and copied here)
+  network  the device rung with this engine's pipe naming another host:
+           the pipe's network transport (a two-rank NCCL communicator
+           between the two processes, gloo on the CPU); on a card the
+           prefill engine runs on a second card (NCCL holds one rank a
+           card), so the rung needs a host of two
   host     the prefill engine in a child process: the TKV2 relay over
            HTTP
 
 Two distinct prompts go through, as in the JAX bench: the first pull
-pays one-time costs, the second is the steady state. The result carries
-the bytes, seconds, GB/s and the rung taken, the pipe's own open and
-copy times where the device rung ran, the copy's byte bound (read and
-write of the bytes at 3.35e12 B/s), and the decode engine's greedy
-continuation after the pull. The client is standard library (the card's
-host has no ``aiohttp``).
+pays one-time costs (the network rung's rendezvous among them), the
+second is the steady state. The result carries the bytes, seconds, GB/s
+and the rung taken, the pipe's transport and its own times where the
+pipe ran (IPC: open and copy; network: the rendezvous and the sends'
+device time), the copy's byte bound (read and write of the bytes at
+3.35e12 B/s), the network transfer's bound on the link between the two
+cards (``_profile_common.link``), and the decode engine's greedy
+continuation after the pull. The client is standard library (the
+card's host has no ``aiohttp``).
 
   python -m production_stack_tpu_torch.probes.kv_handoff_bench [--path device]
   python -m production_stack_tpu_torch.probes.kv_handoff_bench --device cpu \\
@@ -41,6 +49,8 @@ import threading
 import time
 import urllib.error
 import urllib.request
+
+import torch
 
 from production_stack_tpu_torch.probes import _profile_common as common
 
@@ -164,25 +174,36 @@ def _result(device, model, prompt_tokens, path, bodies, conts, hits):
         "prefix_cache_hits": hits,
         "continuations": conts,
     }
-    for key in ("open_seconds", "copy_ms", "fetch_seconds"):
+    for key in ("transport", "backend", "open_seconds", "copy_ms",
+                "transfer_ms", "fetch_seconds"):
         if key in t:
             out[key] = t[key]
+    if t.get("transport") == "network":
+        out["rendezvous_seconds"] = bodies[0]["transfer"][
+            "rendezvous_seconds"]
+        out["transfer_gigabytes_per_second"] = (
+            t["bytes"] / max(t["transfer_ms"], 1e-9) / 1e6)
+        lk = (common.link(1, 0) if torch.device(device).type == "cuda"
+              else {"link": "loopback (no published rate)",
+                    "gigabytes_per_second": None})
+        out["link"] = lk["link"]
+        out["link_bound_ms"] = (t["bytes"] / lk["gigabytes_per_second"] / 1e6
+                                if lk["gigabytes_per_second"] else None)
     return out
 
 
 def run_paths(model: str = MODEL, prompt_tokens: int = PROMPT_TOKENS,
               paths=("auto",), device="cuda", dtype=None,
               continue_tokens: int = 8, block_size: int = 64,
-              cross_host: bool = False, source=None) -> dict:
+              source=None) -> dict:
     """Each rung of ``paths`` with a fresh decode engine of this process;
-    ``auto``'s source is a server of this process, the other rungs share
-    one source process. Both prompts go through each rung; the second
-    pull's transfer is its result. ``cross_host`` (with a rung other than
-    ``auto``) also sends that source a ``/kv/prepare_pull`` with another
-    host's key: the answer, status and body, is ``"cross_host"``.
+    ``auto``'s source is a server of this process, the ``device`` and
+    ``host`` rungs share one source process (and ``network`` too on the
+    CPU; on a card it takes a source process on card 1). Both prompts go
+    through each rung; the second pull's transfer is its result.
     ``source``, a ``(proc, port)`` of :func:`start_child` on
-    :func:`server_args`, is that source process, started beforehand (it
-    is stopped here)."""
+    :func:`server_args`, is the shared source process, started beforehand
+    (it is stopped here)."""
     device = common.resolve_device(str(device))
     args = server_args(model, device, prompt_tokens, dtype, block_size)
     child, c_port = source if source is not None else (None, None)
@@ -190,40 +211,52 @@ def run_paths(model: str = MODEL, prompt_tokens: int = PROMPT_TOKENS,
     try:
         for path in paths:
             d_httpd, d_core, d_port = start_local(args)
-            s_httpd = s_core = None
+            s_httpd = s_core = card1 = None
             try:
                 if path == "auto":
                     s_httpd, s_core, s_port = start_local(args)
+                elif path == "network" and device.type == "cuda":
+                    if torch.cuda.device_count() < 2:
+                        raise RuntimeError(
+                            "the network rung needs a second card: NCCL "
+                            "holds one rank a card")
+                    card1, s_port = start_child(
+                        args, env={"CUDA_VISIBLE_DEVICES": "1"})
                 else:
                     if child is None:
                         child, c_port = start_child(args)
                     s_port = c_port
+                if path == "network":
+                    pipe = d_httpd.engine._get_device_pipe()
+                    if pipe is None:
+                        raise RuntimeError("the network rung: the KV device "
+                                           "pipe is unavailable here")
+                    pipe.host = "another-host"
                 bodies, conts = _pull_and_continue(
-                    d_port, s_port, path, prompts(
-                        prompt_tokens, d_core.model_config.vocab_size),
+                    d_port, s_port, "device" if path == "network" else path,
+                    prompts(prompt_tokens, d_core.model_config.vocab_size),
                     continue_tokens)
                 hits = d_core.stats()["prefix_cache_hits"]
             finally:
                 stop_local(d_httpd, d_core)
                 if s_httpd is not None:
                     stop_local(s_httpd, s_core)
+                if card1 is not None:
+                    _stop_child(card1)
             results[path] = _result(device, model, prompt_tokens, path,
                                     bodies, conts, hits)
-        if cross_host and child is not None:
-            status, body = post(c_port, "/kv/prepare_pull", {
-                "token_ids": prompts(prompt_tokens, 30000)[0],
-                "host_key": "another-host"})
-            results["cross_host"] = {"ok": status == 409,
-                                     "prepare_pull_status": status,
-                                     "body": body}
     finally:
         if child is not None:
-            child.terminate()
-            try:
-                child.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                child.kill()
+            _stop_child(child)
     return results
+
+
+def _stop_child(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
 
 
 def run(model: str = MODEL, prompt_tokens: int = PROMPT_TOKENS,
@@ -241,7 +274,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", default=None)
     ap.add_argument("--prompt-tokens", type=int, default=PROMPT_TOKENS)
     ap.add_argument("--path", default="auto",
-                    choices=("auto", "device", "host"))
+                    choices=("auto", "device", "network", "host"))
     args = ap.parse_args(argv)
     out = run(args.model, args.prompt_tokens, args.path, args.device,
               args.dtype)

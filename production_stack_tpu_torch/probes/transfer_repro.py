@@ -1,33 +1,38 @@
-"""The KV device pipe's two-process handshake, run in crash-isolated
-subprocesses, and exactly what happens.
+"""The KV device pipe's two transports, each run between
+crash-isolated subprocesses, and exactly what happens.
 
 The port's counterpart of ``benchmarks/transfer_repro.py``, which showed
 in subprocesses that ``jax.experimental.transfer`` is unimplemented on
 the runtimes the JAX package could reach. The port's pipe
-(``kv/device_pipe.py``) is CUDA IPC, and this leg runs its real
-protocol:
+(``kv/device_pipe.py``) moves pages over CUDA IPC on one host and over a
+two-rank communicator between hosts, and this leg runs both protocols:
 
   handshake   an offerer process puts a tensor on the device and shares
               it (``share``: its IPC handle as JSON); a puller process
               opens the handle (``open_shared``), copies the tensor into
               its own memory, checks it bit for bit and releases it; the
-              offerer exits once it is released. Each step's result and
-              time is printed, or the exact error and exit code of the
-              process that failed.
-  cross_host  a server process with the pipe on serves a prompt, then
-              ``POST /kv/prepare_pull`` arrives with another host's key:
-              the 409 that a puller on another host gets (it takes the
-              HTTP relay instead), with its body.
+              offerer exits once it is released.
+  cross_host  an offerer process parks a tensor in its pipe (no IPC
+              handle); a puller process whose pipe names another host
+              pulls it twice over the network transport (the first pull
+              makes the pair: the rendezvous), checks each bit for bit,
+              and reports each pull's rendezvous, transfer and host
+              times. NCCL with a card for each process on a host of two
+              or more cards, gloo on CPU tensors otherwise (``--device
+              cpu``, or a host of one card, where NCCL cannot hold both
+              ranks).
 
-A failure (a CUDA device the process cannot reach, a handle that does
-not open) ends a child, never this process: a bad handle can abort the
-process that opens it. On a host with no card the offerer's refusal is
-printed and the leg exits non-zero.
+Each step's result and time is printed, or the exact error and exit
+code of the process that failed. A failure (a CUDA device the process
+cannot reach, a handle that does not open, a peer that never joins)
+ends a child, never this process: a bad handle can abort the process
+that opens it. On a host with no card the offerer's refusal is printed
+and the leg exits non-zero.
 
   python -m production_stack_tpu_torch.probes.transfer_repro [--device cpu]
 
 Prints ONE JSON line (``"metric": "transfer_repro"``); exits 0 only when
-the handshake ran and the cross-host pull was refused with 409.
+both legs ran and every pulled tensor is bit for bit the offered one.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import select
 import subprocess
 import sys
 import tempfile
@@ -148,27 +154,97 @@ def handshake(device: str, timeout: float = 180.0) -> dict:
         return {"ok": ok, "offer": offer, "pull": pulled}
 
 
-def cross_host(device: str) -> dict:
-    """A pipe-enabled server in a child process refuses a puller from
-    another host with 409."""
-    from production_stack_tpu_torch.probes import kv_handoff_bench as kvb
+_NET_OFFER = r"""
+import json, sys, time
+import torch
+from production_stack_tpu_torch.kv.device_pipe import KVDevicePipe
+device = sys.argv[1]
+t0 = time.perf_counter()
+pipe = KVDevicePipe(device, timeout=120.0)
+x = torch.arange(1 << 20, dtype=torch.float32, device=device).to(
+    torch.bfloat16).reshape(256, 4096)
+uuid = pipe.offer([x], ipc=False)
+print(json.dumps({"offered": {"port": pipe.transfer_port, "uuid": uuid,
+      "token": pipe.token(uuid), "device": str(x.device),
+      "bytes": x.numel() * x.element_size(),
+      "seconds": time.perf_counter() - t0}}), flush=True)
+sys.stdin.readline()  # the puller has ended
+pipe.close()
+"""
 
-    args = kvb.server_args("tiny-llama", device, 256, "float32", 16)
-    proc, port = kvb.start_child(args, env={"TPU_STACK_KV_DEVICE_PIPE": "1"})
+_NET_PULL = r"""
+import json, sys, time
+import torch
+from production_stack_tpu_torch.kv.device_pipe import KVDevicePipe
+device = sys.argv[1]
+pipe = KVDevicePipe(device, timeout=120.0)
+port, uuid, token = sys.stdin.readline().split()  # the offer
+pipe.host = "another-host"
+want = torch.arange(1 << 20, dtype=torch.float32, device=device).to(
+    torch.bfloat16).reshape(256, 4096)
+leaves = [{"shape": [256, 4096], "dtype": "bfloat16"}]
+pulls = []
+for _ in range(2):
+    stats = {}
+    t0 = time.perf_counter()
+    got = pipe.pull(f"127.0.0.1:{port}", int(uuid), leaves, stats=stats,
+                    token=token)[0]
+    seconds = time.perf_counter() - t0
+    pulls.append(dict(stats, seconds=seconds, device=str(got.device),
+                      equal=bool(torch.equal(got.view(torch.int16),
+                                             want.view(torch.int16)))))
+pipe.close()
+equal = all(p["equal"] for p in pulls)
+print(json.dumps({"pulled": {"pulls": pulls, "equal": equal}}), flush=True)
+sys.exit(0 if equal else 5)
+"""
+
+
+def cross_host(backend: str = "gloo", timeout: float = 180.0) -> dict:
+    """The network transport between an offerer and a puller process
+    whose pipe names another host: ``"nccl"`` from ``cuda:0`` to
+    ``cuda:1``, ``"gloo"`` between CPU tensors."""
+    devices = ("cuda:0", "cuda:1") if backend == "nccl" else ("cpu", "cpu")
+    # Both start at once; the puller reads the offer from its stdin.
+    offerer, puller = (subprocess.Popen(
+        [sys.executable, "-c", script, dev], env=_env(), cwd=REPO,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for script, dev in ((_NET_OFFER, devices[0]),
+                            (_NET_PULL, devices[1])))
     try:
-        tokens = list(range(1, 65))
-        status, _ = kvb.post(port, "/v1/completions", {
-            "prompt": tokens, "max_tokens": 1, "temperature": 0.0})
-        same = kvb.post(port, "/kv/prepare_pull", {
-            "token_ids": tokens, "host_key": "another-host"})
-        return {"ok": same[0] == 409, "served": status,
-                "prepare_pull_status": same[0], "body": same[1]}
+        ready, _, _ = select.select([offerer.stdout], [], [], timeout)
+        line = offerer.stdout.readline() if ready else ""
+        if not line.startswith("{"):
+            for proc in (offerer, puller):
+                proc.kill()
+            stdout, stderr = offerer.communicate()
+            puller.communicate()
+            return {"ok": False, "failed": "offer", "backend": backend,
+                    "offer": _outcome(subprocess.CompletedProcess(
+                        offerer.args, offerer.returncode, line + stdout,
+                        stderr))}
+        offered = json.loads(line)["offered"]
+        p_out, p_err = puller.communicate(
+            f"{offered['port']} {offered['uuid']} {offered['token']}\n",
+            timeout=timeout)
+        stdout, stderr = offerer.communicate("\n", timeout=60)
+    except subprocess.TimeoutExpired as e:
+        return {"ok": False, "failed": f"timeout: {e}", "backend": backend}
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
+        for proc in (offerer, puller):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    pull = subprocess.CompletedProcess(puller.args, puller.returncode, p_out,
+                                       p_err)
+    offer = _outcome(subprocess.CompletedProcess(
+        offerer.args, offerer.returncode, line + stdout, stderr))
+    pulled = _outcome(pull)
+    offer["offered"].pop("token", None)
+    ok = (offer["exit_code"] == 0 and pulled["exit_code"] == 0
+          and pulled.get("pulled", {}).get("equal", False))
+    return {"ok": ok, "backend": backend, "offer": offer, "pull": pulled}
 
 
 def main(argv=None) -> int:
@@ -179,7 +255,15 @@ def main(argv=None) -> int:
     out = {"metric": "transfer_repro", "requested_device": args.device}
     out["handshake"] = handshake(device)
     if out["handshake"]["ok"]:
-        out["cross_host"] = cross_host(args.device)
+        import torch
+
+        backend = ("nccl" if args.device != "cpu"
+                   and torch.cuda.device_count() >= 2 else "gloo")
+        out["cross_host"] = cross_host(backend)
+        if args.device != "cpu" and backend == "gloo":
+            out["cross_host"]["note"] = (
+                "one card: NCCL holds one rank a card, so the leg ran on "
+                "CPU tensors over gloo")
         out.update(common.card(device))
     out["ok"] = bool(out["handshake"]["ok"]
                      and out.get("cross_host", {}).get("ok"))

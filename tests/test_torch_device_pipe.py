@@ -9,8 +9,9 @@ two-process protocol runs here:
   another; a release frees the offer's slot;
 - ``/kv/prepare_pull`` answers 404 without a cached prefix, 501 without
   a pipe and 503 past ``MAX_PENDING_OFFERS`` offers; a puller that names
-  another host, or none, gets 409 before the sender gathers or parks
-  anything, and its ``/kv/pull`` takes the relay;
+  another host, or none, gets an offer with a ``transfer_port`` and no
+  IPC handles, and its ``/kv/pull`` takes the pipe's network transport
+  (``tests/test_torch_kv_net.py`` holds that transport to the rest);
 - ``kv_path`` negotiation: ``"device"`` answers 501 when the pipe is
   unavailable; ``"auto"`` from a source without a pipe (the JAX server)
   falls to the relay; ``"device"`` between port servers moves the pages
@@ -110,6 +111,8 @@ def srv():
 
 def _reset_pipes(*engines):
     for eng in engines:
+        if eng._device_pipe is not None:
+            eng._device_pipe.close()
         eng._device_pipe, eng._device_pipe_failed = None, False
 
 
@@ -165,9 +168,11 @@ def test_prepare_pull_answers(srv, monkeypatch):
 
 
 def test_puller_on_another_host_takes_the_relay(srv, monkeypatch):
-    """The sender answers 409 to a puller that names another host, or
-    none, before it gathers or parks a page: its offer table stays empty,
-    and the puller's ``"auto"`` pull takes the relay."""
+    """A puller that names another host, or none, gets an offer with the
+    pipe's ``transfer_port``, its token and leaves, and no IPC handles;
+    its ``"auto"`` pull takes the network transport (the relay no
+    longer), over one cached pair, and frees the sender's slot each
+    time."""
     p_eng, d_eng = srv.httpd.engine, srv.d_httpd.engine
     _reset_pipes(p_eng, d_eng)
     monkeypatch.setenv("TPU_STACK_KV_DEVICE_PIPE", "1")
@@ -175,19 +180,24 @@ def test_puller_on_another_host_takes_the_relay(srv, monkeypatch):
     _complete(srv.port, ids, max_tokens=1)
     for body in ({"token_ids": ids},
                  {"token_ids": ids, "host_key": "elsewhere-0"}):
-        raw, _ = _post(srv.port, "/kv/prepare_pull", body, expect=409)
-        assert "not on this host" in json.loads(raw)["error"]
+        raw, _ = _post(srv.port, "/kv/prepare_pull", body)
+        offer = json.loads(raw)
+        assert "handles" not in offer and offer["token"]
+        assert offer["transfer_port"] == p_eng._device_pipe.transfer_port
+        assert [leaf["dtype"] for leaf in offer["leaves"]] == ["float32"] * 2
+        _post(srv.port, "/kv/release", {"uuid": offer["uuid"]})
     assert p_eng._device_pipe.pending() == 0
     # The two servers share this process: take the local-device rung out
     # of the way, as between two hosts.
     monkeypatch.setattr(d_eng, "_resolve_local_peer", lambda source: None)
     d_eng._get_device_pipe().host = "elsewhere-0"
-    for _ in range(d_eng._device_pipe.MAX_PENDING_OFFERS + 1):
+    for i in range(d_eng._device_pipe.MAX_PENDING_OFFERS + 1):
         out, _ = _pull(srv.d, srv.port, ids, "auto")
-        assert out["transfer"]["path"] == "host"
+        assert out["transfer"]["path"] == "device"
+        assert out["transfer"]["transport"] == "network"
+        assert out["transfer"]["backend"] == "gloo"
+        assert (out["transfer"]["rendezvous_seconds"] > 0) == (i == 0)
         assert p_eng._device_pipe.pending() == 0
-    out, _ = _pull(srv.d, srv.port, ids, "device", expect=501)
-    assert "unavailable" in out["error"]
     cached = srv.d_core.cached_tokens_total
     assert _complete(srv.d, ids) == _complete(srv.port, ids)
     assert srv.d_core.cached_tokens_total - cached == 5 * BS
