@@ -231,7 +231,7 @@ from production_stack_tpu_torch.engine.tokenizer import build_tokenizer
 from production_stack_tpu_torch.kv.offload import HostKVStore
 from production_stack_tpu_torch.models import build_model, get_model_config
 from production_stack_tpu_torch.models.convert import params_from_numpy
-from production_stack_tpu_torch.obs.steps import StepRecorder
+from production_stack_tpu_torch.obs.steps import PhaseClock, StepRecorder
 from production_stack_tpu_torch.ops.attention import to_device
 from production_stack_tpu_torch.parallel import multihost as mh
 from production_stack_tpu_torch.parallel.mesh import build_mesh, default_devices
@@ -551,6 +551,10 @@ class EngineCore:
         self.requests_finished_total = 0
         # Wall-clock split of the engine thread: prefill steps, decode
         # bursts (dispatch plus the previous burst's readback), readbacks.
+        # Inside a step each is taken from the stamps of the step's phase
+        # clock (``_clock``): the steps' from those that bound the step
+        # record, the readbacks' from its "readback" and
+        # "flush_prefills" phases.
         self.prefill_time_total = 0.0
         self.decode_time_total = 0.0
         self.flush_time_total = 0.0
@@ -623,6 +627,10 @@ class EngineCore:
                                          // config.block_size))
             if config.step_recorder else None)
         self._step_info: Optional[dict] = None
+        # The engine thread's split of each step into phases (with the
+        # recorder on, its records' ``phases``, CPU time included); the
+        # counters above take their step-time seconds from its stamps.
+        self._clock = PhaseClock(cpu=config.step_recorder)
         # Requests a prefill step took from the queue besides its own (a
         # storm group's members): failed with it if it raises.
         self._step_reqs: List[EngineRequest] = []
@@ -1847,6 +1855,7 @@ class EngineCore:
     # engine loop
     # ------------------------------------------------------------------ #
     def _loop(self) -> None:
+        clock = self._clock
         while True:
             with self._lock:
                 while self._running and (
@@ -1860,6 +1869,8 @@ class EngineCore:
                 action, req = self.scheduler.next_action()
             self._step_info = None  # never carry info across a failed step
             self._step_reqs = []
+            if action in ("prefill", "prefill_step", "fused", "decode"):
+                clock.start("lock")  # waiting for the step lock
             try:
                 with self._step_lock, torch.inference_mode():
                     if self._sleeping or self.params is None:
@@ -1871,28 +1882,24 @@ class EngineCore:
                                 self.scheduler.requeue(req)
                         continue
                     if action in ("prefill", "prefill_step"):
-                        t0 = time.perf_counter()
+                        t0 = clock.mark("plan")
                         if action == "prefill":
                             self._do_prefill(req)
                         else:
                             self._do_prefill_step(req)
-                        dt = time.perf_counter() - t0
-                        self.prefill_time_total += dt
+                        self.prefill_time_total += self._end_step(t0)
                         self.prefill_count += 1
-                        self._record_step(dt)
                     elif action == "fused":
-                        t0 = time.perf_counter()
+                        t0 = clock.mark("plan")
                         self._do_fused(req)
                         # Each leg's time joins its own split inside
                         # _do_fused; the step record takes the whole.
-                        self._record_step(time.perf_counter() - t0)
+                        self._end_step(t0)
                     elif action == "decode":
-                        t0 = time.perf_counter()
+                        t0 = clock.mark("plan")
                         self._do_decode()
-                        dt = time.perf_counter() - t0
-                        self.decode_time_total += dt
+                        self.decode_time_total += self._end_step(t0)
                         self.decode_burst_count += 1
-                        self._record_step(dt)
                     else:
                         self._flush_pending_prefills()
                         self._flush_pending_burst()
@@ -1906,6 +1913,8 @@ class EngineCore:
                     # The ranks may have run different parts of the step:
                     # their pools and counts can no longer be trusted.
                     self._fatal(f"a sharded step failed: {e!r}")
+            finally:
+                self._close_phases()  # a step that raised or slept
 
     def _fail_step(self, action: str, req) -> None:
         """Finish the requests of a step that raised with "error": a
@@ -1943,10 +1952,34 @@ class EngineCore:
                 for seq in self.scheduler.running():
                     self.scheduler.finish(seq, "error")
 
-    def _record_step(self, wall_s: float) -> None:
-        """Complete the record the step stashed (if any) with the wall time
-        _loop measured around it; nothing when the recorder is off or the
-        step dispatched nothing."""
+    def _close_phases(self) -> Optional[float]:
+        """End the step's phase clock (nothing when none runs): its launch
+        phases' seconds join ``dispatch_enqueue_s``, its readback waits'
+        and deferred first tokens' ``flush_time_total``. Returns the end
+        stamp."""
+        clock = self._clock
+        end = clock.close()
+        if end is None:
+            return None
+        for name, _start, wall, _cpu in clock.phases:
+            if name == "launch":
+                self.dispatch_enqueue_s += wall
+            elif name in ("readback", "flush_prefills"):
+                self.flush_time_total += wall
+        return end
+
+    def _end_step(self, t0: float) -> float:
+        """End the step begun at ``t0`` (the step lock held) and complete
+        the record it stashed; returns its wall seconds."""
+        end = self._close_phases()
+        self._record_step(end - t0, end, self._clock.phases)
+        return end - t0
+
+    def _record_step(self, wall_s: float, end: float,
+                     phases: List[list]) -> None:
+        """Complete the record the step stashed (if any) with its wall
+        time, end stamp and phases; nothing when the recorder is off or
+        the step dispatched nothing."""
         rec, info = self.step_recorder, self._step_info
         self._step_info = None
         if rec is None or info is None:
@@ -1954,7 +1987,7 @@ class EngineCore:
         if rec.param_bytes == 0 and self.params is not None:
             rec.param_bytes = sum(t.numel() * t.element_size()
                                   for t in _leaves(self.params))
-        rec.record(info.pop("kind"), wall_s, **info)
+        rec.record(info.pop("kind"), wall_s, end=end, phases=phases, **info)
 
     # ------------------------------------------------------------------ #
     # the device-op chokepoint (tensor-parallel lockstep)
@@ -1982,7 +2015,10 @@ class EngineCore:
             self._fused_capture = None
             self._drain_captured(cap)
         mhc = self._mh
-        t0 = time.perf_counter()
+        # A dispatch in a step's launch phase is timed by the phase
+        # (_close_phases); any other by a pair of clock reads of its own.
+        t0 = (None if self._clock.current == "launch"
+              else time.perf_counter())
         try:
             if mhc is None:
                 return self._exec_op(name, static, arrays)
@@ -2004,7 +2040,8 @@ class EngineCore:
             # The engine thread's seconds launching work (readback waits
             # count in flush_time_total).
             self.dispatch_count_total += 1
-            self.dispatch_enqueue_s += time.perf_counter() - t0
+            if t0 is not None:
+                self.dispatch_enqueue_s += time.perf_counter() - t0
 
     def _drain_captured(self, cap: list) -> None:
         """Launch captured ops one dispatch each, in capture order (the
@@ -2294,6 +2331,7 @@ class EngineCore:
             # Pool tight: settle the burst in flight (its emission may
             # finish sequences and free pages), then retry once.
             self._flush_pending_burst()
+            self._clock.mark("plan")
             alloc = self.kv_mgr.allocate_prompt(
                 req.request_id, req.all_token_ids, adapter=req.adapter_name,
                 limit=limit)
@@ -2390,6 +2428,7 @@ class EngineCore:
         # PREVIOUS prefill's first token (depth-1 pipelining).
         self._flush_pending_burst()
         self._flush_pending_prefills()
+        self._clock.mark("emit")
         self.prompt_tokens_total += n
         self.cached_tokens_total += cached
         # Reserve the slot now (next_action guaranteed a free one); the
@@ -2445,6 +2484,7 @@ class EngineCore:
                     # Pool tight: settle the burst in flight and retry
                     # once, then give the pages back and requeue.
                     self._flush_pending_burst()
+                    self._clock.mark("plan")
                     block_ids = self.kv_mgr.extend_tokens(
                         req.request_id, tokens, pc.end)
                 # Pages the extension evicted spill before this chunk's
@@ -2493,6 +2533,7 @@ class EngineCore:
         # these chunks run.
         self._flush_pending_burst()
         self._flush_pending_prefills()
+        self._clock.mark("emit")
 
         now = time.time()
         for req, tokens, block_ids, start, end in ready:
@@ -2533,21 +2574,24 @@ class EngineCore:
         either way, only the dispatch counts differ. A failed fused
         dispatch poisons every placeholder of the pair (no readback waits
         forever) and raises."""
+        clock = self._clock
         self._fused_capture = cap = []
         info_p = info_d = None
-        dt_p = dt_d = 0.0
         chunks0 = self.prefill_chunks_total
         forwards0 = self.decode_forward_steps_total
+        # The legs' bounds, phase stamps (the host clock when no step
+        # runs): the prefill leg from t0 (the step's first phase after
+        # the lock), the decode leg from t1 to the fused dispatch's
+        # launch at t2.
+        t0 = t1 = clock.mark("plan") or time.time()
         try:
-            t0 = time.perf_counter()
             self._do_prefill_step(plan)
-            dt_p = time.perf_counter() - t0
             info_p, self._step_info = self._step_info, None
-            t0 = time.perf_counter()
+            t1 = clock.mark("plan") or time.time()
             self._do_decode()
-            dt_d = time.perf_counter() - t0
             info_d, self._step_info = self._step_info, None
         finally:
+            t2 = clock.mark("launch") or time.time()
             aborted = self._fused_capture is None
             self._fused_capture = None
             names = [c[0] for c in cap]
@@ -2573,6 +2617,7 @@ class EngineCore:
                 # nothing): launch what is still captured one by one.
                 self._drain_captured(cap)
         # Each leg's wall time joins its own split if it launched work.
+        dt_p, dt_d = t1 - t0, t2 - t1
         if self.prefill_chunks_total > chunks0:
             self.prefill_time_total += dt_p
             self.prefill_count += 1
@@ -2590,11 +2635,16 @@ class EngineCore:
                     "kv_write_tokens")},
                 "batched": info_p.get("batched", False)}
         else:
-            # Degraded: each leg is recorded as the step it was.
-            for info, dt in ((info_p, dt_p), (info_d, dt_d)):
+            # Degraded: each leg is recorded as the step it was, with the
+            # phases inside its bounds (the prefill leg's from the lock).
+            phases = clock.phases
+            for info, dt, a, b in ((info_p, dt_p, None, t1),
+                                   (info_d, dt_d, t1, t2)):
                 if info is not None:
                     self._step_info = info
-                    self._record_step(dt)
+                    self._record_step(dt, b, [
+                        ph for ph in phases
+                        if (a is None or ph[1] >= a) and ph[1] < b])
 
     def _flush_pending_prefills(self) -> None:
         """Read back and emit deferred prefill first tokens, in dispatch
@@ -2604,7 +2654,12 @@ class EngineCore:
             return
         pending, self._pending_prefills = self._pending_prefills, []
         keep: List[dict] = []
-        t0 = time.perf_counter()
+        # Timed by the step's phase clock (each wait for the card a
+        # "readback" phase); outside a step by a pair of clock reads of
+        # its own.
+        clock = self._clock
+        t0 = (time.perf_counter()
+              if clock.mark("flush_prefills") is None else None)
         for entry in pending:
             if not entry["sampled"].ready:
                 # Captured for the fused dispatch being built: read back
@@ -2614,9 +2669,11 @@ class EngineCore:
                 continue
             req, seq, slot = entry["req"], entry["seq"], entry["slot"]
             row_i = entry.get("row", 0)  # batched prefills: a row a request
+            clock.mark("readback")
             try:
                 s_arr, lp_arr, top_lp_arr, top_id_arr = entry["sampled"].get()
             except Exception:  # noqa: BLE001 - asynchronous device failure
+                clock.mark("flush_prefills")
                 # The readback failed after the dispatch succeeded: finish
                 # the request instead of leaking its slot.
                 logger.exception("Deferred prefill readback failed for %s",
@@ -2625,6 +2682,7 @@ class EngineCore:
                     if self.scheduler.slots[slot] is seq:
                         self.scheduler.finish(seq, "error")
                 continue
+            clock.mark("flush_prefills")
             with self._lock:
                 if self.scheduler.slots[slot] is not seq:
                     continue  # aborted/finished before its first token
@@ -2662,7 +2720,8 @@ class EngineCore:
             # after preemption carries prior outputs).
             req.scheduled_steps = len(req.output_token_ids)
         self._pending_prefills = keep + self._pending_prefills
-        self.flush_time_total += time.perf_counter() - t0
+        if t0 is not None:
+            self.flush_time_total += time.perf_counter() - t0
 
     # -- storm-scoped prefill batching --------------------------------------
     def _cached_prefix_len(self, tokens: List[int], adapter: str = "") -> int:
@@ -2806,6 +2865,7 @@ class EngineCore:
                     finished.append((m, sampled, row_i))
         self._flush_pending_burst()
         self._flush_pending_prefills()
+        self._clock.mark("emit")
         group_end = time.time()
         if self.step_recorder is not None:
             new_tokens = sum(
@@ -2839,6 +2899,7 @@ class EngineCore:
         at _prefill_batch_maxb(). A padding row has token 0 at positions
         0, seq_len 0, context 1, an all-zero table and slot -1 (its page
         writes drop); its sample is never read."""
+        self._clock.mark("build")
         cfg = self.config
         R = pad_to
         bucket = cfg.bucket_for(min(cfg.prefill_chunk_size,
@@ -2862,6 +2923,7 @@ class EngineCore:
         token from its last real position. Chunks after the first attend
         to earlier tokens through the pages (prefill_cached); the chunk's
         own K/V are written first."""
+        self._clock.mark("build")
         cfg = self.config
         # Power-of-two table width (min 4) over the context, capped at
         # max_blocks_per_seq, as the JAX engine buckets it.
@@ -2909,6 +2971,7 @@ class EngineCore:
         logprobs, top ids)."""
         if cached:
             self.prefill_attention_dispatch_total["pallas"] += 1
+        self._clock.mark("launch")
         return _Readback(self._dispatch("prefill", {"cached": cached}, [a]))
 
     def _prefill_op(self, cached: bool, a: dict) -> tuple:
@@ -2957,9 +3020,11 @@ class EngineCore:
         discarded at emission, and its stray page writes land before any
         later owner of those pages writes them (stream order)."""
         cfg = self.config
+        clock = self._clock
         # Deferred first tokens land before the burst is built (feedback
         # tokens and positions depend on them).
         self._flush_pending_prefills()
+        clock.mark("plan")
         if cfg.speculative_num_tokens > 0:
             # Drafts need the TRUE last token: speculation collapses the
             # pipeline (the burst in flight is read back first, and the
@@ -2969,6 +3034,7 @@ class EngineCore:
             self._abort_fused_capture()
             self._flush_pending_prefills()
             self._flush_pending_burst()
+            clock.mark("plan")
             plan = self._propose_spec_drafts()
             if plan:
                 self._do_decode_spec(plan)
@@ -2985,6 +3051,7 @@ class EngineCore:
             self._abort_fused_capture()
             self._flush_pending_prefills()
             self._flush_pending_burst()
+            clock.mark("plan")
         B = cfg.max_num_seqs
         K_max = max(cfg.decode_steps, 1)
         K = K_max
@@ -3047,13 +3114,18 @@ class EngineCore:
             active0_ids = {id(s) for s in active0}
             active = [s for s in self.scheduler.running()
                       if id(s) in active0_ids]
+            # Each row's block table, taken under the lock: an HTTP
+            # thread's abort frees a request (and drops its table) under
+            # it, and the burst is built outside it.
+            tables = {id(s): self.kv_mgr.block_table(s.req.request_id)
+                      for s in active}
         self._drain_offload()  # pages the block accounting evicted
         if not active:
             self._flush_pending_burst()
             return
 
-        max_blocks = max(len(self.kv_mgr.block_table(s.req.request_id))
-                         for s in active)
+        clock.mark("build")
+        max_blocks = max(len(t) for t in tables.values())
         maxb = 4
         while maxb < max_blocks:
             maxb *= 2
@@ -3098,7 +3170,7 @@ class EngineCore:
             allow = allows.get(r.request_id, 1)
             positions0[i] = base - 1
             context0[i] = base
-            bids = self.kv_mgr.block_table(r.request_id)
+            bids = tables[id(seq)]
             use = min(len(bids), maxb)
             block_table[i, :use] = bids[:use]
             pos = base - 1 + np.arange(allow)
@@ -3119,13 +3191,6 @@ class EngineCore:
             stops[i] = r.sampling.stop_token_ids
             self._fill_mask_row(mask_bits, mask_on, i, r)
             r.scheduled_steps += allow
-
-        outs = self._launch_burst(
-            K, prev is not None, reset_counts, tok_idx, host_tokens,
-            use_host, positions0, slot_mat, block_table, context0,
-            adapter_ids, temperature, top_k, top_p, seed_base, presence,
-            frequency, min_tok, out_len0, biases, stops, mask_bits, mask_on)
-        self.decode_forward_steps_total += K
         if self.step_recorder is not None:
             sched = sum(allows.get(s.req.request_id, 1) for s in active)
             self._step_info = {
@@ -3137,6 +3202,13 @@ class EngineCore:
                     sum(context0[s.slot] for s in active)),
                 "kv_write_tokens": sched,
             }
+
+        outs = self._launch_burst(
+            K, prev is not None, reset_counts, tok_idx, host_tokens,
+            use_host, positions0, slot_mat, block_table, context0,
+            adapter_ids, temperature, top_k, top_p, seed_base, presence,
+            frequency, min_tok, out_len0, biases, stops, mask_bits, mask_on)
+        self.decode_forward_steps_total += K
         # Read back the PREVIOUS burst while this one runs.
         self._flush_pending_burst()
         self._pending_burst = {"out": outs, "active": active,
@@ -3146,6 +3218,7 @@ class EngineCore:
         """Launch the K-step decode program (:meth:`_decode_op`) of the
         host arrays; returns the readback of (sampled, logprob, top
         logprobs, top ids), each [B, K, ...]."""
+        self._clock.mark("launch")
         return _Readback(self._dispatch(
             "decode", {"K": K, "use_prev": use_prev}, list(arrays)))
 
@@ -3241,9 +3314,13 @@ class EngineCore:
             # _do_fused settles every capture before it returns.)
             return
         self._pending_burst = None
-        t0 = time.perf_counter()
+        clock = self._clock
+        t0 = (time.perf_counter() if clock.mark("readback") is None
+              else None)
         sampled, lps, top_lps, top_ids = pending["out"].get()
-        self.flush_time_total += time.perf_counter() - t0
+        clock.mark("emit")
+        if t0 is not None:
+            self.flush_time_total += time.perf_counter() - t0
         if pending.get("spec"):
             self._flush_spec_burst(pending, sampled, lps, top_lps, top_ids)
             return
@@ -3546,12 +3623,15 @@ class EngineCore:
                         break
             active = [s for s in self.scheduler.running()
                       if id(s) in active0_ids]
+            # The block tables under the lock, as _do_decode takes them.
+            tables = {id(s): self.kv_mgr.block_table(s.req.request_id)
+                      for s in active}
         self._drain_offload()
         if not active:
             return
 
-        max_blocks = max(len(self.kv_mgr.block_table(s.req.request_id))
-                         for s in active)
+        self._clock.mark("build")
+        max_blocks = max(len(t) for t in tables.values())
         maxb = 4
         while maxb < max_blocks:
             maxb *= 2
@@ -3581,7 +3661,7 @@ class EngineCore:
             tokens[i, :len(row)] = row
             positions0[i] = base - 1
             context0[i] = base
-            bids = self.kv_mgr.block_table(r.request_id)
+            bids = tables[id(seq)]
             use = min(len(bids), maxb)
             block_table[i, :use] = bids[:use]
             pos = base - 1 + np.arange(allow)
@@ -3612,12 +3692,6 @@ class EngineCore:
                         cur = st.fsm.advance(cur, draft[s])
             # scheduled_steps advances at the flush, by the emitted count.
 
-        outs = self._launch_verify(
-            K, tokens, positions0, slot_mat, block_table, context0,
-            adapter_ids, temperature, top_k, top_p, seed_base, min_tok,
-            out_len0, biases, stops, mask_bits, mask_on)
-        self.spec_verify_bursts_total += 1
-        self.decode_forward_steps_total += 1
         if self.step_recorder is not None:
             sched = sum(allows.get(s.req.request_id, 1) for s in active)
             self._step_info = {
@@ -3627,6 +3701,12 @@ class EngineCore:
                     sum(context0[s.slot] for s in active)),
                 "kv_write_tokens": sched,
             }
+        outs = self._launch_verify(
+            K, tokens, positions0, slot_mat, block_table, context0,
+            adapter_ids, temperature, top_k, top_p, seed_base, min_tok,
+            out_len0, biases, stops, mask_bits, mask_on)
+        self.spec_verify_bursts_total += 1
+        self.decode_forward_steps_total += 1
         self._pending_burst = {"out": outs, "active": active,
                                "allows": allows, "spec": True,
                                "drafts": drafts}
@@ -3635,6 +3715,7 @@ class EngineCore:
         """Launch the verify program (:meth:`_verify_op`) of the host
         arrays; returns the readback of (sampled, logprob, top logprobs,
         top ids), each [B, K, ...]."""
+        self._clock.mark("launch")
         return _Readback(self._dispatch("spec_verify", {"K": K},
                                         list(arrays)))
 

@@ -43,7 +43,9 @@ per connection, server-sent events written by hand for ``stream: true``,
   ``tpu:lora_requests_total{adapter}`` once an adapter has served, and
   the JAX server's ``tpu:spec_*`` series (speculative decoding), its
   ``tpu:structured_*`` series and, with the step recorder on, its
-  ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``; its
+  ``tpu:step_*`` series and ``tpu:model_bandwidth_utilization``, plus
+  the port's own ``tpu:step_phase_seconds_total`` and
+  ``tpu:step_phase_cpu_seconds_total{kind,phase}``; its
   scheduler series (``tpu:preempted_requests_total{priority}``,
   ``tpu:rejected_requests_total{reason}``, ``tpu:prefill_chunks_total``,
   ``tpu:deferred_prefill_tokens_total``,
@@ -56,6 +58,8 @@ per connection, server-sent events written by hand for ``stream: true``,
 - ``GET /debug/steps`` (step recorder on): newest-first step records
   under the recorder's summary; filters ``?limit=50`` and
   ``?kind=decode_burst``, 400 on a bad one, as the JAX engine serves it;
+  each record adds its ``phases`` and the summary their rollups
+  (``phases``);
 - ``GET /debug/traces`` (``?min_duration_s=``, ``?limit=``) and ``GET
   /debug/traces/{request_id}`` (``?format=otlp``): each served request's
   stage timeline (queue, prefill, decode), joined to the caller's W3C
@@ -1560,6 +1564,19 @@ class EngineServer:
                 for kind in sorted(kind_stats):
                     lines.append(f'{family}_total{{{labels},kind="{kind}"}} '
                                  f"{kind_stats[kind][key]}")
+            # The port's own: each kind's steps split into their phases
+            # (obs/steps.py::PhaseClock), wall and engine-thread CPU
+            # seconds; a phase's series appears with its first step.
+            phase_stats = rec.phase_stats()
+            for family, key in (("tpu:step_phase_seconds", "wall_s"),
+                                ("tpu:step_phase_cpu_seconds", "cpu_s")):
+                lines.append(f"# TYPE {family} counter")
+                for kind in sorted(phase_stats):
+                    for phase in sorted(phase_stats[kind]):
+                        lines.append(
+                            f'{family}_total{{{labels},kind="{kind}",'
+                            f'phase="{phase}"}} '
+                            f"{phase_stats[kind][phase][key]:.6f}")
             lines += ["# TYPE tpu:model_bandwidth_utilization gauge",
                       f"tpu:model_bandwidth_utilization{{{labels}}} "
                       f"{rec.bandwidth_utilization():.6f}"]

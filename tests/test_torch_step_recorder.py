@@ -153,6 +153,8 @@ def test_debug_steps_schema_and_filters(server):
                         "tokens", "forwards", "kv_read_tokens",
                         "kv_write_tokens", "hbm_bytes", "batched"):
                 assert key in r, key
+            assert r["phases"] == []  # the port's own key: none given
+        assert doc["phases"] == {}  # and its rollups
         status, body = _get(base, "/debug/steps?kind=decode_burst&limit=2")
         doc = json.loads(body)
         assert status == 200 and len(doc["steps"]) == 2
@@ -193,6 +195,44 @@ def test_step_series_under_the_jax_names(server):
         core.step_recorder = saved
 
 
+def test_step_phase_series_and_records(server):
+    """The port's own phase split of each step: its two counter families
+    by kind and phase at /metrics, each record's ``phases`` and their
+    rollups in /debug/steps."""
+    base, core = server
+    saved = core.step_recorder
+    try:
+        rec = StepRecorder(capacity=8)
+        for end in (1000.5, 1001.5):
+            rec.record("decode_burst", 0.05, forwards=4, end=end, phases=[
+                ["lock", end - 0.06, 0.01, 0.01],
+                ["launch", end - 0.05, 0.04, 0.03],
+                ["emit", end - 0.01, 0.01, 0.005]])
+        core.step_recorder = rec
+        status, text = _get(base, "/metrics")
+        assert status == 200
+        for family in ("tpu:step_phase_seconds",
+                       "tpu:step_phase_cpu_seconds"):
+            assert f"# TYPE {family} counter" in text
+        labels = 'model_name="tiny-llama",kind="decode_burst"'
+        assert (f'tpu:step_phase_seconds_total{{{labels},phase="launch"}} '
+                "0.080000") in text
+        assert (f'tpu:step_phase_cpu_seconds_total{{{labels},'
+                'phase="emit"} 0.010000') in text
+        status, body = _get(base, "/debug/steps?kind=decode_burst")
+        doc = json.loads(body)
+        assert status == 200
+        launch = doc["phases"]["decode_burst"]["launch"]
+        assert launch["wall_s"] == pytest.approx(0.08)
+        assert launch["cpu_s"] == pytest.approx(0.06)
+        newest = doc["steps"][0]
+        assert newest["ts_unix"] == 1001.5
+        assert [p[0] for p in newest["phases"]] == ["lock", "launch", "emit"]
+        assert newest["phases"][1][1] == pytest.approx(1001.45)
+    finally:
+        core.step_recorder = saved
+
+
 # -- the engine's records ------------------------------------------------------
 
 def _generate(engine, rid, max_tokens, timeout=120):
@@ -221,6 +261,7 @@ def test_engine_populates_recorder_and_stats():
         assert "prefill" in kinds and "decode_burst" in kinds
         assert rec.param_bytes > 0
         assert all(r["hbm_bytes"] > 0 for r in rec.snapshot())
+        assert all(r["phases"][0][0] == "lock" for r in rec.snapshot())
         stats = eng.stats()
         assert stats["step_records_total"] == rec.recorded_total > 0
         assert stats["step_kind_stats"]["prefill"]["count"] >= 1
